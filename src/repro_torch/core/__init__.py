@@ -1,0 +1,52 @@
+"""AGM/EAGM core of the port — the paper's primary contribution in torch.
+
+  ordering.py    strict weak orderings (chaotic/dijkstra/Δ/KLA/topk)
+  processing.py  processing functions π (SSSP/BFS/CC/SSWP)
+  eagm.py        per-level ordering hierarchies and the paper presets
+  frontier.py    frontier compaction + sparse candidate exchange
+  engine.py      rank-stacked superstep engine
+  selfstab.py    the self-stabilizing sweep (Algorithm 1)
+  agm.py         the Dijkstra oracle
+  metrics.py     work/sync metrics
+"""
+
+from repro_torch.core.agm import dijkstra_reference
+from repro_torch.core.eagm import (
+    LEVELS,
+    Hierarchy,
+    as_hierarchy,
+    make_hierarchy,
+    paper_variant_specs,
+)
+from repro_torch.core.engine import (
+    EXCHANGE_MODES,
+    RELAX_IMPLS,
+    EngineConfig,
+    EngineResult,
+    initial_state,
+    run_engine,
+)
+from repro_torch.core.metrics import WorkMetrics, model_time_s
+from repro_torch.core.ordering import (
+    KLA,
+    Chaotic,
+    DeltaStepping,
+    Dijkstra,
+    Ordering,
+    TopK,
+    make_ordering,
+    register_ordering,
+)
+from repro_torch.core.processing import BFS, CC, SSSP, SSWP, ProcessingFn
+
+__all__ = [
+    "dijkstra_reference",
+    "LEVELS", "Hierarchy", "as_hierarchy", "make_hierarchy",
+    "paper_variant_specs",
+    "EXCHANGE_MODES", "RELAX_IMPLS", "EngineConfig", "EngineResult",
+    "initial_state", "run_engine",
+    "WorkMetrics", "model_time_s",
+    "KLA", "Chaotic", "DeltaStepping", "Dijkstra", "Ordering", "TopK",
+    "make_ordering", "register_ordering",
+    "BFS", "CC", "SSSP", "SSWP", "ProcessingFn",
+]

@@ -1,0 +1,26 @@
+"""Graph substrate of the port: host-side numpy formats, generators and
+the partitioner, byte-identical to the JAX package's ``repro.graph``."""
+
+from repro_torch.graph.formats import CSR, Graph, coo_to_csr, graph_fingerprint
+from repro_torch.graph.generators import (
+    grid_road_graph,
+    rmat1,
+    rmat2,
+    rmat_graph,
+    small_world_graph,
+)
+from repro_torch.graph.partition import (
+    PARTITIONER_KINDS,
+    DeviceELL,
+    PartitionedGraph,
+    canonical_partitioner,
+    from_arrays,
+    partition_graph,
+)
+
+__all__ = [
+    "CSR", "Graph", "coo_to_csr", "graph_fingerprint",
+    "grid_road_graph", "rmat1", "rmat2", "rmat_graph", "small_world_graph",
+    "PARTITIONER_KINDS", "DeviceELL", "PartitionedGraph",
+    "canonical_partitioner", "from_arrays", "partition_graph",
+]

@@ -1,0 +1,105 @@
+"""Host-side graph storage: COO edge lists and CSR.
+
+The engine consumes padded ELL rows built by
+:mod:`repro_torch.graph.partition`.  Padding sentinels: column index
+``n`` (one past the last vertex; targets index into a length ``n+1``
+scratch array whose last slot is discarded) and weight ``+inf``, so
+min-plus relaxation through a padded slot is a no-op.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import zlib
+
+import numpy as np
+
+# Edge weights are float32 everywhere; +inf is the "unreachable" value.
+INF = np.float32(np.inf)
+
+
+@dataclasses.dataclass
+class Graph:
+    """A weighted directed graph in COO (edge-list) form, host-side.
+
+    ``src``/``dst`` are int32 arrays of shape (m,), ``weight`` float32
+    of shape (m,).  Vertices are 0..n-1.
+    """
+
+    n: int
+    src: np.ndarray
+    dst: np.ndarray
+    weight: np.ndarray
+    name: str = "graph"
+
+    @property
+    def m(self) -> int:
+        return int(self.src.shape[0])
+
+    def __post_init__(self):
+        self.src = np.asarray(self.src, dtype=np.int32)
+        self.dst = np.asarray(self.dst, dtype=np.int32)
+        self.weight = np.asarray(self.weight, dtype=np.float32)
+        if not self.src.shape == self.dst.shape == self.weight.shape:
+            raise ValueError(
+                f"edge arrays differ in shape: src {self.src.shape}, "
+                f"dst {self.dst.shape}, weight {self.weight.shape}"
+            )
+
+    def symmetrized(self) -> "Graph":
+        """Add reverse edges (Graph500 graphs are treated as undirected)."""
+        src = np.concatenate([self.src, self.dst])
+        dst = np.concatenate([self.dst, self.src])
+        w = np.concatenate([self.weight, self.weight])
+        return Graph(self.n, src, dst, w, name=self.name + "+sym")
+
+    def deduplicated(self) -> "Graph":
+        """Keep the minimum-weight edge per (src, dst) pair, drop self loops."""
+        keep = self.src != self.dst
+        src, dst, w = self.src[keep], self.dst[keep], self.weight[keep]
+        key = src.astype(np.int64) * np.int64(self.n) + dst.astype(np.int64)
+        order = np.lexsort((w, key))
+        key, src, dst, w = key[order], src[order], dst[order], w[order]
+        first = np.ones(key.shape[0], dtype=bool)
+        first[1:] = key[1:] != key[:-1]
+        return Graph(self.n, src[first], dst[first], w[first], name=self.name)
+
+
+@dataclasses.dataclass
+class CSR:
+    """Compressed sparse row adjacency: out-edges of each vertex."""
+
+    n: int
+    row_ptr: np.ndarray  # (n+1,) int64
+    col_idx: np.ndarray  # (m,) int32
+    weight: np.ndarray  # (m,) float32
+
+    @property
+    def m(self) -> int:
+        return int(self.col_idx.shape[0])
+
+    def neighbors(self, v: int):
+        lo, hi = self.row_ptr[v], self.row_ptr[v + 1]
+        return self.col_idx[lo:hi], self.weight[lo:hi]
+
+    def max_degree(self) -> int:
+        return int(np.max(self.row_ptr[1:] - self.row_ptr[:-1], initial=0))
+
+
+def graph_fingerprint(g: Graph) -> tuple:
+    """Content token so in-place edge mutation invalidates derived-buffer
+    memos (partitions, transpose ELLs).  CRC over the COO arrays: one
+    pass, no copy."""
+    crc = 0
+    for arr in (g.src, g.dst, g.weight):
+        crc = zlib.crc32(memoryview(np.ascontiguousarray(arr)), crc)
+    return (g.n, g.m, crc)
+
+
+def coo_to_csr(g: Graph) -> CSR:
+    order = np.argsort(g.src, kind="stable")
+    src, dst, w = g.src[order], g.dst[order], g.weight[order]
+    counts = np.bincount(src, minlength=g.n)
+    row_ptr = np.zeros(g.n + 1, dtype=np.int64)
+    np.cumsum(counts, out=row_ptr[1:])
+    return CSR(g.n, row_ptr, dst.astype(np.int32), w.astype(np.float32))

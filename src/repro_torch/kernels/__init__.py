@@ -1,0 +1,35 @@
+"""The port's kernels: CUDA C++ for Hopper (``repro_torch/csrc``), each
+with a plain torch version that CPU tensors take.
+
+  superstep_fused   gather + min-plus relax + scatter-min of a frontier
+  relax_push        push-mode frontier gather (scatter-min in torch)
+  relax_ell         pull-mode min-plus ELL row minima (rule R1)
+"""
+
+from repro_torch.kernels._lib import (
+    KERNELS,
+    build,
+    launch_counts,
+    library,
+    reset_launch_counts,
+)
+from repro_torch.kernels.relax_ell import relax_ell_cuda, relax_ell_ref, relax_rows
+from repro_torch.kernels.relax_push import (
+    relax_push_gather,
+    relax_push_gather_cuda,
+    relax_push_gather_ref,
+    relax_push_rows,
+)
+from repro_torch.kernels.superstep_fused import (
+    fused_superstep,
+    fused_superstep_cuda,
+    fused_superstep_ref,
+)
+
+__all__ = [
+    "KERNELS", "build", "launch_counts", "library", "reset_launch_counts",
+    "relax_ell_cuda", "relax_ell_ref", "relax_rows",
+    "relax_push_gather", "relax_push_gather_cuda", "relax_push_gather_ref",
+    "relax_push_rows",
+    "fused_superstep", "fused_superstep_cuda", "fused_superstep_ref",
+]

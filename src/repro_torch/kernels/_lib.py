@@ -1,0 +1,204 @@
+"""Build, load and count the port's CUDA kernels.
+
+The sources in ``repro_torch/csrc`` compile with ``nvcc`` for
+``sm_90a`` into one shared library with a plain C interface, loaded
+with ``ctypes``.  The build runs at first use, never at import: one
+``nvcc -c`` per source, all started together, then one link, into
+``build/repro_torch/<digest>/`` at the repository root (``.gitignore``
+lists ``build/``).  A library whose sources are unchanged is reused.
+
+Every C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :func:`check` raises on a nonzero code.  Each
+wrapper counts its launches through :func:`count_launch`, so a run can
+show that a path went through its kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+LIB_NAME = "libminplus.so"
+
+#: the kernels of the library, by the name their wrappers count under
+KERNELS = ("fused_superstep", "relax_push_gather", "relax_ell")
+
+_launches = dict.fromkeys(KERNELS, 0)
+_lib: "ctypes.CDLL | None" = None
+_build: "Build | None" = None
+
+ptr = ctypes.c_void_p
+c_int = ctypes.c_int
+
+
+@dataclasses.dataclass(frozen=True)
+class Build:
+    path: Path
+    seconds: float  # 0.0 when a finished library was reused
+    log: str        # nvcc's output (ptxas register and spill report)
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (looked on PATH and in $CUDA_HOME/bin); the "
+        "port's CUDA kernels need the CUDA toolkit to build"
+    )
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.glob("*.cu*")):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Build:
+    """Compile the library if no build of the current sources exists."""
+    global _build
+    if _build is not None:
+        return _build
+    out = BUILD_ROOT / _digest() / LIB_NAME
+    if out.exists():
+        _build = Build(out, 0.0, "")
+        return _build
+    nvcc = _nvcc()
+    out.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs, procs = [], []
+        for src in _sources():
+            obj = Path(tmp) / (src.stem + ".o")
+            objs.append(obj)
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            ))
+        logs = []
+        for src, proc in zip(_sources(), procs):
+            text, _ = proc.communicate()
+            logs.append(f"--- {src.name}\n{text}")
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed on {src.name} (exit {proc.returncode}):\n{text}"
+                )
+        lib_tmp = Path(tmp) / LIB_NAME
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(lib_tmp), *map(str, objs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        os.replace(lib_tmp, out)  # atomic publish for concurrent builders
+    _build = Build(out, time.perf_counter() - t0, "\n".join(logs))
+    return _build
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build().path))
+        lib.minplus_error_string.argtypes = [c_int]
+        lib.minplus_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def entry(symbol: str, argtypes: list):
+    """A C entry point of the library with its signature declared."""
+    fn = getattr(library(), symbol)
+    fn.argtypes = argtypes
+    fn.restype = c_int
+    return fn
+
+
+def check(rc: int, kernel: str) -> None:
+    if rc != 0:
+        msg = library().minplus_error_string(rc).decode()
+        raise RuntimeError(f"{kernel}: CUDA launch failed, error {rc} ({msg})")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require(cond: bool, kernel: str, what: str) -> None:
+    if not cond:
+        raise ValueError(f"{kernel}: {what}")
+
+
+def check_cuda_tensors(kernel: str, **tensors: torch.Tensor) -> None:
+    """Every tensor contiguous on the current CUDA device."""
+    for name, t in tensors.items():
+        require(t.is_cuda, kernel, f"{name} must be a CUDA tensor, got {t.device}")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    for name, t in tensors.items():
+        require(t.device == dev, kernel,
+                f"{name} must lie on the current CUDA device {dev}, got {t.device}")
+        require(t.is_contiguous(), kernel, f"{name} must be contiguous")
+
+
+def count_tensor(count, like: torch.Tensor) -> torch.Tensor:
+    """The live-row count as the (1,) int32 device tensor the frontier
+    kernels read (a tensor stays on the device: no host sync)."""
+    if isinstance(count, torch.Tensor):
+        require(count.numel() == 1 and count.dtype == torch.int32, "count",
+                f"must be one int32 element, got {count.dtype} {tuple(count.shape)}")
+        return count.reshape(1)
+    return torch.full((1,), int(count), dtype=torch.int32, device=like.device)
+
+
+def check_frontier_args(kernel: str, dist, row_idx, row_src, col, wgt) -> None:
+    """dtypes and shapes of a frontier kernel's (dist, row_idx, row_src,
+    col, wgt)."""
+    require(dist.dtype == torch.float32 and dist.dim() == 1, kernel,
+            f"dist must be 1-D float32, got {dist.dtype} {tuple(dist.shape)}")
+    require(row_idx.dtype == torch.int32 and row_idx.dim() == 1, kernel,
+            f"row_idx must be 1-D int32, got {row_idx.dtype} {tuple(row_idx.shape)}")
+    require(wgt.dtype == torch.float32 and wgt.dim() == 2, kernel,
+            f"wgt must be 2-D float32, got {wgt.dtype} {tuple(wgt.shape)}")
+    R, W = wgt.shape
+    require(R >= 1, kernel, "the ELL must have at least one row")
+    require(col.dtype == torch.int32 and col.shape == wgt.shape, kernel,
+            f"col must be int32 of wgt's shape {(R, W)}, got {col.dtype} {tuple(col.shape)}")
+    require(row_src.dtype == torch.int32 and row_src.shape == (R,), kernel,
+            f"row_src must be int32 ({R},), got {row_src.dtype} {tuple(row_src.shape)}")
+    require(max(row_idx.shape[0], R, W) < 2**31, kernel, "sizes exceed int32")
+
+
+def count_launch(kernel: str) -> None:
+    _launches[kernel] += 1
+
+
+def launch_counts() -> dict:
+    """Launches per kernel since the last :func:`reset_launch_counts`."""
+    return dict(_launches)
+
+
+def reset_launch_counts() -> None:
+    for k in _launches:
+        _launches[k] = 0

@@ -1,0 +1,33 @@
+"""Public ops: the push-mode frontier gather, and the push relaxation it
+feeds (gather, then a torch scatter-min, as in the JAX package's
+``relax_push/ops.py``).  A CUDA tensor launches the kernel; a CPU
+tensor takes the plain torch version."""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.relax_push.kernel import relax_push_gather_cuda
+from repro_torch.kernels.relax_push.ref import relax_push_gather_ref
+
+
+def relax_push_gather(dist, row_idx, count, row_src, col,
+                      wgt) -> torch.Tensor:
+    """(F, W) f32 candidates of the listed rows; +inf past ``count``."""
+    if dist.device.type == "cpu":
+        return relax_push_gather_ref(dist, row_idx, count, row_src, wgt)
+    return relax_push_gather_cuda(dist, row_idx, count, row_src, col, wgt)
+
+
+def relax_push_rows(dist, row_idx, count, row_src, col, wgt,
+                    n_out: int) -> torch.Tensor:
+    """(n_out+1,) f32: the gathered candidates scatter-min'd over +inf
+    through the listed rows' columns (fill rows take column n_out)."""
+    R = col.shape[0]
+    cand = relax_push_gather(dist, row_idx, count, row_src, col, wgt)
+    colg = torch.index_select(col, 0, row_idx.clamp(0, R - 1))
+    colg = torch.where((row_idx < R)[:, None], colg, n_out)
+    out = torch.full((n_out + 1,), float("inf"), dtype=torch.float32,
+                     device=dist.device)
+    return out.scatter_reduce_(0, colg.reshape(-1).to(torch.int64),
+                               cand.reshape(-1), "amin")

@@ -1,0 +1,47 @@
+"""CUDA launch of the fused sparse-superstep kernel
+(``csrc/fused_superstep.cu``), which replaces the TPU kernel
+``repro/kernels/superstep_fused/kernel.py::fused_superstep``.  Bound by
+device-memory bytes: 3.35 TB/s on an H100 SXM at its 700 W limit
+(data sheet)."""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from repro_torch.kernels import _lib
+
+NAME = "fused_superstep"
+
+
+@functools.cache
+def _launch():
+    return _lib.entry(
+        "fused_superstep_launch",
+        [_lib.ptr] * 7 + [_lib.c_int] * 3 + [_lib.ptr],
+    )
+
+
+def fused_superstep_cuda(dist, row_idx, count, row_src, col, wgt,
+                         n_out: int) -> torch.Tensor:
+    """Launch the kernel; returns the (n_out+1,) f32 candidate buffer.
+    Raises on a tensor the kernel does not take or a failed launch."""
+    count = _lib.count_tensor(count, dist)
+    _lib.check_cuda_tensors(NAME, dist=dist, row_idx=row_idx, count=count,
+                            row_src=row_src, col=col, wgt=wgt)
+    _lib.check_frontier_args(NAME, dist, row_idx, row_src, col, wgt)
+    _lib.require(n_out >= 0, NAME, f"n_out must be >= 0, got {n_out}")
+    F = row_idx.shape[0]
+    R, W = wgt.shape
+    out = torch.full((n_out + 1,), float("inf"), dtype=torch.float32,
+                     device=dist.device)
+    if F * W:
+        rc = _launch()(
+            dist.data_ptr(), row_idx.data_ptr(), count.data_ptr(),
+            row_src.data_ptr(), col.data_ptr(), wgt.data_ptr(),
+            out.data_ptr(), F, R, W, _lib.stream_of(dist),
+        )
+        _lib.check(rc, NAME)
+        _lib.count_launch(NAME)
+    return out

@@ -1,0 +1,20 @@
+"""Public op: the fused sparse-superstep relaxation.  A CUDA tensor
+launches the kernel; a CPU tensor takes the plain torch version."""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.superstep_fused.kernel import fused_superstep_cuda
+from repro_torch.kernels.superstep_fused.ref import fused_superstep_ref
+
+
+def fused_superstep(dist, row_idx, count, row_src, col, wgt,
+                    n_out: int) -> torch.Tensor:
+    """(n_out+1,) f32 candidates of rows ``row_idx[:count]``, scatter-
+    min'd over +inf (slot ``n_out`` takes the ELL padding)."""
+    if dist.device.type == "cpu":
+        return fused_superstep_ref(dist, row_idx, count, row_src, col, wgt,
+                                   n_out)
+    return fused_superstep_cuda(dist, row_idx, count, row_src, col, wgt,
+                                n_out)

@@ -1,0 +1,41 @@
+"""The port stands alone: no module under src/repro_torch (nor
+chip_smoke.py) imports JAX or anything of the JAX package ``repro``."""
+
+import json
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+PROBE = r"""
+import importlib, json, sys
+sys.path[:0] = [{src!r}, {root!r}]
+for name in {modules!r}:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "jaxlib", "repro") or m.startswith(("jax.", "jaxlib.", "repro.")))
+print(json.dumps(bad))
+"""
+
+
+def port_modules():
+    src = ROOT / "src"
+    mods = []
+    for f in sorted((src / "repro_torch").rglob("*.py")):
+        parts = f.relative_to(src).with_suffix("").parts
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        mods.append(".".join(parts))
+    return mods
+
+
+def test_port_imports_no_jax_and_no_reference():
+    mods = port_modules()
+    assert "repro_torch.core.engine" in mods and len(mods) > 20
+    code = PROBE.format(src=str(ROOT / "src"), root=str(ROOT),
+                        modules=mods + ["chip_smoke"])
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
