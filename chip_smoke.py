@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one
-NVIDIA GPU, at the size its users run on one card: rmat1 (Graph500
-R-MAT, weights 1..100) at scale 20, seed 0, one rank.
+NVIDIA GPU, at the sizes its users run on one card: SSSP on rmat1
+(Graph500 R-MAT, weights 1..100) at scale 20, seed 0, one rank; LM
+serving of minitron-8b at full width (32 layers, 7.73 B parameters,
+random weights from the seed); MIND serving at full width (2^20 items,
+2^17 profile ids).
 
     python3 chip_smoke.py
 
@@ -10,14 +13,24 @@ Phases (any failure exits non-zero):
   1. card name and power limit; build the CUDA kernels from csrc/
   2. generate and partition the graph, copy it to the card, and solve
      the Dijkstra oracle (scipy) for source 0
-  3. each kernel against its plain torch version on the card at the
-     main path's shapes: bit-identical, timed with CUDA events
+  3. each min-plus kernel against its plain torch version on the card
+     at the main path's shapes: bit-identical, timed with CUDA events
   4. the main path: Solver("delta:5/sparse/fused").solve(...) equals
      the oracle, converges, and launches fused_superstep
   5. the push path (relax_impl="push"): same state and metrics as 4,
      launches relax_push_gather
   6. the self-stabilizing sweep from a corrupted state (made from the
      seed) stabilizes to the oracle, launching relax_ell
+  7. flash_attention and embedding_bag against their plain versions on
+     the card at the serving paths' shapes, timed with CUDA events
+     beside one PyTorch call computing the same function
+  8. LM serving, minitron-8b in bf16: prefill of 4 x 1920 tokens
+     through the attention kernel (32 launches), 128 greedy decode
+     steps; logits against the plain attention; then in fp32, the last
+     decode step against a teacher-forced prefill of the grown sequence
+  9. MIND serving: serve_interests at B=512 and B=262,144 and
+     retrieval_scores over all 2^20 items, through the embedding-bag
+     kernel, against the plain bag
 
 It prints one JSON line of per-kernel numbers and, last, the device
 line ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -26,6 +39,7 @@ repository beside it, it fails before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -39,7 +53,30 @@ SOURCE = 0
 SPEC = "delta:5/sparse/fused"
 MEM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 TIMING_REPS = 20
+# LM serving (phase 8): minitron-8b, prompts from lm_batch
+LM_ARCH = "minitron-8b"
+LM_BATCH, LM_PROMPT, LM_MAX_LEN, LM_DECODE = 4, 1920, 2048, 128
+LM_F32_BATCH = 2
+LM_PROFILED_STEPS = 8
+# kernel path vs plain attention in bf16, as a share of max |logit|:
+# the plain path rounds p to bf16 before p @ v, the kernel keeps p in
+# f32, so the two differ about as much as a bf16 model from its f32
+# twin (1.4% and 1.8% of max |logit| at 8 and 16 layers of a d=512
+# model on the CPU); the bound leaves room for 32 layers
+LM_BF16_TOL = 5e-2
+LM_F32_RTOL, LM_F32_ATOL = 2e-3, 5e-4   # the JAX package's decode test
+# flash_attention vs its plain version: the JAX package's kernel-test
+# tolerances, and in bf16 also one bf16 ulp (<= 2**-7 of the value):
+# both compute in f32 and round once
+ATTN_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+ATTN_BF16_RTOL, ATTN_BF16_ATOL = 1e-2, 2e-3
+# MIND serving (phase 9)
+MIND_SERVE = (("serve_p99", 512), ("serve_bulk", 262_144))
+# kernel-path vs plain-bag outputs, as a share of the plain one's max
+# |value|: the 0.02-scale tables make interests ~1e-5 and scores ~1e-6
+MIND_REQUESTS, MIND_TOPK, MIND_REL_TOL = 32, 5, 1e-5
 
 
 def log(msg: str) -> None:
@@ -84,10 +121,369 @@ def max_abs_err(a, b) -> float:
     return float((a[fin] - b[fin]).abs().max())
 
 
-def bound(nbytes: int, ops: int) -> tuple[float, str]:
+def bound(nbytes: int, ops: int, ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+@contextlib.contextmanager
+def device_profile(label: str, top: int = 6):
+    """Log device time by kernel over the block (torch.profiler): the
+    total, its share of the block's wall time, and the top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        yield
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in kernels) / 1e3
+    log(f"profile, {label}: {total:.3f} ms of device time in {wall_ms:.3f} ms "
+        f"profiled wall (busy share {total / wall_ms:.3f})")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
+        ms = e.self_device_time_total / 1e3
+        log(f"  {ms:10.3f} ms {ms / max(total, 1e-9):6.1%} x{e.count:<5} {e.key[:90]}")
+
+
+def rel_err(a, b) -> float:
+    """Largest difference as a share of b's largest magnitude."""
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+
+def attention_pairs(Sq: int, Sk: int, causal: bool) -> int:
+    """(query, key) pairs the attention visits: each causal row i sees
+    keys up to i + Sk - Sq."""
+    return Sq * (Sk - Sq) + Sq * (Sq + 1) // 2 if causal else Sq * Sk
+
+
+ATTN_CASES = (
+    # label, B, Hq, Hkv, Sq, Sk, D, dtype name, causal; (a) is the row
+    # of the kernels line: minitron prefill at max_len
+    ("a minitron prefill", 4, 32, 8, 2048, 2048, 128, "bfloat16", True),
+    ("a' minitron prefill, smoke prompt", 4, 32, 8, 1920, 1920, 128, "bfloat16", True),
+    ("b phi3-mini prefill", 1, 32, 32, 2048, 2048, 96, "bfloat16", True),
+    ("c f32 causal, Sq < Sk", 1, 8, 2, 128, 1024, 128, "float32", True),
+    ("c f32 non-causal, Sq < Sk", 1, 8, 2, 128, 1024, 128, "float32", False),
+)
+
+
+def serving_kernels(dev, flush) -> tuple[dict, dict]:
+    """Phase 7: flash_attention and embedding_bag against their plain
+    versions at the serving paths' shapes.  Returns their rows of the
+    kernels line (launches filled in by phases 8 and 9)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_arch
+    from repro_torch.data import mind_batch
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    attn_row = None
+    for label, B, Hq, Hkv, Sq, Sk, D, dtype_name, causal in ATTN_CASES:
+        dtype = getattr(torch, dtype_name)
+        q = randn((B, Hq, Sq, D), dtype)
+        k, v = randn((B, Hkv, Sk, D), dtype), randn((B, Hkv, Sk, D), dtype)
+        K.reset_launch_counts()
+        out = K.flash_attention_cuda(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        if K.launch_counts()["flash_attention"] != 1:
+            fail(f"flash_attention ({label}): the wrapper did not launch its kernel")
+        ref = K.attention_ref(q, k, v, causal=causal)
+        tol = ATTN_TOL[dtype_name]
+        err = float((out.float() - ref.float()).abs().max())
+        if out.dtype != dtype or not torch.allclose(out.float(), ref.float(),
+                                                    rtol=tol, atol=tol):
+            fail(f"flash_attention ({label}): kernel differs from its plain "
+                 f"version (max abs err {err}, tolerance {tol})")
+        if dtype == torch.bfloat16 and not torch.allclose(
+                out.float(), ref.float(), rtol=ATTN_BF16_RTOL, atol=ATTN_BF16_ATOL):
+            fail(f"flash_attention ({label}): kernel more than one bf16 ulp from "
+                 f"its plain version (max abs err {err}, rtol {ATTN_BF16_RTOL}, "
+                 f"atol {ATTN_BF16_ATOL})")
+        mask = None
+        if causal and Sq != Sk:  # torch aligns a causal mask top-left
+            mask = torch.ones((Sq, Sk), dtype=torch.bool, device=dev).tril(Sk - Sq)
+
+        def library():
+            return F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, is_causal=causal and mask is None,
+                enable_gqa=True)
+
+        lib_err = float((library().float() - ref.float()).abs().max())
+        ms = time_ms(lambda: K.flash_attention_cuda(q, k, v, causal=causal), flush)
+        plain_ms = time_ms(lambda: K.attention_ref(q, k, v, causal=causal), flush)
+        library_ms = time_ms(library, flush)
+        nbytes = q.element_size() * 2 * (B * Hq * Sq * D + B * Hkv * Sk * D)
+        flops = 4 * B * Hq * D * attention_pairs(Sq, Sk, causal)
+        peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+        bound_ms, bound_by = bound(nbytes, flops, peak)
+        log(f"flash_attention ({label}: B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Sk={Sk} "
+            f"D={D} {dtype_name} causal={causal}): max abs err {err:.3g} "
+            f"(tol {tol}{'; bf16 ulp check passed' if dtype == torch.bfloat16 else ''}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"sdpa {library_ms:.4f} ms (max abs err {lib_err:.3g}); "
+            f"{flops} flop, {nbytes} bytes, bound {bound_ms:.4f} ms "
+            f"({bound_by}, {peak / 1e12:g} TFLOP/s)")
+        if attn_row is None:
+            attn_row = dict(name="flash_attention", route="cuda",
+                            source="src/repro_torch/csrc/flash_attention.cu",
+                            replaces="src/repro/kernels/flash_attention/kernel.py:84",
+                            launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound_ms, bound_by=bound_by,
+                            library_ms=library_ms)
+        del q, k, v, out, ref
+
+    # embedding_bag at MIND serve_bulk widths: the profile table and the
+    # profile ids as mind_batch makes them; its mask is all ones, so the
+    # weights here are f32 in [0, 1) with about a fifth of the slots 0
+    mcfg = get_arch("mind").make_config()
+    B = dict(MIND_SERVE)["serve_bulk"]
+    batch = mind_batch(0, B, mcfg, seed=SEED)
+    table = randn((mcfg.n_profile, mcfg.embed_dim), torch.float32) * 0.02
+    idx = torch.as_tensor(batch["profile_ids"], device=dev)
+    u = torch.rand(idx.shape, generator=gen, device=dev)
+    w = torch.where(u > 0.2, torch.rand(idx.shape, generator=gen, device=dev), 0.0)
+    L, d = idx.shape[1], table.shape[1]
+    K.reset_launch_counts()
+    out = K.embedding_bag_cuda(table, idx, w)
+    torch.cuda.synchronize()
+    if K.launch_counts()["embedding_bag"] != 1:
+        fail("embedding_bag: the wrapper did not launch its kernel")
+    plain = K.embedding_bag_ref(table, idx, w)
+    err, rel = float((out - plain).abs().max()), rel_err(out, plain)
+    if rel > 1e-6:
+        fail(f"embedding_bag: kernel differs from its plain version "
+             f"(max abs err {err}, {rel:.3g} of max |out|)")
+    in_order = torch.zeros_like(out)  # the TPU kernel's order of sums
+    for l in range(L):
+        in_order = in_order + table[idx[:, l].long()] * w[:, l, None]
+    if not torch.equal(out, in_order):
+        fail("embedding_bag: kernel is not bit-identical to the in-order sum")
+
+    def library():
+        return F.embedding_bag(idx, table, mode="sum", per_sample_weights=w)
+
+    ms = time_ms(lambda: K.embedding_bag_cuda(table, idx, w), flush)
+    plain_ms = time_ms(lambda: K.embedding_bag_ref(table, idx, w), flush)
+    library_ms = time_ms(library, flush)
+    rows_touched = int(torch.unique(idx[w != 0]).numel())  # rows a 0 weight skips
+    nbytes = 4 * (rows_touched * d + 2 * B * L + B * d)
+    bound_ms, bound_by = bound(nbytes, 2 * B * L * d)
+    log(f"embedding_bag (table {tuple(table.shape)}, B={B} L={L}, f32 weights, "
+        f"{float((w == 0).float().mean()):.3f} of them 0): max abs err {err:.3g} "
+        f"({rel:.3g} of max |out|, tol 1e-6); bit-identical to the in-order sum; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, F.embedding_bag {library_ms:.4f} ms (max abs err "
+        f"{float((library() - plain).abs().max()):.3g}); {rows_touched} rows "
+        f"touched, {nbytes} bytes, bound {bound_ms:.4f} ms ({bound_by})")
+    bag_row = dict(name="embedding_bag", route="cuda",
+                   source="src/repro_torch/csrc/embedding_bag.cu",
+                   replaces="src/repro/kernels/embedding_bag/kernel.py:39",
+                   launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+    return attn_row, bag_row
+
+
+def lm_serving(dev) -> int:
+    """Phase 8: minitron-8b at full width.  Returns the flash_attention
+    launches of the bf16 prefill and decode."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_arch
+    from repro_torch.data import lm_batch
+    from repro_torch.models import lm
+    from repro_torch.models.common import param_count
+
+    cfg = get_arch(LM_ARCH).make_config()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = lm.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg)
+    torch.cuda.synchronize()
+    n_params = param_count(model)
+    log(f"{cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, {n_params} parameters "
+        f"({cfg.param_dtype}, attn_impl={cfg.attn_impl}) initialised on the card "
+        f"in {time.perf_counter() - t0:.2f} s")
+    toks = torch.as_tensor(
+        lm_batch(0, LM_BATCH, LM_PROMPT, cfg.vocab, seed=SEED)["tokens"], device=dev)
+
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    cache, logits = lm.prefill_step(model, toks, cfg, LM_MAX_LEN)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = K.launch_counts()["flash_attention"]
+    first_logits = logits
+    t0 = time.perf_counter()
+    for step in range(LM_DECODE):
+        nxt = logits.argmax(-1).to(torch.int32)
+        logits, cache = lm.decode_step(model, cache, nxt, LM_PROMPT + step, cfg)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches = K.launch_counts()["flash_attention"]
+    if not bool(torch.isfinite(logits).all()) or logits.shape != (LM_BATCH, cfg.vocab):
+        fail(f"decode logits are not finite of shape {(LM_BATCH, cfg.vocab)}")
+    # warm prefill (kernels and cuBLAS heuristics loaded); then one more
+    # and a few decode steps on its cache, each under the profiler
+    t0 = time.perf_counter()
+    lm.prefill_step(model, toks, cfg, LM_MAX_LEN)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    with device_profile("profiler start-up (empty window)", top=0):
+        pass
+    with device_profile("prefill"):
+        warm_cache, warm_logits = lm.prefill_step(model, toks, cfg, LM_MAX_LEN)
+        torch.cuda.synchronize()
+    with device_profile(f"{LM_PROFILED_STEPS} decode steps"):
+        for step in range(LM_PROFILED_STEPS):
+            nxt = warm_logits.argmax(-1).to(torch.int32)
+            warm_logits, warm_cache = lm.decode_step(model, warm_cache, nxt,
+                                                     LM_PROMPT + step, cfg)
+        torch.cuda.synchronize()
+    del warm_cache, warm_logits
+    log(f"LM serving: prefill {LM_BATCH} x {LM_PROMPT} tokens {prefill_s:.3f} s "
+        f"(warm {warm_s:.3f} s, {LM_BATCH * LM_PROMPT / warm_s:.0f} tokens/s); "
+        f"{LM_DECODE} greedy decode steps {decode_s:.3f} s = "
+        f"{decode_s / LM_DECODE * 1e3:.2f} ms/token, "
+        f"{LM_BATCH * LM_DECODE / decode_s:.1f} tokens/s at batch {LM_BATCH}; peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"flash_attention launches: {prefill_launches} in the prefill, "
+        f"{launches - prefill_launches} in decode")
+    if prefill_launches != cfg.n_layers:
+        fail(f"prefill launched flash_attention {prefill_launches} times, "
+             f"not once per layer ({cfg.n_layers})")
+
+    # (i) the same weights with the plain attention
+    K.reset_launch_counts()
+    _, plain_logits = lm.prefill_step(model, toks,
+                                      dataclasses.replace(cfg, attn_impl="xla"),
+                                      LM_MAX_LEN)
+    if K.launch_counts()["flash_attention"]:
+        fail("the plain-attention prefill launched the kernel")
+    rel = rel_err(first_logits, plain_logits)
+    agree = float((first_logits.argmax(-1) == plain_logits.argmax(-1)).float().mean())
+    log(f"check (i) bf16 prefill logits, kernel vs plain attention: max abs "
+        f"diff {rel * float(plain_logits.abs().max()):.4g} = {rel:.4g} of max "
+        f"|logit| {float(plain_logits.abs().max()):.4g} (tol {LM_BF16_TOL}); "
+        f"argmax agreement {agree:.2f}")
+    if rel > LM_BF16_TOL:
+        fail(f"bf16 prefill logits: kernel path differs from plain attention by "
+             f"{rel:.4g} of max |logit| (tolerance {LM_BF16_TOL})")
+    del model, cache, logits, first_logits, plain_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (ii) fp32: the last decode step against a teacher-forced prefill
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+    t0 = time.perf_counter()
+    model = lm.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg32)
+    torch.cuda.synchronize()
+    log(f"fp32 twin initialised in {time.perf_counter() - t0:.2f} s "
+        f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card)")
+    seq = toks[:LM_F32_BATCH]
+    t0 = time.perf_counter()
+    cache, logits = lm.prefill_step(model, seq, cfg32, LM_MAX_LEN)
+    for step in range(LM_DECODE):
+        nxt = logits.argmax(-1).to(torch.int32)
+        seq = torch.cat([seq, nxt[:, None]], dim=1)
+        logits, cache = lm.decode_step(model, cache, nxt, LM_PROMPT + step, cfg32)
+    K.reset_launch_counts()
+    _, forced = lm.prefill_step(model, seq, cfg32, LM_MAX_LEN)
+    torch.cuda.synchronize()
+    if K.launch_counts()["flash_attention"] != cfg.n_layers:
+        fail("the teacher-forced prefill did not attend through the kernel")
+    diff = float((logits - forced).abs().max())
+    ok = torch.allclose(logits, forced, rtol=LM_F32_RTOL, atol=LM_F32_ATOL)
+    log(f"check (ii) fp32, {LM_F32_BATCH} x {LM_PROMPT} prompt + {LM_DECODE} decode "
+        f"steps vs teacher-forced prefill of {seq.shape[1]} tokens: max abs diff "
+        f"{diff:.4g} (max |logit| {float(forced.abs().max()):.4g}; rtol "
+        f"{LM_F32_RTOL}, atol {LM_F32_ATOL}); {time.perf_counter() - t0:.2f} s; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not ok:
+        fail(f"fp32 decode differs from the teacher-forced prefill (max abs diff {diff})")
+    del model, cache, logits, forced
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def mind_serving(dev) -> int:
+    """Phase 9: MIND at full width.  Returns the embedding_bag launches
+    of the kernel-path serving calls."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_arch
+    from repro_torch.data import mind_batch
+    from repro_torch.models import mind
+
+    cfg = get_arch("mind").make_config()
+    plain = dataclasses.replace(cfg, bag_impl="ref")
+    model = mind.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg)
+    keys = ("hist", "hist_mask", "profile_ids", "profile_mask")
+
+    def on_card(batch):
+        return {k: torch.as_tensor(batch[k], device=dev) for k in keys}
+
+    launches = 0
+    for label, B in MIND_SERVE:
+        batch = on_card(mind_batch(1, B, cfg, seed=SEED))
+        walls, counts = [], []
+        for _ in range(2):  # cold, warm
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            caps = mind.serve_interests(model, batch, cfg)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            counts.append(K.launch_counts()["embedding_bag"])
+            if counts[-1] < 1:
+                fail(f"MIND {label}: serve_interests never launched embedding_bag")
+            launches += counts[-1]
+        ref = mind.serve_interests(model, batch, plain)
+        err, scale = float((caps - ref).abs().max()), float(ref.abs().max())
+        log(f"MIND {label} B={B}: serve_interests {walls[0] * 1e3:.2f} ms cold, "
+            f"{walls[1] * 1e3:.2f} ms warm, {B / walls[1]:.0f} users/s; "
+            f"embedding_bag launches per call {counts}; interests "
+            f"{tuple(caps.shape)} vs plain bag: max abs diff {err:.3g}, max |ref| "
+            f"{scale:.3g} (tol {MIND_REL_TOL} of max |ref|)")
+        if caps.shape != (B, cfg.n_interests, cfg.embed_dim) or \
+                not bool(torch.isfinite(caps).all()) or not err <= MIND_REL_TOL * scale:
+            fail(f"MIND {label}: interests differ from the plain bag's (max abs diff "
+                 f"{err}, max |ref| {scale})")
+
+    batch = on_card(mind_batch(2, MIND_REQUESTS, cfg, seed=SEED))
+    cands = torch.arange(cfg.n_items, dtype=torch.int32, device=dev)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    scores = mind.retrieval_scores(model, batch, cands, cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = K.launch_counts()["embedding_bag"]
+    if n < 1:
+        fail("MIND retrieval_scores never launched embedding_bag")
+    launches += n
+    ref = mind.retrieval_scores(model, batch, cands, plain)
+    top, top_ref = scores.topk(MIND_TOPK).indices, ref.topk(MIND_TOPK).indices
+    err, scale = float((scores - ref).abs().max()), float(ref.abs().max())
+    log(f"MIND retrieval: {MIND_REQUESTS} requests x {cfg.n_items} candidates in "
+        f"{wall * 1e3:.2f} ms, {n} embedding_bag launch(es); scores vs plain bag: "
+        f"max abs diff {err:.3g}, max |ref| {scale:.3g} (tol {MIND_REL_TOL} of max "
+        f"|ref|); top-{MIND_TOPK} equal for {int((top == top_ref).all(1).sum())} of "
+        f"{MIND_REQUESTS} requests")
+    if not err <= MIND_REL_TOL * scale or not torch.equal(top, top_ref):
+        fail("MIND retrieval: scores or top items differ from the plain bag's")
+    return launches
 
 
 def main() -> None:
@@ -301,6 +697,28 @@ def main() -> None:
     if sweeps == 0:
         fail("sweep never launched relax_ell")
     rows[2]["launches"] = sweeps
+
+    # ---- 7. serving kernels against their plain versions -------------
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log("TF32 off for matmuls and cuDNN: plain versions and the fp32 "
+        "checks compute in full f32")
+    t0 = time.perf_counter()
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    attn_row, bag_row = serving_kernels(dev, flush)
+    del flush
+    rows += [attn_row, bag_row]
+    log(f"phase 7 took {time.perf_counter() - t0:.1f} s")
+
+    # ---- 8. LM serving, minitron-8b at full width ---------------------
+    t0 = time.perf_counter()
+    attn_row["launches"] = lm_serving(dev)
+    log(f"phase 8 took {time.perf_counter() - t0:.1f} s")
+
+    # ---- 9. MIND serving at full width --------------------------------
+    t0 = time.perf_counter()
+    bag_row["launches"] = mind_serving(dev)
+    log(f"phase 9 took {time.perf_counter() - t0:.1f} s")
 
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s on {card_line}")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,0 +1,42 @@
+"""Synthetic deterministic batches (pure functions of seed and step),
+numpy only: the same bytes as the JAX package's ``data/synthetic.py``
+for the same arguments."""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def _rng(seed: int, step: int) -> np.random.Generator:
+    return np.random.default_rng(np.random.SeedSequence([seed, step]))
+
+
+def lm_batch(step: int, batch: int, seq: int, vocab: int,
+             seed: int = 0) -> dict:
+    """Markov-ish token stream: next token depends on the previous one
+    so a small LM can actually reduce loss against it."""
+    rng = _rng(seed, step)
+    base = rng.integers(0, vocab, size=(batch, 1))
+    steps = rng.integers(1, 7, size=(batch, seq))
+    toks = (base + np.cumsum(steps, axis=1)) % vocab
+    toks = np.concatenate([base, toks], axis=1).astype(np.int32)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def mind_batch(step: int, batch: int, cfg, seed: int = 0) -> dict:
+    """One MIND batch: history, profile ids (all valid), target and
+    sampled negatives; 80% of history slots are valid."""
+    rng = _rng(seed, step)
+    F = cfg.n_profile_fields * cfg.profile_multi
+    return {
+        "hist": rng.integers(0, cfg.n_items, (batch, cfg.hist_len)
+                             ).astype(np.int32),
+        "hist_mask": rng.random((batch, cfg.hist_len)) > 0.2,
+        "profile_ids": rng.integers(0, cfg.n_profile, (batch, F)
+                                    ).astype(np.int32),
+        "profile_mask": np.ones((batch, F), dtype=bool),
+        "target": rng.integers(0, cfg.n_items, (batch,)).astype(np.int32),
+        "negatives": rng.integers(
+            0, cfg.n_items, (batch, cfg.n_negatives)
+        ).astype(np.int32),
+    }

@@ -4,6 +4,8 @@ with a plain torch version that CPU tensors take.
   superstep_fused   gather + min-plus relax + scatter-min of a frontier
   relax_push        push-mode frontier gather (scatter-min in torch)
   relax_ell         pull-mode min-plus ELL row minima (rule R1)
+  flash_attention   streaming-softmax GQA attention (LM prefill)
+  embedding_bag     gather + weighted sum per bag (MIND profile pooling)
 """
 
 from repro_torch.kernels._lib import (
@@ -13,6 +15,13 @@ from repro_torch.kernels._lib import (
     library,
     reset_launch_counts,
 )
+from repro_torch.kernels.embedding_bag import (
+    bag_pool,
+    bag_sum,
+    embedding_bag_cuda,
+    embedding_bag_ref,
+)
+from repro_torch.kernels.flash_attention import attention_ref, flash_attention_cuda, mha
 from repro_torch.kernels.relax_ell import relax_ell_cuda, relax_ell_ref, relax_rows
 from repro_torch.kernels.relax_push import (
     relax_push_gather,
@@ -32,4 +41,6 @@ __all__ = [
     "relax_push_gather", "relax_push_gather_cuda", "relax_push_gather_ref",
     "relax_push_rows",
     "fused_superstep", "fused_superstep_cuda", "fused_superstep_ref",
+    "attention_ref", "flash_attention_cuda", "mha",
+    "bag_pool", "bag_sum", "embedding_bag_cuda", "embedding_bag_ref",
 ]

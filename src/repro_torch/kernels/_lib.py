@@ -36,7 +36,8 @@ NVCC_FLAGS = (
 LIB_NAME = "libminplus.so"
 
 #: the kernels of the library, by the name their wrappers count under
-KERNELS = ("fused_superstep", "relax_push_gather", "relax_ell")
+KERNELS = ("fused_superstep", "relax_push_gather", "relax_ell",
+           "flash_attention", "embedding_bag")
 
 _launches = dict.fromkeys(KERNELS, 0)
 _lib: "ctypes.CDLL | None" = None
@@ -44,6 +45,7 @@ _build: "Build | None" = None
 
 ptr = ctypes.c_void_p
 c_int = ctypes.c_int
+c_float = ctypes.c_float
 
 
 @dataclasses.dataclass(frozen=True)

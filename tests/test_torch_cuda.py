@@ -1,10 +1,14 @@
-"""The port's CUDA kernels and its solve on the card, held against the
-plain torch versions on the same inputs: bit-identical.  Needs an
-NVIDIA GPU and nvcc; skips elsewhere.  Imports no JAX, so it runs on a
-machine with the card alone:
+"""The port's CUDA kernels, its solve and its serving paths on the card,
+held against the plain torch versions on the same inputs: the min-plus
+kernels and the embedding bag bit-identical, attention within the
+reference's tolerances (2e-5 f32, 2e-2 bf16).  Needs an NVIDIA GPU and
+nvcc; skips elsewhere.  Imports no JAX, so it runs on a machine with
+the card alone:
 
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -12,8 +16,12 @@ import torch
 
 from repro_torch import kernels as K
 from repro_torch.api import Problem, SingleSource, Solver, SolverConfig
+from repro_torch.configs import get_arch
 from repro_torch.core.selfstab import synchronous_sweep
+from repro_torch.data import lm_batch, mind_batch
 from repro_torch.graph import rmat1, small_world_graph
+from repro_torch.models import lm, mind
+from repro_torch.models.common import generator
 
 pytestmark = pytest.mark.cuda
 
@@ -23,6 +31,7 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
     K.build()
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full f32
     return torch.device("cuda")
 
 
@@ -126,3 +135,123 @@ def test_sweep_on_card_matches_cpu(dev):
     assert K.launch_counts()["relax_ell"] > 0
     cpu = synchronous_sweep(g, 0, d0, 2000, device="cpu")
     assert card.tobytes() == cpu.tobytes()
+
+
+ATTN_CASES = [
+    # B, Hq, Hkv, Sq, Sk, D, dtype
+    (1, 2, 1, 128, 128, 64, torch.float32),
+    (2, 4, 2, 256, 256, 64, torch.float32),
+    (1, 8, 2, 128, 256, 128, torch.float32),
+    (2, 4, 4, 128, 128, 64, torch.bfloat16),
+    (1, 4, 4, 256, 256, 96, torch.bfloat16),
+    (1, 4, 1, 128, 384, 96, torch.float32),
+    (2, 8, 2, 384, 384, 128, torch.bfloat16),
+    (1, 2, 2, 128, 1024, 128, torch.float32),
+]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("case", ATTN_CASES)
+def test_flash_attention_matches_plain(dev, case, causal):
+    B, Hq, Hkv, Sq, Sk, D, dtype = case
+    r = np.random.default_rng(Sq + Sk + D)
+    q, k, v = (torch.as_tensor(r.normal(size=shape).astype(np.float32), device=dev).to(dtype)
+               for shape in ((B, Hq, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, D)))
+    K.reset_launch_counts()
+    out = K.mha(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["flash_attention"] == 1
+    ref = K.attention_ref(q, k, v, causal=causal)
+    assert out.dtype == dtype and out.shape == ref.shape
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:
+        # both compute in f32 and round once to bf16, so they differ by at
+        # most one bf16 ulp (<= 2**-7 of the value)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2, atol=2e-3)
+
+
+def bag_in_order(table, idx, w):
+    """The TPU kernel's order: out += row * w for l = 0 .. L-1, each
+    product and sum rounded (separate torch ops, so no FMA)."""
+    out = torch.zeros((idx.shape[0], table.shape[1]), device=table.device)
+    for l in range(idx.shape[1]):
+        out = out + table[idx[:, l].long()] * w[:, l, None]
+    return out
+
+
+@pytest.mark.parametrize("weights", ["mask", "random"])
+@pytest.mark.parametrize("V,d,B,L", [
+    (100, 32, 8, 5), (1000, 64, 16, 10), (50, 128, 4, 20),
+    (64, 30, 3, 7), (4096, 64, 1000, 13), (7, 4, 1, 1), (300, 64, 33, 0),
+])
+def test_embedding_bag_matches_plain(dev, V, d, B, L, weights):
+    """w is the 0/1 mask, or f32 weights in (-2, 2) with the masked
+    slots 0."""
+    r = np.random.default_rng(V + d + B + L)
+    table = torch.as_tensor(r.normal(size=(V, d)).astype(np.float32), device=dev)
+    idx = torch.as_tensor(r.integers(0, V, (B, L)).astype(np.int32), device=dev)
+    mask = torch.as_tensor(r.random((B, L)) > 0.3, device=dev)
+    w = mask.float()
+    if weights == "random":
+        w *= torch.as_tensor(r.uniform(-2, 2, (B, L)).astype(np.float32), device=dev)
+    K.reset_launch_counts()
+    out = K.bag_sum(table, idx, w)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["embedding_bag"] == 1
+    assert torch.equal(out, bag_in_order(table, idx, w))
+    if weights == "mask":
+        torch.testing.assert_close(out, K.embedding_bag_ref(table, idx, w), rtol=1e-6, atol=1e-6)
+    else:  # an f32 sum of L products is within (L+1) * 2**-24 * sum |w row| of exact
+        exact = K.embedding_bag_ref(table.double(), idx, w.double())
+        slack = (L + 1) * 2**-24 * K.embedding_bag_ref(table.abs().double(), idx,
+                                                       w.abs().double())
+        assert bool(((out.double() - exact).abs() <= slack).all())
+    mean = K.bag_pool(table, idx, mask, mode="mean", impl="pallas")
+    torch.testing.assert_close(mean, K.bag_pool(table, idx, mask, mode="mean"),
+                               rtol=1e-6, atol=1e-6)
+    if L:
+        with pytest.raises(ValueError, match="lie in"):
+            K.embedding_bag_cuda(table, torch.full_like(idx, V), w)
+
+
+@pytest.mark.parametrize("mlp_type,kv", [("relu2", 2), ("swiglu", 4)])
+def test_lm_serving_on_card_matches_cpu(dev, mlp_type, kv):
+    """Prefill through the kernel (one launch per layer) and greedy
+    decode on the card against the plain path on the CPU, in f32."""
+    cfg = lm.LMConfig(name="t", n_layers=2, d_model=256, n_heads=4, n_kv_heads=kv,
+                      d_ff=512, vocab=512, mlp_type=mlp_type,
+                      param_dtype="float32", attn_impl="pallas")
+    cpu_model = lm.init_params(generator(0, "cpu"), cfg)
+    card_model = lm.init_params(generator(0, "cpu"), cfg).to(dev)
+    toks = torch.as_tensor(lm_batch(0, 2, 128, cfg.vocab)["tokens"])
+    K.reset_launch_counts()
+    cache, logits = lm.prefill_step(card_model, toks.to(dev), cfg, 136)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["flash_attention"] == cfg.n_layers
+    c_cache, c_logits = lm.prefill_step(cpu_model, toks, cfg, 136)
+    torch.testing.assert_close(logits.cpu(), c_logits, rtol=1e-4, atol=1e-5)
+    for step in range(4):
+        nxt = c_logits.argmax(-1).to(torch.int32)
+        assert torch.equal(logits.argmax(-1).cpu().to(torch.int32), nxt)
+        logits, cache = lm.decode_step(card_model, cache, nxt.to(dev), 128 + step, cfg)
+        c_logits, c_cache = lm.decode_step(cpu_model, c_cache, nxt, 128 + step, cfg)
+        torch.testing.assert_close(logits.cpu(), c_logits, rtol=1e-4, atol=1e-5)
+
+
+def test_mind_serving_on_card_matches_cpu(dev):
+    cfg = dataclasses.replace(get_arch("mind").make_config(reduced=True),
+                              bag_impl="pallas")
+    cpu_model = mind.init_params(generator(0, "cpu"), cfg)
+    card_model = mind.init_params(generator(0, "cpu"), cfg).to(dev)
+    batch = {k: torch.as_tensor(v) for k, v in mind_batch(0, 32, cfg).items()}
+    cands = torch.arange(cfg.n_items)
+    K.reset_launch_counts()
+    scores = mind.retrieval_scores(card_model, {k: v.to(dev) for k, v in batch.items()},
+                                   cands.to(dev), cfg)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["embedding_bag"] == 1
+    ref = mind.retrieval_scores(cpu_model, batch, cands, cfg)
+    # scores are about 1e-6 (0.02-scale tables): hold them at ref's scale
+    err = float((scores.cpu() - ref).abs().max())
+    assert err <= 1e-5 * float(ref.abs().max()), err

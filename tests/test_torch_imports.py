@@ -33,6 +33,12 @@ def port_modules():
 def test_port_imports_no_jax_and_no_reference():
     mods = port_modules()
     assert "repro_torch.core.engine" in mods and len(mods) > 20
+    for sub in ("repro_torch.models.lm", "repro_torch.models.mind",
+                "repro_torch.models.convert", "repro_torch.models.gnn.layers",
+                "repro_torch.configs.minitron", "repro_torch.data.synthetic",
+                "repro_torch.kernels.flash_attention.ops",
+                "repro_torch.kernels.embedding_bag.ops"):
+        assert sub in mods, sub
     code = PROBE.format(src=str(ROOT / "src"), root=str(ROOT),
                         modules=mods + ["chip_smoke"])
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
