@@ -4,7 +4,8 @@ NVIDIA GPU, at the sizes its users run on one card: SSSP on rmat1
 (Graph500 R-MAT, weights 1..100) at scale 20, seed 0, one rank; LM
 serving of minitron-8b at full width (32 layers, 7.73 B parameters,
 random weights from the seed); MIND serving at full width (2^20 items,
-2^17 profile ids).
+2^17 profile ids); GIN inference (gin-tu at full width) on rmat1 at
+scale 21, the size of ogb-products.
 
     python3 chip_smoke.py
 
@@ -31,6 +32,11 @@ Phases (any failure exits non-zero):
   9. MIND serving: serve_interests at B=512 and B=262,144 and
      retrieval_scores over all 2^20 items, through the embedding-bag
      kernel, against the plain bag
+ 10. GIN inference: spmm_ell against its plain version (in row chunks)
+     at the layer shapes (d = 100 and 64) and at the Cora shape
+     (d = 1433), timed beside torch.sparse.mm; gin-tu forwards through
+     the kernel (5 launches each) on rmat1 scale 21 with 100 features;
+     logits against the plain segment-sum route
 
 It prints one JSON line of per-kernel numbers and, last, the device
 line ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -77,6 +83,23 @@ MIND_SERVE = (("serve_p99", 512), ("serve_bulk", 262_144))
 # kernel-path vs plain-bag outputs, as a share of the plain one's max
 # |value|: the 0.02-scale tables make interests ~1e-5 and scores ~1e-6
 MIND_REQUESTS, MIND_TOPK, MIND_REL_TOL = 32, 5, 1e-5
+# GIN inference (phase 10): gin-tu at ogb_products widths on rmat1 at
+# scale 21 (n 2,097,152, m 63,538,872; ogb-products: 2,449,029 and
+# 61,859,140); the Cora-sized full_graph_sm graph for the d = 1433 shape
+GIN_SCALE, GIN_CELL, GIN_WARM = 21, "ogb_products", 3
+CORA_N, CORA_AVG_DEGREE = 2708, 2.0
+# rows a step of the plain spmm_ell takes: it gathers (rows, W, d)
+SPMM_CHUNK_ROWS = 1 << 16
+# kernel vs plain sum, as a share of max |out|: f32 sums of W <= 64
+# products in another order (the kernel in slot order, torch.sum by its
+# tree) differ by at most (W - 1) 2^-24 of the sum of |terms|
+SPMM_SUM_TOL = 1e-5
+# kernel-route logits vs the plain segment-sum route, node by node, as a
+# share of the node's max |logit|: both sum f32 messages in another order
+# (64-slot rows then their sum; atomic adds).  A sum of k terms taken in
+# another order differs by about sqrt(k) 2^-24 of its size: 1.9e-5 at
+# the largest in-degree, 102,632; the bound leaves 5x for the 5 layers
+GIN_LOGIT_TOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -486,6 +509,203 @@ def mind_serving(dev) -> int:
     return launches
 
 
+def bits_equal(a, b) -> bool:
+    """Bit for bit, NaN where NaN."""
+    import torch
+
+    nan = torch.isnan(b)
+    return torch.equal(torch.isnan(a), nan) and torch.equal(
+        torch.where(nan, 0.0, a).view(torch.int32),
+        torch.where(nan, 0.0, b).view(torch.int32))
+
+
+def spmm_check(label, x_pad, col, wgt, flush) -> list[dict]:
+    """Phase 10, step 3: spmm_ell against its plain version over all R
+    rows (in chunks of SPMM_CHUNK_ROWS: the plain version gathers
+    (rows, W, d)), both ops, timed; the sum also beside torch.sparse.mm
+    on the same (R, n_x) matrix as CSR.  Returns one row per op."""
+    import torch
+
+    from repro_torch import kernels as K
+
+    (n_x, d), (R, W) = x_pad.shape, col.shape
+    chunks = [(lo, min(R, lo + SPMM_CHUNK_ROWS)) for lo in range(0, R, SPMM_CHUNK_ROWS)]
+    nnz = int((wgt != 0).sum())
+    out_rows = []
+    for op in ("sum", "max"):
+        K.reset_launch_counts()
+        out = K.spmm_ell_cuda(x_pad, col, wgt, op)
+        torch.cuda.synchronize()
+        if K.launch_counts()["spmm_ell"] != 1:
+            fail(f"spmm_ell ({label}, {op}): the wrapper did not launch its kernel")
+        err, scale, same = 0.0, 0.0, True
+        for lo, hi in chunks:
+            ref = K.spmm_ell_ref(x_pad, col[lo:hi], wgt[lo:hi], op)
+            if op == "sum":
+                err = max(err, float((out[lo:hi] - ref).abs().max()))
+                scale = max(scale, float(ref.abs().max()))
+            else:
+                same &= bits_equal(out[lo:hi], ref)
+        if op == "sum" and not err <= SPMM_SUM_TOL * scale:
+            fail(f"spmm_ell ({label}, sum): kernel differs from its plain version by "
+                 f"{err} (max |out| {scale}, tolerance {SPMM_SUM_TOL} of it)")
+        if op == "max" and not same:
+            fail(f"spmm_ell ({label}, max): kernel is not bit-identical to its plain version")
+        plain_out = torch.empty_like(out)
+
+        def plain():
+            for lo, hi in chunks:
+                plain_out[lo:hi] = K.spmm_ell_ref(x_pad, col[lo:hi], wgt[lo:hi], op)
+
+        ms = time_ms(lambda: K.spmm_ell_cuda(x_pad, col, wgt, op), flush)
+        plain_ms = time_ms(plain, flush)
+        library_ms, lib_note = None, "none: no PyTorch call takes a masked max over ELL slots"
+        if op == "sum":
+            A = torch.sparse_csr_tensor(
+                torch.arange(0, R * W + 1, W, dtype=torch.int64, device=col.device),
+                col.reshape(-1).long(), wgt.reshape(-1), size=(R, n_x), check_invariants=False)
+            lib_err = float((torch.sparse.mm(A, x_pad) - out).abs().max())
+            library_ms = time_ms(lambda: torch.sparse.mm(A, x_pad), flush)
+            lib_note = f"torch.sparse.mm (CSR) {library_ms:.4f} ms (max abs diff {lib_err:.3g})"
+            del A
+        used = col if op == "sum" else col[wgt > 0]  # rows of x the op reads
+        rows_read = int(torch.unique(used).numel())
+        nbytes = 4 * (2 * R * W + rows_read * d + R * d)
+        bound_ms, bound_by = bound(nbytes, (2 if op == "sum" else 1) * nnz * d)
+        check = (f"max abs err {err:.3g} ({err / scale:.3g} of max |out|, tol {SPMM_SUM_TOL})"
+                 if op == "sum" else "bit-identical")
+        log(f"spmm_ell ({label}: x {tuple(x_pad.shape)}, ELL R={R} W={W}, {nnz} weights "
+            f"!= 0, op {op}): {check}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+            f"({len(chunks)} chunks), {lib_note}; {rows_read} rows of x read, {nbytes} "
+            f"bytes, bound {bound_ms:.4f} ms ({bound_by})")
+        out_rows.append(dict(name="spmm_ell", route="cuda",
+                             source="src/repro_torch/csrc/spmm_ell.cu",
+                             replaces="src/repro/kernels/spmm_ell/kernel.py:47",
+                             launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms))
+        del out, plain_out
+    return out_rows
+
+
+def gin_inference(dev) -> dict:
+    """Phase 10: GIN inference at full width on rmat1 scale 21.  Returns
+    the spmm_ell row of the kernels line (layer 1, the sum)."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_arch
+    from repro_torch.data import gnn_flat_batch
+    from repro_torch.graph import erdos_renyi_graph, rmat1
+    from repro_torch.models.gnn import build_neighbor_ell, gin, neighbor_ell
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"TF32: torch.backends.cuda.matmul.allow_tf32="
+        f"{torch.backends.cuda.matmul.allow_tf32}, torch.backends.cudnn.allow_tf32="
+        f"{torch.backends.cudnn.allow_tf32}")
+    cfg = get_arch("gin-tu").make_config(False, GIN_CELL)
+    t0 = time.perf_counter()
+    g = rmat1(GIN_SCALE, seed=SEED)
+    t1 = time.perf_counter()
+    batch = gnn_flat_batch(g, cfg.d_in, cfg.n_classes, seed=SEED)
+    t2 = time.perf_counter()
+    b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    ell = neighbor_ell(b["edge_src"], b["edge_dst"], b["edge_mask"], g.n)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    R, W = ell.col.shape
+    deg = torch.bincount(b["edge_dst"].long(), minlength=g.n)
+    log(f"graph {g.name}: n={g.n} m={g.m}, in-degree median "
+        f"{float(deg.float().median()):g}, max {int(deg.max())}, "
+        f"{int((deg == 0).sum())} isolated; generated in {t1 - t0:.1f} s, features "
+        f"{tuple(batch['x'].shape)} in {t2 - t1:.1f} s, copied in {t3 - t2:.1f} s; "
+        f"neighbour ELL built on the card in {t4 - t3:.3f} s: R={R} W={W}, "
+        f"{float((ell.wgt != 0).float().mean()):.3f} of the slots filled, "
+        f"{(ell.col.nbytes + ell.wgt.nbytes) / 1e9:.3f} GB")
+    del deg
+
+    # ---- step 3: the kernel against its plain version -----------------
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x_pad = torch.cat([b["x"], b["x"].new_zeros((1, cfg.d_in))])
+    row = spmm_check(f"layer 1, d={cfg.d_in}", x_pad, ell.col, ell.wgt, flush)[0]
+    h = torch.randn((g.n + 1, cfg.d_hidden), generator=gen, device=dev)
+    h[g.n] = 0
+    spmm_check(f"layers 2-5, d={cfg.d_hidden}", h, ell.col, ell.wgt, flush)
+    del x_pad, h
+    cora = erdos_renyi_graph(CORA_N, CORA_AVG_DEGREE, seed=SEED)
+    cfg_sm = get_arch("gin-tu").make_config(False, "full_graph_sm")
+    cb = {k: torch.as_tensor(v, device=dev)
+          for k, v in gnn_flat_batch(cora, cfg_sm.d_in, cfg_sm.n_classes, seed=SEED).items()}
+    # built without the memo, which keeps the large graph's ELL for the forward
+    cell = build_neighbor_ell(cb["edge_src"], cb["edge_dst"], cb["edge_mask"], cora.n)
+    spmm_check(f"full_graph_sm, d={cfg_sm.d_in}",
+               torch.cat([cb["x"], cb["x"].new_zeros((1, cfg_sm.d_in))]),
+               cell.col, cell.wgt, flush)
+    del cb, cell, flush
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- step 4: the forward through the kernel -----------------------
+    params = gin.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg)
+    args = (b["x"], b["edge_src"], b["edge_dst"], b["edge_mask"])
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    walls = []
+    for _ in range(1 + GIN_WARM):  # cold, then warm
+        t0 = time.perf_counter()
+        logits = gin.forward(params, *args, cfg)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    launches = K.launch_counts()["spmm_ell"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    warm = min(walls[1:])
+    log(f"GIN forward ({cfg.name}: {cfg.n_layers} layers, d_in {cfg.d_in}, hidden "
+        f"{cfg.d_hidden}, {cfg.n_classes} classes) over {g.n} nodes: cold "
+        f"{walls[0] * 1e3:.2f} ms, warm {', '.join(f'{w * 1e3:.2f}' for w in walls[1:])} "
+        f"ms ({g.n / warm:.4g} nodes/s); peak memory {peak:.2f} GiB; spmm_ell "
+        f"launches {launches} in {1 + GIN_WARM} forwards")
+    if launches != cfg.n_layers * (1 + GIN_WARM):
+        fail(f"GIN forward launched spmm_ell {launches} times in {1 + GIN_WARM} "
+             f"forwards, not once per layer ({cfg.n_layers})")
+    with device_profile("two warm GIN forwards", top=10):
+        for _ in range(2):
+            gin.forward(params, *args, cfg)
+        torch.cuda.synchronize()
+
+    # ---- step 5: against the plain segment-sum route ------------------
+    if logits.shape != (g.n, cfg.n_classes) or not bool(torch.isfinite(logits).all()):
+        fail(f"GIN logits are not finite of shape {(g.n, cfg.n_classes)}")
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    ref = gin.forward(params, *args, dataclasses.replace(cfg, agg_impl="segment_sum"))
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    if K.launch_counts()["spmm_ell"]:
+        fail("the segment-sum route launched spmm_ell")
+    err = (logits - ref).abs().max(1).values
+    node_scale = ref.abs().max(1).values
+    worst = float((err / node_scale).max())
+    rel = float(err.max() / node_scale.max())
+    agree = float((logits.argmax(1) == ref.argmax(1)).float().mean())
+    loss = float(gin.node_classification_loss(params, b, cfg))
+    log(f"GIN logits, kernel route vs segment-sum route ({plain_s * 1e3:.1f} ms, "
+        f"edges in chunks of {gin.EDGE_CHUNK}): max |diff| {float(err.max()):.4g} = "
+        f"{rel:.3g} of max |logit| {float(node_scale.max()):.4g}; node by node at most "
+        f"{worst:.3g} of the node's max |logit| (tol {GIN_LOGIT_TOL}); argmax agrees "
+        f"on {agree:.6f} of the nodes; eval loss {loss:.6g}")
+    if not worst <= GIN_LOGIT_TOL:
+        fail(f"GIN logits: kernel route differs from the segment-sum route by {worst:.3g} "
+             f"of a node's max |logit| (tolerance {GIN_LOGIT_TOL})")
+    row["launches"] = launches
+    return row
+
+
 def main() -> None:
     try:
         import torch
@@ -719,6 +939,11 @@ def main() -> None:
     t0 = time.perf_counter()
     bag_row["launches"] = mind_serving(dev)
     log(f"phase 9 took {time.perf_counter() - t0:.1f} s")
+
+    # ---- 10. GIN inference at full width, ogb-products scale -----------
+    t0 = time.perf_counter()
+    rows.append(gin_inference(dev))
+    log(f"phase 10 took {time.perf_counter() - t0:.1f} s")
 
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s on {card_line}")
     print(json.dumps({"kernels": rows}), flush=True)

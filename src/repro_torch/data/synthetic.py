@@ -6,6 +6,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from repro_torch.models.gnn.batch import flat_batch_from_graph
+
 
 def _rng(seed: int, step: int) -> np.random.Generator:
     return np.random.default_rng(np.random.SeedSequence([seed, step]))
@@ -40,3 +42,20 @@ def mind_batch(step: int, batch: int, cfg, seed: int = 0) -> dict:
             0, cfg.n_items, (batch, cfg.n_negatives)
         ).astype(np.int32),
     }
+
+
+def gnn_flat_batch(graph, d_feat: int, n_classes: int, *,
+                   coords: bool = False, triplets: bool = False,
+                   seed: int = 0) -> dict:
+    """Synthetic features and labels on ``graph``'s topology, as the
+    dict the GNN forward takes (numpy).  Triplets raise
+    ``NotImplementedError`` until DimeNet is ported."""
+    fb = flat_batch_from_graph(graph, d_feat, n_classes, with_coords=coords,
+                               with_triplets=triplets, seed=seed)
+    out = {
+        "x": fb.x, "edge_src": fb.edge_src, "edge_dst": fb.edge_dst,
+        "edge_mask": fb.edge_mask, "labels": fb.labels,
+    }
+    if coords:
+        out["coords"] = fb.coords
+    return out

@@ -3,6 +3,7 @@ the partitioner, byte-identical to the JAX package's ``repro.graph``."""
 
 from repro_torch.graph.formats import CSR, Graph, coo_to_csr, graph_fingerprint
 from repro_torch.graph.generators import (
+    erdos_renyi_graph,
     grid_road_graph,
     rmat1,
     rmat2,
@@ -20,7 +21,8 @@ from repro_torch.graph.partition import (
 
 __all__ = [
     "CSR", "Graph", "coo_to_csr", "graph_fingerprint",
-    "grid_road_graph", "rmat1", "rmat2", "rmat_graph", "small_world_graph",
+    "erdos_renyi_graph", "grid_road_graph", "rmat1", "rmat2", "rmat_graph",
+    "small_world_graph",
     "PARTITIONER_KINDS", "DeviceELL", "PartitionedGraph",
     "canonical_partitioner", "from_arrays", "partition_graph",
 ]

@@ -10,7 +10,8 @@ RMAT2: proposed Graph500 SSSP-benchmark R-MAT (A=0.50, B=C=0.10,
 
 Plus stand-ins for the paper's SNAP graphs: a 2D grid with random
 weights (road network: high diameter) and a Watts-Strogatz small-world
-graph (social network: low diameter).
+graph (social network: low diameter); and an Erdos-Renyi graph for the
+GNN cells.
 """
 
 from __future__ import annotations
@@ -109,3 +110,16 @@ def small_world_graph(
     g = Graph(n, src.astype(np.int32), dst.astype(np.int32), w,
               name=f"smallworld_{n}")
     return g.symmetrized().deduplicated()
+
+
+def erdos_renyi_graph(
+    n: int, avg_degree: float = 8.0, seed: int = 0, max_weight: int = 100
+) -> Graph:
+    """G(n, m) with m = n * avg_degree uniform random edges, symmetrized
+    and deduplicated (the Cora-sized ``full_graph_sm`` test graph)."""
+    rng = np.random.default_rng(seed)
+    m = int(n * avg_degree)
+    src = rng.integers(0, n, size=m).astype(np.int32)
+    dst = rng.integers(0, n, size=m).astype(np.int32)
+    w = rng.integers(1, max_weight + 1, size=m).astype(np.float32)
+    return Graph(n, src, dst, w, name=f"er_{n}").symmetrized().deduplicated()

@@ -6,6 +6,7 @@ with a plain torch version that CPU tensors take.
   relax_ell         pull-mode min-plus ELL row minima (rule R1)
   flash_attention   streaming-softmax GQA attention (LM prefill)
   embedding_bag     gather + weighted sum per bag (MIND profile pooling)
+  spmm_ell          ELL SpMM, sum or max over slots (GNN neighbour sums)
 """
 
 from repro_torch.kernels._lib import (
@@ -29,6 +30,12 @@ from repro_torch.kernels.relax_push import (
     relax_push_gather_ref,
     relax_push_rows,
 )
+from repro_torch.kernels.spmm_ell import (
+    aggregate_neighbors,
+    spmm_rows,
+    spmm_ell_cuda,
+    spmm_ell_ref,
+)
 from repro_torch.kernels.superstep_fused import (
     fused_superstep,
     fused_superstep_cuda,
@@ -43,4 +50,5 @@ __all__ = [
     "fused_superstep", "fused_superstep_cuda", "fused_superstep_ref",
     "attention_ref", "flash_attention_cuda", "mha",
     "bag_pool", "bag_sum", "embedding_bag_cuda", "embedding_bag_ref",
+    "aggregate_neighbors", "spmm_rows", "spmm_ell_cuda", "spmm_ell_ref",
 ]

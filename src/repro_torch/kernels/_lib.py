@@ -37,7 +37,7 @@ LIB_NAME = "libminplus.so"
 
 #: the kernels of the library, by the name their wrappers count under
 KERNELS = ("fused_superstep", "relax_push_gather", "relax_ell",
-           "flash_attention", "embedding_bag")
+           "flash_attention", "embedding_bag", "spmm_ell")
 
 _launches = dict.fromkeys(KERNELS, 0)
 _lib: "ctypes.CDLL | None" = None

@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models.gnn.gin import GINConfig
 from repro_torch.models.lm import LM, LMConfig, layer_shapes
 from repro_torch.models.mind import MIND, MINDConfig
 
@@ -48,3 +49,31 @@ def mind_params_from_numpy(tree: dict, cfg: MINDConfig, device=None) -> MIND:
         routing_init=_tensor(tree["routing_init"], f32, dev),
         interest_mlp={k: _tensor(v, f32, dev) for k, v in tree["interest_mlp"].items()},
     )
+
+
+def gin_params_from_numpy(tree: dict, cfg: GINConfig, device=None) -> dict:
+    """``tree`` as the JAX package's ``models/gnn/gin.py::init_params``
+    lays it out: ``layers[i].mlp.{w0,b0,w1,b1}``, ``layers[i].eps`` and
+    ``readout.{w0,b0}``; f32 throughout.  Shapes are checked against
+    ``cfg``."""
+    dev, f32 = resolve_device(device), torch.float32
+
+    def mlp(p, dims, where):
+        want = {f"w{i}": (dims[i], dims[i + 1]) for i in range(len(dims) - 1)}
+        want |= {f"b{i}": (dims[i + 1],) for i in range(len(dims) - 1)}
+        got = {k: tuple(np.shape(v)) for k, v in p.items()}
+        if got != want:
+            raise ValueError(f"{where}: shapes {got} do not match {want}")
+        return {k: _tensor(v, f32, dev) for k, v in p.items()}
+
+    if len(tree["layers"]) != cfg.n_layers:
+        raise ValueError(f"{len(tree['layers'])} layers, config has {cfg.n_layers}")
+    layers = []
+    for i, lp in enumerate(tree["layers"]):
+        d_in = cfg.d_in if i == 0 else cfg.d_hidden
+        layers.append({
+            "mlp": mlp(lp["mlp"], [d_in, cfg.d_hidden, cfg.d_hidden], f"layers[{i}].mlp"),
+            "eps": _tensor(lp["eps"], f32, dev).reshape(()),
+        })
+    return {"layers": layers,
+            "readout": mlp(tree["readout"], [cfg.d_hidden, cfg.n_classes], "readout")}

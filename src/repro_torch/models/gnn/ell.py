@@ -1,0 +1,87 @@
+"""The neighbour ELL: the in-edges of every vertex as padded ELL rows,
+the layout the ``spmm_ell`` kernel sums over.  It plays for GNN message
+passing the role ``core/selfstab.py::in_ell`` plays for SSSP, with
+three differences: ``wgt`` is the edge mask as f32 (a masked edge
+counts 0, as in GIN's ``x[src] * mask``); padding is ``col = n``,
+``wgt = 0``, pointing at one zero row appended to the features (the
+"pad-zero row" of the JAX package's ``spmm_ell`` op); and a vertex's
+virtual rows are combined by a sum.
+
+A vertex of in-degree > W is split into ceil(deg / W) virtual rows, as
+``graph/partition.py::chunk_fat_rows`` splits fat rows, and every
+vertex has at least one row.  Slots keep the edges' order (a stable
+sort by destination).  The build runs in torch on the edges' device,
+so on the card it is a sort there.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.kernels import spmm_rows
+
+# memo of the last graph only, so a graph the caller drops pins no more
+# than one ELL on the card: (key, edge tensors, ELL), keyed by the edge
+# tensors' identity and version counters (an in-place torch update
+# invalidates) + n; it holds its edge tensors, so their ids are not
+# reused while it lives
+_LAST: tuple | None = None
+
+
+class NeighborELL(NamedTuple):
+    row_dst: torch.Tensor  # (R,) int64, the vertex of each virtual row
+    col: torch.Tensor      # (R, W) int32 source vertex; n for padding
+    wgt: torch.Tensor      # (R, W) f32 edge mask; 0 for padding
+    n: int
+
+
+def build_neighbor_ell(edge_src, edge_dst, edge_mask, n: int,
+                       width: int | None = None) -> NeighborELL:
+    """The neighbour ELL of ``n`` vertices and the edges
+    ``edge_src -> edge_dst`` (int tensors), weighted by ``edge_mask``;
+    W = ``width`` or min(64, max in-degree)."""
+    dev, m = edge_dst.device, edge_dst.shape[0]
+    if m:
+        lo = int(torch.minimum(edge_src.min(), edge_dst.min()))
+        hi = int(torch.maximum(edge_src.max(), edge_dst.max()))
+        if lo < 0 or hi >= n:
+            raise ValueError(f"edge endpoints must lie in [0, {n}), got [{lo}, {hi}]")
+    dst = edge_dst.long()
+    order = torch.argsort(dst, stable=True)
+    dst_sorted = dst[order]
+    deg = torch.bincount(dst, minlength=n)
+    W = int(width or max(1, min(64, int(deg.max()))))
+    chunks = torch.clamp((deg + W - 1) // W, min=1)  # >= 1: empty rows exist
+    row_start = torch.cumsum(chunks, 0) - chunks
+    R = int(chunks.sum())
+    # each edge's flat (virtual row, slot) position: its vertex's first
+    # row times W plus its rank among the vertex's in-edges
+    rank = torch.arange(m, device=dev) - (torch.cumsum(deg, 0) - deg)[dst_sorted]
+    flat = row_start[dst_sorted] * W + rank
+    col = torch.full((R * W,), n, dtype=torch.int32, device=dev)
+    wgt = torch.zeros((R * W,), dtype=torch.float32, device=dev)
+    col[flat] = edge_src[order].to(torch.int32)
+    wgt[flat] = edge_mask[order].to(torch.float32)
+    row_dst = torch.repeat_interleave(torch.arange(n, device=dev), chunks)
+    return NeighborELL(row_dst, col.view(R, W), wgt.view(R, W), n)
+
+
+def neighbor_ell(edge_src, edge_dst, edge_mask, n: int) -> NeighborELL:
+    """:func:`build_neighbor_ell`, memoised for the last graph asked."""
+    global _LAST
+    edges = (edge_src, edge_dst, edge_mask)
+    key = (*(id(t) for t in edges), *(t._version for t in edges), n)
+    if _LAST is None or _LAST[0] != key:
+        _LAST = (key, edges, build_neighbor_ell(*edges, n))
+    return _LAST[2]
+
+
+def neighbor_sum(ell: NeighborELL, x) -> torch.Tensor:
+    """(n, d) ``sum over in-edges (src -> v) of x[src] * mask``: the
+    kernel op over the ELL rows (with the zero row appended to x), then
+    the sum of each vertex's rows."""
+    x_pad = torch.cat([x, x.new_zeros((1, x.shape[1]))])
+    rows = spmm_rows(x_pad, ell.col, ell.wgt, "sum")
+    return torch.zeros_like(x).index_add_(0, ell.row_dst, rows)

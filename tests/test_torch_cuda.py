@@ -1,7 +1,8 @@
-"""The port's CUDA kernels, its solve and its serving paths on the card,
-held against the plain torch versions on the same inputs: the min-plus
-kernels and the embedding bag bit-identical, attention within the
-reference's tolerances (2e-5 f32, 2e-2 bf16).  Needs an NVIDIA GPU and
+"""The port's CUDA kernels, its solve, its serving paths and GIN
+inference on the card, held against the plain torch versions on the
+same inputs: the min-plus kernels, the embedding bag and the spmm_ell
+max bit-identical, attention within the reference's tolerances (2e-5
+f32, 2e-2 bf16), the spmm_ell sum within 1e-5 of max |ref|.  Needs an NVIDIA GPU and
 nvcc; skips elsewhere.  Imports no JAX, so it runs on a machine with
 the card alone:
 
@@ -18,9 +19,10 @@ from repro_torch import kernels as K
 from repro_torch.api import Problem, SingleSource, Solver, SolverConfig
 from repro_torch.configs import get_arch
 from repro_torch.core.selfstab import synchronous_sweep
-from repro_torch.data import lm_batch, mind_batch
+from repro_torch.data import gnn_flat_batch, lm_batch, mind_batch
 from repro_torch.graph import rmat1, small_world_graph
 from repro_torch.models import lm, mind
+from repro_torch.models.gnn import gin
 from repro_torch.models.common import generator
 
 pytestmark = pytest.mark.cuda
@@ -255,3 +257,90 @@ def test_mind_serving_on_card_matches_cpu(dev):
     # scores are about 1e-6 (0.02-scale tables): hold them at ref's scale
     err = float((scores.cpu() - ref).abs().max())
     assert err <= 1e-5 * float(ref.abs().max()), err
+
+
+def bits_equal(a, b):
+    """Bit for bit, NaN where NaN."""
+    nan = torch.isnan(b)
+    return torch.equal(torch.isnan(a), nan) and torch.equal(
+        torch.where(nan, 0.0, a).view(torch.int32), torch.where(nan, 0.0, b).view(torch.int32))
+
+
+@pytest.mark.parametrize("op", ["sum", "max"])
+@pytest.mark.parametrize("n_x,R,W,d", [
+    (100, 64, 4, 32), (257, 300, 12, 96), (64, 128, 8, 128), (5000, 3000, 64, 100),
+    (5000, 3000, 64, 64), (3000, 500, 14, 1433), (50, 7, 33, 3), (40, 9, 70, 2),
+    (30, 5, 0, 8), (1, 1, 1, 1),
+])
+def test_spmm_ell_matches_plain(dev, op, n_x, R, W, d):
+    """Vector widths 4 (d = 100, 96, 128), 2 (d = 64, 2) and 1 (d = 1433,
+    3, 1); W across several 32-slot chunks; W = 0.  NaNs in a fifth of
+    x's rows' first column reach some rows; the max must carry them."""
+    r = np.random.default_rng(n_x + R + W + d)
+    x = r.normal(size=(n_x, d)).astype(np.float32)
+    x[n_x - 1] = 0
+    if op == "max" and n_x > 5:
+        x[r.random(n_x) < 0.2, 0] = np.nan
+    col = r.integers(0, n_x, (R, W)).astype(np.int32)
+    wgt = ((r.random((R, W)) > 0.3) * r.random((R, W))).astype(np.float32)
+    tx, tc, tw = on(dev, x, col, wgt)
+    K.reset_launch_counts()
+    out = K.aggregate_neighbors(tx, tc, tw, op=op, impl="pallas")
+    torch.cuda.synchronize()
+    assert K.launch_counts()["spmm_ell"] == 1
+    ref = K.spmm_ell_ref(tx, tc, tw, op) if W else torch.full(
+        (R, d), 0.0 if op == "sum" else float("-inf"), device=dev)
+    assert out.shape == (R, d) and out.dtype == torch.float32
+    if op == "max":
+        assert bits_equal(out, ref)
+        if W:
+            assert bits_equal(out.cpu(), K.spmm_ell_ref(*on("cpu", x, col, wgt), op))
+    else:
+        scale = max(float(ref.abs().max()), 1e-30)
+        assert float((out - ref).abs().max()) <= 1e-5 * scale
+    # the slots are walked in order: the same bits every launch
+    assert bits_equal(K.spmm_ell_cuda(tx, tc, tw, op), out)
+
+
+def test_spmm_ell_wrapper_rejects_bad_inputs(dev):
+    r = np.random.default_rng(0)
+    x, col, wgt = on(dev, r.normal(size=(50, 8)).astype(np.float32),
+                     r.integers(0, 50, (20, 4)).astype(np.int32),
+                     r.random((20, 4)).astype(np.float32))
+    with pytest.raises(ValueError, match="lie in"):
+        K.spmm_ell_cuda(x, torch.full_like(col, 50), wgt)
+    with pytest.raises(ValueError, match="lie in"):
+        K.spmm_ell_cuda(x, torch.full_like(col, -1), wgt)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.spmm_ell_cuda(x.t().contiguous().t(), col, wgt)
+    with pytest.raises(ValueError, match="col must be 2-D int32"):
+        K.spmm_ell_cuda(x, col.long(), wgt)
+    with pytest.raises(ValueError, match="wgt must be float32"):
+        K.spmm_ell_cuda(x, col, wgt.double())
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        K.spmm_ell_cuda(x, col.cpu(), wgt)
+    with pytest.raises(ValueError, match="op"):
+        K.spmm_ell_cuda(x, col, wgt, "mean")
+
+
+@pytest.mark.parametrize("cell,scale", [("ogb_products", 12), ("full_graph_sm", 9)])
+def test_gin_on_card_matches_cpu(dev, cell, scale):
+    """GIN through the kernel (one launch a layer) on the card against
+    the CPU, and against the plain segment-sum route on the card: node
+    by node within 1e-5 of the node's max |logit|."""
+    cfg = get_arch("gin-tu").make_config(False, cell)
+    g = rmat1(scale, seed=0)
+    batch = gnn_flat_batch(g, cfg.d_in, cfg.n_classes, seed=0)
+    params = gin.init_params(generator(0, "cpu"), cfg)
+    on_card = torch.utils._pytree.tree_map(lambda t: t.to(dev), params)
+    args = [torch.as_tensor(batch[k]) for k in ("x", "edge_src", "edge_dst", "edge_mask")]
+    K.reset_launch_counts()
+    out = gin.forward(on_card, *(a.to(dev) for a in args), cfg)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["spmm_ell"] == cfg.n_layers
+    plain = gin.forward(on_card, *(a.to(dev) for a in args),
+                        dataclasses.replace(cfg, agg_impl="segment_sum"))
+    cpu = gin.forward(params, *args, cfg)
+    for ref in (cpu, plain.cpu()):
+        err = (out.cpu() - ref).abs().max(1).values
+        assert bool((err <= 1e-5 * ref.abs().max(1).values).all())

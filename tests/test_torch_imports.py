@@ -37,7 +37,11 @@ def test_port_imports_no_jax_and_no_reference():
                 "repro_torch.models.convert", "repro_torch.models.gnn.layers",
                 "repro_torch.configs.minitron", "repro_torch.data.synthetic",
                 "repro_torch.kernels.flash_attention.ops",
-                "repro_torch.kernels.embedding_bag.ops"):
+                "repro_torch.kernels.embedding_bag.ops",
+                "repro_torch.kernels.spmm_ell.ops", "repro_torch.kernels.spmm_ell.kernel",
+                "repro_torch.models.gnn.gin", "repro_torch.models.gnn.ell",
+                "repro_torch.models.gnn.batch", "repro_torch.configs.gin_tu",
+                "repro_torch.configs.cells"):
         assert sub in mods, sub
     code = PROBE.format(src=str(ROOT / "src"), root=str(ROOT),
                         modules=mods + ["chip_smoke"])
