@@ -24,7 +24,8 @@ Phases (any failure exits non-zero):
      seed) stabilizes to the oracle, launching relax_ell
   7. flash_attention and embedding_bag against their plain versions on
      the card at the serving paths' shapes, timed with CUDA events
-     beside one PyTorch call computing the same function
+     beside one PyTorch call computing the same function; attention
+     also as achieved TFLOP/s and share of its bound
   8. LM serving, minitron-8b in bf16: prefill of 4 x 1920 tokens
      through the attention kernel (32 launches), 128 greedy decode
      steps; logits against the plain attention; then in fp32, the last
@@ -34,7 +35,8 @@ Phases (any failure exits non-zero):
      kernel, against the plain bag
  10. GIN inference: spmm_ell against its plain version (in row chunks)
      at the layer shapes (d = 100 and 64) and at the Cora shape
-     (d = 1433), timed beside torch.sparse.mm; gin-tu forwards through
+     (d = 1433), timed beside torch.sparse.mm, and as a bare launch
+     beside the wrapper and its index check; gin-tu forwards through
      the kernel (5 launches each) on rmat1 scale 21 with 100 features;
      logits against the plain segment-sum route
 
@@ -188,6 +190,7 @@ ATTN_CASES = (
     ("a minitron prefill", 4, 32, 8, 2048, 2048, 128, "bfloat16", True),
     ("a' minitron prefill, smoke prompt", 4, 32, 8, 1920, 1920, 128, "bfloat16", True),
     ("b phi3-mini prefill", 1, 32, 32, 2048, 2048, 96, "bfloat16", True),
+    ("c bf16 causal, Sq < Sk", 1, 8, 2, 128, 1024, 128, "bfloat16", True),
     ("c f32 causal, Sq < Sk", 1, 8, 2, 128, 1024, 128, "float32", True),
     ("c f32 non-causal, Sq < Sk", 1, 8, 2, 128, 1024, 128, "float32", False),
 )
@@ -253,10 +256,12 @@ def serving_kernels(dev, flush) -> tuple[dict, dict]:
             f"(tol {tol}{'; bf16 ulp check passed' if dtype == torch.bfloat16 else ''}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"sdpa {library_ms:.4f} ms (max abs err {lib_err:.3g}); "
             f"{flops} flop, {nbytes} bytes, bound {bound_ms:.4f} ms "
-            f"({bound_by}, {peak / 1e12:g} TFLOP/s)")
+            f"({bound_by}, {peak / 1e12:g} TFLOP/s); kernel at "
+            f"{flops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.3f} of its bound "
+            f"(sdpa {flops / library_ms / 1e9:.1f} TFLOP/s)")
         if attn_row is None:
             attn_row = dict(name="flash_attention", route="cuda",
-                            source="src/repro_torch/csrc/flash_attention.cu",
+                            source="src/repro_torch/csrc/flash_attention_sm90.cu",
                             replaces="src/repro/kernels/flash_attention/kernel.py:84",
                             launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                             bound_ms=bound_ms, bound_by=bound_by,
@@ -527,6 +532,7 @@ def spmm_check(label, x_pad, col, wgt, flush) -> list[dict]:
     import torch
 
     from repro_torch import kernels as K
+    from repro_torch.kernels.spmm_ell.kernel import _launch as spmm_launch
 
     (n_x, d), (R, W) = x_pad.shape, col.shape
     chunks = [(lo, min(R, lo + SPMM_CHUNK_ROWS)) for lo in range(0, R, SPMM_CHUNK_ROWS)]
@@ -558,6 +564,22 @@ def spmm_check(label, x_pad, col, wgt, flush) -> list[dict]:
                 plain_out[lo:hi] = K.spmm_ell_ref(x_pad, col[lo:hi], wgt[lo:hi], op)
 
         ms = time_ms(lambda: K.spmm_ell_cuda(x_pad, col, wgt, op), flush)
+        # the bare launch, without the wrapper's Python (argument checks,
+        # output allocation): the checked call above vouches for the inputs
+        bare_out = torch.empty_like(out)
+        bare_args = (x_pad.data_ptr(), col.data_ptr(), wgt.data_ptr(), bare_out.data_ptr(),
+                     R, W, d, ("sum", "max").index(op),
+                     torch.cuda.current_stream().cuda_stream)
+        launch = spmm_launch()
+        if launch(*bare_args) != 0:
+            fail(f"spmm_ell ({label}, {op}): the bare launch failed")
+        torch.cuda.synchronize()
+        if not bits_equal(bare_out, out):
+            fail(f"spmm_ell ({label}, {op}): the bare launch differs from the wrapper's")
+        bare_ms = time_ms(lambda: launch(*bare_args), flush)
+        # the wrapper's index check: one host read of col's (min, max),
+        # made once for an ELL tensor (the GIN forward launches 5 times on one)
+        check_ms = time_ms(lambda: torch.stack(torch.aminmax(col)).tolist(), flush)
         plain_ms = time_ms(plain, flush)
         library_ms, lib_note = None, "none: no PyTorch call takes a masked max over ELL slots"
         if op == "sum":
@@ -575,7 +597,8 @@ def spmm_check(label, x_pad, col, wgt, flush) -> list[dict]:
         check = (f"max abs err {err:.3g} ({err / scale:.3g} of max |out|, tol {SPMM_SUM_TOL})"
                  if op == "sum" else "bit-identical")
         log(f"spmm_ell ({label}: x {tuple(x_pad.shape)}, ELL R={R} W={W}, {nnz} weights "
-            f"!= 0, op {op}): {check}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+            f"!= 0, op {op}): {check}; kernel {ms:.4f} ms (bare launch {bare_ms:.4f} ms; "
+            f"the index check, once an ELL, {check_ms:.4f} ms), plain {plain_ms:.4f} ms "
             f"({len(chunks)} chunks), {lib_note}; {rows_read} rows of x read, {nbytes} "
             f"bytes, bound {bound_ms:.4f} ms ({bound_by})")
         out_rows.append(dict(name="spmm_ell", route="cuda",
@@ -583,7 +606,7 @@ def spmm_check(label, x_pad, col, wgt, flush) -> list[dict]:
                              replaces="src/repro/kernels/spmm_ell/kernel.py:47",
                              launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms))
-        del out, plain_out
+        del out, plain_out, bare_out
     return out_rows
 
 

@@ -1,32 +1,33 @@
-// Streaming-softmax (flash) attention, forward only, causal or not,
-// with grouped KV heads (GQA):
+// Streaming-softmax (flash) attention for f32 on the CUDA cores,
+// forward only, causal or not, with grouped KV heads (GQA):
 //
 //   o[b, h, i] = softmax_j(q[b, h, i] . k[b, h/G, j] * scale) v[b, h/G, j]
 //
 // where a causal row i sees keys j <= i + (Sk - Sq) and G = Hq / Hkv.
+// flash_attention_launch below is the library's one entry point for
+// attention: it sends bf16 to the tensor-core kernel in
+// flash_attention_sm90.cu (wgmma, TMA) and f32 to this one.
 //
-// Replaces the TPU kernel src/repro/kernels/flash_attention/kernel.py
-// (flash_attention -> _attn_kernel).  The TPU kernel walks a grid
-// (B*Hq, Sq/128, Sk/128) in order, carrying the running max m, sum l
-// and accumulator acc in VMEM scratch across the sequential k axis.
-// Hopper's blocks run in no order, so here one block owns one
-// (b*Hq + h, 64-row q tile) and a loop over 64-key tiles inside the
-// block takes the place of that axis; m, l and acc live in registers.
-// K/V tiles go through shared memory, read once per q tile; the kv
-// row is b*Hkv + h/G, so no K/V head is replicated (the TPU's kv_map).
-// Key tiles wholly above the causal diagonal are never visited (the
-// TPU kernel's pl.when(run)).  Heavier q tiles (later rows, more key
-// tiles) are scheduled first.
+// Replaces, for f32, the TPU kernel
+// src/repro/kernels/flash_attention/kernel.py (flash_attention ->
+// _attn_kernel).  The TPU kernel walks a grid (B*Hq, Sq/128, Sk/128)
+// in order, carrying the running max m, sum l and accumulator acc in
+// VMEM scratch across the sequential k axis.  Hopper's blocks run in
+// no order, so here one block owns one (b*Hq + h, 64-row q tile) and a
+// loop over 64-key tiles inside the block takes the place of that
+// axis; m, l and acc live in registers.  K/V tiles go through shared
+// memory, read once per q tile; the kv row is b*Hkv + h/G, so no K/V
+// head is replicated (the TPU's kv_map).  Key tiles wholly above the
+// causal diagonal are never visited (the TPU kernel's pl.when(run)).
+// Heavier q tiles (later rows, more key tiles) are scheduled first.
 //
-// Arithmetic is the TPU kernel's, all in fp32: q, k and v are upcast
-// on load, s = (q.k)*scale, masked entries take -1e30, p stays fp32
-// for p.v, and the output is acc / max(l, 1e-30) cast to q's dtype.
-// So the products run as fp32 FMAs on the CUDA cores, not on the
-// tensor cores.  Bound: at bf16 inputs the work is compute-bound
-// (4*D flops per visible (query, key) pair against 2 bytes per element
-// moved once); this kernel's own ceiling is the 67 TFLOP/s fp32 rate of
-// an H100 SXM (data sheet, 700 W), below the 989 TFLOP/s bf16 tensor
-// cores that a later version with bf16 p and wgmma would aim at.
+// Arithmetic is the TPU kernel's, all in fp32: s = (q.k)*scale, masked
+// entries take -1e30, p stays fp32 for p.v, and the output is
+// acc / max(l, 1e-30).  The products run as fp32 FMAs on the CUDA
+// cores: the f32 path is held to 2e-5 of the f32 reference, which TF32
+// tensor cores would not meet.  Bound: 4*D flops per visible
+// (query, key) pair at the 67 TFLOP/s fp32 rate of an H100 SXM (data
+// sheet, 700 W).
 //
 // Thread layout (256 threads, 8 warps): thread t owns q rows
 // 4*(t/16) .. +3 of the tile.  For the 64x64 score tile it holds the
@@ -35,7 +36,6 @@
 // row max and row sum reduce with four shuffles.  Shared rows are
 // padded so that every shared-memory read in the inner loops is free
 // of bank conflicts (or a broadcast).
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -50,15 +50,6 @@ constexpr int kCols = kBK / kGroup;             // 4 score columns per thread
 constexpr int kPStride = kBK + 4;  // rows 4 apart land 16 banks apart
 constexpr float kNegInf = -1e30f;  // the TPU kernel's mask value
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
 template <int D>
 constexpr size_t smem_bytes() {
   // q and k tiles padded to D+1 floats a row, v tile D, p tile kPStride
@@ -66,11 +57,11 @@ constexpr size_t smem_bytes() {
          (static_cast<size_t>(kBQ + kBK) * (D + 1) + kBK * D + kBQ * kPStride);
 }
 
-template <int D, typename T>
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, int Hq, int group, int Sq, int Sk, float scale,
-    int causal) {
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ o, int Hq, int group,
+    int Sq, int Sk, float scale, int causal) {
   constexpr int kDC = D / kGroup;  // accumulator columns per thread
   constexpr int kQK = D + 1;       // padded row of the q and k tiles
   extern __shared__ float smem[];
@@ -86,10 +77,10 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
   const long long kv_row = static_cast<long long>(b) * (Hq / group) + h / group;
   const int q0 = qt * kBQ;
   const int q_offset = Sk - Sq;
-  const T* qg = q + (static_cast<long long>(bh) * Sq + q0) * D;
-  const T* kg = k + kv_row * Sk * D;
-  const T* vg = v + kv_row * Sk * D;
-  T* og = o + (static_cast<long long>(bh) * Sq + q0) * D;
+  const float* qg = q + (static_cast<long long>(bh) * Sq + q0) * D;
+  const float* kg = k + kv_row * Sk * D;
+  const float* vg = v + kv_row * Sk * D;
+  float* og = o + (static_cast<long long>(bh) * Sq + q0) * D;
 
   const int tid = threadIdx.x;
   const int rg = tid / kGroup, cg = tid % kGroup;
@@ -97,7 +88,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
 
   for (int i = tid; i < kBQ * D; i += kThreads) {
     const int r = i / D;
-    qs[r * kQK + (i - r * D)] = to_f32(qg[i]);
+    qs[r * kQK + (i - r * D)] = qg[i];
   }
 
   float m[kRows], l[kRows], acc[kRows][kDC];
@@ -119,8 +110,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     const long long base = static_cast<long long>(k0) * D;
     for (int i = tid; i < kBK * D; i += kThreads) {
       const int r = i / D;
-      ks[r * kQK + (i - r * D)] = to_f32(kg[base + i]);
-      vs[i] = to_f32(vg[base + i]);
+      ks[r * kQK + (i - r * D)] = kg[base + i];
+      vs[i] = vg[base + i];
     }
     __syncthreads();
 
@@ -199,51 +190,40 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     const float li = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < kDC; ++j) {
-      store(og + static_cast<long long>(r0 + i) * D + cg + kGroup * j,
-            acc[i][j] / li);
+      og[static_cast<long long>(r0 + i) * D + cg + kGroup * j] = acc[i][j] / li;
     }
   }
 }
 
-template <int D, typename T>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Hq, int Hkv, int Sq, int Sk, int causal, float scale,
            cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
-  auto kernel = flash_attention_kernel<D, T>;
+  auto kernel = flash_attention_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long blocks = static_cast<long long>(B) * Hq * (Sq / kBQ);
   kernel<<<static_cast<unsigned int>(blocks), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Hq, Hq / Hkv, Sq, Sk,
-      scale, causal);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), Hq, Hq / Hkv, Sq,
+      Sk, scale, causal);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_d(int D, const void* q, const void* k, const void* v, void* o,
-             int B, int Hq, int Hkv, int Sq, int Sk, int causal, float scale,
-             cudaStream_t stream) {
-  switch (D) {
-    case 64:
-      return launch<64, T>(q, k, v, o, B, Hq, Hkv, Sq, Sk, causal, scale, stream);
-    case 96:
-      return launch<96, T>(q, k, v, o, B, Hq, Hkv, Sq, Sk, causal, scale, stream);
-    case 128:
-      return launch<128, T>(q, k, v, o, B, Hq, Hkv, Sq, Sk, causal, scale, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 }  // namespace
 
+// flash_attention_sm90.cu
+int flash_attention_bf16_sm90(const void* q, const void* k, const void* v,
+                              void* o, int B, int Hq, int Hkv, int Sq, int Sk,
+                              int D, int causal, float scale,
+                              cudaStream_t stream);
+
 // q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D), o like q; all contiguous, of
 // one type (bf16 when is_bf16, else f32).  The caller guarantees
-// D in {64, 96, 128}, Sq and Sk multiples of 64, Hq % Hkv == 0 and,
+// D in {64, 96, 128}, Sq and Sk multiples of 128, Hq % Hkv == 0 and,
 // when causal, Sq <= Sk.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int B, int Hq,
@@ -251,9 +231,17 @@ extern "C" int flash_attention_launch(
     cudaStream_t stream) {
   if (static_cast<long long>(B) * Hq * Sq == 0) return 0;
   if (is_bf16) {
-    return launch_d<__nv_bfloat16>(D, q, k, v, o, B, Hq, Hkv, Sq, Sk, causal,
-                                   scale, stream);
+    return flash_attention_bf16_sm90(q, k, v, o, B, Hq, Hkv, Sq, Sk, D, causal,
+                                     scale, stream);
   }
-  return launch_d<float>(D, q, k, v, o, B, Hq, Hkv, Sq, Sk, causal, scale,
-                         stream);
+  switch (D) {
+    case 64:
+      return launch<64>(q, k, v, o, B, Hq, Hkv, Sq, Sk, causal, scale, stream);
+    case 96:
+      return launch<96>(q, k, v, o, B, Hq, Hkv, Sq, Sk, causal, scale, stream);
+    case 128:
+      return launch<128>(q, k, v, o, B, Hq, Hkv, Sq, Sk, causal, scale, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

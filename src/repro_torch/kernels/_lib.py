@@ -154,14 +154,18 @@ def require(cond: bool, kernel: str, what: str) -> None:
 
 
 def check_cuda_tensors(kernel: str, **tensors: torch.Tensor) -> None:
-    """Every tensor contiguous on the current CUDA device."""
+    """Every tensor contiguous on the current CUDA device.  Messages are
+    formatted only on failure: this runs before every launch."""
     for name, t in tensors.items():
-        require(t.is_cuda, kernel, f"{name} must be a CUDA tensor, got {t.device}")
-    dev = torch.device("cuda", torch.cuda.current_device())
+        if not t.is_cuda:
+            require(False, kernel, f"{name} must be a CUDA tensor, got {t.device}")
+    index = torch.cuda.current_device()
     for name, t in tensors.items():
-        require(t.device == dev, kernel,
-                f"{name} must lie on the current CUDA device {dev}, got {t.device}")
-        require(t.is_contiguous(), kernel, f"{name} must be contiguous")
+        if t.device.index != index:
+            require(False, kernel, f"{name} must lie on the current CUDA device "
+                                   f"cuda:{index}, got {t.device}")
+        if not t.is_contiguous():
+            require(False, kernel, f"{name} must be contiguous")
 
 
 def count_tensor(count, like: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,13 @@
-"""CUDA launch of streaming-softmax attention (``csrc/flash_attention.cu``),
-which replaces the TPU kernel
-``repro/kernels/flash_attention/kernel.py::flash_attention``.  Its
-products run as fp32 FMAs on the CUDA cores (67 TFLOP/s on an H100 SXM
-at its 700 W limit, data sheet), as the TPU kernel keeps q, k, v and p
-in fp32."""
+"""CUDA launch of streaming-softmax attention, which replaces the TPU
+kernel ``repro/kernels/flash_attention/kernel.py::flash_attention``.
+One entry point (``flash_attention_launch`` in ``csrc/flash_attention.cu``)
+takes both dtypes.  bf16 goes to ``csrc/flash_attention_sm90.cu``: both
+products on the tensor cores (``wgmma``, 989 TFLOP/s bf16 on an H100
+SXM at its 700 W limit, data sheet), K/V tiles through a TMA ring, p
+split into two bf16 terms so the result stays within one bf16 ulp of
+the f32 reference.  f32 stays on the CUDA cores as fp32 FMAs (67
+TFLOP/s), as the TPU kernel keeps q, k, v and p in fp32 and the f32
+path is held to 2e-5."""
 
 from __future__ import annotations
 

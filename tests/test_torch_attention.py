@@ -4,7 +4,9 @@ reference's jnp oracle and with its Pallas kernel in interpret mode
 over the cases of the reference's own kernel sweep.  Tolerances are the
 reference's: 2e-5 in f32, 2e-2 in bf16 (both sides round the output to
 bf16; the sums run in another order).  The CUDA kernel is held against
-the same plain version on the card in test_torch_cuda.py."""
+the same plain version on the card in test_torch_cuda.py; here its bf16
+arithmetic (p split into two bf16 terms) is emulated and held against
+the reference."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -76,3 +78,88 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     check_attention_args(q, k, v, True)
     with pytest.raises(ValueError, match="CUDA tensor"):
         flash_attention_cuda(q, k, v, causal=True)
+
+
+# ---- the bf16 kernel's rounding ------------------------------------------
+# csrc/flash_attention_sm90.cu computes S = q k^T in f32 from bf16 q, k on
+# the tensor cores, runs the online softmax in f32 over 128-key tiles (base
+# 2, scale * log2 e folded in), and feeds p to the second product as two
+# bf16 terms, p_hi = bf16(p) and p_lo = bf16(p - p_hi), with an f32
+# accumulator and one bf16 rounding of the output.  The emulation below
+# repeats that arithmetic in torch on the CPU.
+
+ONE_ULP = dict(rtol=1e-2, atol=2e-3)  # one bf16 ulp (<= 2**-7 of the value)
+KEY_TILE = 128
+
+
+def kernel_bf16_emulation(q, k, v, *, causal: bool, split_p: bool = True):
+    """bf16 q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D) -> bf16 (B, Hq, Sq, D)
+    computed as the bf16 kernel does; ``split_p=False`` rounds p to bf16
+    alone (one term)."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    kf = k.float().repeat_interleave(Hq // Hkv, 1)
+    vf = v.float().repeat_interleave(Hq // Hkv, 1)
+    scale_log2 = torch.tensor((1.0 / D ** 0.5) * 1.4426950408889634, dtype=torch.float32)
+    m = torch.full((B, Hq, Sq, 1), -1e30)
+    l = torch.zeros((B, Hq, Sq, 1))
+    acc = torch.zeros((B, Hq, Sq, D))
+    last_key = torch.arange(Sq)[:, None] + (Sk - Sq)
+    for k0 in range(0, Sk, KEY_TILE):
+        s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf[:, :, k0:k0 + KEY_TILE]) * scale_log2
+        if causal:
+            keys = torch.arange(k0, k0 + KEY_TILE)[None, :]
+            s = torch.where(keys > last_key, torch.tensor(-1e30), s)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        p_hi = p.to(torch.bfloat16).float()
+        pv = p_hi @ vf[:, :, k0:k0 + KEY_TILE]
+        if split_p:
+            pv = pv + (p - p_hi).to(torch.bfloat16).float() @ vf[:, :, k0:k0 + KEY_TILE]
+        acc = acc * alpha + pv
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).to(torch.bfloat16)
+
+
+def seeded_bf16(seed, Hq, Hkv, S, D):
+    """numpy draws q, k, v in that order from default_rng(seed*1000 + S + D)."""
+    r = np.random.default_rng(seed * 1000 + S + D)
+    return tuple(r.normal(size=(1, h, S, D)).astype(np.float32) for h in (Hq, Hkv, Hkv))
+
+
+def reference_bf16(q, k, v):
+    return torch.from_numpy(np.asarray(
+        ref_mha(*(jnp.asarray(a, "bfloat16") for a in (q, k, v)), causal=True, impl="ref"),
+        np.float32))
+
+
+@pytest.mark.parametrize("S,D,Hq,Hkv,seed", [
+    (128, 64, 2, 1, 0), (256, 96, 4, 2, 1), (384, 128, 4, 1, 1),
+    (512, 64, 4, 1, 1), (512, 96, 2, 2, 0), (512, 128, 4, 1, 2),
+])
+def test_bf16_kernel_rounding_matches_reference(S, D, Hq, Hkv, seed):
+    """The split-p arithmetic stays within the bf16 tolerance (2e-2) and
+    within one bf16 ulp of the JAX reference on causal cases."""
+    q, k, v = seeded_bf16(seed, Hq, Hkv, S, D)
+    out = kernel_bf16_emulation(*(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)),
+                                causal=True)
+    ref = reference_bf16(q, k, v)
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    torch.testing.assert_close(out.float(), ref, rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(out.float(), ref, **ONE_ULP)
+
+
+def test_bf16_p_alone_misses_one_ulp():
+    """Rounding p to bf16 alone, as a single-term P V would, leaves the
+    one-ulp bound on a long causal row (seed 1 at S 384, D 128, G 4:
+    1.04x the bound); the split keeps it.  So the p_lo term cannot be
+    dropped unnoticed."""
+    q, k, v = seeded_bf16(1, 4, 1, 384, 128)
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    ref = reference_bf16(q, k, v)
+    single = kernel_bf16_emulation(tq, tk, tv, causal=True, split_p=False)
+    assert not torch.allclose(single.float(), ref, **ONE_ULP)
+    split = kernel_bf16_emulation(tq, tk, tv, causal=True)
+    assert torch.allclose(split.float(), ref, **ONE_ULP)

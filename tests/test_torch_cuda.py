@@ -149,6 +149,15 @@ ATTN_CASES = [
     (1, 4, 1, 128, 384, 96, torch.float32),
     (2, 8, 2, 384, 384, 128, torch.bfloat16),
     (1, 2, 2, 128, 1024, 128, torch.float32),
+    # bf16 goes to the wgmma kernel: minitron's GQA at S 2048, phi3-mini's
+    # D 96 (zero-padded 64-column chunks) with Hq = Hkv, D 64 (one chunk),
+    # causal Sq < Sk (the q_offset on a diagonal tile), and 512 blocks of
+    # 8 key tiles each, so the 2-stage K/V ring wraps again and again
+    (1, 8, 2, 2048, 2048, 128, torch.bfloat16),
+    (1, 4, 4, 2048, 2048, 96, torch.bfloat16),
+    (1, 8, 2, 1024, 1024, 64, torch.bfloat16),
+    (1, 8, 2, 128, 1024, 128, torch.bfloat16),
+    (2, 32, 8, 1024, 1024, 128, torch.bfloat16),
 ]
 
 
@@ -270,12 +279,16 @@ def bits_equal(a, b):
 @pytest.mark.parametrize("n_x,R,W,d", [
     (100, 64, 4, 32), (257, 300, 12, 96), (64, 128, 8, 128), (5000, 3000, 64, 100),
     (5000, 3000, 64, 64), (3000, 500, 14, 1433), (50, 7, 33, 3), (40, 9, 70, 2),
-    (30, 5, 0, 8), (1, 1, 1, 1),
+    (30, 5, 0, 8), (1, 1, 1, 1), (400, 300, 20, 130), (300, 200, 40, 4100),
+    (200, 150, 10, 97),
 ])
 def test_spmm_ell_matches_plain(dev, op, n_x, R, W, d):
-    """Vector widths 4 (d = 100, 96, 128), 2 (d = 64, 2) and 1 (d = 1433,
-    3, 1); W across several 32-slot chunks; W = 0.  NaNs in a fifth of
-    x's rows' first column reach some rows; the max must carry them."""
+    """Vector widths 4 (d = 100, 96, 128, 4100), 2 (d = 64, 2, 130), 1
+    (d = 97, 3, 1) and shifted float4 (d = 1433, odd rows at any
+    alignment); W across several 32-slot chunks; W = 0.  d = 1433, 130,
+    4100 and 97 span 12, 3, 33 and 4 feature chunks, split over warps,
+    the last one partial.  NaNs in a fifth of x's rows' first column
+    reach some rows; the max must carry them."""
     r = np.random.default_rng(n_x + R + W + d)
     x = r.normal(size=(n_x, d)).astype(np.float32)
     x[n_x - 1] = 0
@@ -300,6 +313,41 @@ def test_spmm_ell_matches_plain(dev, op, n_x, R, W, d):
         assert float((out - ref).abs().max()) <= 1e-5 * scale
     # the slots are walked in order: the same bits every launch
     assert bits_equal(K.spmm_ell_cuda(tx, tc, tw, op), out)
+
+
+@pytest.mark.parametrize("n_x,R,W,d", [
+    (5000, 3000, 64, 100), (3000, 500, 14, 1433), (400, 300, 20, 130),
+    (300, 200, 40, 4100), (40, 9, 70, 2), (200, 150, 10, 97), (2709, 2708, 14, 1433),
+])
+def test_spmm_ell_sum_is_slot_order(dev, n_x, R, W, d):
+    """The sum bit for bit as out = out + x[col[:, s]] * wgt[:, s] for
+    s = 0 .. W-1, each product and sum rounded (separate torch ops, so no
+    FMA): the slot order holds in every feature chunk, however the
+    features are split over warps."""
+    r = np.random.default_rng(n_x + R + W + d + 1)
+    x = r.normal(size=(n_x, d)).astype(np.float32)
+    col = r.integers(0, n_x, (R, W)).astype(np.int32)
+    wgt = ((r.random((R, W)) > 0.3) * r.normal(size=(R, W))).astype(np.float32)
+    tx, tc, tw = on(dev, x, col, wgt)
+    out = K.spmm_ell_cuda(tx, tc, tw, "sum")
+    in_order = torch.zeros((R, d), device=dev)
+    for s in range(W):
+        in_order = in_order + tx[tc[:, s].long()] * tw[:, s, None]
+    assert torch.equal(out, in_order)
+
+
+def test_spmm_ell_rechecks_a_written_col(dev):
+    """The index check is remembered for a col tensor only until the
+    tensor is written: an index written in place after a checked call
+    still raises."""
+    r = np.random.default_rng(1)
+    x, col, wgt = on(dev, r.normal(size=(50, 8)).astype(np.float32),
+                     r.integers(0, 50, (20, 4)).astype(np.int32),
+                     r.random((20, 4)).astype(np.float32))
+    K.spmm_ell_cuda(x, col, wgt)
+    col[3, 1] = 50
+    with pytest.raises(ValueError, match="lie in"):
+        K.spmm_ell_cuda(x, col, wgt)
 
 
 def test_spmm_ell_wrapper_rejects_bad_inputs(dev):

@@ -18,7 +18,7 @@ from repro.kernels.spmm_ell import aggregate_neighbors as ref_aggregate
 from repro_torch.core.selfstab import in_ell
 from repro_torch.graph import Graph, rmat1, small_world_graph
 from repro_torch.kernels import aggregate_neighbors, spmm_ell_cuda, spmm_ell_ref
-from repro_torch.kernels.spmm_ell.kernel import check_spmm_args
+from repro_torch.kernels.spmm_ell.kernel import _index_range, check_spmm_args
 from repro_torch.models.gnn import (
     build_neighbor_ell,
     gather_src,
@@ -133,6 +133,23 @@ def test_cuda_wrapper_checks_before_launching():
         check_spmm_args(x, col, wgt[:, :3].contiguous(), "sum")
     with pytest.raises(ValueError, match="CUDA tensor"):
         spmm_ell_cuda(x, col, wgt)
+
+
+def test_index_range_is_read_again_after_a_write():
+    """The wrapper's (min, max) of col is remembered for one tensor only
+    while that tensor is unwritten: an in-place write, another tensor or
+    a view reads it again."""
+    col = torch.tensor(spmm_case(50, 20, 4, 8, seed=3)[1])
+    lo, hi = int(col.min()), int(col.max())
+    assert _index_range(col) == (lo, hi)
+    col[0, 0] = 77
+    assert _index_range(col) == (lo, 77)
+    col[1, 0] = -1
+    assert _index_range(col) == (-1, 77)
+    other = col.clone()
+    other[0, 0] = other[1, 0] = 5
+    assert _index_range(other) == (int(other.min()), int(other.max()))
+    assert _index_range(col[2:]) == (int(col[2:].min()), int(col[2:].max()))
 
 
 # ---------------------------------------------------------------- #
