@@ -15,11 +15,14 @@ Phases (any failure exits non-zero):
   2. generate and partition the graph, copy it to the card, and solve
      the Dijkstra oracle (scipy) for source 0
   3. each min-plus kernel against its plain torch version on the card
-     at the main path's shapes: bit-identical, timed with CUDA events
+     at the main path's shapes: bit-identical, timed with CUDA events;
+     the two frontier kernels at two frontiers of the main path (the
+     delta class with the most live rows, and the median one)
   4. the main path: Solver("delta:5/sparse/fused").solve(...) equals
-     the oracle, converges, and launches fused_superstep
+     the oracle, converges, and launches fused_superstep; one warm
+     solve under torch.profiler (device time by kernel, busy share)
   5. the push path (relax_impl="push"): same state and metrics as 4,
-     launches relax_push_gather
+     launches relax_push_gather; one warm solve profiled as in 4
   6. the self-stabilizing sweep from a corrupted state (made from the
      seed) stabilizes to the oracle, launching relax_ell
   7. flash_attention and embedding_bag against their plain versions on
@@ -153,9 +156,11 @@ def bound(nbytes: int, ops: int, ops_per_s: float = F32_OPS_PER_S) -> tuple[floa
 
 
 @contextlib.contextmanager
-def device_profile(label: str, top: int = 6):
+def device_profile(label: str, top: int = 6, kernel: str | None = None):
     """Log device time by kernel over the block (torch.profiler): the
-    total, its share of the block's wall time, and the top kernels."""
+    total, its share of the block's wall time, the top kernels and, if
+    ``kernel`` is given, the total over the launches of the kernels
+    whose name holds it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -171,6 +176,12 @@ def device_profile(label: str, top: int = 6):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         ms = e.self_device_time_total / 1e3
         log(f"  {ms:10.3f} ms {ms / max(total, 1e-9):6.1%} x{e.count:<5} {e.key[:90]}")
+    if kernel is not None:
+        mine = [e for e in kernels if kernel in e.key]
+        ms = sum(e.self_device_time_total for e in mine) / 1e3
+        n = sum(e.count for e in mine)
+        log(f"  {kernel}: {ms:.3f} ms over {n} launches "
+            f"({ms / max(n, 1):.4f} ms each, {ms / max(total, 1e-9):.1%} of device time)")
 
 
 def rel_err(a, b) -> float:
@@ -194,6 +205,54 @@ ATTN_CASES = (
     ("c f32 causal, Sq < Sk", 1, 8, 2, 128, 1024, 128, "float32", True),
     ("c f32 non-causal, Sq < Sk", 1, 8, 2, 128, 1024, 128, "float32", False),
 )
+
+
+def profiled_solve(solver, problem, kernel: str) -> None:
+    """One warm solve timed alone, then one under torch.profiler: device
+    time by kernel, the busy share and ``kernel``'s total."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solver.solve(problem)
+    torch.cuda.synchronize()
+    log(f"warm solve, {solver.config.name}: wall {time.perf_counter() - t0:.4f} s")
+    with device_profile(f"one warm solve, {solver.config.name}", top=10, kernel=kernel):
+        solver.solve(problem)
+        torch.cuda.synchronize()
+
+
+def sssp_frontiers(g, pg, ell, truth_t, row_cap: int) -> list[dict]:
+    """Two real frontiers of the main path, each with the state committed
+    up to its class (the exact order the delta-stepping root runs): the
+    delta=5 class with the most virtual rows that still fits row_cap,
+    and the class with the median row count among those that fit."""
+    import torch
+
+    from repro_torch.core import DeltaStepping
+    from repro_torch.core.frontier import compact_rows
+
+    dev = truth_t.device
+    cls = DeltaStepping(5.0).class_key(truth_t, None)
+    rs = ell.row_src[0]
+    row_cls = cls[rs.long().clamp(max=g.n - 1)]
+    row_cls[rs.long() >= g.n] = float("inf")
+    counts = torch.bincount(row_cls[torch.isfinite(row_cls)].long())
+    fits = torch.nonzero((counts > 0) & (counts <= row_cap)).flatten()
+    by_size = fits[torch.argsort(counts[fits], stable=True)]
+    out = []
+    for label, c in (("largest", int(by_size[-1])),
+                     ("median", int(by_size[(len(by_size) - 1) // 2]))):
+        dist = torch.where(cls <= c, truth_t, float("inf"))
+        dist = torch.cat([dist, torch.full((1,), float("inf"), device=dev)])
+        f_idx, f_cnt, over = compact_rows((row_cls == c)[None], row_cap)
+        if bool(over.any()):
+            fail(f"frontier selection overflowed row_cap ({label})")
+        live = int(f_cnt[0])
+        n_src = int(torch.unique(rs[f_idx[0, :live].long()]).numel())
+        out.append(dict(label=label, cls=c, dist=dist, f_idx=f_idx[0].contiguous(),
+                        f_cnt=f_cnt[0], live=live, n_src=n_src))
+    return out
 
 
 def serving_kernels(dev, flush) -> tuple[dict, dict]:
@@ -745,7 +804,7 @@ def main() -> None:
     from repro_torch import kernels as K
     from repro_torch.api import Problem, SingleSource, Solver, SolverConfig
     from repro_torch.core import DeltaStepping
-    from repro_torch.core.frontier import compact_rows, frontier_caps
+    from repro_torch.core.frontier import frontier_caps
     from repro_torch.core.selfstab import in_ell, synchronous_sweep
     from repro_torch.graph import partition_graph, rmat1
     from repro_torch.launch.sssp import oracle
@@ -793,73 +852,67 @@ def main() -> None:
     if not torch.equal(key.class_key(truth_t, None).cpu(),
                        key.class_key(truth_t.cpu(), None)):
         fail("delta class keys differ between the card and the CPU")
-    # a real frontier of the main path: the Δ=5 class with the most
-    # virtual rows that still fits row_cap, with the state committed up
-    # to that class (the exact order the Δ-stepping root runs)
     R, W = pg.rows_per_rank, pg.width
     row_cap, _ = frontier_caps(R, W, pg.n_local, 1)
-    cls = key.class_key(truth_t, None)
-    row_cls = cls[ell.row_src[0].long().clamp(max=g.n - 1)]
-    row_cls[ell.row_src[0].long() >= g.n] = float("inf")
-    counts = torch.bincount(row_cls[torch.isfinite(row_cls)].long())
-    fits = torch.nonzero(counts <= row_cap).flatten()
-    c = int(fits[counts[fits].argmax()])
-    dist = torch.where(cls <= c, truth_t, float("inf"))
-    dist = torch.cat([dist, torch.full((1,), float("inf"), device=dev)])
-    f_idx, f_cnt, over = compact_rows((row_cls == c)[None], row_cap)
-    if bool(over.any()):
-        fail("frontier selection overflowed row_cap")
-    f_idx, f_cnt = f_idx[0].contiguous(), f_cnt[0]
-    live = int(f_cnt)
     rs, col, wgt = ell.row_src[0], ell.col[0], ell.wgt[0]
-    n_src = int(torch.unique(rs[f_idx[:live].long()]).numel())
-    log(f"frontier: delta class {c}, {live} live rows of F={row_cap}, "
-        f"{n_src} source vertices")
-
+    n_out = pg.n_pad
     rows = []
 
-    def compare(name, kernel_fn, plain_fn, nbytes, ops, source, replaces):
+    def compare(name, kernel_fn, plain_fn, nbytes, ops, source, replaces,
+                label=""):
         K.reset_launch_counts()
         out_k = kernel_fn()
         torch.cuda.synchronize()
         if K.launch_counts()[name] != 1:
-            fail(f"{name}: the wrapper did not launch its kernel")
+            fail(f"{name}{label}: the wrapper did not launch its kernel")
         out_p = plain_fn()
         err = max_abs_err(out_k, out_p)
         if err != 0.0 or out_k.dtype != out_p.dtype or out_k.shape != out_p.shape:
-            fail(f"{name}: kernel differs from its plain version "
+            fail(f"{name}{label}: kernel differs from its plain version "
                  f"(max abs err {err})")
         ms = time_ms(kernel_fn, flush)
         plain_ms = time_ms(plain_fn, flush)
         bound_ms, bound_by = bound(nbytes, ops)
-        log(f"{name}: bit-identical; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"{nbytes} bytes, bound {bound_ms:.4f} ms at 3.35 TB/s")
-        rows.append(dict(name=name, route="cuda", source=source,
-                         replaces=replaces, launches=0, max_abs_err=err,
-                         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, library_ms=None))
+        log(f"{name}{label}: bit-identical; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"{nbytes} bytes, bound {bound_ms:.4f} ms at 3.35 TB/s "
+            f"({bound_ms / ms:.3f} of it)")
+        return dict(name=name, route="cuda", source=source,
+                    replaces=replaces, launches=0, max_abs_err=err,
+                    ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                    bound_by=bound_by, library_ms=None)
 
-    n_out = pg.n_pad
-    compare(
-        "fused_superstep",
-        lambda: K.fused_superstep_cuda(dist, f_idx, f_cnt, rs, col, wgt, n_out),
-        lambda: K.fused_superstep_ref(dist, f_idx, f_cnt, rs, col, wgt, n_out),
-        # listed row ids and sources, col+wgt strips, source distances,
-        # one write of the output
-        4 * (2 * live + 2 * live * W + n_src + n_out + 1) + 4,
-        live * W,
-        "src/repro_torch/csrc/fused_superstep.cu",
-        "src/repro/kernels/superstep_fused/kernel.py:72",
-    )
-    compare(
-        "relax_push_gather",
-        lambda: K.relax_push_gather_cuda(dist, f_idx, f_cnt, rs, col, wgt),
-        lambda: K.relax_push_gather_ref(dist, f_idx, f_cnt, rs, wgt),
-        4 * (2 * live + live * W + n_src + row_cap * W) + 4,
-        live * W,
-        "src/repro_torch/csrc/relax_push.cu",
-        "src/repro/kernels/relax_push/kernel.py:42",
-    )
+    # the kernels line keeps the largest frontier's numbers
+    for fr in sssp_frontiers(g, pg, ell, truth_t, row_cap):
+        dist, f_idx, f_cnt, live, n_src = (fr[k] for k in
+                                           ("dist", "f_idx", "f_cnt", "live", "n_src"))
+        label = f" ({fr['label']} frontier)"
+        log(f"frontier, {fr['label']}: delta class {fr['cls']}, {live} live rows "
+            f"of F={row_cap}, {n_src} source vertices")
+        fused_row = compare(
+            "fused_superstep",
+            lambda: K.fused_superstep_cuda(dist, f_idx, f_cnt, rs, col, wgt, n_out),
+            lambda: K.fused_superstep_ref(dist, f_idx, f_cnt, rs, col, wgt, n_out),
+            # listed row ids and sources, col+wgt strips, source distances,
+            # one write of the output
+            4 * (2 * live + 2 * live * W + n_src + n_out + 1) + 4,
+            live * W,
+            "src/repro_torch/csrc/fused_superstep.cu",
+            "src/repro/kernels/superstep_fused/kernel.py:72",
+            label,
+        )
+        push_row = compare(
+            "relax_push_gather",
+            lambda: K.relax_push_gather_cuda(dist, f_idx, f_cnt, rs, col, wgt),
+            lambda: K.relax_push_gather_ref(dist, f_idx, f_cnt, rs, wgt),
+            4 * (2 * live + live * W + n_src + row_cap * W) + 4,
+            live * W,
+            "src/repro_torch/csrc/relax_push.cu",
+            "src/repro/kernels/relax_push/kernel.py:42",
+            label,
+        )
+        if not rows:
+            rows += [fused_row, push_row]
+    del dist, f_idx, f_cnt
     t0 = time.perf_counter()
     row_dst, in_col, in_wgt = in_ell(g)
     log(f"in-ELL built in {time.perf_counter() - t0:.1f} s: "
@@ -868,7 +921,7 @@ def main() -> None:
     in_wgt_t = torch.as_tensor(in_wgt, device=dev)
     d_ext = torch.cat([truth_t, torch.full((1,), float("inf"), device=dev)])
     R_in, W_in = in_col.shape
-    compare(
+    rows.append(compare(
         "relax_ell",
         lambda: K.relax_ell_cuda(d_ext, in_col_t, in_wgt_t),
         lambda: K.relax_ell_ref(d_ext, in_col_t, in_wgt_t),
@@ -876,7 +929,7 @@ def main() -> None:
         R_in * W_in * 2,
         "src/repro_torch/csrc/relax_ell.cu",
         "src/repro/kernels/relax_ell/kernel.py:45",
-    )
+    ))
     del flush
 
     # ---- 4. main path ------------------------------------------------
@@ -901,6 +954,9 @@ def main() -> None:
     if fused_launches == 0:
         fail("main path never launched fused_superstep")
     rows[0]["launches"] = fused_launches
+    with device_profile("profiler start-up (empty window)", top=0):
+        pass
+    profiled_solve(solver, Problem(pg, SingleSource(SOURCE)), "fused_superstep")
 
     # ---- 5. push path ------------------------------------------------
     push = Solver(SolverConfig.from_spec("delta:5/sparse", relax_impl="push"),
@@ -920,6 +976,7 @@ def main() -> None:
     if push_launches == 0:
         fail("push path never launched relax_push_gather")
     rows[1]["launches"] = push_launches
+    profiled_solve(push, Problem(pg, SingleSource(SOURCE)), "relax_push_gather")
 
     # ---- 6. self-stabilizing sweep from a corrupted state ------------
     # vertices cut off from the source keep +inf: R1 lifts a finite

@@ -175,12 +175,17 @@ def run_engine(
     inf_col = torch.full((n_parts, 1), INF, dtype=torch.float32, device=dev)
 
     def scatter(cols, vals, fill, how):
-        """(P, ...) candidates scatter-combined into (P, n_pad+1) over
-        ``fill``; slot n_pad swallows ELL padding.  Returns [:, :n_pad]."""
-        buf = torch.full((n_parts, n_pad + 1), fill, dtype=torch.float32,
+        """(P, A, W) candidates scatter-combined into (P, n_pad) over
+        ``fill``.  Column n_pad, the ELL padding, is dropped: the padding
+        of row a goes to a spill column of its own, n_pad + a (the spill
+        columns of ``core/frontier.py``)."""
+        A = cols.shape[1]
+        spill = torch.arange(n_pad, n_pad + A, device=dev)[:, None]
+        buf = torch.full((n_parts, n_pad + A), fill, dtype=torch.float32,
                          device=dev)
-        buf.scatter_reduce_(1, cols.reshape(n_parts, -1).to(torch.int64),
-                            vals.reshape(n_parts, -1), how)
+        buf.scatter_reduce_(
+            1, torch.where(cols == n_pad, spill, cols).reshape(n_parts, -1),
+            vals.reshape(n_parts, -1), how)
         return buf[:, :n_pad]
 
     def level_scatter(cols, cands, lvl_cands, C):

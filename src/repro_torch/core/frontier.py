@@ -12,6 +12,12 @@
 
 Every function takes a leading rank axis: the engine stacks its P
 ranks on one device.  Capacities are static Python ints.
+
+Spill columns: each scatter here sends every element that is to be
+dropped to a spill column of its own, dropped after, not all of them
+to one column: a scatter on the card serialises the writes that share
+an address, an atomic one (``scatter_reduce_``) by a compare-and-swap
+loop each.  No result changes, since a spill column is never read.
 """
 
 from __future__ import annotations
@@ -79,10 +85,12 @@ def compact_rows(mask: torch.Tensor, cap: int):
     P_, R = mask.shape
     pos = torch.cumsum(mask, dim=1, dtype=torch.int64) - 1
     count = mask.sum(dim=1)
-    # set positions past the cap and unset ones land in spill column cap
-    target = torch.where(mask & (pos < cap), pos, cap)
+    # set positions past the cap and unset ones land in spill columns,
+    # cap + their row (module docstring)
+    target = torch.where(mask & (pos < cap), pos,
+                         torch.arange(cap, cap + R, device=mask.device))
     rows = torch.arange(R, dtype=torch.int32, device=mask.device)
-    idx = torch.full((P_, cap + 1), R, dtype=torch.int32, device=mask.device)
+    idx = torch.full((P_, cap + R), R, dtype=torch.int32, device=mask.device)
     idx.scatter_(1, target, rows.expand(P_, R))
     return idx[:, :cap], count.to(torch.int32), count > cap
 
@@ -92,20 +100,24 @@ def bucket_slots(mask: torch.Tensor, slot_cap: int):
 
     ``mask`` (..., P, n_local) marks real candidates per destination
     rank.  Returns ``(slot, overflow)``: ``slot`` int64 gives each
-    candidate its position in destination p's buffer (``slot_cap`` for
-    non-candidates and spill); ``overflow`` (...,) is True where some
-    destination holds more than ``slot_cap`` candidates.
+    candidate its position in destination p's buffer, and a
+    non-candidate or a candidate past the cap a spill position of its
+    own, ``slot_cap`` + its index (module docstring); ``overflow`` (...,)
+    is True where some destination holds more than ``slot_cap``
+    candidates.
     """
+    n = mask.shape[-1]
     pos = torch.cumsum(mask, dim=-1, dtype=torch.int64) - 1
     overflow = (pos[..., -1] + 1).amax(dim=-1) > slot_cap
-    slot = torch.where(mask & (pos < slot_cap), pos, slot_cap)
+    slot = torch.where(mask & (pos < slot_cap), pos,
+                       torch.arange(slot_cap, slot_cap + n, device=mask.device))
     return slot, overflow
 
 
 def scatter_plane(vals: torch.Tensor, slot: torch.Tensor, slot_cap: int, fill):
     """Scatter (..., n_local) values into their (..., slot_cap) buffer
-    positions; column ``slot_cap`` is a discarded spill column."""
-    buf = torch.full(vals.shape[:-1] + (slot_cap + 1,), fill,
+    positions; the spill positions of :func:`bucket_slots` are dropped."""
+    buf = torch.full(vals.shape[:-1] + (slot_cap + vals.shape[-1],), fill,
                      dtype=vals.dtype, device=vals.device)
     buf.scatter_(-1, slot, vals)
     return buf[..., :slot_cap]
@@ -155,7 +167,12 @@ def unpack_combine(recv: torch.Tensor, n_local: int, slot_cap: int,
     val = recv[..., :S].reshape(P_dst, -1)
     idx = recv[..., S : 2 * S].contiguous().view(torch.int32)
     idx = idx.reshape(P_dst, -1).to(torch.int64)
-    buf = torch.full((P_dst, n_local + 1), worst, dtype=torch.float32,
+    # every empty slot (index n_local, value worst) takes a spill column
+    # of its own, n_local + its position (module docstring)
+    N = idx.shape[1]
+    spill = torch.arange(n_local, n_local + N, device=recv.device)
+    idx = torch.where(idx == n_local, spill, idx)
+    buf = torch.full((P_dst, n_local + N), worst, dtype=torch.float32,
                      device=recv.device)
     buf.scatter_reduce_(1, idx, val, "amin" if is_min else "amax")
     mine = buf[:, :n_local]
@@ -163,7 +180,7 @@ def unpack_combine(recv: torch.Tensor, n_local: int, slot_cap: int,
         return mine, None
     lvl = recv[..., 2 * S : 3 * S].reshape(P_dst, -1)
     win = val == torch.gather(buf, 1, idx)  # empty slots: worst == worst, lvl inf
-    lbuf = torch.full((P_dst, n_local + 1), INF, dtype=torch.float32,
+    lbuf = torch.full((P_dst, n_local + N), INF, dtype=torch.float32,
                       device=recv.device)
     lbuf.scatter_reduce_(1, idx, torch.where(win, lvl, INF), "amin")
     return mine, lbuf[:, :n_local]

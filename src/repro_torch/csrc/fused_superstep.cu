@@ -12,38 +12,84 @@
 //
 // The TPU kernel keeps the whole output block resident in VMEM.  On
 // Hopper the output does not fit a block's shared memory (4 MB at
-// rmat scale 20 against an H100's 227 KB), so each (f, w) thread
-// scatters with a global fp32 atomic min that lands in the H100's 50 MB
-// L2.  Bound: device memory bytes at 3.35 TB/s (H100 SXM at its 700 W
+// rmat scale 20 against an H100's 227 KB), so each candidate scatters
+// with a global fp32 atomic min that lands in the H100's 50 MB L2.
+// Bound: device memory bytes at 3.35 TB/s (H100 SXM at its 700 W
 // limit, data sheet): the live rows' col and wgt strips, their
-// sources' distances and one write of the output; one add per edge
-// is far below any compute limit.
+// sources' distances and one write of the output; one add per edge is
+// far below any compute limit.
+//
+// Design (minplus.cuh, walk_frontier): a persistent grid over the live
+// rows only, a row to a group of W/4 lanes reading its wgt strip as
+// 16-byte vectors, the row metadata pipelined in the group's lane 0.
+// A chunk whose four candidates are all +inf (padding, or an
+// unreached source) skips its col load; each finite candidate is one
+// pre-checked atomic min.
 #include "minplus.cuh"
 
-__global__ void fused_superstep_kernel(
+namespace {
+
+template <int VEC>
+struct FusedOp {
+  const int* __restrict__ col;
+  const float* __restrict__ wgt;
+  float* __restrict__ out;
+
+  __device__ __forceinline__ typename Chunk<VEC>::F load(long long e, bool ok) const {
+    return ok ? load_chunk<VEC>(wgt + e) : inf_chunk<VEC>();
+  }
+
+  __device__ __forceinline__ void apply(long long, long long e, float d,
+                                        const typename Chunk<VEC>::F& w, bool ok) const {
+    float v[VEC];
+    bool any = false;
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      v[k] = d + elem(w, k);
+      any |= v[k] != INFINITY;
+    }
+    if (!ok || !any) return;  // padding or unreached source: min identity
+    const typename Chunk<VEC>::I c = load_chunk<VEC>(col + e);
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      if (v[k] != INFINITY) atomic_min_f32(out + elem(c, k), v[k]);
+    }
+  }
+};
+
+template <int VEC>
+__global__ void __launch_bounds__(kThreads) fused_superstep_kernel(
     const float* __restrict__ dist, const int* __restrict__ row_idx,
     const int* __restrict__ count, const int* __restrict__ row_src,
     const int* __restrict__ col, const float* __restrict__ wgt,
-    float* __restrict__ out, int F, int R, int W) {
-  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const int live = min(*count, F);
-  if (t >= static_cast<long long>(live) * W) return;
-  const int f = static_cast<int>(t / W);
-  const int w = static_cast<int>(t - static_cast<long long>(f) * W);
-  const int r = min(max(row_idx[f], 0), R - 1);
-  const long long e = static_cast<long long>(r) * W + w;
-  const float v = dist[row_src[r]] + wgt[e];
-  if (v == INFINITY) return;  // padding slot or unreached source: min identity
-  atomic_min_f32(out + col[e], v);
+    float* __restrict__ out, int F, int R, int W, int G) {
+  FusedOp<VEC> op{col, wgt, out};
+  walk_frontier<VEC>(dist, row_idx, row_src, live_rows(count, F), R, W, G, op);
 }
 
+template <int VEC>
+int launch(const float* dist, const int* row_idx, const int* count,
+           const int* row_src, const int* col, const float* wgt, float* out,
+           int F, int R, int W, cudaStream_t stream) {
+  static int cache[kMaxDevices];
+  const int G = group_lanes(W, VEC);
+  unsigned int grid = 0;
+  const cudaError_t err = frontier_grid(fused_superstep_kernel<VEC>, cache, F, G, &grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fused_superstep_kernel<VEC><<<grid, kThreads, 0, stream>>>(
+      dist, row_idx, count, row_src, col, wgt, out, F, R, W, G);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// vec: 1 when W % 4 == 0 and col and wgt start on 16 bytes (the caller
+// checks), else 0 for scalar strip loads.
 extern "C" int fused_superstep_launch(
     const float* dist, const int* row_idx, const int* count,
     const int* row_src, const int* col, const float* wgt, float* out,
-    int F, int R, int W, cudaStream_t stream) {
-  const long long threads = static_cast<long long>(F) * W;
-  if (threads == 0) return 0;
-  fused_superstep_kernel<<<blocks_for(threads), kThreads, 0, stream>>>(
-      dist, row_idx, count, row_src, col, wgt, out, F, R, W);
-  return static_cast<int>(cudaGetLastError());
+    int F, int R, int W, int vec, cudaStream_t stream) {
+  if (static_cast<long long>(F) * W == 0) return 0;
+  return vec ? launch<4>(dist, row_idx, count, row_src, col, wgt, out, F, R, W, stream)
+             : launch<1>(dist, row_idx, count, row_src, col, wgt, out, F, R, W, stream);
 }

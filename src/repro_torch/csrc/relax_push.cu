@@ -9,38 +9,77 @@
 // for f < count, and +inf for f >= count.
 //
 // The TPU kernel scalar-prefetches row_idx so its DMA engine streams
-// the listed (1, W) strips.  Here one thread per (f, w) reads its row
-// id and source distance (shared by the W threads of a row, served by
-// L1) and the strip element; neighbouring threads read neighbouring
-// weights, so the strip loads coalesce.  Bound: device memory bytes at
-// 3.35 TB/s (H100 SXM at its 700 W limit, data sheet): the live rows'
-// wgt strips and source distances, and one write of the (F, W) output.
+// the listed (1, W) strips.  Bound: device memory bytes at 3.35 TB/s
+// (H100 SXM at its 700 W limit, data sheet): the live rows' wgt strips
+// and source distances, and one write of the (F, W) output.
+//
+// Design (minplus.cuh, walk_frontier): a persistent grid over the live
+// rows only, a row to a group of W/4 lanes reading its strip and
+// writing its candidates as 16-byte vectors, the row metadata
+// pipelined in the group's lane 0.  The rows past count are then
+// written as +inf with streaming vector stores and no loads.
 #include "minplus.cuh"
 
-__global__ void relax_push_gather_kernel(
+namespace {
+
+template <int VEC>
+struct GatherOp {
+  const float* __restrict__ wgt;
+  float* __restrict__ out;
+
+  __device__ __forceinline__ typename Chunk<VEC>::F load(long long e, bool ok) const {
+    return ok ? load_chunk<VEC>(wgt + e) : inf_chunk<VEC>();
+  }
+
+  __device__ __forceinline__ void apply(long long o, long long, float d,
+                                        const typename Chunk<VEC>::F& w, bool ok) const {
+    if (ok) *reinterpret_cast<typename Chunk<VEC>::F*>(out + o) = add_chunk(d, w);
+  }
+};
+
+template <int VEC>
+__global__ void __launch_bounds__(kThreads) relax_push_gather_kernel(
     const float* __restrict__ dist, const int* __restrict__ row_idx,
     const int* __restrict__ count, const int* __restrict__ row_src,
     const float* __restrict__ wgt, float* __restrict__ out,
-    int F, int R, int W) {
-  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= static_cast<long long>(F) * W) return;
-  const int f = static_cast<int>(t / W);
-  float v = INFINITY;
-  if (f < min(*count, F)) {
-    const int w = static_cast<int>(t - static_cast<long long>(f) * W);
-    const int r = min(max(row_idx[f], 0), R - 1);
-    v = dist[row_src[r]] + wgt[static_cast<long long>(r) * W + w];
+    int F, int R, int W, int G) {
+  const int live = live_rows(count, F);
+  GatherOp<VEC> op{wgt, out};
+  walk_frontier<VEC>(dist, row_idx, row_src, live, R, W, G, op);
+  // rows past count: +inf, streamed past the caches
+  typedef typename Chunk<VEC>::F V;
+  V* const tail = reinterpret_cast<V*>(out + static_cast<long long>(live) * W);
+  const long long n = static_cast<long long>(F - live) * W / VEC;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n; i += stride) {
+    __stcs(tail + i, inf_chunk<VEC>());
   }
-  out[t] = v;
 }
 
+template <int VEC>
+int launch(const float* dist, const int* row_idx, const int* count,
+           const int* row_src, const float* wgt, float* out, int F, int R, int W,
+           cudaStream_t stream) {
+  static int cache[kMaxDevices];
+  const int G = group_lanes(W, VEC);
+  unsigned int grid = 0;
+  const cudaError_t err = frontier_grid(relax_push_gather_kernel<VEC>, cache, F, G, &grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  relax_push_gather_kernel<VEC><<<grid, kThreads, 0, stream>>>(
+      dist, row_idx, count, row_src, wgt, out, F, R, W, G);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// vec: 1 when W % 4 == 0 and wgt and out start on 16 bytes (the caller
+// checks), else 0 for scalar loads and stores.
 extern "C" int relax_push_gather_launch(
     const float* dist, const int* row_idx, const int* count,
     const int* row_src, const float* wgt, float* out, int F, int R, int W,
-    cudaStream_t stream) {
-  const long long threads = static_cast<long long>(F) * W;
-  if (threads == 0) return 0;
-  relax_push_gather_kernel<<<blocks_for(threads), kThreads, 0, stream>>>(
-      dist, row_idx, count, row_src, wgt, out, F, R, W);
-  return static_cast<int>(cudaGetLastError());
+    int vec, cudaStream_t stream) {
+  if (static_cast<long long>(F) * W == 0) return 0;
+  return vec ? launch<4>(dist, row_idx, count, row_src, wgt, out, F, R, W, stream)
+             : launch<1>(dist, row_idx, count, row_src, wgt, out, F, R, W, stream);
 }

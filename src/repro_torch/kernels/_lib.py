@@ -172,28 +172,42 @@ def count_tensor(count, like: torch.Tensor) -> torch.Tensor:
     """The live-row count as the (1,) int32 device tensor the frontier
     kernels read (a tensor stays on the device: no host sync)."""
     if isinstance(count, torch.Tensor):
-        require(count.numel() == 1 and count.dtype == torch.int32, "count",
-                f"must be one int32 element, got {count.dtype} {tuple(count.shape)}")
+        if count.numel() != 1 or count.dtype != torch.int32:
+            require(False, "count", f"must be one int32 element, got "
+                                    f"{count.dtype} {tuple(count.shape)}")
         return count.reshape(1)
     return torch.full((1,), int(count), dtype=torch.int32, device=like.device)
 
 
 def check_frontier_args(kernel: str, dist, row_idx, row_src, col, wgt) -> None:
     """dtypes and shapes of a frontier kernel's (dist, row_idx, row_src,
-    col, wgt)."""
-    require(dist.dtype == torch.float32 and dist.dim() == 1, kernel,
-            f"dist must be 1-D float32, got {dist.dtype} {tuple(dist.shape)}")
-    require(row_idx.dtype == torch.int32 and row_idx.dim() == 1, kernel,
-            f"row_idx must be 1-D int32, got {row_idx.dtype} {tuple(row_idx.shape)}")
-    require(wgt.dtype == torch.float32 and wgt.dim() == 2, kernel,
-            f"wgt must be 2-D float32, got {wgt.dtype} {tuple(wgt.shape)}")
+    col, wgt).  Messages are formatted only on failure: this runs before
+    every launch."""
+    if dist.dtype != torch.float32 or dist.dim() != 1:
+        require(False, kernel, f"dist must be 1-D float32, got {dist.dtype} "
+                               f"{tuple(dist.shape)}")
+    if row_idx.dtype != torch.int32 or row_idx.dim() != 1:
+        require(False, kernel, f"row_idx must be 1-D int32, got {row_idx.dtype} "
+                               f"{tuple(row_idx.shape)}")
+    if wgt.dtype != torch.float32 or wgt.dim() != 2:
+        require(False, kernel, f"wgt must be 2-D float32, got {wgt.dtype} "
+                               f"{tuple(wgt.shape)}")
     R, W = wgt.shape
     require(R >= 1, kernel, "the ELL must have at least one row")
-    require(col.dtype == torch.int32 and col.shape == wgt.shape, kernel,
-            f"col must be int32 of wgt's shape {(R, W)}, got {col.dtype} {tuple(col.shape)}")
-    require(row_src.dtype == torch.int32 and row_src.shape == (R,), kernel,
-            f"row_src must be int32 ({R},), got {row_src.dtype} {tuple(row_src.shape)}")
+    if col.dtype != torch.int32 or col.shape != wgt.shape:
+        require(False, kernel, f"col must be int32 of wgt's shape {(R, W)}, got "
+                               f"{col.dtype} {tuple(col.shape)}")
+    if row_src.dtype != torch.int32 or row_src.shape != (R,):
+        require(False, kernel, f"row_src must be int32 ({R},), got "
+                               f"{row_src.dtype} {tuple(row_src.shape)}")
     require(max(row_idx.shape[0], R, W) < 2**31, kernel, "sizes exceed int32")
+
+
+def vector_strips(W: int, *tensors: torch.Tensor) -> bool:
+    """Whether a frontier kernel may move its (R, W) strips as 16-byte
+    vectors: W a multiple of 4 and every tensor's base on 16 bytes (a
+    view can start anywhere)."""
+    return W % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def count_launch(kernel: str) -> None:

@@ -2,7 +2,9 @@
 which replaces the TPU kernel
 ``repro/kernels/relax_push/kernel.py::relax_push_gather``.  Bound by
 device-memory bytes: 3.35 TB/s on an H100 SXM at its 700 W limit
-(data sheet)."""
+(data sheet).  The kernel moves the strips as 16-byte vectors where W
+is a multiple of 4 and wgt and the output start on 16 bytes, else as
+scalars."""
 
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ NAME = "relax_push_gather"
 def _launch():
     return _lib.entry(
         "relax_push_gather_launch",
-        [_lib.ptr] * 6 + [_lib.c_int] * 3 + [_lib.ptr],
+        [_lib.ptr] * 6 + [_lib.c_int] * 4 + [_lib.ptr],
     )
 
 
@@ -38,7 +40,7 @@ def relax_push_gather_cuda(dist, row_idx, count, row_src, col,
         rc = _launch()(
             dist.data_ptr(), row_idx.data_ptr(), count.data_ptr(),
             row_src.data_ptr(), wgt.data_ptr(), out.data_ptr(), F, R, W,
-            _lib.stream_of(dist),
+            int(_lib.vector_strips(W, wgt, out)), _lib.stream_of(dist),
         )
         _lib.check(rc, NAME)
         _lib.count_launch(NAME)

@@ -25,9 +25,15 @@ def relax_push_rows(dist, row_idx, count, row_src, col, wgt,
     through the listed rows' columns (fill rows take column n_out)."""
     R = col.shape[0]
     cand = relax_push_gather(dist, row_idx, count, row_src, col, wgt)
+    F = cand.shape[0]
     colg = torch.index_select(col, 0, row_idx.clamp(0, R - 1))
     colg = torch.where((row_idx < R)[:, None], colg, n_out)
-    out = torch.full((n_out + 1,), float("inf"), dtype=torch.float32,
+    # a +inf candidate (ELL padding, a row past count, a fill row) is the
+    # min's identity: those of row f go to a spill column of their own,
+    # n_out + 1 + f, dropped after (the spill columns of core/frontier.py)
+    spill = torch.arange(n_out + 1, n_out + 1 + F, device=dist.device)[:, None]
+    idx = torch.where(cand != float("inf"), colg, spill)
+    out = torch.full((n_out + 1 + F,), float("inf"), dtype=torch.float32,
                      device=dist.device)
-    return out.scatter_reduce_(0, colg.reshape(-1).to(torch.int64),
-                               cand.reshape(-1), "amin")
+    out.scatter_reduce_(0, idx.reshape(-1), cand.reshape(-1), "amin")
+    return out[: n_out + 1]

@@ -2,7 +2,9 @@
 (``csrc/fused_superstep.cu``), which replaces the TPU kernel
 ``repro/kernels/superstep_fused/kernel.py::fused_superstep``.  Bound by
 device-memory bytes: 3.35 TB/s on an H100 SXM at its 700 W limit
-(data sheet)."""
+(data sheet).  The kernel reads the strips as 16-byte vectors where W
+is a multiple of 4 and col and wgt start on 16 bytes, else as
+scalars."""
 
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ NAME = "fused_superstep"
 def _launch():
     return _lib.entry(
         "fused_superstep_launch",
-        [_lib.ptr] * 7 + [_lib.c_int] * 3 + [_lib.ptr],
+        [_lib.ptr] * 7 + [_lib.c_int] * 4 + [_lib.ptr],
     )
 
 
@@ -40,7 +42,8 @@ def fused_superstep_cuda(dist, row_idx, count, row_src, col, wgt,
         rc = _launch()(
             dist.data_ptr(), row_idx.data_ptr(), count.data_ptr(),
             row_src.data_ptr(), col.data_ptr(), wgt.data_ptr(),
-            out.data_ptr(), F, R, W, _lib.stream_of(dist),
+            out.data_ptr(), F, R, W, int(_lib.vector_strips(W, col, wgt)),
+            _lib.stream_of(dist),
         )
         _lib.check(rc, NAME)
         _lib.count_launch(NAME)

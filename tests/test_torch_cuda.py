@@ -41,31 +41,56 @@ def on(dev, *arrays):
     return [torch.as_tensor(np.ascontiguousarray(a), device=dev) for a in arrays]
 
 
-def frontier_case(seed, n_local, n_out, R, W, F):
+def frontier_case(seed, n_local, n_out, R, W, F, count=None, kind=""):
+    """A frontier of F listed rows, ``count`` of them live (random if
+    None; may exceed F).  kind "hub": every column on 4 destinations;
+    "negative": negative distances (the uint branch of the atomic min);
+    "real_tail": the rows listed past count are real rows, not fill."""
     r = np.random.default_rng(seed)
     dist = np.full(n_local + 1, np.inf, np.float32)
     hot = r.choice(n_local, max(1, n_local // 3), replace=False)
-    dist[hot] = r.integers(0, 50, hot.shape[0]).astype(np.float32)
+    lo, hi = (-100, 0) if kind == "negative" else (0, 50)
+    dist[hot] = r.integers(lo, hi, hot.shape[0]).astype(np.float32)
     row_src = r.integers(0, n_local, R).astype(np.int32)
-    col = r.integers(0, n_out + 1, (R, W)).astype(np.int32)
-    wgt = np.where(r.random((R, W)) < 0.3, np.inf,
-                   r.integers(1, 100, (R, W))).astype(np.float32)
-    k = int(r.integers(0, F + 1))
-    row_idx = np.full(F, R, np.int32)
-    row_idx[:k] = r.integers(0, R, k)  # repeated rows allowed
+    if kind == "hub":
+        col = r.choice(r.choice(n_out, 4, replace=False), (R, W)).astype(np.int32)
+    else:
+        col = r.integers(0, n_out + 1, (R, W)).astype(np.int32)
+    pad = r.random((R, W)) < 0.3
+    if kind == "hub":
+        col[pad] = n_out
+    wgt = np.where(pad, np.inf, r.integers(1, 100, (R, W))).astype(np.float32)
+    k = int(r.integers(0, F + 1)) if count is None else count
+    row_idx = (r.integers(0, R, F) if kind == "real_tail" else np.full(F, R)).astype(np.int32)
+    row_idx[:min(k, F)] = r.integers(0, R, min(k, F))  # repeated rows allowed
     return dist, row_idx, k, row_src, col, wgt
 
 
-CASES = [(0, 32, 48, 24, 4, 8), (1, 128, 256, 96, 8, 32),
-         (2, 256, 512, 300, 16, 64), (3, 1000, 1000, 1200, 64, 150),
-         (4, 5000, 5000, 6000, 128, 700), (5, 64, 128, 40, 4, 64)]
+# (seed, n_local, n_out, R, W, F, count, kind): W 3 and 5 take the scalar
+# path, 33 a lane group of 32 with a second chunk, 64 and 128 16-byte
+# strips; count 0, F and past F; a frontier larger than one sweep of the
+# persistent grid (F 40,000)
+CASES = [(0, 32, 48, 24, 4, 8, None, ""), (1, 128, 256, 96, 8, 32, None, ""),
+         (2, 256, 512, 300, 16, 64, None, ""), (3, 1000, 1000, 1200, 64, 150, None, ""),
+         (4, 5000, 5000, 6000, 128, 700, None, ""), (5, 64, 128, 40, 4, 64, None, ""),
+         (6, 300, 400, 200, 3, 50, None, ""), (7, 300, 400, 200, 5, 50, None, "negative"),
+         (8, 500, 600, 400, 33, 90, None, "real_tail"), (9, 1000, 1000, 1200, 64, 150, 0, ""),
+         (10, 1000, 1000, 1200, 64, 150, 150, ""),
+         (11, 1000, 1000, 1200, 64, 150, 400, "real_tail"),
+         (12, 2000, 2000, 1500, 128, 300, None, "hub"), (13, 2000, 2000, 1500, 64, 300, 300, "hub"),
+         (14, 1000, 1000, 800, 64, 200, None, "negative"), (15, 300, 400, 200, 5, 50, 50, "hub"),
+         (16, 1000, 1000, 1200, 64, 150, 100, "real_tail"),
+         (17, 50000, 50000, 60000, 64, 40000, 40000, ""),
+         (18, 50000, 50000, 60000, 33, 40000, 39000, "real_tail")]
 
 
-@pytest.mark.parametrize("case", CASES)
-def test_frontier_kernels_match_plain(dev, case):
+def check_frontier_kernels(dev, case, layout=lambda x: x):
+    """Both frontier kernels against their plain versions on ``case``,
+    col and wgt placed by ``layout``; returns their outputs."""
     n_out = case[2]
     dist, row_idx, k, row_src, col, wgt = frontier_case(*case)
     d, i, rs, c, w = on(dev, dist, row_idx, row_src, col, wgt)
+    c, w = layout(c), layout(w)
     cnt = torch.tensor(k, dtype=torch.int32, device=dev)
     K.reset_launch_counts()
     fused = K.fused_superstep_cuda(d, i, cnt, rs, c, w, n_out)
@@ -78,6 +103,32 @@ def test_frontier_kernels_match_plain(dev, case):
     cpu = K.fused_superstep_ref(*on("cpu", dist, row_idx), k,
                                 *on("cpu", row_src, col, wgt), n_out)
     assert torch.equal(fused.cpu(), cpu)
+    return fused, push
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_frontier_kernels_match_plain(dev, case):
+    check_frontier_kernels(dev, case)
+
+
+def unaligned(x):
+    """A contiguous copy of x whose base is 4 bytes off 16."""
+    buf = torch.empty(x.numel() + 4, dtype=x.dtype, device=x.device)
+    off = next(j for j in range(1, 4) if (buf.data_ptr() + 4 * j) % 16 == 4)
+    view = buf[off:off + x.numel()].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+@pytest.mark.parametrize("case", [CASES[3], CASES[4], CASES[8], CASES[13]])
+def test_frontier_kernels_on_unaligned_strips(dev, case):
+    """col and wgt views 4 bytes off 16-byte alignment take the scalar
+    path and give the same bits as the aligned tensors."""
+    probe = unaligned(torch.zeros((2, case[4]), device=dev))
+    assert probe.data_ptr() % 16 == 4 and not K._lib.vector_strips(case[4], probe)
+    fused, push = check_frontier_kernels(dev, case, unaligned)
+    fused_a, push_a = check_frontier_kernels(dev, case)
+    assert torch.equal(fused, fused_a) and torch.equal(push, push_a)
 
 
 @pytest.mark.parametrize("n_pad,R,W", [

@@ -91,6 +91,44 @@ def test_relax_push_plain_matches_pallas(n_local, n_pad, R, W, F):
     assert same(rows[:n_pad], pallas_rows) and same(rows[:n_pad], oracle)
 
 
+@pytest.mark.parametrize("n_local,n_pad,R,W,F,count", [
+    (128, 256, 96, 8, 32, None),
+    (256, 512, 300, 16, 64, None),
+    (64, 128, 40, 4, 64, None),
+    (128, 128, 50, 8, 1, None),
+    (64, 96, 30, 3, 12, None),
+    (64, 96, 30, 5, 12, None),
+    (100, 160, 70, 33, 20, None),
+    (100, 160, 70, 33, 20, 0),
+    (100, 160, 70, 5, 20, 20),
+    (128, 256, 96, 8, 32, 32),
+])
+def test_relax_push_rows_matches_reference(n_local, n_pad, R, W, F, count):
+    """The push relaxation, whose +inf candidates (padding, fill rows)
+    the port scatters into spill columns of their own, against the JAX
+    package's relax_push_rows: its plain version (which reads no count:
+    rows past count are fill rows here) and the Pallas kernel."""
+    rng = np.random.default_rng(n_local + R + W + F)
+    dist = np.concatenate([rng.exponential(10, n_local), [np.inf]]).astype(np.float32)
+    dist[:n_local][rng.random(n_local) < 0.2] = np.inf  # unreached sources
+    row_src = rng.integers(0, n_local, R).astype(np.int32)
+    col = rng.integers(0, n_pad + 1, (R, W)).astype(np.int32)
+    wgt = np.where(col == n_pad, np.inf,
+                   rng.uniform(1, 100, (R, W))).astype(np.float32)
+    k = min(F, max(1, R // 3)) if count is None else count
+    frontier = rng.choice(R, k, replace=False).astype(np.int32)
+    row_idx = np.concatenate([frontier, np.full(F - k, R, np.int32)])
+    rows = relax_push_rows(t(dist), t(row_idx), k, t(row_src), t(col),
+                           t(wgt), n_pad).numpy()
+    assert rows.shape == (n_pad + 1,)
+    args = [jnp.asarray(a) for a in (dist, row_idx, row_src, col, wgt)]
+    ref = ref_push_rows(*args, n_pad, impl="ref")
+    pallas = ref_push_rows(*args, n_pad, count=jnp.int32(k),
+                           impl="pallas_interpret")
+    assert same(rows[:n_pad], ref) and same(rows[:n_pad], pallas)
+    assert np.isinf(rows[n_pad])
+
+
 def _fused_inputs(trial):
     r = np.random.default_rng(trial)
     R, W, n_local, n_out, F = 24, 4, 32, 48, 8
