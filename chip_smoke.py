@@ -28,20 +28,26 @@ Phases (any failure exits non-zero):
   7. flash_attention and embedding_bag against their plain versions on
      the card at the serving paths' shapes, timed with CUDA events
      beside one PyTorch call computing the same function; attention
-     also as achieved TFLOP/s and share of its bound
+     also as achieved TFLOP/s and share of its bound; the bag also as a
+     bare launch, alone under torch.profiler and its index check apart
   8. LM serving, minitron-8b in bf16: prefill of 4 x 1920 tokens
      through the attention kernel (32 launches), 128 greedy decode
      steps; logits against the plain attention; then in fp32, the last
      decode step against a teacher-forced prefill of the grown sequence
   9. MIND serving: serve_interests at B=512 and B=262,144 and
      retrieval_scores over all 2^20 items, through the embedding-bag
-     kernel, against the plain bag
- 10. GIN inference: spmm_ell against its plain version (in row chunks)
-     at the layer shapes (d = 100 and 64) and at the Cora shape
-     (d = 1433), timed beside torch.sparse.mm, and as a bare launch
-     beside the wrapper and its index check; gin-tu forwards through
-     the kernel (5 launches each) on rmat1 scale 21 with 100 features;
-     logits against the plain segment-sum route
+     kernel, against the plain bag; each call's bag of profiles bit for
+     bit against the in-order sum
+ 10. GIN inference: spmm_ell's row entry against its plain version (in
+     row chunks) at the layer shapes (d = 100 and 64) and at the Cora
+     shape (d = 1433), timed beside torch.sparse.mm, and as a bare
+     launch beside the wrapper and its index check; its vertex sum, the
+     forward's, bit for bit against its plain in-order version (in
+     vertex chunks) at d = 100 and 64, timed through the wrapper, bare,
+     alone under the profiler and beside torch.sparse.mm on the (n, n)
+     CSR; gin-tu forwards through the vertex sum (5 launches each, no
+     index_add_) on rmat1 scale 21 with 100 features; logits against
+     the plain segment-sum route
 
 It prints one JSON line of per-kernel numbers and, last, the device
 line ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -93,8 +99,10 @@ MIND_REQUESTS, MIND_TOPK, MIND_REL_TOL = 32, 5, 1e-5
 # 61,859,140); the Cora-sized full_graph_sm graph for the d = 1433 shape
 GIN_SCALE, GIN_CELL, GIN_WARM = 21, "ogb_products", 3
 CORA_N, CORA_AVG_DEGREE = 2708, 2.0
-# rows a step of the plain spmm_ell takes: it gathers (rows, W, d)
+# rows a step of the plain spmm_ell takes: it gathers (rows, W, d); and
+# vertices a step of the plain vertex sum takes
 SPMM_CHUNK_ROWS = 1 << 16
+SPMM_CHUNK_VERTICES = 1 << 18
 # kernel vs plain sum, as a share of max |out|: f32 sums of W <= 64
 # products in another order (the kernel in slot order, torch.sum by its
 # tree) differ by at most (W - 1) 2^-24 of the sum of |terms|
@@ -116,15 +124,15 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def time_ms(fn, flush) -> float:
-    """Mean device time of ``fn`` over TIMING_REPS calls, each after an
+def time_ms(fn, flush, reps: int = TIMING_REPS) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls, each after an
     untimed write that evicts the 50 MB L2 (the engine calls these
     kernels once per superstep, between other passes)."""
     import torch
 
     fn()  # warm-up
     total = 0.0
-    for _ in range(TIMING_REPS):
+    for _ in range(reps):
         flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -133,7 +141,33 @@ def time_ms(fn, flush) -> float:
         end.record()
         end.synchronize()
         total += start.elapsed_time(end)
-    return total / TIMING_REPS
+    return total / reps
+
+
+def kernel_alone_ms(fn, flush, names: tuple[str, ...]) -> float:
+    """The kernels' own device time per call of ``fn`` under
+    torch.profiler, TIMING_REPS calls each after a write that evicts L2:
+    the time of every kernel whose name holds one of ``names``, over the
+    launches of the first (a window can lose its first kernels, so the
+    window opens with untimed writes and counts what it recorded)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(8):
+            flush.zero_()
+        for _ in range(TIMING_REPS):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    calls = sum(e.count for e in events if names[0] in e.key)
+    if calls == 0:
+        fail(f"the profiler recorded no launch of {names[0]}")
+    mine = [e for e in events if any(name in e.key for name in names)]
+    return sum(e.self_device_time_total for e in mine) / 1e3 / calls
 
 
 def max_abs_err(a, b) -> float:
@@ -160,14 +194,17 @@ def device_profile(label: str, top: int = 6, kernel: str | None = None):
     """Log device time by kernel over the block (torch.profiler): the
     total, its share of the block's wall time, the top kernels and, if
     ``kernel`` is given, the total over the launches of the kernels
-    whose name holds it."""
+    whose name holds it.  Yields a list that holds, after the block, the
+    names of every operator and kernel the profiler recorded."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    seen: list[str] = []
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        yield
+        yield seen
     wall_ms = (time.perf_counter() - t0) * 1e3
+    seen += [e.key for e in prof.key_averages()]
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     total = sum(e.self_device_time_total for e in kernels) / 1e3
@@ -357,7 +394,23 @@ def serving_kernels(dev, flush) -> tuple[dict, dict]:
     def library():
         return F.embedding_bag(idx, table, mode="sum", per_sample_weights=w)
 
+    # the bare launch, without the wrapper's Python and its index check
+    # (one host read of idx's min and max, timed apart)
+    from repro_torch.kernels.embedding_bag.kernel import _launch as bag_launch
+
+    bare_out = torch.empty_like(out)
+    bare_args = (table.data_ptr(), idx.data_ptr(), w.data_ptr(), bare_out.data_ptr(),
+                 B, L, d, torch.cuda.current_stream().cuda_stream)
+    launch = bag_launch()
+    if launch(*bare_args) != 0:
+        fail("embedding_bag: the bare launch failed")
+    torch.cuda.synchronize()
+    if not torch.equal(bare_out, out):
+        fail("embedding_bag: the bare launch differs from the wrapper's")
     ms = time_ms(lambda: K.embedding_bag_cuda(table, idx, w), flush)
+    bare_ms = time_ms(lambda: launch(*bare_args), flush)
+    check_ms = time_ms(lambda: torch.stack(torch.aminmax(idx)).tolist(), flush)
+    alone_ms = kernel_alone_ms(lambda: launch(*bare_args), flush, ("embedding_bag",))
     plain_ms = time_ms(lambda: K.embedding_bag_ref(table, idx, w), flush)
     library_ms = time_ms(library, flush)
     rows_touched = int(torch.unique(idx[w != 0]).numel())  # rows a 0 weight skips
@@ -365,10 +418,13 @@ def serving_kernels(dev, flush) -> tuple[dict, dict]:
     bound_ms, bound_by = bound(nbytes, 2 * B * L * d)
     log(f"embedding_bag (table {tuple(table.shape)}, B={B} L={L}, f32 weights, "
         f"{float((w == 0).float().mean()):.3f} of them 0): max abs err {err:.3g} "
-        f"({rel:.3g} of max |out|, tol 1e-6); bit-identical to the in-order sum; kernel {ms:.4f} ms, plain "
+        f"({rel:.3g} of max |out|, tol 1e-6); bit-identical to the in-order sum; kernel {ms:.4f} ms "
+        f"(bare launch {bare_ms:.4f} ms, alone under the profiler {alone_ms:.4f} ms; the "
+        f"index check, one host read, {check_ms:.4f} ms), plain "
         f"{plain_ms:.4f} ms, F.embedding_bag {library_ms:.4f} ms (max abs err "
         f"{float((library() - plain).abs().max()):.3g}); {rows_touched} rows "
-        f"touched, {nbytes} bytes, bound {bound_ms:.4f} ms ({bound_by})")
+        f"touched, {nbytes} bytes, bound {bound_ms:.4f} ms ({bound_by}; "
+        f"{bound_ms / alone_ms:.3f} of it alone)")
     bag_row = dict(name="embedding_bag", route="cuda",
                    source="src/repro_torch/csrc/embedding_bag.cu",
                    replaces="src/repro/kernels/embedding_bag/kernel.py:39",
@@ -548,6 +604,15 @@ def mind_serving(dev) -> int:
                 not bool(torch.isfinite(caps).all()) or not err <= MIND_REL_TOL * scale:
             fail(f"MIND {label}: interests differ from the plain bag's (max abs diff "
                  f"{err}, max |ref| {scale})")
+        # the bag of this call's profiles, bit for bit the TPU kernel's order
+        ids, wts = batch["profile_ids"].to(torch.int32), batch["profile_mask"].float()
+        bag = K.embedding_bag_cuda(model.profile_table, ids, wts)
+        in_order = torch.zeros_like(bag)
+        for l in range(ids.shape[1]):
+            in_order = in_order + model.profile_table[ids[:, l].long()] * wts[:, l, None]
+        if not torch.equal(bag, in_order):
+            fail(f"MIND {label}: embedding_bag is not bit-identical to the in-order sum")
+        log(f"MIND {label}: embedding_bag of the profiles bit-identical to the in-order sum")
 
     batch = on_card(mind_batch(2, MIND_REQUESTS, cfg, seed=SEED))
     cands = torch.arange(cfg.n_items, dtype=torch.int32, device=dev)
@@ -669,6 +734,92 @@ def spmm_check(label, x_pad, col, wgt, flush) -> list[dict]:
     return out_rows
 
 
+def vertex_check(label, x, ell, graph, flush) -> dict:
+    """Phase 10, step 3b: the vertex sum (spmm_ell_vertex_cuda, GIN's
+    neighbour sum) bit for bit against its plain in-order version over
+    all n vertices (in chunks of SPMM_CHUNK_VERTICES), timed through the
+    wrapper, as a bare launch and alone under the profiler, beside
+    torch.sparse.mm on the (n, n) CSR of the same edges.  ``graph``:
+    (live col, m, rows of x the live slots read, the CSR).  Returns its
+    row of the kernels line."""
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.kernels.spmm_ell.kernel import (
+        SPLIT_ROWS,
+        _vertex_launch,
+        vertex_launch_args,
+        vertex_plan,
+    )
+
+    col, wgt, row_ptr, deg = ell.col, ell.wgt, ell.row_ptr, ell.deg
+    (n, d), (R, W) = x.shape, col.shape
+    m, rows_read, csr = graph
+    K.reset_launch_counts()
+    out = K.spmm_ell_vertex_cuda(x, col, wgt, row_ptr, deg)
+    torch.cuda.synchronize()
+    if K.launch_counts()["spmm_ell"] != 1:
+        fail(f"spmm_ell vertex sum ({label}): the wrapper did not launch its kernel")
+    starts = row_ptr.tolist()
+    chunks = [(v0, min(n, v0 + SPMM_CHUNK_VERTICES))
+              for v0 in range(0, n, SPMM_CHUNK_VERTICES)]
+
+    def plain_chunk(v0, v1):
+        r0, r1 = starts[v0], starts[v1]
+        return K.spmm_ell_vertex_ref(x, col[r0:r1], wgt[r0:r1],
+                                     row_ptr[v0:v1 + 1] - r0, deg[v0:v1])
+
+    for v0, v1 in chunks:
+        if not bits_equal(out[v0:v1], plain_chunk(v0, v1)):
+            fail(f"spmm_ell vertex sum ({label}): not bit-identical to its plain "
+                 f"in-order version on vertices [{v0}, {v1})")
+    if not bits_equal(K.spmm_ell_vertex_cuda(x, col, wgt, row_ptr, deg), out):
+        fail(f"spmm_ell vertex sum ({label}): a second launch gave other bits")
+    plan = vertex_plan(x, col, row_ptr, deg, SPLIT_ROWS)
+    scratch = torch.empty((plan.fat_row.shape[0], d), device=x.device)
+    bare_out = torch.empty_like(out)
+    bare_args = vertex_launch_args(x, col, wgt, row_ptr, deg, plan, scratch, bare_out)
+    launch = _vertex_launch()
+    if launch(*bare_args) != 0:
+        fail(f"spmm_ell vertex sum ({label}): the bare launch failed")
+    torch.cuda.synchronize()
+    if not bits_equal(bare_out, out):
+        fail(f"spmm_ell vertex sum ({label}): the bare launch differs from the wrapper's")
+    ms = time_ms(lambda: K.spmm_ell_vertex_cuda(x, col, wgt, row_ptr, deg), flush)
+    bare_ms = time_ms(lambda: launch(*bare_args), flush)
+    alone_ms = kernel_alone_ms(lambda: launch(*bare_args), flush,
+                               ("vertex_sum_kernel", "vertex_fold_kernel"))
+    plain_out = torch.empty_like(out)
+
+    def plain():
+        for v0, v1 in chunks:
+            plain_out[v0:v1] = plain_chunk(v0, v1)
+
+    plain_ms = time_ms(plain, flush, reps=3)
+    lib_err = float((torch.sparse.mm(csr, x) - out).abs().max())
+    library_ms = time_ms(lambda: torch.sparse.mm(csr, x), flush)
+    # live col and wgt, the rows of x they name, once each, row_ptr, deg, out
+    nbytes = 8 * m + 4 * rows_read * d + 8 * (n + 1) + 4 * n + 4 * n * d
+    bound_ms, bound_by = bound(nbytes, 2 * m * d)
+    gather_ms = 4 * m * d / MEM_BYTES_PER_S * 1e3
+    log(f"spmm_ell vertex sum ({label}: x {tuple(x.shape)}, ELL R={R} W={W}, {m} live "
+        f"slots, {plan.fat_vertex.shape[0]} vertices of more than {plan.split_rows} "
+        f"rows in {plan.fat_row.shape[0]} scratch rows): bit-identical to the plain "
+        f"in-order version ({len(chunks)} chunks) and launch to launch; kernel "
+        f"{ms:.4f} ms (bare launch {bare_ms:.4f} ms, alone under the profiler "
+        f"{alone_ms:.4f} ms), plain {plain_ms:.4f} ms, torch.sparse.mm (CSR, n x n) "
+        f"{library_ms:.4f} ms (max abs diff {lib_err:.3g}); {rows_read} rows of x read, "
+        f"{nbytes} bytes, bound {bound_ms:.4f} ms ({bound_by}; {bound_ms / alone_ms:.3f} "
+        f"of it alone); every live slot's row from memory, no reuse, {4 * m * d} bytes: "
+        f"{gather_ms:.4f} ms")
+    del out, bare_out, plain_out, scratch
+    return dict(name="spmm_ell", route="cuda", source="src/repro_torch/csrc/spmm_ell.cu",
+                replaces="src/repro/kernels/spmm_ell/kernel.py:47",
+                entry="spmm_ell_vertex_launch", launches=0, max_abs_err=0.0, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms)
+
+
 def gin_inference(dev) -> dict:
     """Phase 10: GIN inference at full width on rmat1 scale 21.  Returns
     the spmm_ell row of the kernels line (layer 1, the sum)."""
@@ -714,12 +865,27 @@ def gin_inference(dev) -> dict:
     # ---- step 3: the kernel against its plain version -----------------
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    # the row entry, the TPU function's own (R, d) rows: x with the zero row
     x_pad = torch.cat([b["x"], b["x"].new_zeros((1, cfg.d_in))])
-    row = spmm_check(f"layer 1, d={cfg.d_in}", x_pad, ell.col, ell.wgt, flush)[0]
+    spmm_check(f"layer 1, d={cfg.d_in}", x_pad, ell.col, ell.wgt, flush)
     h = torch.randn((g.n + 1, cfg.d_hidden), generator=gen, device=dev)
     h[g.n] = 0
     spmm_check(f"layers 2-5, d={cfg.d_hidden}", h, ell.col, ell.wgt, flush)
-    del x_pad, h
+    # the vertex sum, the forward's: no zero row
+    from repro_torch.kernels.spmm_ell.ref import live_slots
+
+    live = torch.arange(W, device=dev) < live_slots(ell.row_ptr, ell.deg, W)[:, None]
+    live_col = ell.col[live]
+    m = int(live_col.numel())
+    rows_read = int(torch.unique(live_col).numel())
+    csr = torch.sparse_csr_tensor(
+        torch.cat([ell.row_ptr.new_zeros(1), torch.cumsum(ell.deg.long(), 0)]),
+        live_col.long(), ell.wgt[live], size=(g.n, g.n), check_invariants=False)
+    del live, live_col
+    graph = (m, rows_read, csr)
+    row = vertex_check(f"layer 1, d={cfg.d_in}", b["x"], ell, graph, flush)
+    vertex_check(f"layers 2-5, d={cfg.d_hidden}", h[:g.n].contiguous(), ell, graph, flush)
+    del x_pad, h, csr, graph
     cora = erdos_renyi_graph(CORA_N, CORA_AVG_DEGREE, seed=SEED)
     cfg_sm = get_arch("gin-tu").make_config(False, "full_graph_sm")
     cb = {k: torch.as_tensor(v, device=dev)
@@ -755,10 +921,13 @@ def gin_inference(dev) -> dict:
     if launches != cfg.n_layers * (1 + GIN_WARM):
         fail(f"GIN forward launched spmm_ell {launches} times in {1 + GIN_WARM} "
              f"forwards, not once per layer ({cfg.n_layers})")
-    with device_profile("two warm GIN forwards", top=10):
+    with device_profile("two warm GIN forwards", top=10) as seen:
         for _ in range(2):
             gin.forward(params, *args, cfg)
         torch.cuda.synchronize()
+    if any("index_add" in key for key in seen):
+        fail("the GIN forward ran index_add_: the neighbour sum must not combine rows "
+             "outside the kernel")
 
     # ---- step 5: against the plain segment-sum route ------------------
     if logits.shape != (g.n, cfg.n_classes) or not bool(torch.isfinite(logits).all()):

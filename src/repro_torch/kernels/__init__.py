@@ -6,7 +6,8 @@ with a plain torch version that CPU tensors take.
   relax_ell         pull-mode min-plus ELL row minima (rule R1)
   flash_attention   streaming-softmax GQA attention (LM prefill)
   embedding_bag     gather + weighted sum per bag (MIND profile pooling)
-  spmm_ell          ELL SpMM, sum or max over slots (GNN neighbour sums)
+  spmm_ell          ELL SpMM, sum or max over slots, or straight into
+                    vertex sums (GNN neighbour sums)
 """
 
 from repro_torch.kernels._lib import (
@@ -32,9 +33,12 @@ from repro_torch.kernels.relax_push import (
 )
 from repro_torch.kernels.spmm_ell import (
     aggregate_neighbors,
-    spmm_rows,
     spmm_ell_cuda,
     spmm_ell_ref,
+    spmm_ell_vertex_cuda,
+    spmm_ell_vertex_ref,
+    spmm_rows,
+    vertex_sum,
 )
 from repro_torch.kernels.superstep_fused import (
     fused_superstep,
@@ -51,4 +55,5 @@ __all__ = [
     "attention_ref", "flash_attention_cuda", "mha",
     "bag_pool", "bag_sum", "embedding_bag_cuda", "embedding_bag_ref",
     "aggregate_neighbors", "spmm_rows", "spmm_ell_cuda", "spmm_ell_ref",
+    "vertex_sum", "spmm_ell_vertex_cuda", "spmm_ell_vertex_ref",
 ]

@@ -44,7 +44,7 @@ def embedding_bag_cuda(table, idx, w) -> torch.Tensor:
     if B * d == 0:
         return out
     if idx.numel():
-        lo, hi = (int(x) for x in torch.aminmax(idx))
+        lo, hi = torch.stack(torch.aminmax(idx)).tolist()
         _lib.require(0 <= lo and hi < V, NAME,
                      f"idx must lie in [0, {V}), got [{lo}, {hi}]")
     rc = _launch()(table.data_ptr(), idx.data_ptr(), w.data_ptr(),

@@ -1,27 +1,43 @@
-"""CUDA launch of the ELL SpMM (``csrc/spmm_ell.cu``), which replaces
-the TPU kernel ``repro/kernels/spmm_ell/kernel.py::spmm_ell``.  Bound by
-device-memory bytes: 3.35 TB/s on an H100 SXM at its 700 W limit (data
-sheet)."""
+"""CUDA launches of the ELL SpMM (``csrc/spmm_ell.cu``), which replaces
+the TPU kernel ``repro/kernels/spmm_ell/kernel.py::spmm_ell``: the row
+entry (``spmm_ell_cuda``, the TPU function's (R, d) rows, sum or max)
+and the vertex sum (``spmm_ell_vertex_cuda``, GIN's (n, d) neighbour
+sum over a neighbour ELL).  Bound by device-memory bytes: 3.35 TB/s on
+an H100 SXM at its 700 W limit (data sheet)."""
 
 from __future__ import annotations
 
 import functools
 import weakref
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _lib
-from repro_torch.kernels.spmm_ell.ref import OPS
+from repro_torch.kernels.spmm_ell.ref import OPS, live_slots
 
 NAME = "spmm_ell"
+#: a vertex of more rows than this has its rows summed as segments of their
+#: own and folded by a second kernel (csrc/spmm_ell.cu); 2 was the fastest
+#: of 1, 2, 4 and 16 at both GIN widths on an H100 (scripts/spmm_ab.py)
+SPLIT_ROWS = 2
 #: the last col whose range was read: (weak reference, version, min, max)
 _checked = None
+#: the last vertex plan: (key of weak references and versions, VertexPlan)
+_planned = None
 
 
 @functools.cache
 def _launch():
     return _lib.entry(
         "spmm_ell_launch", [_lib.ptr] * 4 + [_lib.c_int] * 4 + [_lib.ptr]
+    )
+
+
+@functools.cache
+def _vertex_launch():
+    return _lib.entry(
+        "spmm_ell_vertex_launch", [_lib.ptr] * 11 + [_lib.c_int] * 6 + [_lib.ptr]
     )
 
 
@@ -73,6 +89,107 @@ def spmm_ell_cuda(x, col, wgt, op: str = "sum") -> torch.Tensor:
                      f"col must lie in [0, {n_x}), got [{lo}, {hi}]")
     rc = _launch()(x.data_ptr(), col.data_ptr(), wgt.data_ptr(), out.data_ptr(),
                    R, W, d, OPS.index(op), _lib.stream_of(x))
+    _lib.check(rc, NAME)
+    _lib.count_launch(NAME)
+    return out
+
+
+class VertexPlan(NamedTuple):
+    """What the vertex sum needs beside the ELL: the fat vertices (more
+    than ``split_rows`` rows), the ELL row and live slots of each of
+    their rows, one scratch row each."""
+    fat_vertex: torch.Tensor  # (n_fat,) int32
+    fat_start: torch.Tensor   # (n_fat + 1,) int64, first scratch row of each
+    fat_row: torch.Tensor     # (n_fat_rows,) int64 ELL row
+    fat_live: torch.Tensor    # (n_fat_rows,) int32 live slots
+    split_rows: int
+
+
+def check_vertex_args(x, col, wgt, row_ptr, deg) -> None:
+    """x (n_x, d) f32, col (R, W) int32, wgt (R, W) f32, row_ptr (n+1,)
+    int64, deg (n,) int32.  Messages are formatted only on failure."""
+    check_spmm_args(x, col, wgt, "sum")
+    if row_ptr.dtype != torch.int64 or row_ptr.dim() != 1 or row_ptr.shape[0] < 1:
+        _lib.require(False, NAME, f"row_ptr must be 1-D int64 of n+1 >= 1 entries, got "
+                                  f"{row_ptr.dtype} {tuple(row_ptr.shape)}")
+    if deg.dtype != torch.int32 or deg.shape != (row_ptr.shape[0] - 1,):
+        _lib.require(False, NAME, f"deg must be int32 ({row_ptr.shape[0] - 1},), got "
+                                  f"{deg.dtype} {tuple(deg.shape)}")
+
+
+def vertex_plan(x, col, row_ptr, deg, split_rows: int) -> VertexPlan:
+    """Check a neighbour ELL and plan the vertex sum over it, splitting
+    the vertices of more than ``split_rows`` (>= 1) rows; remembered for
+    the last (col, row_ptr, deg) until one of them is written or freed,
+    since the GIN forward sums over one ELL every layer.  Raises unless
+    row_ptr runs from 0 to R without falling, every deg[v] fits v's
+    rows, and every live slot's col lies in [0, n_x).  A few host reads;
+    n >= 1."""
+    global _planned
+    _lib.require(split_rows >= 1, NAME, f"split_rows must be >= 1, got {split_rows}")
+    tensors = (col, row_ptr, deg)
+    key = (*(t._version for t in tensors), split_rows, x.shape[0])
+    if _planned is not None:
+        refs, old_key, plan = _planned
+        if old_key == key and all(r() is t for r, t in zip(refs, tensors)):
+            return plan
+    R, W = col.shape
+    nrows = row_ptr[1:] - row_ptr[:-1]
+    first, last, least_rows, most_over, least_deg = torch.stack([
+        row_ptr[0], row_ptr[-1], nrows.min(), (deg.long() - nrows * W).max(),
+        deg.min().long(),
+    ]).tolist()
+    _lib.require(first == 0 and last == R and least_rows >= 0, NAME,
+                 f"row_ptr must rise from 0 to R = {R}, got {first} .. {last}, "
+                 f"least step {least_rows}")
+    _lib.require(least_deg >= 0 and most_over <= 0, NAME,
+                 f"deg must lie in [0, rows x W]: least {least_deg}, "
+                 f"most over {most_over}")
+    live = live_slots(row_ptr, deg, W)
+    live_col = col[torch.arange(W, device=col.device) < live[:, None]]
+    if live_col.numel():
+        lo, hi = torch.stack(torch.aminmax(live_col)).tolist()
+        _lib.require(0 <= lo and hi < x.shape[0], NAME,
+                     f"live col must lie in [0, {x.shape[0]}), got [{lo}, {hi}]")
+    del live_col
+    fat_vertex = torch.nonzero(nrows > split_rows).flatten()
+    counts = nrows[fat_vertex]
+    fat_start = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+    n_fat_rows = int(fat_start[-1])
+    rank = torch.arange(n_fat_rows, device=col.device) - torch.repeat_interleave(
+        fat_start[:-1], counts, output_size=n_fat_rows)
+    fat_row = torch.repeat_interleave(row_ptr[fat_vertex], counts,
+                                      output_size=n_fat_rows) + rank
+    plan = VertexPlan(fat_vertex.to(torch.int32), fat_start, fat_row,
+                      live[fat_row].to(torch.int32), split_rows)
+    _planned = (tuple(weakref.ref(t) for t in tensors), key, plan)
+    return plan
+
+
+def vertex_launch_args(x, col, wgt, row_ptr, deg, plan: VertexPlan, scratch, out) -> tuple:
+    """The C entry's arguments, for a caller that times the bare launch."""
+    W, (n, d) = col.shape[1], out.shape
+    return (x.data_ptr(), col.data_ptr(), wgt.data_ptr(), row_ptr.data_ptr(),
+            deg.data_ptr(), plan.fat_row.data_ptr(), plan.fat_live.data_ptr(),
+            plan.fat_vertex.data_ptr(), plan.fat_start.data_ptr(), scratch.data_ptr(),
+            out.data_ptr(), n, W, d, plan.split_rows, plan.fat_row.shape[0],
+            plan.fat_vertex.shape[0], _lib.stream_of(x))
+
+
+def spmm_ell_vertex_cuda(x, col, wgt, row_ptr, deg) -> torch.Tensor:
+    """Launch the vertex sum; returns the (n, d) f32 sums of each vertex's
+    live slots, row by row in order (``ref.spmm_ell_vertex_ref``).
+    Checks and plans the ELL once (vertex_plan, at SPLIT_ROWS); counts
+    one ``spmm_ell`` launch a call."""
+    check_vertex_args(x, col, wgt, row_ptr, deg)
+    _lib.check_cuda_tensors(NAME, x=x, col=col, wgt=wgt, row_ptr=row_ptr, deg=deg)
+    n, d = deg.shape[0], x.shape[1]
+    out = torch.empty((n, d), dtype=torch.float32, device=x.device)
+    if n * d == 0:
+        return out
+    plan = vertex_plan(x, col, row_ptr, deg, SPLIT_ROWS)
+    scratch = torch.empty((plan.fat_row.shape[0], d), dtype=torch.float32, device=x.device)
+    rc = _vertex_launch()(*vertex_launch_args(x, col, wgt, row_ptr, deg, plan, scratch, out))
     _lib.check(rc, NAME)
     _lib.count_launch(NAME)
     return out

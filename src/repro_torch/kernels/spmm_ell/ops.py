@@ -1,14 +1,15 @@
-"""Public op: ELL SpMM (GNN neighbour aggregation).  A CUDA tensor
-launches the kernel; a CPU tensor takes the plain torch version.  The
-kernel masks the ragged edge itself, so neither rows nor features need
-padding."""
+"""Public ops: ELL SpMM (GNN neighbour aggregation), by rows
+(``spmm_rows``, ``aggregate_neighbors``) or straight into vertex sums
+(``vertex_sum``).  A CUDA tensor launches the kernel; a CPU tensor
+takes the plain torch version.  The kernel masks the ragged edge
+itself, so neither rows nor features need padding."""
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.spmm_ell.kernel import spmm_ell_cuda
-from repro_torch.kernels.spmm_ell.ref import spmm_ell_ref
+from repro_torch.kernels.spmm_ell.kernel import spmm_ell_cuda, spmm_ell_vertex_cuda
+from repro_torch.kernels.spmm_ell.ref import spmm_ell_ref, spmm_ell_vertex_ref
 
 IMPLS = ("ref", "pallas", "pallas_interpret")
 
@@ -18,6 +19,16 @@ def spmm_rows(x, col, wgt, op: str = "sum") -> torch.Tensor:
     if x.device.type == "cpu":
         return spmm_ell_ref(x, col, wgt, op)
     return spmm_ell_cuda(x, col, wgt, op)
+
+
+def vertex_sum(x, col, wgt, row_ptr, deg) -> torch.Tensor:
+    """(n, d) f32 ``out[v] = sum over v's rows, in order, of the sum over
+    the row's live slots, in order, of x[col[r, s]] * wgt[r, s]`` over a
+    neighbour ELL (``models/gnn/ell.py``); padding is never read, so x
+    needs no zero row."""
+    if x.device.type == "cpu":
+        return spmm_ell_vertex_ref(x, col, wgt, row_ptr, deg)
+    return spmm_ell_vertex_cuda(x, col, wgt, row_ptr, deg)
 
 
 def aggregate_neighbors(x, col, wgt, *, op: str = "sum",

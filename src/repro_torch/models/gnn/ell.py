@@ -3,15 +3,18 @@ the layout the ``spmm_ell`` kernel sums over.  It plays for GNN message
 passing the role ``core/selfstab.py::in_ell`` plays for SSSP, with
 three differences: ``wgt`` is the edge mask as f32 (a masked edge
 counts 0, as in GIN's ``x[src] * mask``); padding is ``col = n``,
-``wgt = 0``, pointing at one zero row appended to the features (the
-"pad-zero row" of the JAX package's ``spmm_ell`` op); and a vertex's
-virtual rows are combined by a sum.
+``wgt = 0`` (the JAX package's ``spmm_ell`` op points it at a zero row
+appended to the features); and a vertex's virtual rows are combined by
+a sum.
 
 A vertex of in-degree > W is split into ceil(deg / W) virtual rows, as
 ``graph/partition.py::chunk_fat_rows`` splits fat rows, and every
 vertex has at least one row.  Slots keep the edges' order (a stable
-sort by destination).  The build runs in torch on the edges' device,
-so on the card it is a sort there.
+sort by destination), so a vertex's rows are contiguous and its live
+slots are the first ``deg[v]`` of them: ``row_ptr`` and ``deg`` say
+where, and the vertex sum reads only those, never the padding.  The
+build runs in torch on the edges' device, so on the card it is a sort
+there.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import spmm_rows
+from repro_torch.kernels import vertex_sum
 
 # memo of the last graph only, so a graph the caller drops pins no more
 # than one ELL on the card: (key, edge tensors, ELL), keyed by the edge
@@ -31,7 +34,8 @@ _LAST: tuple | None = None
 
 
 class NeighborELL(NamedTuple):
-    row_dst: torch.Tensor  # (R,) int64, the vertex of each virtual row
+    row_ptr: torch.Tensor  # (n+1,) int64, vertex v's rows row_ptr[v] .. row_ptr[v+1]-1
+    deg: torch.Tensor      # (n,) int32 in-degree: v's live slots
     col: torch.Tensor      # (R, W) int32 source vertex; n for padding
     wgt: torch.Tensor      # (R, W) f32 edge mask; 0 for padding
     n: int
@@ -54,18 +58,17 @@ def build_neighbor_ell(edge_src, edge_dst, edge_mask, n: int,
     deg = torch.bincount(dst, minlength=n)
     W = int(width or max(1, min(64, int(deg.max()))))
     chunks = torch.clamp((deg + W - 1) // W, min=1)  # >= 1: empty rows exist
-    row_start = torch.cumsum(chunks, 0) - chunks
-    R = int(chunks.sum())
+    row_ptr = torch.cat([chunks.new_zeros(1), torch.cumsum(chunks, 0)])
+    R = int(row_ptr[-1])
     # each edge's flat (virtual row, slot) position: its vertex's first
     # row times W plus its rank among the vertex's in-edges
     rank = torch.arange(m, device=dev) - (torch.cumsum(deg, 0) - deg)[dst_sorted]
-    flat = row_start[dst_sorted] * W + rank
+    flat = row_ptr[dst_sorted] * W + rank
     col = torch.full((R * W,), n, dtype=torch.int32, device=dev)
     wgt = torch.zeros((R * W,), dtype=torch.float32, device=dev)
     col[flat] = edge_src[order].to(torch.int32)
     wgt[flat] = edge_mask[order].to(torch.float32)
-    row_dst = torch.repeat_interleave(torch.arange(n, device=dev), chunks)
-    return NeighborELL(row_dst, col.view(R, W), wgt.view(R, W), n)
+    return NeighborELL(row_ptr, deg.to(torch.int32), col.view(R, W), wgt.view(R, W), n)
 
 
 def neighbor_ell(edge_src, edge_dst, edge_mask, n: int) -> NeighborELL:
@@ -80,8 +83,6 @@ def neighbor_ell(edge_src, edge_dst, edge_mask, n: int) -> NeighborELL:
 
 def neighbor_sum(ell: NeighborELL, x) -> torch.Tensor:
     """(n, d) ``sum over in-edges (src -> v) of x[src] * mask``: the
-    kernel op over the ELL rows (with the zero row appended to x), then
-    the sum of each vertex's rows."""
-    x_pad = torch.cat([x, x.new_zeros((1, x.shape[1]))])
-    rows = spmm_rows(x_pad, ell.col, ell.wgt, "sum")
-    return torch.zeros_like(x).index_add_(0, ell.row_dst, rows)
+    kernel op's vertex sum, each row's live slots in order, then each
+    vertex's rows in order (the same bits every call)."""
+    return vertex_sum(x, ell.col, ell.wgt, ell.row_ptr, ell.deg)

@@ -5,8 +5,9 @@ Assigned config: 5 layers, d_hidden 64, sum aggregator.
 
 The neighbour sum takes one of two routes, chosen by
 ``GINConfig.agg_impl``: ``"spmm_ell"`` sums over the graph's neighbour
-ELL through the ``spmm_ell`` kernel op (the plain version on the CPU),
-then adds each vertex's rows; ``"segment_sum"`` is the JAX package's
+ELL through the ``spmm_ell`` kernel op's vertex sum (the plain version
+on the CPU), each vertex's live slots row by row in order;
+``"segment_sum"`` is the JAX package's
 ``scatter_sum(gather_src(x, edge_src) * mask, edge_dst, n)``, walked in
 chunks of edges so that the gathered messages stay a few GB at
 ogb-products scale.  Tests and the card's reference check use the

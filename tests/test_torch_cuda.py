@@ -246,10 +246,13 @@ def bag_in_order(table, idx, w):
 @pytest.mark.parametrize("V,d,B,L", [
     (100, 32, 8, 5), (1000, 64, 16, 10), (50, 128, 4, 20),
     (64, 30, 3, 7), (4096, 64, 1000, 13), (7, 4, 1, 1), (300, 64, 33, 0),
+    (500, 64, 40, 37), (300, 64, 50, 19), (200, 30, 9, 11), (100, 200, 5, 13),
 ])
 def test_embedding_bag_matches_plain(dev, V, d, B, L, weights):
     """w is the 0/1 mask, or f32 weights in (-2, 2) with the masked
-    slots 0."""
+    slots 0.  L = 37, 19, 13 and 11 end in a ragged chunk of the kernel's
+    4 row loads (kChunk; L = 37 also past one batch of 32 slots); d = 30 takes
+    the scalar path, d = 200 two column passes of 32 float4 lanes."""
     r = np.random.default_rng(V + d + B + L)
     table = torch.as_tensor(r.normal(size=(V, d)).astype(np.float32), device=dev)
     idx = torch.as_tensor(r.integers(0, V, (B, L)).astype(np.int32), device=dev)
@@ -275,6 +278,21 @@ def test_embedding_bag_matches_plain(dev, V, d, B, L, weights):
     if L:
         with pytest.raises(ValueError, match="lie in"):
             K.embedding_bag_cuda(table, torch.full_like(idx, V), w)
+
+
+@pytest.mark.parametrize("d", [4, 8, 16, 1, 2, 3, 7, 13])
+def test_embedding_bag_every_group_width(dev, d):
+    """Every group width of lanes a bag, 1 to 16 (32 is in the grid
+    above), on both paths: float4 columns (d = 4, 8, 16) and scalar ones
+    (d % 4 != 0); L = 19 ends in a ragged chunk.  Bit for bit the
+    in-order sum."""
+    r = np.random.default_rng(d)
+    table = torch.as_tensor(r.normal(size=(300, d)).astype(np.float32), device=dev)
+    idx = torch.as_tensor(r.integers(0, 300, (45, 19)).astype(np.int32), device=dev)
+    w = torch.as_tensor(r.uniform(-2, 2, (45, 19)).astype(np.float32), device=dev)
+    out = K.embedding_bag_cuda(table, idx, w)
+    torch.cuda.synchronize()
+    assert torch.equal(out, bag_in_order(table, idx, w))
 
 
 @pytest.mark.parametrize("mlp_type,kv", [("relu2", 2), ("swiglu", 4)])
@@ -420,6 +438,124 @@ def test_spmm_ell_wrapper_rejects_bad_inputs(dev):
         K.spmm_ell_cuda(x, col.cpu(), wgt)
     with pytest.raises(ValueError, match="op"):
         K.spmm_ell_cuda(x, col, wgt, "mean")
+
+
+def vertex_ell_case(dev, d, seed):
+    """A neighbour ELL (W 64) over 3,000 vertices: 30,000 random edges,
+    a hub of 3,000 in-edges (47 rows, above SPLIT_ROWS), a vertex of
+    exactly SPLIT_ROWS full rows and one of one slot more, 12 of 2 to 6
+    rows, 100 isolated vertices; non-integer weights on the live slots,
+    a fifth of them 0 (masked edges); normal x."""
+    from repro_torch.kernels.spmm_ell.kernel import SPLIT_ROWS
+    from repro_torch.models.gnn import build_neighbor_ell
+
+    r = np.random.default_rng(seed)
+    n, hub, exact, over = 3000, 5, 6, 7
+    dst = np.concatenate([r.integers(20, n - 100, 30000), np.full(3000, hub),
+                          np.full(64 * SPLIT_ROWS, exact), np.full(64 * SPLIT_ROWS + 1, over),
+                          *(np.full(20 * v - 95, v) for v in range(8, 20))])
+    src = r.integers(0, n, dst.shape[0])
+    perm = r.permutation(dst.shape[0])
+    ell = build_neighbor_ell(*on(dev, src[perm], dst[perm], np.ones(dst.shape[0], bool)), n)
+    rows = (ell.row_ptr[1:] - ell.row_ptr[:-1]).cpu()
+    assert ell.col.shape[1] == 64 and int(rows[hub]) == 47
+    assert int(rows[exact]) == SPLIT_ROWS and int(rows[over]) == SPLIT_ROWS + 1
+    w = r.normal(size=ell.wgt.shape) * (r.random(ell.wgt.shape) > 0.2)
+    wgt = torch.where(ell.wgt != 0, torch.as_tensor(w.astype(np.float32), device=dev), 0.0)
+    x = torch.as_tensor(r.normal(size=(n, d)).astype(np.float32), device=dev)
+    return x, ell.col, wgt, ell.row_ptr, ell.deg
+
+
+@pytest.mark.parametrize("split_rows", [None, 1, 64])
+@pytest.mark.parametrize("d", [100, 64, 97, 1433])
+def test_spmm_ell_vertex_matches_plain(dev, d, split_rows, monkeypatch):
+    """The vertex sum bit for bit against its plain in-order version, on
+    the card and on the CPU, at float4 (d = 100), float2 (64), scalar
+    (97) and shifted float4 rows (1433, 12 feature chunks); the hub's
+    rows, and with split_rows = 1 every multi-row vertex's, go through
+    the scratch rows and the fold; with 64 only the hub's, the others'
+    rows fold within their warp's stream.  The same bits on a second
+    launch."""
+    from repro_torch.kernels.spmm_ell import kernel
+
+    x, col, wgt, row_ptr, deg = vertex_ell_case(dev, d, seed=d)
+    if split_rows is not None:
+        monkeypatch.setattr(kernel, "SPLIT_ROWS", split_rows)
+    K.reset_launch_counts()
+    out = K.spmm_ell_vertex_cuda(x, col, wgt, row_ptr, deg)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["spmm_ell"] == 1
+    assert out.shape == (deg.shape[0], d) and out.dtype == torch.float32
+    assert bits_equal(out, K.spmm_ell_vertex_ref(x, col, wgt, row_ptr, deg))
+    cpu = K.spmm_ell_vertex_ref(*(t.cpu() for t in (x, col, wgt, row_ptr, deg)))
+    assert bits_equal(out.cpu(), cpu)
+    assert bits_equal(K.spmm_ell_vertex_cuda(x, col, wgt, row_ptr, deg), out)
+
+
+def test_spmm_ell_vertex_wrapper_rejects_bad_inputs(dev):
+    x, col, wgt, row_ptr, deg = vertex_ell_case(dev, 8, seed=1)
+    bad = col.clone()
+    bad[int(row_ptr[5]), 0] = x.shape[0]  # a live slot of the hub past x
+    with pytest.raises(ValueError, match="live col must lie in"):
+        K.spmm_ell_vertex_cuda(x, bad, wgt, row_ptr, deg)
+    bad_deg = deg.clone()
+    bad_deg[5] = 64 * 47 + 1
+    with pytest.raises(ValueError, match="deg must lie in"):
+        K.spmm_ell_vertex_cuda(x, col, wgt, row_ptr, bad_deg)
+    with pytest.raises(ValueError, match="row_ptr must rise from 0"):
+        K.spmm_ell_vertex_cuda(x, col, wgt, row_ptr.flip(0).contiguous(), deg)
+    with pytest.raises(ValueError, match="deg must be int32"):
+        K.spmm_ell_vertex_cuda(x, col, wgt, row_ptr, deg.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        K.spmm_ell_vertex_cuda(x.t().contiguous().t(), col, wgt, row_ptr, deg)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        K.spmm_ell_vertex_cuda(x, col, wgt, row_ptr.cpu(), deg)
+
+
+def empty_rows_case(dev, d, W=8, n=300, n_x=60, seed=0):
+    """An ELL whose vertices own rows past their last live slot, as the C
+    entry's contract allows (deg[v] <= rows x W): a vertex of 5 rows
+    and 2W + 3 slots, one of 4 rows and none, one of 3 rows and W, one
+    of 2 rows and 3 slots, one of 1 row and none, then random row counts
+    0 .. 6 and live slots 0 .. rows x W.  Padding slots hold NaN
+    weights: a kernel that reads one shows it."""
+    r = np.random.default_rng(seed)
+    rows = np.concatenate([[5, 4, 3, 2, 0, 1, 6, 1], r.integers(0, 7, n - 8)])
+    deg = np.concatenate([[2 * W + 3, 0, W, 3, 0, W, 6 * W, 0],
+                          [r.integers(0, k * W + 1) for k in rows[8:]]]).astype(np.int32)
+    row_ptr = np.concatenate([[0], np.cumsum(rows)]).astype(np.int64)
+    R = int(row_ptr[-1])
+    live = np.clip(np.repeat(deg, rows) - (np.arange(R) - np.repeat(row_ptr[:-1], rows)) * W,
+                   0, W)
+    wgt = (r.normal(size=(R, W)) * (r.random((R, W)) > 0.2)).astype(np.float32)
+    wgt[np.arange(W) >= live[:, None]] = np.nan
+    col = r.integers(0, n_x, (R, W)).astype(np.int32)
+    x = r.normal(size=(n_x, d)).astype(np.float32)
+    return on(dev, x, col, wgt, row_ptr, deg)
+
+
+@pytest.mark.parametrize("split_rows", [2, 1])
+@pytest.mark.parametrize("d", [100, 64, 97, 1433])
+def test_spmm_ell_vertex_empty_rows_match_plain(dev, d, split_rows):
+    """Rows without a live slot, in vertices split over scratch rows and
+    in those summed whole, give +0 row sums: the bare launch into NaN
+    scratch and a NaN out is bit for bit the plain in-order version."""
+    from repro_torch.kernels.spmm_ell import kernel
+
+    x, col, wgt, row_ptr, deg = empty_rows_case(dev, d, seed=d + split_rows)
+    plan = kernel.vertex_plan(x, col, row_ptr, deg, split_rows)
+    assert int((plan.fat_live == 0).sum()) > 0
+    n = deg.shape[0]
+    scratch = torch.full((plan.fat_row.shape[0], d), float("nan"), device=dev)
+    out = torch.full((n, d), float("nan"), device=dev)
+    rc = kernel._vertex_launch()(*kernel.vertex_launch_args(x, col, wgt, row_ptr, deg, plan,
+                                                           scratch, out))
+    torch.cuda.synchronize()
+    assert rc == 0
+    ref = K.spmm_ell_vertex_ref(x, col, wgt, row_ptr, deg)
+    assert not torch.isnan(ref).any()
+    assert bits_equal(out, ref)
+    assert bits_equal(K.spmm_ell_vertex_cuda(x, col, wgt, row_ptr, deg), ref)
 
 
 @pytest.mark.parametrize("cell,scale", [("ogb_products", 12), ("full_graph_sm", 9)])

@@ -5,9 +5,13 @@ CPU tensor takes) against the reference Pallas kernel in interpret mode
 on the same numpy inputs, at the reference kernel test's shapes plus
 the GIN cell widths d = 100 (ogb_products) and d = 1433 (full_graph_sm):
 ``max`` bit-identical (max does not depend on order), ``sum`` within
-1e-5 of max |ref| (f32 sums of W products in another order).  The CUDA
-kernel is held against the same plain version on the card in
-test_torch_cuda.py and chip_smoke.py."""
+1e-5 of max |ref| (f32 sums of W products in another order).  The
+vertex sum's plain version (``neighbor_sum`` on the CPU) against the
+reference kernel's rows combined in row order, and against the
+reference's segment sum, within the same 1e-5; and bit for bit against
+its stated order written out in numpy.  The CUDA kernels are held
+against the same plain versions on the card in test_torch_cuda.py and
+chip_smoke.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -15,10 +19,22 @@ import pytest
 import torch
 
 from repro.kernels.spmm_ell import aggregate_neighbors as ref_aggregate
+from repro.models.gnn import layers as ref_layers
 from repro_torch.core.selfstab import in_ell
 from repro_torch.graph import Graph, rmat1, small_world_graph
-from repro_torch.kernels import aggregate_neighbors, spmm_ell_cuda, spmm_ell_ref
-from repro_torch.kernels.spmm_ell.kernel import _index_range, check_spmm_args
+from repro_torch.kernels import (
+    aggregate_neighbors,
+    spmm_ell_cuda,
+    spmm_ell_ref,
+    spmm_ell_vertex_cuda,
+    spmm_ell_vertex_ref,
+)
+from repro_torch.kernels.spmm_ell.kernel import (
+    _index_range,
+    check_spmm_args,
+    check_vertex_args,
+    vertex_plan,
+)
 from repro_torch.models.gnn import (
     build_neighbor_ell,
     gather_src,
@@ -156,6 +172,12 @@ def test_index_range_is_read_again_after_a_write():
 # the neighbour ELL
 
 
+def rows_of(ell):
+    """The vertex of each ELL row, as the in-ELL lists it (row_dst)."""
+    row_ptr = ell.row_ptr.numpy()
+    return np.repeat(np.arange(row_ptr.shape[0] - 1), np.diff(row_ptr))
+
+
 def edges_of(g, mask_seed=None):
     src, dst = torch.tensor(g.src), torch.tensor(g.dst)
     mask = np.ones(g.m, bool)
@@ -172,10 +194,15 @@ def test_neighbor_ell_is_the_in_ell(g):
     src, dst, mask = edges_of(g)
     ell = build_neighbor_ell(src, dst, mask, g.n)
     row_dst, col, wgt = in_ell(g, cache=False)
-    assert np.array_equal(ell.row_dst.numpy(), row_dst)
+    assert np.array_equal(rows_of(ell), row_dst)
     assert np.array_equal(ell.col.numpy(), col)
     assert np.array_equal(ell.wgt.numpy(), np.isfinite(wgt).astype(np.float32))
     assert ell.col.dtype == torch.int32 and ell.wgt.dtype == torch.float32
+    # the vertex sum's view of it: each vertex's first row and live slots
+    assert np.array_equal(ell.row_ptr.numpy(), np.searchsorted(row_dst, np.arange(g.n + 1)))
+    live = np.isfinite(wgt).sum(axis=1)
+    assert np.array_equal(ell.deg.numpy(), np.bincount(row_dst, weights=live, minlength=g.n))
+    assert ell.row_ptr.dtype == torch.int64 and ell.deg.dtype == torch.int32
 
 
 def test_neighbor_sum_splits_fat_vertices():
@@ -196,7 +223,7 @@ def test_neighbor_sum_splits_fat_vertices():
         R, W = ell.col.shape
         assert W == (width or 64) and R > n
         if fat_rows:
-            assert int((ell.row_dst == 7).sum()) == fat_rows
+            assert int(ell.row_ptr[8] - ell.row_ptr[7]) == fat_rows
         torch.testing.assert_close(neighbor_sum(ell, x), ref, rtol=1e-6, atol=1e-5)
 
 
@@ -221,3 +248,207 @@ def test_neighbor_ell_memo_keeps_only_the_last_graph():
     again = neighbor_ell(*first, g1.n)  # evicted by the second graph: rebuilt
     assert again is not a
     assert torch.equal(again.col, a.col) and torch.equal(again.wgt, a.wgt)
+
+
+# ---------------------------------------------------------------- #
+# the vertex sum (GIN's neighbour sum over the neighbour ELL)
+
+
+def fat_vertex_graph(n=50, width=None):
+    """test_neighbor_sum_splits_fat_vertices's graph: a vertex of
+    in-degree 150 among 400 edges on 40 vertices; vertices 40 .. n-1
+    are isolated."""
+    rng = np.random.default_rng(0)
+    src = rng.integers(0, 40, 400).astype(np.int32)
+    dst = rng.integers(0, 40, 400).astype(np.int32)
+    dst[:150] = 7
+    return Graph(n, src, dst, np.ones(400, np.float32))
+
+
+def vertex_case(g, d, seed, width=None):
+    """numpy x, edge mask (a quarter of the edges masked) and the port's
+    neighbour ELL of g."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(g.n, d)).astype(np.float32)
+    mask = rng.random(g.m) > 0.25
+    ell = build_neighbor_ell(torch.tensor(g.src), torch.tensor(g.dst), torch.tensor(mask),
+                             g.n, width)
+    return x, mask, ell
+
+
+def rows_in_order(rows, row_dst, n):
+    """out[v] = ((0 + rows[r0]) + rows[r1]) + ... over v's rows in order."""
+    out = np.zeros((n, rows.shape[1]), np.float32)
+    for r, v in enumerate(row_dst):
+        out[v] = out[v] + rows[r]
+    return out
+
+
+def reference_vertex_sums(g, x, mask, ell):
+    """The JAX package's two routes: its spmm_ell kernel (interpret mode)
+    over the ELL rows, with the zero row it reads padding from, then the
+    rows combined in row order; and its segment sum over the edges."""
+    x_pad = np.concatenate([x, np.zeros((1, x.shape[1]), np.float32)])
+    rows = reference(x_pad, ell.col.numpy(), ell.wgt.numpy(), "sum")
+    by_rows = rows_in_order(rows, rows_of(ell), g.n)
+    msgs = ref_layers.gather_src(jnp.asarray(x), jnp.asarray(g.src)) * \
+        jnp.asarray(mask, jnp.float32)[:, None]
+    segment = np.asarray(ref_layers.scatter_sum(msgs, jnp.asarray(g.dst), g.n))
+    return by_rows, segment
+
+
+def port_vertex_sum(x, ell):
+    return neighbor_sum(ell, torch.tensor(x)).numpy()
+
+
+TINY = ["tiny_rmat1", "tiny_rmat2", "tiny_grid", "tiny_smallworld"]
+
+
+@pytest.mark.parametrize("graph", [*TINY, "rmat1_s8", "fat_w4", "fat_w64"])
+def test_vertex_sum_matches_reference(tiny_graphs, graph):
+    """On the shared tiny graphs, rmat1 scale 8 and the fat-vertex graph
+    (W 4: every vertex of in-degree > 4 split; W 64: the hub in 3 rows),
+    with masked edges and isolated vertices (three appended to each
+    graph)."""
+    width = None
+    if graph in TINY:
+        g = tiny_graphs[TINY.index(graph)]
+    elif graph == "rmat1_s8":
+        g = rmat1(8, seed=0)
+    else:
+        g, width = fat_vertex_graph(), int(graph[len("fat_w"):])
+    g = Graph(g.n + 3, g.src, g.dst, g.weight)
+    x, mask, ell = vertex_case(g, 100, seed=g.n + g.m, width=width)
+    assert int((ell.deg == 0).sum()) >= 3
+    out = port_vertex_sum(x, ell)
+    for ref in reference_vertex_sums(g, x, mask, ell):
+        assert_matches(out, ref, "sum")
+
+
+def test_vertex_sum_nan_where_the_reference_has_it():
+    """An inf in x behind a masked edge gives NaN (inf * 0) in the
+    destination's sum, as in both reference routes; behind a live edge
+    it gives inf."""
+    g = fat_vertex_graph()
+    x, mask, ell = vertex_case(g, 40, seed=5)
+    masked = np.flatnonzero(~mask)
+    u = int(g.src[masked[0]])
+    x[u, [0, 3, 39]] = np.inf
+    out = port_vertex_sum(x, ell)
+    assert np.isnan(out[int(g.dst[masked[0]]), [0, 3, 39]]).all()
+    for ref in reference_vertex_sums(g, x, mask, ell):
+        assert np.array_equal(np.isnan(out), np.isnan(ref))
+        assert np.array_equal(np.isinf(out), np.isinf(ref))
+        fin = np.isfinite(ref)
+        assert np.abs(out[fin] - ref[fin]).max() <= SUM_REL_TOL * np.abs(ref[fin]).max()
+
+
+def vertex_sums_in_order(x, col, wgt, row_ptr, deg):
+    """The vertex sum's order written out in numpy f32: each row's live
+    slots in slot order, then each vertex's rows in row order, from +0,
+    every product and sum rounded."""
+    W = col.shape[1]
+    want = np.zeros((deg.shape[0], x.shape[1]), np.float32)
+    for v in range(deg.shape[0]):
+        acc = np.zeros(x.shape[1], np.float32)
+        for r in range(row_ptr[v], row_ptr[v + 1]):
+            row = np.zeros(x.shape[1], np.float32)
+            for s in range(max(0, min(W, deg[v] - (r - row_ptr[v]) * W))):
+                row = row + x[col[r, s]] * wgt[r, s]
+            acc = acc + row
+        want[v] = acc
+    return want
+
+
+@pytest.mark.parametrize("width", [4, 64])
+def test_vertex_sum_ref_is_its_stated_order(width):
+    """The plain version bit for bit against its order written out in
+    numpy f32, with non-integer weights, where another order would
+    show."""
+    g = fat_vertex_graph()
+    x, _, ell = vertex_case(g, 6, seed=2, width=width)
+    rng = np.random.default_rng(3)
+    wgt = np.where(ell.wgt.numpy() != 0, rng.normal(size=ell.wgt.shape), 0).astype(np.float32)
+    want = vertex_sums_in_order(x, ell.col.numpy(), wgt, ell.row_ptr.numpy(), ell.deg.numpy())
+    got = spmm_ell_vertex_ref(torch.tensor(x), ell.col, torch.tensor(wgt), ell.row_ptr,
+                              ell.deg).numpy()
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def test_vertex_sum_rows_past_the_last_live_slot():
+    """An ELL whose vertices own rows past their last live slot (deg[v]
+    below (rows - 1) x W, or 0, as the launch's contract allows): those
+    rows add +0, their padding (NaN weights here) is never read, and
+    the plan gives their scratch rows 0 live slots."""
+    rng = np.random.default_rng(4)
+    W = 4
+    rows = np.array([5, 4, 3, 2, 0, 1, 6, 1])
+    deg = np.array([2 * W + 3, 0, W, 3, 0, W, 6 * W, 0], np.int32)
+    row_ptr = np.concatenate([[0], np.cumsum(rows)]).astype(np.int64)
+    R = int(row_ptr[-1])
+    live = np.clip(np.repeat(deg, rows) - (np.arange(R) - np.repeat(row_ptr[:-1], rows)) * W,
+                   0, W)
+    wgt = rng.normal(size=(R, W)).astype(np.float32)
+    wgt[np.arange(W) >= live[:, None]] = np.nan
+    col = rng.integers(0, 9, (R, W)).astype(np.int32)
+    x = rng.normal(size=(9, 5)).astype(np.float32)
+    args = [torch.tensor(a) for a in (x, col, wgt, row_ptr, deg)]
+    got = spmm_ell_vertex_ref(*args).numpy()
+    want = vertex_sums_in_order(x, col, wgt, row_ptr, deg)
+    assert not np.isnan(want).any()
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+    plan = vertex_plan(args[0], args[1], args[3], args[4], 2)
+    assert plan.fat_vertex.tolist() == [0, 1, 2, 6]
+    assert plan.fat_live.tolist() == [4, 4, 3, 0, 0, 0, 0, 0, 0, 4, 0, 0, *[4] * 6]
+
+
+def test_vertex_plan_and_checks():
+    """The plan the CUDA wrapper makes (on any device: it is torch):
+    the vertices of more than split_rows rows, the ELL row and live
+    slots of each of their rows; and the checks that run before a
+    launch.  Padding may hold any col: only live slots are checked."""
+    g = fat_vertex_graph()
+    _, _, ell = vertex_case(g, 4, seed=1, width=4)
+    x = torch.zeros((g.n, 3))
+    row_ptr = ell.row_ptr.numpy()
+    nrows = np.diff(row_ptr)
+    for split in (1, 2, 16, 1000):
+        plan = vertex_plan(x, ell.col, ell.row_ptr, ell.deg, split)
+        fat = np.flatnonzero(nrows > split)
+        assert np.array_equal(plan.fat_vertex.numpy(), fat)
+        assert np.array_equal(plan.fat_start.numpy(), np.concatenate([[0], np.cumsum(nrows[fat])]))
+        rows = np.concatenate([np.arange(row_ptr[v], row_ptr[v + 1]) for v in fat]
+                              or [np.zeros(0, np.int64)])
+        assert np.array_equal(plan.fat_row.numpy(), rows)
+        live = (ell.col.numpy() != g.n).sum(axis=1)  # the ELL's padding is col n
+        assert np.array_equal(plan.fat_live.numpy(), live[rows])
+        assert plan.fat_vertex.dtype == plan.fat_live.dtype == torch.int32
+    assert vertex_plan(x, ell.col, ell.row_ptr, ell.deg, 2) is \
+        vertex_plan(x, ell.col, ell.row_ptr, ell.deg, 2)
+    with pytest.raises(ValueError, match="split_rows must be >= 1"):
+        vertex_plan(x, ell.col, ell.row_ptr, ell.deg, 0)
+    col = ell.col.clone()
+    col[ell.col == g.n] = 10**6  # padding: never read
+    vertex_plan(x, col, ell.row_ptr, ell.deg, 2)
+    col[row_ptr[7], 0] = g.n  # a live slot past x
+    with pytest.raises(ValueError, match="live col must lie in"):
+        vertex_plan(x, col, ell.row_ptr, ell.deg, 2)
+    bad_ptr = ell.row_ptr.clone()
+    bad_ptr[-1] -= 1
+    with pytest.raises(ValueError, match="row_ptr must rise from 0"):
+        vertex_plan(x, ell.col, bad_ptr, ell.deg, 2)
+    bad_deg = ell.deg.clone()
+    bad_deg[8] = 4 * int(nrows[8]) + 1  # one slot more than its rows hold
+    with pytest.raises(ValueError, match="deg must lie in"):
+        vertex_plan(x, ell.col, ell.row_ptr, bad_deg, 2)
+    args = (x, ell.col, ell.wgt, ell.row_ptr, ell.deg)
+    with pytest.raises(ValueError, match="row_ptr must be 1-D int64"):
+        check_vertex_args(*args[:3], ell.row_ptr.int(), ell.deg)
+    with pytest.raises(ValueError, match="deg must be int32"):
+        check_vertex_args(*args[:4], ell.deg.long())
+    with pytest.raises(ValueError, match="deg must be int32"):
+        check_vertex_args(*args[:4], ell.deg[1:])
+    with pytest.raises(ValueError, match="x must be 2-D float32"):
+        check_vertex_args(x.double(), *args[1:])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        spmm_ell_vertex_cuda(*args)
