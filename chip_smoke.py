@@ -48,6 +48,19 @@ Phases (any failure exits non-zero):
      CSR; gin-tu forwards through the vertex sum (5 launches each, no
      index_add_) on rmat1 scale 21 with 100 features; logits against
      the plain segment-sum route
+ 11. the SSSP query service on a copy of phase 2's graph
+     (``delta:5/sparse/fused``): a landmark tier of 8 hubs (one
+     solve_batch, each lane against Dijkstra), 200 Zipf-skewed queries
+     through the Router (batches of misses through solve_batch, the
+     batched fused_superstep entry once a superstep for all lanes),
+     8 sampled answers against Dijkstra, a warm batch of 8 against 8
+     warm single solves, the push batch against the fused lanes, then 4
+     improving edge updates refreshed by warm restarts (resolve), 3
+     refreshed entries and a landmark against cold solves and Dijkstra
+
+Phase 3 also holds the two frontier kernels' batched entries against
+their plain versions and against 8 single launches, at the frontier of
+a real batched superstep (8 lanes).
 
 It prints one JSON line of per-kernel numbers and, last, the device
 line ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -113,6 +126,12 @@ SPMM_SUM_TOL = 1e-5
 # another order differs by about sqrt(k) 2^-24 of its size: 1.9e-5 at
 # the largest in-degree, 102,632; the bound leaves 5x for the 5 layers
 GIN_LOGIT_TOL = 1e-4
+# the query service (phase 11): the reference service CLI's defaults
+SERVE_QUERIES, SERVE_ZIPF, SERVE_LANDMARKS = 200, 1.3, 8
+SERVE_MAX_BATCH, SERVE_MAX_WAIT_S, SERVE_CACHE_MB = 8, 0.010, 256
+SERVE_UPDATES = 4
+SERVE_SAMPLED = 8   # single-source answers held against Dijkstra
+SERVE_FRESH = 3     # refreshed cache entries held against cold solves
 
 
 def log(msg: str) -> None:
@@ -957,6 +976,423 @@ def gin_inference(dev) -> dict:
     return row
 
 
+def dijkstra_rows(g, sources) -> "np.ndarray":
+    """scipy's Dijkstra distances from each source as float32 rows, the
+    matrix built once (the graph holds no duplicate edges)."""
+    import numpy as np
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import dijkstra
+
+    a = csr_matrix((g.weight.astype(np.float64), (g.src, g.dst)),
+                   shape=(g.n, g.n))
+    out = dijkstra(a, directed=True, indices=list(sources))
+    return out.astype(np.float32).reshape(len(sources), g.n)
+
+
+def batched_frontier_rows(g, pg, ell, dev, flush) -> list[dict]:
+    """Phase 3, the batched entries: the frontier of the superstep with
+    the most live rows in a batched solve of the 8 landmark sources of
+    phase 11 (per-lane counts as they come), each entry against its
+    plain version and against 8 single launches on the same lanes, bit
+    for bit; timed through the wrapper, bare, alone under the profiler,
+    as 8 single launches, and against its byte bound.  Returns their
+    rows of the kernels line (launches filled in by phase 11)."""
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.api import Problem, SingleSource, Solver
+    from repro_torch.core import engine as E
+    from repro_torch.kernels.relax_push import kernel as push_kernel
+    from repro_torch.kernels.superstep_fused import kernel as fused_kernel
+    from repro_torch.serve import pick_landmarks
+
+    sources = pick_landmarks(g, SERVE_LANDMARKS)
+    best = {"live": -1}
+    real = E.fused_superstep_batch
+
+    def capture(dist, row_idx, count, *rest):
+        live = int(count.sum())
+        if live > best["live"]:
+            best.update(live=live, dist=dist.clone(), row_idx=row_idx.clone(),
+                        count=count.clone())
+        return real(dist, row_idx, count, *rest)
+
+    E.fused_superstep_batch = capture
+    try:
+        Solver(SPEC, device=dev).solve_batch(
+            [Problem(pg, SingleSource(v)) for v in sources])
+    finally:
+        E.fused_superstep_batch = real
+    if best["live"] < 0:
+        fail("the batched solve never launched fused_superstep_batch")
+    dist, idx, cnt = best["dist"], best["row_idx"], best["count"]
+    rs, col, wgt = ell.row_src, ell.col, ell.wgt
+    S, F = idx.shape
+    P, R, W = col.shape
+    n_out = pg.n_pad
+    counts = cnt.tolist()
+    n_src = [int(torch.unique(rs[s % P][idx[s, :k].long()]).numel())
+             for s, k in enumerate(counts)]
+    live = sum(counts)
+    # the lanes of a rank share its ELL: a row two lanes list is read once
+    rows_read = int(torch.unique(torch.cat([
+        (s % P) * R + idx[s, :k].long() for s, k in enumerate(counts)])).numel())
+    vec = bool(K._lib.vector_strips(W, col, wgt))
+    log(f"batched frontier ({S} lanes, the landmark sources {sources}): the "
+        f"superstep with the most live rows, per-lane counts {counts} of F={F} "
+        f"({live} rows, {rows_read} distinct, {sum(n_src)} source vertices); "
+        f"grids (blocks a lane, "
+        f"lanes): fused {fused_kernel.batch_grid(F, W, S, vec)}, push "
+        f"{push_kernel.batch_grid(F, W, S, True)}")
+    stream = torch.cuda.current_stream().cuda_stream
+    fused_out = torch.full((S, n_out + 1), float("inf"), device=dist.device)
+    push_out = torch.empty((S, F, W), device=dist.device)
+    entries = (
+        dict(name="fused_superstep_batch", kernel="fused_superstep_batch_kernel",
+             source="src/repro_torch/csrc/fused_superstep.cu",
+             replaces="src/repro/kernels/superstep_fused/kernel.py:72",
+             wrapper=lambda: K.fused_superstep_batch_cuda(
+                 dist, idx, cnt, rs, col, wgt, n_out),
+             plain=lambda: K.fused_superstep_batch_ref(
+                 dist, idx, cnt, rs, col, wgt, n_out),
+             single=lambda: [K.fused_superstep_cuda(
+                 dist[s], idx[s], cnt[s:s + 1], rs[s % P], col[s % P],
+                 wgt[s % P], n_out) for s in range(S)],
+             bare=(fused_kernel._batch_launch(), fused_out, (
+                 dist.data_ptr(), idx.data_ptr(), cnt.data_ptr(), rs.data_ptr(),
+                 col.data_ptr(), wgt.data_ptr(), fused_out.data_ptr(), F, R, W, P,
+                 dist.shape[1], n_out + 1, S, int(vec), stream)),
+             # listed row ids, the distinct rows' sources and col+wgt
+             # strips, each lane's source distances and one write of its
+             # output, the counts
+             nbytes=4 * (live + rows_read * (1 + 2 * W) + sum(n_src)
+                         + S * (n_out + 1) + S)),
+        dict(name="relax_push_gather_batch", kernel="relax_push_gather_batch_kernel",
+             source="src/repro_torch/csrc/relax_push.cu",
+             replaces="src/repro/kernels/relax_push/kernel.py:42",
+             wrapper=lambda: K.relax_push_gather_batch_cuda(
+                 dist, idx, cnt, rs, col, wgt),
+             plain=lambda: K.relax_push_gather_batch_ref(dist, idx, cnt, rs, wgt),
+             single=lambda: [K.relax_push_gather_cuda(
+                 dist[s], idx[s], cnt[s:s + 1], rs[s % P], col[s % P],
+                 wgt[s % P]) for s in range(S)],
+             bare=(push_kernel._batch_launch(), push_out, (
+                 dist.data_ptr(), idx.data_ptr(), cnt.data_ptr(), rs.data_ptr(),
+                 wgt.data_ptr(), push_out.data_ptr(), F, R, W, P, dist.shape[1], S,
+                 int(K._lib.vector_strips(W, wgt, push_out)), stream)),
+             nbytes=4 * (live + rows_read * (1 + W) + sum(n_src)
+                         + S * F * W + S)),
+    )
+    rows = []
+    for e in entries:
+        name = e["name"]
+        K.reset_launch_counts()
+        out_k = e["wrapper"]()
+        torch.cuda.synchronize()
+        if K.launch_counts()[name] != 1:
+            fail(f"{name}: the wrapper did not launch its kernel once")
+        out_p = e["plain"]()
+        err = max_abs_err(out_k, out_p)
+        if err != 0.0 or out_k.shape != out_p.shape:
+            fail(f"{name}: kernel differs from its plain version (max abs err {err})")
+        singles = torch.stack(e["single"]())
+        if not torch.equal(singles, out_k):
+            fail(f"{name}: differs from {S} single launches on the same lanes")
+        launch, out_b, args = e["bare"]
+        if launch(*args) != 0:
+            fail(f"{name}: the bare launch failed")
+        torch.cuda.synchronize()
+        if not torch.equal(out_b, out_k):
+            fail(f"{name}: the bare launch differs from the wrapper's")
+        ms = time_ms(e["wrapper"], flush)
+        bare_ms = time_ms(lambda: launch(*args), flush)
+        alone_ms = kernel_alone_ms(lambda: launch(*args), flush, (e["kernel"],))
+        single_ms = time_ms(e["single"], flush)
+        plain_ms = time_ms(e["plain"], flush)
+        bound_ms, bound_by = bound(e["nbytes"], live * W)
+        log(f"{name} ({S} lanes): bit-identical to its plain version and to "
+            f"{S} single launches; wrapper {ms:.4f} ms, bare {bare_ms:.4f} ms, "
+            f"alone under the profiler {alone_ms:.4f} ms; {S} single launches "
+            f"{single_ms:.4f} ms; plain {plain_ms:.4f} ms; {e['nbytes']} bytes, "
+            f"bound {bound_ms:.4f} ms at 3.35 TB/s ({bound_ms / alone_ms:.3f} of "
+            f"it alone)")
+        rows.append(dict(name=name, route="cuda", source=e["source"],
+                         replaces=e["replaces"], launches=0, max_abs_err=err,
+                         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=None))
+    return rows
+
+
+def query_service(g, dev) -> tuple[int, int]:
+    """Phase 11: the SSSP query service at scale 20 on a copy of ``g``
+    (the update feed mutates it).  Returns the launches of the batched
+    fused_superstep entry on the serving path (landmark build, query
+    mix, updates) and of the batched push gather in the push batch."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.api import Problem, SingleSource, Solver, SolverConfig
+    from repro_torch.api.solver import _bootstrap_candidates
+    from repro_torch.core import SSSP
+    from repro_torch.core import engine as E
+    from repro_torch.graph import Graph, graph_fingerprint
+    from repro_torch.launch.serve import build_query_mix, improving_updates
+    from repro_torch.obs import trace as obs
+    from repro_torch.serve import (
+        LandmarkIndex,
+        Router,
+        SolutionCache,
+        UpdateFeed,
+        serve_latency_stats,
+    )
+
+    gs = Graph(g.n, g.src.copy(), g.dst.copy(), g.weight.copy(), name=g.name)
+    solver = Solver(SPEC, device=dev)
+    coo_bytes = gs.src.nbytes + gs.dst.nbytes + gs.weight.nbytes
+    t0 = time.perf_counter()
+    graph_fingerprint(gs)
+    fp_s = time.perf_counter() - t0
+    log(f"fingerprint: CRC over {coo_bytes} bytes of COO arrays {fp_s:.3f} s "
+        "(every Router flush and every partition lookup pays it until an "
+        "update installs the hash chain)")
+    # each multi-query solve_batch: its single and batched launches
+    batched_calls = []
+    solve_batch = solver.solve_batch
+
+    def counted_solve_batch(problems):
+        before = K.launch_counts()
+        out = solve_batch(problems)
+        after = K.launch_counts()
+        if len(problems) > 1:
+            batched_calls.append(tuple(
+                after[k] - before[k] for k in ("fused_superstep",
+                                               "fused_superstep_batch")))
+        return out
+
+    solver.solve_batch = counted_solve_batch
+    tracer = obs.Tracer()
+    torch.cuda.reset_peak_memory_stats()
+    held_gib = torch.cuda.memory_allocated() / 2**30
+
+    K.reset_launch_counts()  # the serving path from here to the updates' end
+    with obs.use_tracer(tracer):
+        t0 = time.perf_counter()
+        lm = LandmarkIndex(solver, gs, k=SERVE_LANDMARKS, symmetric=True)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        part_s = sum(sp.duration_s for sp in tracer.find("solver.partition"))
+        log(f"landmark tier: K={lm.k} {lm.landmarks} built in {build_s:.3f} s "
+            f"(partition {part_s:.3f} s of it); supersteps "
+            f"{[s.metrics.supersteps for s in lm.solutions]}")
+        cache = SolutionCache(byte_budget=SERVE_CACHE_MB << 20)
+        router = Router(solver, gs, cache=cache, landmarks=lm,
+                        max_batch=SERVE_MAX_BATCH, max_wait_s=SERVE_MAX_WAIT_S)
+        queries = build_query_mix(gs, SERVE_QUERIES, SERVE_ZIPF, SEED)
+        router.serve(queries[:SERVE_MAX_BATCH])  # warm-up, outside the window
+        cache.clear()
+        cache.stats.hits = cache.stats.misses = 0
+        tracer.clear()
+        t0 = time.perf_counter()
+        tickets = []
+        for q in queries:
+            tickets.append(router.submit(q))
+            router.pump()
+        router.flush()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        answers = [t.result() for t in tickets]
+        lat = serve_latency_stats(answers)
+        flushes = tracer.find("router.flush")
+        batches = [sp.attrs.get("solved", 0) for sp in flushes]
+        solved = [b for b in batches if b]
+        log(f"query mix: {len(answers)} queries in {wall:.3f} s = "
+            f"{len(answers) / wall:.1f} q/s; latency {lat}; cache {cache.stats} "
+            f"(hit rate {cache.stats.hit_rate():.3f}); router "
+            f"{router.stats.as_dict()}; {len(flushes)} flushes, {len(solved)} "
+            f"solved a batch of mean size {np.mean(solved) if solved else 0:.2f} "
+            f"(sizes {solved}); flush wall mean "
+            f"{np.mean([sp.duration_s for sp in flushes]):.3f} s; solver "
+            f"{solver.stats()}")
+    serve_batch_launches = K.launch_counts()["fused_superstep_batch"]
+
+    # ---- checks of the served answers ---------------------------------
+    truth_lm = dijkstra_rows(gs, lm.landmarks)
+    for v, sol, row in zip(lm.landmarks, lm.solutions, truth_lm):
+        if not np.array_equal(sol.state, row):
+            fail(f"landmark {v}: lane state differs from Dijkstra at "
+                 f"{int((sol.state != row).sum())} vertices")
+    sampled = []
+    for a in answers:
+        if a.query.target is None and a.query.source not in sampled:
+            sampled.append(a.query.source)
+    sampled = sampled[:SERVE_SAMPLED]
+    by_source = {a.query.source: a for a in answers if a.query.target is None}
+    for v, row in zip(sampled, dijkstra_rows(gs, sampled)):
+        if not np.array_equal(by_source[v].solution.state, row):
+            fail(f"served single-source answer from {v} differs from Dijkstra")
+    for a in answers:
+        if a.served_by != "landmark" and a.query.target is not None:
+            if a.distance != a.solution.distance_to(a.query.target):
+                fail(f"point-to-point answer {a.query} differs from its solution")
+    log(f"checks: {lm.k} landmark lanes and {len(sampled)} sampled single-source "
+        f"answers {sampled} equal scipy's Dijkstra")
+
+    # ---- a warm batch of 8 against 8 warm single solves --------------
+    pg = solver.partition(gs)
+    problems = [Problem(pg, SingleSource(v)) for v in sampled]
+    solver.solve_batch(problems)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch = solver.solve_batch(problems)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    singles = [solver.solve(pb) for pb in problems]
+    torch.cuda.synchronize()
+    singles_s = time.perf_counter() - t0
+    for a, b in zip(batch, singles):
+        if a.state.tobytes() != b.state.tobytes() or \
+                a.metrics.as_dict() != b.metrics.as_dict():
+            fail("a batched lane differs from the single solve of its source")
+    log(f"warm solve_batch of {len(problems)}: {batch_s:.4f} s; {len(problems)} "
+        f"warm single solves {singles_s:.4f} s ({singles_s / batch_s:.2f}x); "
+        f"lane supersteps {[s.metrics.supersteps for s in batch]}")
+    with device_profile(f"one warm solve_batch of {len(problems)}", top=10,
+                        kernel="fused_superstep_batch"):
+        solver.solve_batch(problems)
+        torch.cuda.synchronize()
+
+    # ---- one launch a batched superstep, none of the single entry -----
+    overflowed = [0]
+    compact_rows = E.compact_rows
+
+    def counting_compact(mask, cap):
+        out = compact_rows(mask, cap)
+        overflowed[0] += bool(out[2].any())
+        return out
+
+    E.compact_rows = counting_compact
+    K.reset_launch_counts()  # (the serving counts resume below)
+    try:
+        fused_lanes = solver.solve_batch(problems)
+    finally:
+        E.compact_rows = compact_rows
+    n = K.launch_counts()
+    steps = max(s.metrics.supersteps for s in fused_lanes)
+    if n["fused_superstep"] or n["fused_superstep_batch"] != steps - overflowed[0]:
+        fail(f"a batched solve of {len(problems)} launched fused_superstep_batch "
+             f"{n['fused_superstep_batch']} times and the single entry "
+             f"{n['fused_superstep']} times in {steps} supersteps "
+             f"({overflowed[0]} dense sweeps after a frontier overflow)")
+    log(f"batched solve: fused_superstep_batch launched {n['fused_superstep_batch']} "
+        f"times in {steps} supersteps ({overflowed[0]} dense sweeps after a "
+        "frontier overflow), the single entry never")
+    push = Solver(SolverConfig.from_spec("delta:5/sparse", relax_impl="push"),
+                  device=dev)
+    K.reset_launch_counts()
+    push_lanes = push.solve_batch(problems)
+    push_launches = K.launch_counts()["relax_push_gather_batch"]
+    if K.launch_counts()["relax_push_gather"] or push_launches == 0:
+        fail("the push batch did not go through relax_push_gather_batch alone")
+    for a, b in zip(push_lanes, fused_lanes):
+        if a.state.tobytes() != b.state.tobytes() or \
+                a.metrics.as_dict() != b.metrics.as_dict():
+            fail("a push lane differs from the fused lane")
+    log(f"push solve_batch of {len(problems)}: lanes equal the fused lanes, "
+        f"{push_launches} relax_push_gather_batch launches")
+    # drop every reference to the pre-update partition but the service's
+    del batch, singles, fused_lanes, push_lanes, push, answers, tickets, by_source
+    del problems, pg, a, b, sol  # (the checks' loop variables hold lanes too)
+    gc.collect()
+
+    # ---- improving updates, refreshed by warm restarts ----------------
+    K.reset_launch_counts()
+    feed = UpdateFeed(gs, solver, cache=cache, landmarks=lm)
+    with obs.use_tracer(tracer):
+        for i, upd in enumerate(improving_updates(gs, SERVE_UPDATES, SEED + 1)):
+            tracer.clear()
+            t0 = time.perf_counter()
+            res = feed.apply(upd)
+            torch.cuda.synchronize()
+            apply_s = time.perf_counter() - t0
+            part_s = sum(sp.duration_s for sp in tracer.find("solver.partition"))
+            resolves = tracer.find("solver.resolve")
+            t1 = time.perf_counter()
+            graph_fingerprint(gs)
+            chain_s = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            graph_fingerprint(gs, full=True)
+            full_s = time.perf_counter() - t1
+            key, warm = cache.entries_for(res.fingerprint)[0]
+            t1 = time.perf_counter()
+            cold = solver.solve(Problem(gs, SingleSource(key[1])))
+            torch.cuda.synchronize()
+            cold_s = time.perf_counter() - t1
+            warm_steps = [sp.attrs["supersteps"] for sp in resolves]
+            walls = sorted(sp.duration_s for sp in resolves)
+            log(f"update {i}: {upd} improving={res.improving} applied in "
+                f"{apply_s:.3f} s: re-partition {part_s:.3f} s (in the first "
+                f"resolve), fingerprint {chain_s * 1e6:.1f} us chained "
+                f"({full_s:.3f} s as a full rehash); {res.warm_refreshes} warm "
+                f"cache refreshes + {lm.k} landmarks = {len(resolves)} resolves, "
+                f"supersteps mean {np.mean(warm_steps):.2f} max {max(warm_steps)} "
+                f"(bootstrap sweep included) against {cold.metrics.supersteps} "
+                f"cold; resolve wall median {walls[len(walls) // 2]:.4f} s, max "
+                f"{walls[-1]:.4f} s, against a cold solve's {cold_s:.4f} s")
+            if warm.state.tobytes() != cold.state.tobytes():
+                fail(f"update {i}: the refreshed entry of {key[1]} differs from "
+                     "a cold solve")
+    torch.cuda.synchronize()
+    fused_batch = K.launch_counts()["fused_superstep_batch"]
+    parts = {id(sol.pg): sol.pg for _, sol in cache.entries_for(graph_fingerprint(gs))}
+    parts.update({id(sol.pg): sol.pg for sol in lm.solutions})
+    log(f"updates: {feed.stats.as_dict()}; card memory {held_gib:.2f} GiB held "
+        f"when phase 11 began, peak since {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB, {torch.cuda.memory_allocated() / 2**30:.2f} GiB held now; the "
+        f"cache's and landmarks' solutions reference {len(parts)} partition(s), "
+        f"{sum(bool(pg._device) for pg in parts.values())} with an ELL on the card")
+    fp = graph_fingerprint(gs)
+    fresh = cache.entries_for(fp)[:SERVE_FRESH]
+    if len(fresh) < SERVE_FRESH:
+        fail(f"only {len(fresh)} refreshed cache entries after the updates")
+    for key, sol in fresh:
+        cold = solver.solve(Problem(gs, SingleSource(key[1])))
+        if sol.state.tobytes() != cold.state.tobytes():
+            fail(f"refreshed entry of {key[1]} differs from a cold solve")
+    cold = solver.solve(Problem(gs, SingleSource(lm.landmarks[0])))
+    if lm.solutions[0].state.tobytes() != cold.state.tobytes():
+        fail(f"refreshed landmark {lm.landmarks[0]} differs from a cold solve")
+    if not np.array_equal(fresh[0][1].state, dijkstra_rows(gs, [fresh[0][0][1]])[0]):
+        fail("a refreshed entry differs from Dijkstra on the updated graph")
+    pg = solver.partition(gs)
+    committed = torch.as_tensor(lm.solutions[0].padded, device=dev)
+    sweep_ms = time_ms(lambda: _bootstrap_candidates(
+        pg.to(dev), pg.n_local, SSSP, committed),
+        torch.empty(64 << 20, dtype=torch.uint8, device=dev))
+    t0 = time.perf_counter()
+    solver.resolve(lm.solutions[0])
+    torch.cuda.synchronize()
+    log(f"bootstrap sweep over the {pg.col.size} ELL slots: {sweep_ms:.4f} ms "
+        f"(CUDA events); one warm resolve with no perturbation (the sweep and "
+        f"one superstep) {time.perf_counter() - t0:.4f} s")
+    with device_profile("one warm resolve (no perturbation)", top=8):
+        solver.resolve(lm.solutions[0])
+        torch.cuda.synchronize()
+    log(f"checks: {SERVE_FRESH} refreshed entries {[k[1] for k, _ in fresh]} and "
+        f"landmark {lm.landmarks[0]} equal cold solves on the updated graph; "
+        f"the first equals Dijkstra on it")
+    if batched_calls and any(single for single, _ in batched_calls):
+        fail(f"a batched solve launched the single fused_superstep: {batched_calls}")
+    if not batched_calls or not all(b for _, b in batched_calls):
+        fail(f"a batched solve did not launch fused_superstep_batch: {batched_calls}")
+    log(f"{len(batched_calls)} batched solves on the serving path, each through "
+        "fused_superstep_batch and never the single entry")
+    return serve_batch_launches + fused_batch, push_launches
+
+
 def main() -> None:
     try:
         import torch
@@ -1099,6 +1535,7 @@ def main() -> None:
         "src/repro_torch/csrc/relax_ell.cu",
         "src/repro/kernels/relax_ell/kernel.py:45",
     ))
+    batch_rows = batched_frontier_rows(g, pg, ell, dev, flush)
     del flush
 
     # ---- 4. main path ------------------------------------------------
@@ -1193,6 +1630,12 @@ def main() -> None:
     t0 = time.perf_counter()
     rows.append(gin_inference(dev))
     log(f"phase 10 took {time.perf_counter() - t0:.1f} s")
+
+    # ---- 11. the SSSP query service on a copy of phase 2's graph -------
+    t0 = time.perf_counter()
+    batch_rows[0]["launches"], batch_rows[1]["launches"] = query_service(g, dev)
+    rows += batch_rows
+    log(f"phase 11 took {time.perf_counter() - t0:.1f} s")
 
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s on {card_line}")
     print(json.dumps({"kernels": rows}), flush=True)

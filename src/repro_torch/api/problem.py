@@ -4,13 +4,17 @@ function π and the initial workitem set S of one query.
     Problem(g, SingleSource(0))                  # SSSP/BFS from 0
     Problem(g, EveryVertex(), processing="cc")   # CC label propagation
     Problem(g, SingleSource(0), processing="sswp")  # widest path
+    Problem(g, MultiSource([0, 9]))              # several sources
+    Problem(g, ExplicitSources([(3, 1.5, 0)]))   # raw (vertex, state, level)
 """
 
 from __future__ import annotations
 
 import dataclasses
 import numbers
-from typing import Union
+from typing import Sequence, Tuple, Union
+
+import numpy as np
 
 from repro_torch.core.ordering import suggest
 from repro_torch.core.processing import PROCESSING_FNS, ProcessingFn
@@ -52,6 +56,22 @@ class SingleSource:
 
 
 @dataclasses.dataclass(frozen=True)
+class MultiSource:
+    """Several sources, each at its natural initial state."""
+
+    vertices: Tuple[int, ...]
+
+    def __post_init__(self):
+        object.__setattr__(self, "vertices", tuple(int(v) for v in self.vertices))
+
+    def items(self, processing: ProcessingFn, n: int) -> list[tuple]:
+        out = []
+        for v in self.vertices:
+            out.extend(SingleSource(v).items(processing, n))
+        return out
+
+
+@dataclasses.dataclass(frozen=True)
 class EveryVertex:
     """One initial workitem per vertex (CC's S = {⟨v, v⟩ : v ∈ V})."""
 
@@ -59,15 +79,40 @@ class EveryVertex:
         return [(v, processing.initial_value(v), 0) for v in range(n)]
 
 
-SourceSpec = Union[SingleSource, EveryVertex]
+@dataclasses.dataclass(frozen=True)
+class ExplicitSources:
+    """Raw ``(vertex, state, level)`` triples."""
+
+    triples: Tuple[Tuple[int, float, int], ...]
+
+    def __post_init__(self):
+        object.__setattr__(
+            self,
+            "triples",
+            tuple((int(v), float(s), int(l)) for v, s, l in self.triples),
+        )
+
+    def items(self, processing: ProcessingFn, n: int) -> list[tuple]:
+        for v, _, _ in self.triples:
+            if not 0 <= v < n:
+                raise ValueError(f"source vertex {v} outside [0, {n})")
+        return list(self.triples)
+
+
+SourceSpec = Union[SingleSource, MultiSource, EveryVertex, ExplicitSources]
 
 
 def as_source_spec(x) -> SourceSpec:
-    """An integer (incl. numpy) is a SingleSource."""
-    if isinstance(x, (SingleSource, EveryVertex)):
+    """An integer (incl. numpy) is a SingleSource, a sequence of integers
+    a MultiSource, a sequence of triples ExplicitSources."""
+    if isinstance(x, (SingleSource, MultiSource, EveryVertex, ExplicitSources)):
         return x
     if isinstance(x, numbers.Integral):
         return SingleSource(int(x))
+    if isinstance(x, (Sequence, np.ndarray)):
+        if all(isinstance(v, numbers.Integral) for v in x):
+            return MultiSource(tuple(int(v) for v in x))
+        return ExplicitSources(tuple(x))
     raise TypeError(f"cannot interpret {x!r} as a source spec")
 
 

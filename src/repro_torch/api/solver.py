@@ -2,12 +2,21 @@
 
     solver = Solver("delta:5/sparse/fused")          # on the card
     sol = solver.solve(Problem(g, SingleSource(0)))
+    sols = solver.solve_batch([Problem(g, SingleSource(v)) for v in vs])
+    sol2 = solver.resolve(sol, graph=g_cheaper)       # warm restart
 
 Raw :class:`Graph` inputs are partitioned over ``n_parts`` ranks once
 and memoized; the ELL buffers are copied to the device once per
 partition.  ``device=None`` means the card, and raises without CUDA;
-``device="cpu"`` runs the plain torch path.  Batched sources, warm
-restarts and the quantized/adaptive solves are not yet ported.
+``device="cpu"`` runs the plain torch path.
+
+``solve_batch`` runs B queries as B lanes of one engine run (the JAX
+package vmaps its loop); ``resolve`` is the self-stabilization
+dividend (paper §II): after a perturbation that only improves
+candidate states (weight drops, new edges, added sources) the previous
+fixpoint is a valid start, and one bootstrap sweep over every edge
+regenerates the candidates the perturbation improved.  The quantized
+and adaptive solves are not yet ported.
 """
 
 from __future__ import annotations
@@ -15,26 +24,42 @@ from __future__ import annotations
 import dataclasses
 import warnings
 from collections import OrderedDict
-from typing import Optional, Union
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from repro_torch.api.config import SolverConfig, as_config
-from repro_torch.api.problem import Problem
-from repro_torch.core.engine import EngineConfig, initial_state, run_engine
+from repro_torch.api.problem import ExplicitSources, Problem, as_source_spec
+from repro_torch.core.engine import (
+    EngineConfig,
+    initial_state,
+    initial_state_batch,
+    run_engine,
+)
 from repro_torch.core.frontier import (
     frontier_caps,
     grow_frontier_cap,
     payload_plane_words,
 )
 from repro_torch.core.metrics import WorkMetrics
+from repro_torch.core.processing import ProcessingFn
 from repro_torch.device import resolve_device
 from repro_torch.graph.formats import Graph, graph_fingerprint
-from repro_torch.graph.partition import PartitionedGraph, partition_graph
+from repro_torch.graph.partition import DeviceELL, PartitionedGraph, partition_graph
+from repro_torch.obs import trace as obs
 
 # consecutive sparse-overflow supersteps before the frontier_cap warning
 OVERFLOW_WARN_STREAK = 3
+
+
+def batch_bucket(b: int) -> int:
+    """Round a batch size up to the next power of two: ``solve_batch``
+    pads to these buckets, as the JAX package does to reuse its
+    compiled engines."""
+    if b < 1:
+        raise ValueError(f"batch size must be positive: {b}")
+    return 1 << (b - 1).bit_length()
 
 
 def exchange_words(
@@ -120,7 +145,8 @@ def _finish_metrics(pg: PartitionedGraph, ecfg: EngineConfig, it: int,
 @dataclasses.dataclass(eq=False)
 class Solution:
     """Result of one query: the committed state in original vertex ids,
-    its metrics, and the padded state with the partition it lives in."""
+    its metrics, and the padded state with the partition it lives in
+    (what ``resolve`` warm-restarts from)."""
 
     state: np.ndarray          # (n,) committed per-vertex state
     metrics: WorkMetrics
@@ -128,6 +154,31 @@ class Solution:
     config: SolverConfig
     padded: np.ndarray         # (P, n_local) committed state, padded
     pg: Optional[PartitionedGraph] = None
+
+    @property
+    def graph(self):
+        return self.problem.graph
+
+    @property
+    def source(self) -> Optional[int]:
+        """The single source vertex, if there is exactly one."""
+        items = self.problem.source_items()
+        if len(items) == 1:
+            return int(items[0][0])
+        return None
+
+    @property
+    def nbytes(self) -> int:
+        """Resident bytes of the state arrays (the serving cache's unit)."""
+        return int(self.state.nbytes) + int(self.padded.nbytes)
+
+    def distance_to(self, v: int) -> float:
+        """Committed state at vertex ``v`` (for SSSP the distance)."""
+        if not 0 <= int(v) < self.state.shape[0]:
+            raise ValueError(
+                f"vertex {v} outside [0, {self.state.shape[0]})"
+            )
+        return float(self.state[int(v)])
 
 
 class Solver:
@@ -169,27 +220,185 @@ class Solver:
         hit = self._pg_cache.get(id(graph))
         if hit is not None and hit[0] is graph and hit[1] == fp:
             self._pg_cache.move_to_end(id(graph))
+            obs.event("partition_memo_hit", n=graph.n)
             return hit[2]
-        pg = partition_graph(graph, self.n_parts,
-                             partitioner=self.config.partition)
+        with obs.span("solver.partition", n=graph.n, m=graph.m,
+                      partitioner=self.config.partition,
+                      n_parts=self.n_parts):
+            pg = partition_graph(graph, self.n_parts,
+                                 partitioner=self.config.partition)
         self._pg_cache[id(graph)] = (graph, fp, pg)
         if len(self._pg_cache) > self._pg_cache_size:
             self._pg_cache.popitem(last=False)
         return pg
 
-    def solve(self, problem: Problem) -> Solution:
-        pg = self.partition(problem.graph)
-        p = problem.processing_fn
-        ecfg = self.config.engine_config(p)
-        D0, T0, L0 = (
-            torch.as_tensor(a, device=self.device)
-            for a in initial_state(pg, p, problem.source_items())
+    def stats(self) -> dict:
+        """The partition memo's occupancy.  The port runs its engine
+        eagerly and keeps no compiled-engine cache, so there are no
+        engine-cache counters to report."""
+        return dict(
+            partition_memo_size=len(self._pg_cache),
+            partition_memo_capacity=self._pg_cache_size,
         )
-        res = run_engine(ecfg, pg.to(self.device), pg.n_local, D0, T0, L0)
-        padded = res.D.cpu().numpy()
+
+    def _state(self, planes):
+        return tuple(torch.as_tensor(a, device=self.device) for a in planes)
+
+    def solve(self, problem: Problem) -> Solution:
+        with obs.span("solver.solve", spec=self.config.name) as sp:
+            pg = self.partition(problem.graph)
+            p = problem.processing_fn
+            ecfg = self.config.engine_config(p)
+            D0, T0, L0 = self._state(
+                initial_state(pg, p, problem.source_items()))
+            with obs.span("solver.engine"):
+                res = run_engine(ecfg, pg.to(self.device), pg.n_local,
+                                 D0, T0, L0)
+            sol = self._pack(problem, pg, ecfg, res.D.cpu().numpy(), *res[1:])
+            sp.set(supersteps=sol.metrics.supersteps,
+                   converged=sol.metrics.converged)
+            return sol
+
+    def solve_batch(self, problems: Sequence[Problem]) -> list[Solution]:
+        """Solve B queries on one graph as B lanes of one engine run: the
+        graph is resident once and each superstep launches its frontier
+        kernel once for every lane.  All problems must share the graph
+        and the processing function.  Each lane's state and metrics are
+        those of the JAX package's vmapped engine: a converged lane
+        stops counting while the others run.
+
+        The batch is padded to the next power of two (duplicating the
+        last problem); the padding lanes are solved and dropped."""
+        if not problems:
+            return []
+        if len(problems) == 1:
+            return [self.solve(problems[0])]
+        if self.config.adapt is not None:
+            raise ValueError(
+                "solve_batch does not support adaptive specs (/adapt): "
+                "the controller would steer every lane with one "
+                "shared schedule; use a static spec for batches or "
+                "solve adaptive queries one at a time"
+            )
+        if self.config.payload != "exact":
+            raise ValueError(
+                "solve_batch does not support quantized payloads "
+                "(/q:...): the exact repair loop re-verifies and "
+                "restarts per query; use an exact payload for batches "
+                "or solve quantized queries one at a time"
+            )
+        if self.config.trace:
+            raise ValueError(
+                "solve_batch does not support the flight recorder "
+                "(/trace): the batched engine publishes no per-lane "
+                "superstep windows; trace queries one at a time"
+            )
+        g0 = problems[0].graph
+        p = problems[0].processing_fn
+        for q in problems[1:]:
+            if q.graph is not g0:
+                raise ValueError("solve_batch: all problems must share a graph")
+            if q.processing_fn is not p:
+                raise ValueError(
+                    "solve_batch: all problems must share a processing fn"
+                )
+        pg = self.partition(g0)
+        B = len(problems)
+        Bpad = batch_bucket(B)
+        items = [q.source_items() for q in problems]
+        items += [items[-1]] * (Bpad - B)
+        ecfg = self.config.engine_config(p)
+        D0, T0, L0 = self._state(initial_state_batch(pg, p, items))
+        with obs.span("solver.solve_batch", spec=self.config.name,
+                      batch=B, batch_padded=Bpad):
+            res = run_engine(ecfg, pg.to(self.device), pg.n_local, D0, T0, L0)
+        D = res.D.cpu().numpy()  # (Bpad, P, n_local)
+        return [
+            self._pack(problems[b], pg, ecfg, D[b], *(c[b] for c in res[1:]))
+            for b in range(B)
+        ]
+
+    def resolve(
+        self,
+        prev: Solution,
+        new_sources=None,
+        *,
+        graph: Union[Graph, PartitionedGraph, None] = None,
+    ) -> Solution:
+        """Warm restart from a prior solution (paper §II: the kernel is
+        self-stabilizing, so any state pointwise no better than the new
+        fixpoint is a correct start).  ``graph`` supplies the perturbed
+        graph (default: the previous one); ``new_sources`` adds initial
+        workitems.
+
+        One bootstrap sweep, Algorithm 1's re-verification step,
+        relaxes every out-edge of the committed prior state on the
+        solver's device; the engine then drains only the candidates the
+        perturbation improved.  Correct whenever the prior state
+        dominates the new fixpoint (weight decreases, edge or source
+        additions); cold-solve after weight increases or deletions."""
+        with obs.span("solver.resolve", spec=self.config.name) as sp:
+            return self._resolve(prev, new_sources, graph, sp)
+
+    def _resolve(self, prev, new_sources, graph, sp) -> Solution:
+        graph = prev.problem.graph if graph is None else graph
+        p = prev.problem.processing_fn
+        spec = (
+            as_source_spec(new_sources)
+            if new_sources is not None
+            else ExplicitSources(())
+        )
+        problem = Problem(
+            graph=graph, sources=spec, processing=prev.problem.processing
+        )
+        pg = self.partition(graph)
+        if prev.padded.shape != (pg.n_parts, pg.n_local):
+            raise ValueError(
+                "resolve: previous solution was computed on a different "
+                f"partition shape {prev.padded.shape} != "
+                f"{(pg.n_parts, pg.n_local)}"
+            )
+        if prev.pg is not None and not prev.pg.same_layout(pg):
+            # `padded` is in the relabeled slot space: a changed
+            # ownership map would seed the wrong vertices
+            raise ValueError(
+                "resolve: the partition layout changed between the "
+                f"previous solution ({prev.pg.partitioner}) and the "
+                f"new graph ({pg.partitioner}); cold-solve instead"
+            )
+        ecfg = self.config.engine_config(p)
+        ell = pg.to(self.device)
+        committed = torch.as_tensor(prev.padded, dtype=torch.float32,
+                                    device=self.device)
+        # the committed prior state, with the per-rank dummy slot restored
+        worst_col = torch.full((pg.n_parts, 1), float(p.worst),
+                               dtype=torch.float32, device=self.device)
+        D0 = torch.cat([committed, worst_col], dim=1)
+        with obs.span("solver.bootstrap_sweep", m=pg.m):
+            T_full = _bootstrap_candidates(ell, pg.n_local, p, committed)
+        for v, s, _ in problem.source_items():
+            pid = int(pg.padded_id(int(v)))  # owner map: original -> slot
+            T_full[pid] = p.reduce(T_full[pid],
+                                   torch.tensor(s, dtype=torch.float32))
+        T0 = torch.cat([T_full.reshape(pg.n_parts, pg.n_local), worst_col],
+                       dim=1)
+        # warm items restart the KLA level attribute at 0 (a fresh wave)
+        L0 = torch.where(p.better(T0, D0), 0.0, float("inf"))
+        res = run_engine(ecfg, ell, pg.n_local, D0, T0, L0)
+        sol = self._pack(problem, pg, ecfg, res.D.cpu().numpy(), *res[1:])
+        # the bootstrap sweep: one superstep's worth of full-graph
+        # relaxation, outside the engine
+        sol.metrics.relaxations += pg.m
+        sol.metrics.supersteps += 1
+        sp.set(supersteps=sol.metrics.supersteps,
+               converged=sol.metrics.converged)
+        return sol
+
+    def _pack(self, problem, pg, ecfg, padded, it, commits, relax, classes,
+              active, fallbacks, overflow_streak) -> Solution:
         m = _finish_metrics(
-            pg, ecfg, res.supersteps, res.commits, res.relaxations,
-            res.classes, res.active, res.fallbacks, res.max_streak,
+            pg, ecfg, it, commits, relax, classes, active, fallbacks,
+            overflow_streak,
         )
         return Solution(
             state=pg.unpermute(padded.reshape(-1)),
@@ -199,3 +408,30 @@ class Solver:
             padded=padded,
             pg=pg,
         )
+
+
+def _bootstrap_candidates(ell: DeviceELL, n_local: int, p: ProcessingFn,
+                          committed: torch.Tensor) -> torch.Tensor:
+    """One synchronous relaxation of every out-edge of ``committed``
+    ((P, n_local), on the ELL's device): the self-stabilizing kernel's
+    re-verification sweep.  Returns the (n_pad,) candidates to seed T
+    with.  A min or max does not depend on order, so this equals the
+    JAX package's host sweep bit for bit."""
+    row_src, col, wgt, _ = ell
+    n_parts, R, _ = col.shape
+    n_pad = n_parts * n_local
+    dev = committed.device
+    worst_col = torch.full((n_parts, 1), float(p.worst), dtype=torch.float32,
+                           device=dev)
+    state_ext = torch.cat([committed, worst_col], dim=1)  # dummy slot n_local
+    src_state = torch.gather(state_ext, 1, row_src.to(torch.int64))  # (P, R)
+    cand = p.edge_update(src_state[..., None], wgt).expand(col.shape)
+    # the padding of row (q, r) goes to a spill column of its own,
+    # n_pad + q·R + r, dropped after (core/frontier.py)
+    spill = torch.arange(n_pad, n_pad + n_parts * R,
+                         device=dev).reshape(n_parts, R, 1)
+    idx = torch.where(col == n_pad, spill, col)
+    buf = torch.full((n_pad + n_parts * R,), float(p.worst),
+                     dtype=torch.float32, device=dev)
+    buf.scatter_reduce_(0, idx.reshape(-1), cand.reshape(-1), p.scatter_op)
+    return buf[:n_pad]

@@ -24,9 +24,10 @@ from repro_torch.core.engine import (
     EngineConfig,
     EngineResult,
     initial_state,
+    initial_state_batch,
     run_engine,
 )
-from repro_torch.core.metrics import WorkMetrics, model_time_s
+from repro_torch.core.metrics import LatencyStats, WorkMetrics, model_time_s
 from repro_torch.core.ordering import (
     KLA,
     Chaotic,
@@ -44,8 +45,8 @@ __all__ = [
     "LEVELS", "Hierarchy", "as_hierarchy", "make_hierarchy",
     "paper_variant_specs",
     "EXCHANGE_MODES", "RELAX_IMPLS", "EngineConfig", "EngineResult",
-    "initial_state", "run_engine",
-    "WorkMetrics", "model_time_s",
+    "initial_state", "initial_state_batch", "run_engine",
+    "LatencyStats", "WorkMetrics", "model_time_s",
     "KLA", "Chaotic", "DeltaStepping", "Dijkstra", "Ordering", "TopK",
     "make_ordering", "register_ordering",
     "BFS", "CC", "SSSP", "SSWP", "ProcessingFn",

@@ -26,8 +26,9 @@ superstep:
 
 The loop runs eagerly and reads the pending count, the frontier's
 overflow flags and the sparse-exchange vote on the host every
-superstep.  State, metrics and every decision match the JAX package's
-``repro.core.engine`` bit for bit.
+superstep.  State with a leading lane axis runs B queries at once, as
+the JAX package's ``vmap`` of its loop.  State, metrics and every
+decision match the JAX package's ``repro.core.engine`` bit for bit.
 """
 
 from __future__ import annotations
@@ -50,7 +51,12 @@ from repro_torch.core.frontier import (
 from repro_torch.core.ordering import suggest
 from repro_torch.core.processing import SSSP, ProcessingFn
 from repro_torch.graph.partition import DeviceELL, PartitionedGraph
-from repro_torch.kernels import fused_superstep, relax_push_rows
+from repro_torch.kernels import (
+    fused_superstep,
+    fused_superstep_batch,
+    relax_push_rows,
+    relax_push_rows_batch,
+)
 
 INF = float("inf")
 
@@ -114,6 +120,10 @@ class EngineConfig:
 
 
 class EngineResult(NamedTuple):
+    """A run's committed state and counters.  For state with a lane
+    axis, ``D`` is (B, P, n_local) and every counter a list of B ints,
+    one a lane."""
+
     D: torch.Tensor   # (P, n_local) committed state
     supersteps: int
     commits: int
@@ -125,8 +135,11 @@ class EngineResult(NamedTuple):
 
 
 def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Per-rank gather: x (P, N), idx (P, ...) int64 -> (P, ...)."""
-    return torch.gather(x, 1, idx.reshape(idx.shape[0], -1)).reshape(idx.shape)
+    """Per-rank gather along the last axis: x (B, P, N), idx (B or 1,
+    P, ...) int64 (1: shared by every lane) -> (B, P, ...)."""
+    B = x.shape[0]
+    flat = idx.reshape(idx.shape[0], idx.shape[1], -1).expand(B, -1, -1)
+    return torch.gather(x, 2, flat).reshape((B,) + idx.shape[1:])
 
 
 def run_engine(
@@ -138,7 +151,19 @@ def run_engine(
     L: torch.Tensor,
 ) -> EngineResult:
     """Run supersteps from the (P, n_local+1) state (D, T, L) until no
-    workitem is pending or ``cfg.max_iters`` is reached."""
+    workitem is pending or ``cfg.max_iters`` is reached.
+
+    State of shape (B, P, n_local+1) runs B lanes (independent queries
+    on one graph) as the JAX package's ``vmap`` of its loop does: every
+    reduction and decision stays inside a lane, a converged lane keeps
+    its state and counters while the others run, and each lane counts
+    its own supersteps.  Where one lane overflows its frontier cap or
+    loses the sparse vote, every lane takes the dense branch: both
+    branches give the same candidates wherever both apply.  The host
+    reads three things a superstep, each for all lanes at once.  On the
+    sparse route a kernel launches once a superstep for all B·P (lane,
+    rank) pairs (the batched entry); state without a lane axis launches
+    the single entry once a rank."""
     if cfg.payload != "exact":
         raise NotImplementedError(
             f"quantized payload {cfg.payload!r} (/q) is not yet ported"
@@ -147,6 +172,9 @@ def run_engine(
         raise NotImplementedError(
             "the adaptive segment engine (/adapt, /trace) is not yet ported"
         )
+    lanes = D.dim() == 3
+    if not lanes:
+        D, T, L = D[None], T[None], L[None]
     p = cfg.processing
     hier = cfg.hierarchy
     use_level = hier.needs_level
@@ -156,8 +184,11 @@ def run_engine(
     row_src, col, wgt, row_deg = ell
     n_parts, R, W = col.shape
     n_pad = n_parts * n_local
+    B = D.shape[0]
+    S = B * n_parts  # (lane, rank) pairs, lane-major
     dev = D.device
-    row_src_l = row_src.to(torch.int64)
+    rs1 = row_src.to(torch.int64)[None]  # (1, P, R): shared by every lane
+    col1 = col[None]
     sparse_mode = cfg.exchange in ("sparse", "auto")
     nplanes = 2 if use_level else 1
     if sparse_mode:
@@ -171,22 +202,25 @@ def run_engine(
         slot_cap, use_level, cfg.payload
     ) >= nplanes * n_local
     kernel_ok = p.name == "sssp" and not use_level
-    worst_col = torch.full((n_parts, 1), worst, dtype=torch.float32, device=dev)
-    inf_col = torch.full((n_parts, 1), INF, dtype=torch.float32, device=dev)
+    worst_col = torch.full((B, n_parts, 1), worst, dtype=torch.float32,
+                           device=dev)
+    inf_col = torch.full((B, n_parts, 1), INF, dtype=torch.float32, device=dev)
 
     def scatter(cols, vals, fill, how):
-        """(P, A, W) candidates scatter-combined into (P, n_pad) over
-        ``fill``.  Column n_pad, the ELL padding, is dropped: the padding
-        of row a goes to a spill column of its own, n_pad + a (the spill
-        columns of ``core/frontier.py``)."""
-        A = cols.shape[1]
+        """(B or 1, P, A, W) columns and (B, P, A, W) candidates
+        scatter-combined into (B, P, n_pad) over ``fill``.  Column n_pad,
+        the ELL padding, is dropped: the padding of row a goes to a
+        spill column of its own, n_pad + a (the spill columns of
+        ``core/frontier.py``)."""
+        A = cols.shape[2]
         spill = torch.arange(n_pad, n_pad + A, device=dev)[:, None]
-        buf = torch.full((n_parts, n_pad + A), fill, dtype=torch.float32,
+        idx = torch.where(cols == n_pad, spill, cols)
+        buf = torch.full((B, n_parts, n_pad + A), fill, dtype=torch.float32,
                          device=dev)
         buf.scatter_reduce_(
-            1, torch.where(cols == n_pad, spill, cols).reshape(n_parts, -1),
-            vals.reshape(n_parts, -1), how)
-        return buf[:, :n_pad]
+            2, idx.reshape(idx.shape[0], n_parts, -1).expand(B, -1, -1),
+            vals.reshape(B, n_parts, -1), how)
+        return buf[..., :n_pad]
 
     def level_scatter(cols, cands, lvl_cands, C):
         """Min level among candidates matching the winning value."""
@@ -199,15 +233,24 @@ def run_engine(
         return scatter(cl, torch.where(win, lvl_cands, INF), INF, "amin")
 
     it = 0
-    active = 1
-    fallbacks = streak = max_streak = 0
-    commits = torch.zeros((), dtype=torch.int64, device=dev)
-    relax = torch.zeros((), dtype=torch.int64, device=dev)
-    classes = torch.zeros((), dtype=torch.int64, device=dev)
-    last_key = torch.full((), float("nan"), dtype=torch.float32, device=dev)
+    # per lane: the host's copies of the pending count and the counters
+    # the sparse vote moves; the work counters stay on the device
+    active = [1] * B
+    supersteps = [0] * B
+    fallbacks = [0] * B
+    streak = [0] * B
+    max_streak = [0] * B
+    active_t = torch.ones(B, dtype=torch.int64, device=dev)
+    commits = torch.zeros(B, dtype=torch.int64, device=dev)
+    relax = torch.zeros(B, dtype=torch.int64, device=dev)
+    classes = torch.zeros(B, dtype=torch.int64, device=dev)
+    last_key = torch.full((B,), float("nan"), dtype=torch.float32, device=dev)
 
-    while active > 0 and it < cfg.max_iters:
-        active_prev = active
+    while max(active) > 0 and it < cfg.max_iters:
+        # a converged lane has nothing pending, so it commits and sends
+        # nothing; only its counters need holding
+        live = [a > 0 for a in active]
+        live_t = active_t > 0
 
         # ---- 1+2. ordering hierarchy: fold over annotations ----------
         eligible = p.better(T, D)
@@ -215,20 +258,20 @@ def run_engine(
         for lvl, o in hier.annotations:
             key = torch.where(eligible, o.class_key(T, L), INF)
             if lvl in ("global", "pod"):  # one flat rank axis: pod = all
-                m = key.amin()
+                m = key.amin(dim=(1, 2), keepdim=True)
                 eligible = eligible & (key == m)
                 if lvl == "global":
-                    kmin = m
+                    kmin = m.reshape(B)
             elif o.drain is not None:  # rank-local top-B drain
-                B = min(o.drain, n_local)
-                kth = torch.topk(key, B, dim=1, largest=False).values[:, B - 1:B]
+                k = min(o.drain, n_local)
+                kth = torch.topk(key, k, dim=2, largest=False).values[..., k - 1:k]
                 eligible = eligible & (key <= kth)
             else:  # rank-local minimal class
-                eligible = eligible & (key == key.amin(dim=1, keepdim=True))
+                eligible = eligible & (key == key.amin(dim=2, keepdim=True))
 
         # ---- 3. commit ------------------------------------------------
         D = torch.where(eligible, T, D)
-        elig_rows = _rows(eligible, row_src_l)  # (P, R)
+        elig_rows = _rows(eligible, rs1)  # (B, P, R)
 
         # ---- 4. relax -------------------------------------------------
         def relax_dense():
@@ -236,76 +279,91 @@ def run_engine(
             if is_min:
                 # +inf padding annihilates padded slots; mask only at the
                 # vertex level
-                src_val = _rows(torch.where(eligible, D, worst), row_src_l)
-                cand = p.edge_update(src_val[..., None], wgt).expand(col.shape)
+                src_val = _rows(torch.where(eligible, D, worst), rs1)
+                cand = p.edge_update(src_val[..., None], wgt)
+                cand = cand.expand((B,) + col.shape)
             else:
-                src_val = torch.where(elig_rows, _rows(D, row_src_l), worst)
+                src_val = torch.where(elig_rows, _rows(D, rs1), worst)
                 cand = p.edge_update(src_val[..., None], wgt)
                 cand = torch.where(elig_rows[..., None] & (wgt < INF), cand,
                                    worst)
-            C = scatter(col, cand, worst, op)
+            C = scatter(col1, cand, worst, op)
             if not use_level:
                 return C, None
-            live = elig_rows[..., None] & (wgt < INF)
-            lvl_cand = torch.where(live, (_rows(L, row_src_l) + 1.0)[..., None],
-                                   INF)
-            return C, level_scatter(col, cand, lvl_cand, C)
+            live_slot = elig_rows[..., None] & (wgt < INF)
+            lvl_cand = torch.where(live_slot,
+                                   (_rows(L, rs1) + 1.0)[..., None], INF)
+            return C, level_scatter(col1, cand, lvl_cand, C)
 
         def relax_push():
             """Push mode: relax only the compacted frontier rows; fill
             rows gather the dummy source and the padding column."""
             if cfg.relax_impl in ("fused", "push") and kernel_ok:
-                kernel = (fused_superstep if cfg.relax_impl == "fused"
-                          else relax_push_rows)
-                C = torch.stack([
-                    kernel(D[q], f_idx[q], f_cnt[q], row_src[q], col[q],
-                           wgt[q], n_pad)[:n_pad]
-                    for q in range(n_parts)
-                ])
-                return C, None
+                fused = cfg.relax_impl == "fused"
+                if lanes:  # one launch for every (lane, rank)
+                    kernel = (fused_superstep_batch if fused
+                              else relax_push_rows_batch)
+                    C = kernel(D.reshape(S, -1),
+                               f_idx.reshape(S, row_cap).contiguous(),
+                               f_cnt.reshape(S), row_src, col, wgt, n_pad)
+                else:  # one launch a rank
+                    kernel = fused_superstep if fused else relax_push_rows
+                    C = torch.stack([
+                        kernel(D[0, q], f_idx[0, q], f_cnt[0, q], row_src[q],
+                               col[q], wgt[q], n_pad)
+                        for q in range(n_parts)
+                    ])
+                return C[..., :n_pad].reshape(B, n_parts, n_pad), None
             fi = f_idx.to(torch.int64)
             valid = fi < R
             fic = fi.clamp(max=R - 1)
-            srcg = torch.where(valid, _rows(row_src_l, fic), n_local)
-            strip = fic[..., None].expand(n_parts, row_cap, W)
-            colg = torch.where(valid[..., None], torch.gather(col, 1, strip),
-                               n_pad)
-            wgtg = torch.where(valid[..., None], torch.gather(wgt, 1, strip),
-                               INF)
+            srcg = torch.where(valid, _rows(rs1.expand(B, -1, -1), fic),
+                               n_local)
+            strip = fic[..., None].expand(B, n_parts, row_cap, W)
+            colg = torch.where(
+                valid[..., None],
+                torch.gather(col1.expand(B, -1, -1, -1), 2, strip), n_pad)
+            wgtg = torch.where(
+                valid[..., None],
+                torch.gather(wgt[None].expand(B, -1, -1, -1), 2, strip), INF)
             cand = p.edge_update(_rows(D, srcg)[..., None], wgtg)
             cand = cand.expand(wgtg.shape)
             C = scatter(colg, cand, worst, op)
             if not use_level:
                 return C, None
-            lvl_cand = torch.where(wgtg < INF, (_rows(L, srcg) + 1.0)[..., None],
-                                   INF)
+            lvl_cand = torch.where(wgtg < INF,
+                                   (_rows(L, srcg) + 1.0)[..., None], INF)
             return C, level_scatter(colg, cand, lvl_cand, C)
 
         if sparse_mode:
-            f_idx, f_cnt, row_overflow = compact_rows(elig_rows, row_cap)
+            f_idx, f_cnt, row_overflow = compact_rows(
+                elig_rows.reshape(S, R), row_cap)
+            f_idx = f_idx.reshape(B, n_parts, row_cap)
+            f_cnt = f_cnt.reshape(B, n_parts)
+            row_overflow = row_overflow.reshape(B, n_parts)
             # a rank whose frontier overflows F sweeps densely; the dense
             # and push candidates agree wherever both apply, so one dense
-            # sweep serves every rank
+            # sweep serves every rank of every lane
             C, CL = relax_dense() if bool(row_overflow.any()) else relax_push()
         else:
             C, CL = relax_dense()
 
         # ---- 5. exchange candidates to owners -------------------------
         def exchange_a2a():
-            X = C.reshape(n_parts, n_parts, n_local).transpose(0, 1)
-            mine = p.reduce_array(X, 1)
+            X = C.reshape(B, n_parts, n_parts, n_local).transpose(1, 2)
+            mine = p.reduce_array(X, 2)
             if not use_level:
                 return mine, None
-            XL = CL.reshape(n_parts, n_parts, n_local).transpose(0, 1)
-            return mine, torch.where(X == mine[:, None], XL, INF).amin(1)
+            XL = CL.reshape(B, n_parts, n_parts, n_local).transpose(1, 2)
+            return mine, torch.where(X == mine[:, :, None], XL, INF).amin(2)
 
         def exchange_pmin():
-            Cg = p.reduce_array(C, 0)
-            mine = Cg.reshape(n_parts, n_local)
+            Cg = p.reduce_array(C, 1)
+            mine = Cg.reshape(B, n_parts, n_local)
             if not use_level:
                 return mine, None
-            CLg = torch.where(C == Cg[None], CL, INF).amin(0)
-            return mine, CLg.reshape(n_parts, n_local)
+            CLg = torch.where(C == Cg[:, None], CL, INF).amin(1)
+            return mine, CLg.reshape(B, n_parts, n_local)
 
         if cfg.exchange == "pmin":
             mine, mineL = exchange_pmin()
@@ -313,49 +371,59 @@ def run_engine(
             mine, mineL = exchange_a2a()
         elif static_dense:
             mine, mineL = exchange_a2a()
-            fallbacks += 1
+            fallbacks = [f + lv for f, lv in zip(fallbacks, live)]
         else:  # 'sparse' | 'auto'
-            extra = [(CL, INF)] if use_level else []
-            payload, ex_overflow = sparse_payload(C, extra, n_parts, slot_cap,
-                                                  worst)
-            ok = ~ex_overflow
+            extra = [(CL.reshape(S, n_pad), INF)] if use_level else []
+            payload, ex_overflow = sparse_payload(
+                C.reshape(S, n_pad), extra, n_parts, slot_cap, worst)
+            ok = ~ex_overflow.reshape(B, n_parts)
             if cfg.exchange == "auto":
-                ok = ok & (active_prev <= auto_thresh)
-            over_local = row_overflow | ex_overflow
-            # every rank takes the same branch: the shapes differ
+                ok = ok & (active_t <= auto_thresh)[:, None]
+            over = row_overflow | ex_overflow.reshape(B, n_parts)
+            # every rank of a lane takes the same branch (the shapes
+            # differ); one lane's dense branch serves all lanes
             use_sp, no_overflow = torch.stack(
-                [ok.all(), ~over_local.any()]
+                [ok.all(1), ~over.any(1)]
             ).tolist()
-            if use_sp:
+            if all(use_sp):
+                recv = payload.reshape(B, n_parts, n_parts, -1).transpose(1, 2)
                 mine, mineL = unpack_combine(
-                    payload.transpose(0, 1), n_local, slot_cap, is_min,
+                    recv.reshape(S, n_parts, -1), n_local, slot_cap, is_min,
                     worst, use_level,
                 )
+                mine = mine.reshape(B, n_parts, n_local)
+                if use_level:
+                    mineL = mineL.reshape(B, n_parts, n_local)
             else:
                 mine, mineL = exchange_a2a()
-                fallbacks += 1
-            streak = 0 if no_overflow else streak + 1
-            max_streak = max(max_streak, streak)
+            for b in range(B):
+                if live[b]:
+                    fallbacks[b] += not use_sp[b]
+                    streak[b] = 0 if no_overflow[b] else streak[b] + 1
+                    max_streak[b] = max(max_streak[b], streak[b])
 
         # ---- 6. fold into pending state T -----------------------------
-        mine_ext = torch.cat([mine, worst_col], dim=1)
+        mine_ext = torch.cat([mine, worst_col], dim=2)
         improved = p.better(mine_ext, T)
         T = torch.where(improved, mine_ext, T)
         if use_level:
-            L = torch.where(improved, torch.cat([mineL, inf_col], dim=1), L)
+            L = torch.where(improved, torch.cat([mineL, inf_col], dim=2), L)
 
         if cfg.collect_metrics:
-            commits += eligible.sum()
-            relax += (elig_rows * row_deg).sum()
-            classes += (kmin != last_key).to(torch.int64)
+            commits += eligible.sum(dim=(1, 2))
+            relax += (elig_rows * row_deg).sum(dim=(1, 2))
+            classes += ((kmin != last_key) & live_t).to(torch.int64)
         last_key = kmin
-        active = int(p.better(T, D).sum())
+        active_t = p.better(T, D).sum(dim=(1, 2))
+        active = active_t.tolist()
+        supersteps = [s + lv for s, lv in zip(supersteps, live)]
         it += 1
 
-    return EngineResult(
-        D[:, :n_local], it, int(commits), int(relax), int(classes), active,
-        fallbacks, max_streak,
-    )
+    out = [supersteps, commits.tolist(), relax.tolist(), classes.tolist(),
+           active, fallbacks, max_streak]
+    if not lanes:
+        return EngineResult(D[0, :, :n_local], *(c[0] for c in out))
+    return EngineResult(D[..., :n_local], *out)
 
 
 def initial_state(
@@ -384,3 +452,13 @@ def initial_state(
         elif s == T[i, j]:
             L[i, j] = min(L[i, j], lvl)
     return D, T, L
+
+
+def initial_state_batch(
+    pg: PartitionedGraph, processing: ProcessingFn,
+    sources_batch: list[list[tuple]],
+):
+    """Per-query initial states stacked along a leading lane axis: numpy
+    (B, P, n_local+1) arrays (D, T, L) for a run of B lanes."""
+    per = [initial_state(pg, processing, s) for s in sources_batch]
+    return tuple(np.stack(planes) for planes in zip(*per))

@@ -3,7 +3,7 @@
 * :func:`compact_rows` — the eligible virtual-row mask of every rank
   compacted into a fixed-capacity index list (cap F) with an overflow
   flag for the dense fallback.  ``torch.nonzero`` has no static size,
-  so this is a cumsum and a scatter into the cap: no host sync.
+  so this is a running count and a scatter into the cap: no host sync.
 * :func:`bucket_slots` / :func:`scatter_plane` — per-destination-rank
   slotting of candidates into fixed-capacity (idx, val) buffers.
 * :func:`sparse_payload` / :func:`unpack_combine` — the payload of one
@@ -21,6 +21,8 @@ loop each.  No result changes, since a spill column is never read.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -74,6 +76,17 @@ def grow_frontier_cap(rows: int, cap: int) -> int:
     return min(int(rows), max(1, int(cap)) * 2)
 
 
+def running_count(mask: torch.Tensor) -> torch.Tensor:
+    """Inclusive count of the set entries along the last (non-empty)
+    axis, int64, as one scan over the flattened mask less each row's
+    start: the card scans a last axis one block a row, which leaves it
+    idle for a few long rows (a batch of lanes of a large graph)."""
+    flat = torch.cumsum(mask.reshape(-1), 0, dtype=torch.int64)
+    flat = flat.reshape(math.prod(mask.shape[:-1]), mask.shape[-1])
+    start = torch.cat([flat.new_zeros(1), flat[:-1, -1]])
+    return (flat - start[:, None]).reshape(mask.shape)
+
+
 def compact_rows(mask: torch.Tensor, cap: int):
     """Compact a (P, R) bool mask into (P, cap) index lists.
 
@@ -83,7 +96,7 @@ def compact_rows(mask: torch.Tensor, cap: int):
     True where the mask does not fit.
     """
     P_, R = mask.shape
-    pos = torch.cumsum(mask, dim=1, dtype=torch.int64) - 1
+    pos = running_count(mask) - 1
     count = mask.sum(dim=1)
     # set positions past the cap and unset ones land in spill columns,
     # cap + their row (module docstring)
@@ -107,7 +120,7 @@ def bucket_slots(mask: torch.Tensor, slot_cap: int):
     candidates.
     """
     n = mask.shape[-1]
-    pos = torch.cumsum(mask, dim=-1, dtype=torch.int64) - 1
+    pos = running_count(mask) - 1
     overflow = (pos[..., -1] + 1).amax(dim=-1) > slot_cap
     slot = torch.where(mask & (pos < slot_cap), pos,
                        torch.arange(slot_cap, slot_cap + n, device=mask.device))

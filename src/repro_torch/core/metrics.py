@@ -3,12 +3,14 @@
 The counts are the paper's work terms (relaxations, commits, workitems)
 and synchronization terms (classes, supersteps, collective rounds),
 plus exchanged bytes; they are identical to the JAX package's for the
-same graph, spec and rank count.
+same graph, spec and rank count.  :class:`LatencyStats` holds the
+serving tier's latency order statistics.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 
 @dataclasses.dataclass
@@ -45,6 +47,78 @@ class WorkMetrics:
         if self.overflow_streak:
             s += f" overflow_streak={self.overflow_streak}"
         return s + ("" if self.converged else " TRUNCATED")
+
+
+@dataclasses.dataclass
+class LatencyStats:
+    """Order statistics over latency samples (p50/p99 per query).
+    Percentiles are nearest-rank, so a reported p99 is an observed
+    sample."""
+
+    count: int = 0
+    total_s: float = 0.0
+    mean_s: float = 0.0
+    min_s: float = 0.0
+    p50_s: float = 0.0
+    p90_s: float = 0.0
+    p99_s: float = 0.0
+    max_s: float = 0.0
+
+    @classmethod
+    def from_samples(cls, samples: Sequence[float]) -> "LatencyStats":
+        xs = sorted(float(s) for s in samples)
+        if not xs:
+            return cls()
+
+        def rank(pct: int) -> float:
+            # nearest rank: the smallest sample with cumulative share >= pct%
+            i = (pct * len(xs) + 99) // 100
+            return xs[min(max(i - 1, 0), len(xs) - 1)]
+
+        return cls(
+            count=len(xs),
+            total_s=sum(xs),
+            mean_s=sum(xs) / len(xs),
+            min_s=xs[0],
+            p50_s=rank(50),
+            p90_s=rank(90),
+            p99_s=rank(99),
+            max_s=xs[-1],
+        )
+
+    def merge(self, other: "LatencyStats") -> "LatencyStats":
+        """Combine two windows: count, total, mean, min and max exactly;
+        each percentile as the count-weighted mean of the windows' (order
+        statistics alone do not merge)."""
+        if self.count == 0:
+            return dataclasses.replace(other)
+        if other.count == 0:
+            return dataclasses.replace(self)
+        total_n = self.count + other.count
+
+        def wmean(a: float, b: float) -> float:
+            return (a * self.count + b * other.count) / total_n
+
+        return LatencyStats(
+            count=total_n,
+            total_s=self.total_s + other.total_s,
+            mean_s=(self.total_s + other.total_s) / total_n,
+            min_s=min(self.min_s, other.min_s),
+            p50_s=wmean(self.p50_s, other.p50_s),
+            p90_s=wmean(self.p90_s, other.p90_s),
+            p99_s=wmean(self.p99_s, other.p99_s),
+            max_s=max(self.max_s, other.max_s),
+        )
+
+    def as_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    def __str__(self) -> str:
+        return (
+            f"n={self.count} p50={self.p50_s*1e3:.2f}ms "
+            f"p90={self.p90_s*1e3:.2f}ms p99={self.p99_s*1e3:.2f}ms "
+            f"max={self.max_s*1e3:.2f}ms"
+        )
 
 
 # The JAX package's linear cost model, with its per-unit costs

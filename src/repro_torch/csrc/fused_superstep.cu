@@ -25,6 +25,13 @@
 // A chunk whose four candidates are all +inf (padding, or an
 // unreached source) skips its col load; each finite candidate is one
 // pre-checked atomic min.
+//
+// The batched entry (fused_superstep_batch_launch) runs S = B·P lanes,
+// lane-major, in one launch, as vmap gives the TPU kernel a batch grid
+// axis: lane s = blockIdx.y walks its own frontier (row_idx[s],
+// count[s]) over graph rank s % P, reads its own distances and
+// scatter-mins into its own output row.  The lanes share the
+// persistent grid (frontier_batch_grid).
 #include "minplus.cuh"
 
 namespace {
@@ -68,6 +75,43 @@ __global__ void __launch_bounds__(kThreads) fused_superstep_kernel(
 }
 
 template <int VEC>
+__global__ void __launch_bounds__(kThreads) fused_superstep_batch_kernel(
+    const float* __restrict__ dist, const int* __restrict__ row_idx,
+    const int* __restrict__ count, const int* __restrict__ row_src,
+    const int* __restrict__ col, const float* __restrict__ wgt,
+    float* __restrict__ out, int F, int R, int W, int G, int P, int n_dist,
+    int n_out1) {
+  const int s = blockIdx.y;
+  const long long q = s % P;
+  FusedOp<VEC> op{col + q * R * W, wgt + q * R * W,
+                  out + static_cast<long long>(s) * n_out1};
+  walk_frontier<VEC>(dist + static_cast<long long>(s) * n_dist,
+                     row_idx + static_cast<long long>(s) * F, row_src + q * R,
+                     live_rows(count + s, F), R, W, G, op);
+}
+
+template <int VEC>
+int batch_grid(int F, int W, int S, dim3* grid) {
+  static int cache[kMaxDevices];
+  return static_cast<int>(frontier_batch_grid(
+      fused_superstep_batch_kernel<VEC>, cache, F, group_lanes(W, VEC), S, grid));
+}
+
+template <int VEC>
+int launch_batch(const float* dist, const int* row_idx, const int* count,
+                 const int* row_src, const int* col, const float* wgt, float* out,
+                 int F, int R, int W, int P, int n_dist, int n_out1, int S,
+                 cudaStream_t stream) {
+  dim3 grid;
+  const int err = batch_grid<VEC>(F, W, S, &grid);
+  if (err != 0) return err;
+  fused_superstep_batch_kernel<VEC><<<grid, kThreads, 0, stream>>>(
+      dist, row_idx, count, row_src, col, wgt, out, F, R, W, group_lanes(W, VEC),
+      P, n_dist, n_out1);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int VEC>
 int launch(const float* dist, const int* row_idx, const int* count,
            const int* row_src, const int* col, const float* wgt, float* out,
            int F, int R, int W, cudaStream_t stream) {
@@ -92,4 +136,30 @@ extern "C" int fused_superstep_launch(
   if (static_cast<long long>(F) * W == 0) return 0;
   return vec ? launch<4>(dist, row_idx, count, row_src, col, wgt, out, F, R, W, stream)
              : launch<1>(dist, row_idx, count, row_src, col, wgt, out, F, R, W, stream);
+}
+
+// Batched: dist (S, n_dist), row_idx (S, F), count (S,), row_src (P, R),
+// col and wgt (P, R, W), out (S, n_out1) filled with +inf by the caller;
+// lane s reads rank s % P.  vec as above.
+extern "C" int fused_superstep_batch_launch(
+    const float* dist, const int* row_idx, const int* count,
+    const int* row_src, const int* col, const float* wgt, float* out,
+    int F, int R, int W, int P, int n_dist, int n_out1, int S, int vec,
+    cudaStream_t stream) {
+  if (static_cast<long long>(F) * W * S == 0) return 0;
+  return vec ? launch_batch<4>(dist, row_idx, count, row_src, col, wgt, out, F, R, W,
+                               P, n_dist, n_out1, S, stream)
+             : launch_batch<1>(dist, row_idx, count, row_src, col, wgt, out, F, R, W,
+                               P, n_dist, n_out1, S, stream);
+}
+
+// The grid the batched entry launches for these sizes: grid[0] blocks a
+// lane on x, grid[1] = S lanes on y.
+extern "C" int fused_superstep_batch_grid(int F, int W, int S, int vec,
+                                          unsigned int* grid) {
+  dim3 g;
+  const int err = vec ? batch_grid<4>(F, W, S, &g) : batch_grid<1>(F, W, S, &g);
+  grid[0] = g.x;
+  grid[1] = g.y;
+  return err;
 }

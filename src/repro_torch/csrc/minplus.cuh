@@ -178,3 +178,20 @@ __host__ cudaError_t frontier_grid(Kernel kernel, int* cache, int F, int G,
   *grid = static_cast<unsigned int>(need < blocks ? need : blocks);
   return cudaSuccess;
 }
+
+// The grid of a batched frontier kernel: S lanes on blockIdx.y share the
+// persistent grid, each lane at least one block and at most what its F
+// rows fill.
+template <class Kernel>
+__host__ cudaError_t frontier_batch_grid(Kernel kernel, int* cache, int F, int G,
+                                         int S, dim3* grid) {
+  int blocks = 0;
+  const cudaError_t err = persistent_blocks(kernel, kThreads, 0, cache, &blocks);
+  if (err != cudaSuccess) return err;
+  const long long rows_per_block = (kThreads / 32) * (32 / G);
+  const long long need = (F + rows_per_block - 1) / rows_per_block;
+  const long long share = blocks / S > 0 ? blocks / S : 1;
+  *grid = dim3(static_cast<unsigned int>(need < share ? need : share),
+               static_cast<unsigned int>(S), 1);
+  return cudaSuccess;
+}

@@ -18,6 +18,12 @@
 // writing its candidates as 16-byte vectors, the row metadata
 // pipelined in the group's lane 0.  The rows past count are then
 // written as +inf with streaming vector stores and no loads.
+//
+// The batched entry (relax_push_gather_batch_launch) runs S = B·P
+// lanes, lane-major, in one launch: lane s = blockIdx.y gathers its
+// own frontier (row_idx[s], count[s]) over graph rank s % P into its
+// own (F, W) block of the (S, F, W) output.  The lanes share the
+// persistent grid (frontier_batch_grid).
 #include "minplus.cuh"
 
 namespace {
@@ -37,8 +43,10 @@ struct GatherOp {
   }
 };
 
+// The live rows' candidates, then +inf in the rows past count, by the
+// blocks on gridDim.x.
 template <int VEC>
-__global__ void __launch_bounds__(kThreads) relax_push_gather_kernel(
+__device__ __forceinline__ void gather_rows(
     const float* __restrict__ dist, const int* __restrict__ row_idx,
     const int* __restrict__ count, const int* __restrict__ row_src,
     const float* __restrict__ wgt, float* __restrict__ out,
@@ -55,6 +63,48 @@ __global__ void __launch_bounds__(kThreads) relax_push_gather_kernel(
        i < n; i += stride) {
     __stcs(tail + i, inf_chunk<VEC>());
   }
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(kThreads) relax_push_gather_kernel(
+    const float* __restrict__ dist, const int* __restrict__ row_idx,
+    const int* __restrict__ count, const int* __restrict__ row_src,
+    const float* __restrict__ wgt, float* __restrict__ out,
+    int F, int R, int W, int G) {
+  gather_rows<VEC>(dist, row_idx, count, row_src, wgt, out, F, R, W, G);
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(kThreads) relax_push_gather_batch_kernel(
+    const float* __restrict__ dist, const int* __restrict__ row_idx,
+    const int* __restrict__ count, const int* __restrict__ row_src,
+    const float* __restrict__ wgt, float* __restrict__ out,
+    int F, int R, int W, int G, int P, int n_dist) {
+  const int s = blockIdx.y;
+  const long long q = s % P;
+  gather_rows<VEC>(dist + static_cast<long long>(s) * n_dist,
+                   row_idx + static_cast<long long>(s) * F, count + s,
+                   row_src + q * R, wgt + q * R * W,
+                   out + static_cast<long long>(s) * F * W, F, R, W, G);
+}
+
+template <int VEC>
+int batch_grid(int F, int W, int S, dim3* grid) {
+  static int cache[kMaxDevices];
+  return static_cast<int>(frontier_batch_grid(
+      relax_push_gather_batch_kernel<VEC>, cache, F, group_lanes(W, VEC), S, grid));
+}
+
+template <int VEC>
+int launch_batch(const float* dist, const int* row_idx, const int* count,
+                 const int* row_src, const float* wgt, float* out, int F, int R,
+                 int W, int P, int n_dist, int S, cudaStream_t stream) {
+  dim3 grid;
+  const int err = batch_grid<VEC>(F, W, S, &grid);
+  if (err != 0) return err;
+  relax_push_gather_batch_kernel<VEC><<<grid, kThreads, 0, stream>>>(
+      dist, row_idx, count, row_src, wgt, out, F, R, W, group_lanes(W, VEC), P, n_dist);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int VEC>
@@ -82,4 +132,28 @@ extern "C" int relax_push_gather_launch(
   if (static_cast<long long>(F) * W == 0) return 0;
   return vec ? launch<4>(dist, row_idx, count, row_src, wgt, out, F, R, W, stream)
              : launch<1>(dist, row_idx, count, row_src, wgt, out, F, R, W, stream);
+}
+
+// Batched: dist (S, n_dist), row_idx (S, F), count (S,), row_src (P, R),
+// wgt (P, R, W), out (S, F, W); lane s reads rank s % P.  vec as above.
+extern "C" int relax_push_gather_batch_launch(
+    const float* dist, const int* row_idx, const int* count,
+    const int* row_src, const float* wgt, float* out, int F, int R, int W,
+    int P, int n_dist, int S, int vec, cudaStream_t stream) {
+  if (static_cast<long long>(F) * W * S == 0) return 0;
+  return vec ? launch_batch<4>(dist, row_idx, count, row_src, wgt, out, F, R, W, P,
+                               n_dist, S, stream)
+             : launch_batch<1>(dist, row_idx, count, row_src, wgt, out, F, R, W, P,
+                               n_dist, S, stream);
+}
+
+// The grid the batched entry launches for these sizes: grid[0] blocks a
+// lane on x, grid[1] = S lanes on y.
+extern "C" int relax_push_gather_batch_grid(int F, int W, int S, int vec,
+                                            unsigned int* grid) {
+  dim3 g;
+  const int err = vec ? batch_grid<4>(F, W, S, &g) : batch_grid<1>(F, W, S, &g);
+  grid[0] = g.x;
+  grid[1] = g.y;
+  return err;
 }

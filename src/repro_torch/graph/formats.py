@@ -86,14 +86,46 @@ class CSR:
         return int(np.max(self.row_ptr[1:] - self.row_ptr[:-1], initial=0))
 
 
-def graph_fingerprint(g: Graph) -> tuple:
+def graph_fingerprint(g: Graph, *, full: bool = False) -> tuple:
     """Content token so in-place edge mutation invalidates derived-buffer
     memos (partitions, transpose ELLs).  CRC over the COO arrays: one
-    pass, no copy."""
+    pass, no copy.
+
+    A graph that carries a hash-chain token (installed by
+    :func:`chain_fingerprint`, the streaming-update path) returns it
+    without rehashing; ``full=True`` forces the rehash.  The chain holds
+    only while every mutation goes through :func:`chain_fingerprint`:
+    code that mutates the edge arrays directly calls
+    :func:`clear_fingerprint_chain` first."""
+    if not full:
+        chain = getattr(g, "_fp_chain", None)
+        if chain is not None:
+            return chain
     crc = 0
     for arr in (g.src, g.dst, g.weight):
         crc = zlib.crc32(memoryview(np.ascontiguousarray(arr)), crc)
     return (g.n, g.m, crc)
+
+
+def chain_fingerprint(g: Graph, record: bytes) -> tuple:
+    """Extend ``g``'s fingerprint by one update record: a CRC chained
+    over (previous token, record), installed on ``g`` and returned.
+    Call after applying the mutation the record describes.  Chained
+    tokens carry a ``"chain"`` tag, so they never equal a full
+    rehash's."""
+    prev = graph_fingerprint(g)  # the chain if present, else a full rehash
+    crc = zlib.crc32(repr(prev).encode(), 0)
+    crc = zlib.crc32(record, crc)
+    token = (g.n, g.m, crc, "chain")
+    g._fp_chain = token
+    return token
+
+
+def clear_fingerprint_chain(g: Graph) -> None:
+    """Drop a chained fingerprint (the next lookup rehashes): required
+    before mutating edge arrays outside the update-record path."""
+    if hasattr(g, "_fp_chain"):
+        del g._fp_chain
 
 
 def coo_to_csr(g: Graph) -> CSR:

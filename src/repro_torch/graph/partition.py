@@ -247,6 +247,18 @@ class PartitionedGraph:
             return padded_state[..., : self.n]
         return padded_state[..., self.perm]
 
+    def same_layout(self, other: "PartitionedGraph") -> bool:
+        """True iff states padded under ``self`` are valid under
+        ``other``: the same shape and the same vertex-to-slot map (the
+        warm-restart check)."""
+        if (self.n, self.n_parts, self.n_local) != (
+            other.n, other.n_parts, other.n_local
+        ):
+            return False
+        if (self.perm is None) != (other.perm is None):
+            return False
+        return self.perm is None or bool(np.array_equal(self.perm, other.perm))
+
     def describe(self) -> str:
         occupancy = float(np.sum(self.col != self.n_pad)) / max(1, self.col.size)
         return (

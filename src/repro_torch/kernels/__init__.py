@@ -2,7 +2,9 @@
 with a plain torch version that CPU tensors take.
 
   superstep_fused   gather + min-plus relax + scatter-min of a frontier
-  relax_push        push-mode frontier gather (scatter-min in torch)
+                    (one lane, or a batch of lanes in one launch)
+  relax_push        push-mode frontier gather (scatter-min in torch;
+                    one lane, or a batch of lanes in one launch)
   relax_ell         pull-mode min-plus ELL row minima (rule R1)
   flash_attention   streaming-softmax GQA attention (LM prefill)
   embedding_bag     gather + weighted sum per bag (MIND profile pooling)
@@ -27,9 +29,13 @@ from repro_torch.kernels.flash_attention import attention_ref, flash_attention_c
 from repro_torch.kernels.relax_ell import relax_ell_cuda, relax_ell_ref, relax_rows
 from repro_torch.kernels.relax_push import (
     relax_push_gather,
+    relax_push_gather_batch,
+    relax_push_gather_batch_cuda,
+    relax_push_gather_batch_ref,
     relax_push_gather_cuda,
     relax_push_gather_ref,
     relax_push_rows,
+    relax_push_rows_batch,
 )
 from repro_torch.kernels.spmm_ell import (
     aggregate_neighbors,
@@ -42,6 +48,9 @@ from repro_torch.kernels.spmm_ell import (
 )
 from repro_torch.kernels.superstep_fused import (
     fused_superstep,
+    fused_superstep_batch,
+    fused_superstep_batch_cuda,
+    fused_superstep_batch_ref,
     fused_superstep_cuda,
     fused_superstep_ref,
 )
@@ -50,8 +59,11 @@ __all__ = [
     "KERNELS", "build", "launch_counts", "library", "reset_launch_counts",
     "relax_ell_cuda", "relax_ell_ref", "relax_rows",
     "relax_push_gather", "relax_push_gather_cuda", "relax_push_gather_ref",
-    "relax_push_rows",
+    "relax_push_rows", "relax_push_gather_batch", "relax_push_gather_batch_cuda",
+    "relax_push_gather_batch_ref", "relax_push_rows_batch",
     "fused_superstep", "fused_superstep_cuda", "fused_superstep_ref",
+    "fused_superstep_batch", "fused_superstep_batch_cuda",
+    "fused_superstep_batch_ref",
     "attention_ref", "flash_attention_cuda", "mha",
     "bag_pool", "bag_sum", "embedding_bag_cuda", "embedding_bag_ref",
     "aggregate_neighbors", "spmm_rows", "spmm_ell_cuda", "spmm_ell_ref",

@@ -37,7 +37,8 @@ LIB_NAME = "libminplus.so"
 
 #: the kernels of the library, by the name their wrappers count under
 KERNELS = ("fused_superstep", "relax_push_gather", "relax_ell",
-           "flash_attention", "embedding_bag", "spmm_ell")
+           "flash_attention", "embedding_bag", "spmm_ell",
+           "fused_superstep_batch", "relax_push_gather_batch")
 
 _launches = dict.fromkeys(KERNELS, 0)
 _lib: "ctypes.CDLL | None" = None
@@ -201,6 +202,41 @@ def check_frontier_args(kernel: str, dist, row_idx, row_src, col, wgt) -> None:
         require(False, kernel, f"row_src must be int32 ({R},), got "
                                f"{row_src.dtype} {tuple(row_src.shape)}")
     require(max(row_idx.shape[0], R, W) < 2**31, kernel, "sizes exceed int32")
+
+
+def check_frontier_batch_args(kernel: str, dist, row_idx, count, row_src,
+                              col, wgt) -> None:
+    """dtypes and shapes of a batched frontier kernel's arguments: S =
+    B·P lanes of (dist (S, N), row_idx (S, F), count (S,)) over a
+    (row_src (P, R), col and wgt (P, R, W)) ELL, lane s on rank s % P.
+    Messages are formatted only on failure: this runs before every
+    launch."""
+    if dist.dtype != torch.float32 or dist.dim() != 2:
+        require(False, kernel, f"dist must be 2-D float32, got {dist.dtype} "
+                               f"{tuple(dist.shape)}")
+    S = dist.shape[0]
+    if row_idx.dtype != torch.int32 or row_idx.dim() != 2 or row_idx.shape[0] != S:
+        require(False, kernel, f"row_idx must be int32 ({S}, F), got "
+                               f"{row_idx.dtype} {tuple(row_idx.shape)}")
+    if count.dtype != torch.int32 or count.shape != (S,):
+        require(False, kernel, f"count must be int32 ({S},), got {count.dtype} "
+                               f"{tuple(count.shape)}")
+    if wgt.dtype != torch.float32 or wgt.dim() != 3:
+        require(False, kernel, f"wgt must be 3-D float32, got {wgt.dtype} "
+                               f"{tuple(wgt.shape)}")
+    P, R, W = wgt.shape
+    require(R >= 1, kernel, "the ELL must have at least one row")
+    if col.dtype != torch.int32 or col.shape != wgt.shape:
+        require(False, kernel, f"col must be int32 of wgt's shape {(P, R, W)}, "
+                               f"got {col.dtype} {tuple(col.shape)}")
+    if row_src.dtype != torch.int32 or row_src.shape != (P, R):
+        require(False, kernel, f"row_src must be int32 ({P}, {R}), got "
+                               f"{row_src.dtype} {tuple(row_src.shape)}")
+    if S % P:
+        require(False, kernel, f"{S} lanes do not cover {P} ranks evenly")
+    require(S < 65536, kernel, f"{S} lanes exceed the grid's 65,535")
+    require(max(row_idx.shape[1], R, W, dist.shape[1]) < 2**31, kernel,
+            "sizes exceed int32")
 
 
 def vector_strips(W: int, *tensors: torch.Tensor) -> bool:

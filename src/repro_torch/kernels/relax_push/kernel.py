@@ -4,10 +4,15 @@ which replaces the TPU kernel
 device-memory bytes: 3.35 TB/s on an H100 SXM at its 700 W limit
 (data sheet).  The kernel moves the strips as 16-byte vectors where W
 is a multiple of 4 and wgt and the output start on 16 bytes, else as
-scalars."""
+scalars.
+
+``relax_push_gather_batch_cuda`` launches the batched entry: S = B·P
+lanes in one launch, lane s on blockIdx.y gathering its own frontier
+over rank s % P (``csrc/relax_push.cu``)."""
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -15,6 +20,7 @@ import torch
 from repro_torch.kernels import _lib
 
 NAME = "relax_push_gather"
+BATCH = "relax_push_gather_batch"
 
 
 @functools.cache
@@ -44,4 +50,44 @@ def relax_push_gather_cuda(dist, row_idx, count, row_src, col,
         )
         _lib.check(rc, NAME)
         _lib.count_launch(NAME)
+    return out
+
+
+@functools.cache
+def _batch_launch():
+    return _lib.entry(
+        "relax_push_gather_batch_launch",
+        [_lib.ptr] * 6 + [_lib.c_int] * 7 + [_lib.ptr],
+    )
+
+
+def batch_grid(F: int, W: int, S: int, vec: bool = True) -> tuple[int, int]:
+    """(blocks a lane, lanes): the grid the batched entry launches."""
+    fn = _lib.entry("relax_push_gather_batch_grid",
+                    [_lib.c_int] * 4 + [_lib.ptr])
+    grid = (ctypes.c_uint * 2)()
+    _lib.check(fn(F, W, S, int(vec), ctypes.addressof(grid)), BATCH)
+    return grid[0], grid[1]
+
+
+def relax_push_gather_batch_cuda(dist, row_idx, count, row_src, col,
+                                 wgt) -> torch.Tensor:
+    """Launch the batched entry once for all S lanes; returns the
+    (S, F, W) f32 candidates.  ``col`` only shapes the frontier."""
+    _lib.check_cuda_tensors(BATCH, dist=dist, row_idx=row_idx, count=count,
+                            row_src=row_src, col=col, wgt=wgt)
+    _lib.check_frontier_batch_args(BATCH, dist, row_idx, count, row_src,
+                                   col, wgt)
+    S, F = row_idx.shape
+    P, R, W = wgt.shape
+    out = torch.empty((S, F, W), dtype=torch.float32, device=dist.device)
+    if S * F * W:
+        rc = _batch_launch()(
+            dist.data_ptr(), row_idx.data_ptr(), count.data_ptr(),
+            row_src.data_ptr(), wgt.data_ptr(), out.data_ptr(), F, R, W, P,
+            dist.shape[1], S, int(_lib.vector_strips(W, wgt, out)),
+            _lib.stream_of(dist),
+        )
+        _lib.check(rc, BATCH)
+        _lib.count_launch(BATCH)
     return out

@@ -4,10 +4,15 @@
 device-memory bytes: 3.35 TB/s on an H100 SXM at its 700 W limit
 (data sheet).  The kernel reads the strips as 16-byte vectors where W
 is a multiple of 4 and col and wgt start on 16 bytes, else as
-scalars."""
+scalars.
+
+``fused_superstep_batch_cuda`` launches the batched entry: S = B·P
+lanes in one launch, lane s on blockIdx.y walking its own frontier
+over rank s % P (``csrc/fused_superstep.cu``)."""
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -15,6 +20,7 @@ import torch
 from repro_torch.kernels import _lib
 
 NAME = "fused_superstep"
+BATCH = "fused_superstep_batch"
 
 
 @functools.cache
@@ -47,4 +53,47 @@ def fused_superstep_cuda(dist, row_idx, count, row_src, col, wgt,
         )
         _lib.check(rc, NAME)
         _lib.count_launch(NAME)
+    return out
+
+
+@functools.cache
+def _batch_launch():
+    return _lib.entry(
+        "fused_superstep_batch_launch",
+        [_lib.ptr] * 7 + [_lib.c_int] * 8 + [_lib.ptr],
+    )
+
+
+def batch_grid(F: int, W: int, S: int, vec: bool = True) -> tuple[int, int]:
+    """(blocks a lane, lanes): the grid the batched entry launches."""
+    fn = _lib.entry("fused_superstep_batch_grid",
+                    [_lib.c_int] * 4 + [_lib.ptr])
+    grid = (ctypes.c_uint * 2)()
+    _lib.check(fn(F, W, S, int(vec), ctypes.addressof(grid)), BATCH)
+    return grid[0], grid[1]
+
+
+def fused_superstep_batch_cuda(dist, row_idx, count, row_src, col, wgt,
+                               n_out: int) -> torch.Tensor:
+    """Launch the batched entry once for all S lanes; returns the
+    (S, n_out+1) f32 candidate buffers.  Raises on a tensor the kernel
+    does not take or a failed launch."""
+    _lib.check_cuda_tensors(BATCH, dist=dist, row_idx=row_idx, count=count,
+                            row_src=row_src, col=col, wgt=wgt)
+    _lib.check_frontier_batch_args(BATCH, dist, row_idx, count, row_src,
+                                   col, wgt)
+    _lib.require(n_out >= 0, BATCH, f"n_out must be >= 0, got {n_out}")
+    S, F = row_idx.shape
+    P, R, W = wgt.shape
+    out = torch.full((S, n_out + 1), float("inf"), dtype=torch.float32,
+                     device=dist.device)
+    if S * F * W:
+        rc = _batch_launch()(
+            dist.data_ptr(), row_idx.data_ptr(), count.data_ptr(),
+            row_src.data_ptr(), col.data_ptr(), wgt.data_ptr(),
+            out.data_ptr(), F, R, W, P, dist.shape[1], n_out + 1, S,
+            int(_lib.vector_strips(W, col, wgt)), _lib.stream_of(dist),
+        )
+        _lib.check(rc, BATCH)
+        _lib.count_launch(BATCH)
     return out

@@ -1,12 +1,19 @@
-"""Public op: the fused sparse-superstep relaxation.  A CUDA tensor
-launches the kernel; a CPU tensor takes the plain torch version."""
+"""Public ops: the fused sparse-superstep relaxation, for one lane and
+for S lanes in one launch.  A CUDA tensor launches the kernel; a CPU
+tensor takes the plain torch version."""
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.superstep_fused.kernel import fused_superstep_cuda
-from repro_torch.kernels.superstep_fused.ref import fused_superstep_ref
+from repro_torch.kernels.superstep_fused.kernel import (
+    fused_superstep_batch_cuda,
+    fused_superstep_cuda,
+)
+from repro_torch.kernels.superstep_fused.ref import (
+    fused_superstep_batch_ref,
+    fused_superstep_ref,
+)
 
 
 def fused_superstep(dist, row_idx, count, row_src, col, wgt,
@@ -18,3 +25,14 @@ def fused_superstep(dist, row_idx, count, row_src, col, wgt,
                                    n_out)
     return fused_superstep_cuda(dist, row_idx, count, row_src, col, wgt,
                                 n_out)
+
+
+def fused_superstep_batch(dist, row_idx, count, row_src, col, wgt,
+                          n_out: int) -> torch.Tensor:
+    """(S, n_out+1) f32: lane s's candidates of rows
+    ``row_idx[s, :count[s]]`` of rank s % P (``col`` (P, R, W))."""
+    if dist.device.type == "cpu":
+        return fused_superstep_batch_ref(dist, row_idx, count, row_src, col,
+                                         wgt, n_out)
+    return fused_superstep_batch_cuda(dist, row_idx, count, row_src, col,
+                                      wgt, n_out)

@@ -1,4 +1,5 @@
-"""Plain torch version of the fused sparse-superstep relaxation."""
+"""Plain torch versions of the fused sparse-superstep relaxation: one
+lane, and S lanes at once."""
 
 from __future__ import annotations
 
@@ -28,3 +29,34 @@ def fused_superstep_ref(
     out = torch.full((n_out + 1,), float("inf"), dtype=torch.float32,
                      device=dist.device)
     return out.scatter_reduce_(0, cols, cand.reshape(-1), "amin")
+
+
+def lane_rows(row_idx: torch.Tensor, n_parts: int, R: int):
+    """(rank, clipped row) index pair of every (lane, frontier slot): lane
+    s reads rank s % P."""
+    q = torch.arange(row_idx.shape[0], device=row_idx.device) % n_parts
+    return q[:, None], row_idx.clamp(0, R - 1).to(torch.int64)
+
+
+def fused_superstep_batch_ref(
+    dist: torch.Tensor,     # (S, n_local+1) f32, S = B·P lanes, lane-major
+    row_idx: torch.Tensor,  # (S, F) int32
+    count: torch.Tensor,    # (S,) int32: live prefix of each lane's row_idx
+    row_src: torch.Tensor,  # (P, R) int32, shared by the lanes of a rank
+    col: torch.Tensor,      # (P, R, W) int32
+    wgt: torch.Tensor,      # (P, R, W) f32
+    n_out: int,
+) -> torch.Tensor:
+    """(S, n_out+1) f32: lane s's candidates of rows
+    ``row_idx[s, :count[s]]`` of rank s % P, scatter-min'd over +inf
+    into its own row (slot ``n_out`` takes the padding)."""
+    S, F = row_idx.shape
+    q, r = lane_rows(row_idx, col.shape[0], col.shape[1])
+    live = torch.arange(F, device=dist.device)[None] < count[:, None]
+    src = row_src[q, r].to(torch.int64)
+    cand = torch.gather(dist, 1, src)[..., None] + wgt[q, r]
+    cand = torch.where(live[..., None], cand, float("inf"))
+    cols = col[q, r].reshape(S, -1).to(torch.int64)
+    out = torch.full((S, n_out + 1), float("inf"), dtype=torch.float32,
+                     device=dist.device)
+    return out.scatter_reduce_(1, cols, cand.reshape(S, -1), "amin")

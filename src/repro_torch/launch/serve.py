@@ -1,0 +1,159 @@
+"""Serving driver of the port: the persistent SSSP query service
+(Router + SolutionCache + LandmarkIndex + UpdateFeed on one long-lived
+Solver) against a Zipf-skewed query mix, then streamed improving edge
+updates whose warm-refreshed answers are checked bit for bit against
+cold solves.  Runs on the card unless ``--device cpu`` is given.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --graph rmat1 \
+        --scale 10 --queries 200 --landmarks 8 --updates 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --scale 9
+
+Prints queries/s, p50/p99 latency, and the cache, router and solver
+stats.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+
+from repro_torch.api import Problem, SingleSource, Solver
+from repro_torch.graph import graph_fingerprint
+from repro_torch.launch.sssp import build_graph
+from repro_torch.serve import (
+    EdgeUpdate,
+    LandmarkIndex,
+    Query,
+    Router,
+    SolutionCache,
+    UpdateFeed,
+    serve_latency_stats,
+)
+
+#: refreshed cache entries the freshness check holds against cold solves
+FRESHNESS_CHECKS = 3
+
+
+def zipf_sources(n: int, count: int, a: float, rng) -> np.ndarray:
+    """Zipf-skewed vertex ids: rank r drawn with p ∝ r^-a, mapped onto a
+    fixed random permutation of the vertex ids so the hot set is not an
+    artifact of id order."""
+    ranks = rng.zipf(a, size=count)
+    ranks = np.minimum(ranks - 1, n - 1)
+    perm = np.random.default_rng(0).permutation(n)
+    return perm[ranks]
+
+
+def build_query_mix(g, count: int, zipf_a: float, seed: int) -> list[Query]:
+    """70% single-source, 20% point-to-point exact, 10% estimated."""
+    rng = np.random.default_rng(seed)
+    srcs = zipf_sources(g.n, count, zipf_a, rng)
+    tgts = rng.integers(0, g.n, size=count)
+    kinds = rng.random(count)
+    out = []
+    for s, t, k in zip(srcs, tgts, kinds):
+        if k < 0.7:
+            out.append(Query(int(s)))
+        elif k < 0.9:
+            out.append(Query(int(s), target=int(t)))
+        else:
+            out.append(Query(int(s), target=int(t), exact=False))
+    return out
+
+
+def improving_updates(g, count: int, seed: int):
+    """``count`` weight drops (x 0.25) on random edges of ``g``, drawn
+    from ``seed`` one at a time as the caller applies them (an edge drawn
+    twice drops twice), as the JAX package's service CLI draws them."""
+    rng = np.random.default_rng(seed)
+    for _ in range(count):
+        e = int(rng.integers(0, g.m))
+        yield EdgeUpdate(int(g.src[e]), int(g.dst[e]),
+                         float(g.weight[e]) * 0.25)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--graph", default="rmat1",
+                    choices=["rmat1", "rmat2", "road", "smallworld"])
+    ap.add_argument("--scale", type=int, default=10)
+    ap.add_argument("--spec", default="delta:5/sparse/fused")
+    ap.add_argument("--queries", type=int, default=200)
+    ap.add_argument("--zipf", type=float, default=1.3,
+                    help="Zipf exponent of the source skew")
+    ap.add_argument("--landmarks", type=int, default=8)
+    ap.add_argument("--max-batch", type=int, default=8)
+    ap.add_argument("--max-wait-ms", type=float, default=10.0)
+    ap.add_argument("--cache-mb", type=int, default=256)
+    ap.add_argument("--updates", type=int, default=4,
+                    help="streamed improving edge updates to apply after "
+                         "the query mix (0 disables)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="'cuda' (default) or 'cpu' for the plain torch path")
+    args = ap.parse_args(argv)
+
+    solver = Solver(args.spec, device=args.device)  # no CUDA: raises here
+    g = build_graph(args.graph, args.scale, args.seed)
+    print(f"[serve] {g.name}: n={g.n} m={g.m} spec={solver.config.name} "
+          f"device={solver.device}")
+
+    cache = SolutionCache(byte_budget=args.cache_mb << 20)
+    t0 = time.perf_counter()
+    lm = LandmarkIndex(solver, g, k=args.landmarks, symmetric=True)
+    print(f"[serve] landmark tier: K={lm.k} built in "
+          f"{time.perf_counter() - t0:.2f}s ({lm.nbytes} bytes)")
+    router = Router(solver, g, cache=cache, landmarks=lm,
+                    max_batch=args.max_batch,
+                    max_wait_s=args.max_wait_ms / 1e3)
+
+    queries = build_query_mix(g, args.queries, args.zipf, args.seed)
+    # warm the kernels and the allocator outside the timed window
+    router.serve(queries[: args.max_batch])
+    cache.clear()
+    cache.stats.hits = cache.stats.misses = 0
+
+    t0 = time.perf_counter()
+    tickets = []
+    for q in queries:
+        tickets.append(router.submit(q))
+        router.pump()
+    router.flush()
+    wall = time.perf_counter() - t0
+    answers = [t.result() for t in tickets]
+
+    lat = serve_latency_stats(answers)
+    print(f"[serve] {len(answers)} queries in {wall:.2f}s = "
+          f"{len(answers) / wall:.1f} q/s")
+    print(f"[serve] latency {lat}")
+    print(f"[serve] cache {cache.stats}")
+    print(f"[serve] router {router.stats.as_dict()}")
+    print(f"[serve] solver {solver.stats()}")
+
+    if args.updates:
+        feed = UpdateFeed(g, solver, cache=cache, landmarks=lm)
+        warm_total = 0
+        for upd in improving_updates(g, args.updates, args.seed + 1):
+            warm_total += feed.apply(upd).warm_supersteps
+        print(f"[serve] applied {args.updates} improving updates: "
+              f"{feed.stats.as_dict()}")
+        # freshness: refreshed entries equal cold solves on the new graph
+        checked = 0
+        for key, sol in cache.entries_for(graph_fingerprint(g))[:FRESHNESS_CHECKS]:
+            cold = solver.solve(Problem(g, SingleSource(key[1])))
+            if not np.array_equal(sol.state, cold.state):
+                print(f"[serve] FRESHNESS MISMATCH: source {key[1]} differs "
+                      f"from a cold solve at "
+                      f"{int((sol.state != cold.state).sum())} vertices")
+                return 1
+            checked += 1
+        print(f"[serve] {checked} refreshed entries verified "
+              f"bit-identical to cold solves "
+              f"(warm supersteps={warm_total})")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -579,3 +579,122 @@ def test_gin_on_card_matches_cpu(dev, cell, scale):
     for ref in (cpu, plain.cpu()):
         err = (out.cpu() - ref).abs().max(1).values
         assert bool((err <= 1e-5 * ref.abs().max(1).values).all())
+
+
+def batch_case(seed, lanes, P, n_local, R, W, F, kind=""):
+    """S = lanes·P lanes over a P-rank ELL with non-integer weights; lane
+    counts cycle through 0, 1 and F and random ones.  kind "real_tail":
+    the rows listed past a lane's count are real rows, not fill."""
+    r = np.random.default_rng(seed)
+    S, n_out = lanes * P, P * n_local
+    dist = np.full((S, n_local + 1), np.inf, np.float32)
+    hot = r.random((S, n_local)) < 0.4
+    dist[:, :n_local][hot] = r.uniform(0, 50, int(hot.sum())).astype(np.float32)
+    row_src = r.integers(0, n_local, (P, R)).astype(np.int32)
+    col = r.integers(0, n_out + 1, (P, R, W)).astype(np.int32)
+    wgt = np.where(col == n_out, np.inf,
+                   r.uniform(0.1, 99.9, (P, R, W))).astype(np.float32)
+    counts = np.asarray([(0, 1, F)[s % 3] if s < 3 else int(r.integers(0, F + 1))
+                         for s in range(S)], np.int32)
+    if kind == "real_tail":
+        row_idx = r.integers(0, R, (S, F)).astype(np.int32)
+    else:
+        row_idx = np.full((S, F), R, np.int32)
+        for s, k in enumerate(counts):
+            row_idx[s, :k] = r.integers(0, R, k)
+    return dist, row_idx, counts, row_src, col, wgt, n_out
+
+
+# (seed, lanes a rank, P, n_local, R, W, F, kind): S = lanes·P in 1 .. 16;
+# W 64 on 16-byte strips, 33 and 5 on the scalar path; F 20,000 spreads
+# each lane over more than one sweep of its share of the grid
+BATCH_CASES = [(lanes, P, W) for lanes in (1, 3, 8) for P in (1, 2)
+               for W in (64, 33)]
+
+
+@pytest.mark.parametrize("lanes,P,W", BATCH_CASES)
+@pytest.mark.parametrize("kind", ["", "real_tail"])
+def test_batched_frontier_kernels_match_plain(dev, lanes, P, W, kind):
+    dist, row_idx, counts, row_src, col, wgt, n_out = batch_case(
+        lanes * 10 + P + W, lanes, P, 700, 900, W, 120, kind)
+    d, i, c, rs, cl, w = on(dev, dist, row_idx, counts, row_src, col, wgt)
+    K.reset_launch_counts()
+    fused = K.fused_superstep_batch_cuda(d, i, c, rs, cl, w, n_out)
+    gather = K.relax_push_gather_batch_cuda(d, i, c, rs, cl, w)
+    torch.cuda.synchronize()
+    launched = K.launch_counts()
+    assert launched["fused_superstep_batch"] == 1
+    assert launched["relax_push_gather_batch"] == 1
+    assert launched["fused_superstep"] == launched["relax_push_gather"] == 0
+    assert torch.equal(fused, K.fused_superstep_batch_ref(d, i, c, rs, cl, w, n_out))
+    assert torch.equal(gather, K.relax_push_gather_batch_ref(d, i, c, rs, w))
+    rows = K.relax_push_rows_batch(d, i, c, rs, cl, w, n_out)
+    assert torch.equal(rows, K.relax_push_rows_batch(*on("cpu", dist, row_idx, counts,
+                                                          row_src, col, wgt), n_out).to(dev))
+    for s in range(lanes * P):  # S single launches on the same lanes
+        q = s % P
+        args = (d[s], i[s], c[s:s + 1], rs[q], cl[q], w[q])
+        assert torch.equal(fused[s], K.fused_superstep_cuda(*args, n_out))
+        assert torch.equal(gather[s], K.relax_push_gather_cuda(*args))
+
+
+@pytest.mark.parametrize("W", [64, 5])
+def test_batched_frontier_kernels_on_a_large_frontier(dev, W):
+    dist, row_idx, counts, row_src, col, wgt, n_out = batch_case(
+        W, 8, 2, 30000, 40000, W, 20000)
+    d, i, c, rs, cl, w = on(dev, dist, row_idx, counts, row_src, col, wgt)
+    fused = K.fused_superstep_batch_cuda(d, i, c, rs, cl, w, n_out)
+    gather = K.relax_push_gather_batch_cuda(d, i, c, rs, cl, w)
+    torch.cuda.synchronize()
+    assert torch.equal(fused, K.fused_superstep_batch_ref(d, i, c, rs, cl, w, n_out))
+    assert torch.equal(gather, K.relax_push_gather_batch_ref(d, i, c, rs, w))
+    blocks, lanes = K.superstep_fused.kernel.batch_grid(20000, W, 16, W % 4 == 0)
+    assert lanes == 16 and blocks >= 1
+
+
+def test_batched_wrappers_reject_bad_inputs(dev):
+    dist, row_idx, counts, row_src, col, wgt, n_out = batch_case(0, 3, 2, 50, 60, 8, 10)
+    d, i, c, rs, cl, w = on(dev, dist, row_idx, counts, row_src, col, wgt)
+    with pytest.raises(ValueError, match="count"):
+        K.fused_superstep_batch_cuda(d, i, c[:-1], rs, cl, w, n_out)
+    with pytest.raises(ValueError, match="evenly"):
+        K.relax_push_gather_batch_cuda(d[:5], i[:5], c[:5], rs, cl, w)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        K.fused_superstep_batch_cuda(d.cpu(), i, c, rs, cl, w, n_out)
+
+
+@pytest.mark.parametrize("spec,impl", [
+    ("delta:5/sparse/fused", "fused"), ("delta:5/sparse", "push"),
+    ("kla:2+threadq/sparse", "ref"), ("delta:5+threadq/a2a", "ref"),
+])
+@pytest.mark.parametrize("n_parts", [1, 2])
+def test_solve_batch_on_card_matches_cpu(dev, spec, impl, n_parts):
+    """Lanes on the card equal lanes on the CPU; the sparse route
+    launches the batched entry, never the single one, in a batch."""
+    from repro_torch.api import ExplicitSources, MultiSource
+
+    g = rmat1(10, seed=1)
+    cfg = SolverConfig.from_spec(spec, relax_impl=impl)
+    problems = [Problem(g, SingleSource(v)) for v in (0, 7, 99, 500, 1000)]
+    K.reset_launch_counts()
+    card = Solver(cfg, n_parts=n_parts).solve_batch(problems)
+    launched = K.launch_counts()
+    cpu = Solver(cfg, n_parts=n_parts, device="cpu").solve_batch(problems)
+    for a, b in zip(card, cpu):
+        assert a.state.tobytes() == b.state.tobytes()
+        assert a.metrics.as_dict() == b.metrics.as_dict()
+    assert launched["fused_superstep"] == launched["relax_push_gather"] == 0
+    if impl == "fused":
+        assert launched["fused_superstep_batch"] > 0
+    if impl == "push":
+        assert launched["relax_push_gather_batch"] > 0
+    # a warm restart on the card after an improving drop and new sources
+    solver = Solver(cfg, n_parts=n_parts)
+    g.weight[::97] *= np.float32(0.5)
+    warm = solver.resolve(card[0], graph=g, new_sources=MultiSource((3, 4)))
+    cold = solver.solve(Problem(g, MultiSource((0, 3, 4))))
+    assert warm.state.tobytes() == cold.state.tobytes()
+    again = Solver(cfg, n_parts=n_parts, device="cpu").resolve(
+        cpu[0], graph=g, new_sources=ExplicitSources(((3, 0.0, 0), (4, 0.0, 0))))
+    assert again.state.tobytes() == warm.state.tobytes()
+    assert again.metrics.as_dict() == warm.metrics.as_dict()

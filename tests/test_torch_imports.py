@@ -41,7 +41,9 @@ def test_port_imports_no_jax_and_no_reference():
                 "repro_torch.kernels.spmm_ell.ops", "repro_torch.kernels.spmm_ell.kernel",
                 "repro_torch.models.gnn.gin", "repro_torch.models.gnn.ell",
                 "repro_torch.models.gnn.batch", "repro_torch.configs.gin_tu",
-                "repro_torch.configs.cells"):
+                "repro_torch.configs.cells", "repro_torch.serve.router",
+                "repro_torch.serve.updates", "repro_torch.obs.trace",
+                "repro_torch.launch.serve"):
         assert sub in mods, sub
     code = PROBE.format(src=str(ROOT / "src"), root=str(ROOT),
                         modules=mods + ["chip_smoke"])
