@@ -28,8 +28,11 @@ Phases (any failure exits non-zero):
   7. flash_attention and embedding_bag against their plain versions on
      the card at the serving paths' shapes, timed with CUDA events
      beside one PyTorch call computing the same function; attention
-     also as achieved TFLOP/s and share of its bound; the bag also as a
-     bare launch, alone under torch.profiler and its index check apart
+     also as achieved TFLOP/s and share of its bound, and the kernels
+     that sdpa ran (its backend), at the bf16 prefill shapes, the f32
+     case c (the f32 kernel's key split) and case d (the fp32 twin's
+     prefill of phase 8); the bag also as a bare launch, alone under
+     torch.profiler and its index check apart
   8. LM serving, minitron-8b in bf16: prefill of 4 x 1920 tokens
      through the attention kernel (32 launches), 128 greedy decode
      steps; logits against the plain attention; then in fp32, the last
@@ -59,8 +62,10 @@ Phases (any failure exits non-zero):
      refreshed entries and a landmark against cold solves and Dijkstra
 
 Phase 3 also holds the two frontier kernels' batched entries against
-their plain versions and against 8 single launches, at the frontier of
-a real batched superstep (8 lanes).
+their plain versions and against 8 single launches at two supersteps of
+a real batched solve (8 lanes): the balanced one (every lane near F)
+and the skewed one (lanes at 0 beside a lane near F), and times the
+fused entry beside its atomics floor (``scripts/frontier_variants.cu``).
 
 It prints one JSON line of per-kernel numbers and, last, the device
 line ``{"ok": true, "device": {...}}``.  Without a card, or without the
@@ -74,6 +79,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -168,25 +174,27 @@ def kernel_alone_ms(fn, flush, names: tuple[str, ...]) -> float:
     torch.profiler, TIMING_REPS calls each after a write that evicts L2:
     the time of every kernel whose name holds one of ``names``, over the
     launches of the first (a window can lose its first kernels, so the
-    window opens with untimed writes and counts what it recorded)."""
+    window opens with untimed writes and counts what it recorded; one
+    that lost them all is opened again, three windows at most)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(8):
-            flush.zero_()
-        for _ in range(TIMING_REPS):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    calls = sum(e.count for e in events if names[0] in e.key)
-    if calls == 0:
-        fail(f"the profiler recorded no launch of {names[0]}")
-    mine = [e for e in events if any(name in e.key for name in names)]
-    return sum(e.self_device_time_total for e in mine) / 1e3 / calls
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(8):
+                flush.zero_()
+            for _ in range(TIMING_REPS):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        calls = sum(e.count for e in events if names[0] in e.key)
+        if calls:
+            mine = [e for e in events if any(name in e.key for name in names)]
+            return sum(e.self_device_time_total for e in mine) / 1e3 / calls
+    fail(f"three profiler windows recorded no launch of {names[0]}")
 
 
 def max_abs_err(a, b) -> float:
@@ -252,15 +260,24 @@ def attention_pairs(Sq: int, Sk: int, causal: bool) -> int:
 
 
 ATTN_CASES = (
-    # label, B, Hq, Hkv, Sq, Sk, D, dtype name, causal; (a) is the row
-    # of the kernels line: minitron prefill at max_len
+    # label, B, Hq, Hkv, Sq, Sk, D, dtype name, causal
     ("a minitron prefill", 4, 32, 8, 2048, 2048, 128, "bfloat16", True),
     ("a' minitron prefill, smoke prompt", 4, 32, 8, 1920, 1920, 128, "bfloat16", True),
     ("b phi3-mini prefill", 1, 32, 32, 2048, 2048, 96, "bfloat16", True),
     ("c bf16 causal, Sq < Sk", 1, 8, 2, 128, 1024, 128, "bfloat16", True),
     ("c f32 causal, Sq < Sk", 1, 8, 2, 128, 1024, 128, "float32", True),
     ("c f32 non-causal, Sq < Sk", 1, 8, 2, 128, 1024, 128, "float32", False),
+    # the fp32 twin's prefill of phase 8 at S 2048; (c) engages the f32
+    # kernel's key split
+    ("d fp32 twin prefill", 2, 32, 8, 2048, 2048, 128, "float32", True),
 )
+# the cases whose numbers stand in the kernels line, with the row's name
+# and source: the path's shapes, minitron's prefill at max_len (bf16)
+# and its fp32 twin's (f32)
+ATTN_ROWS = {
+    "a minitron prefill": ("flash_attention", "src/repro_torch/csrc/flash_attention_sm90.cu"),
+    "d fp32 twin prefill": ("flash_attention f32", "src/repro_torch/csrc/flash_attention.cu"),
+}
 
 
 def profiled_solve(solver, problem, kernel: str) -> None:
@@ -311,10 +328,26 @@ def sssp_frontiers(g, pg, ell, truth_t, row_cap: int) -> list[dict]:
     return out
 
 
-def serving_kernels(dev, flush) -> tuple[dict, dict]:
+def library_kernels(fn) -> str:
+    """The names of the kernels one call of ``fn`` launched, under
+    torch.profiler: which backend a PyTorch call took."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA}
+    return "; ".join(sorted(name[:100] for name in names)) or "none recorded"
+
+
+def serving_kernels(dev, flush) -> tuple[dict, dict, dict]:
     """Phase 7: flash_attention and embedding_bag against their plain
     versions at the serving paths' shapes.  Returns their rows of the
-    kernels line (launches filled in by phases 8 and 9)."""
+    kernels line, attention's bf16 kernel at case (a) and its f32 kernel
+    at case (d) (launches filled in by phases 8 and 9)."""
     import torch
     import torch.nn.functional as F
 
@@ -327,7 +360,7 @@ def serving_kernels(dev, flush) -> tuple[dict, dict]:
     def randn(shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    attn_row = None
+    attn_rows = {}
     for label, B, Hq, Hkv, Sq, Sk, D, dtype_name, causal in ATTN_CASES:
         dtype = getattr(torch, dtype_name)
         q = randn((B, Hq, Sq, D), dtype)
@@ -359,6 +392,7 @@ def serving_kernels(dev, flush) -> tuple[dict, dict]:
                 enable_gqa=True)
 
         lib_err = float((library().float() - ref.float()).abs().max())
+        backend = library_kernels(library)
         ms = time_ms(lambda: K.flash_attention_cuda(q, k, v, causal=causal), flush)
         plain_ms = time_ms(lambda: K.attention_ref(q, k, v, causal=causal), flush)
         library_ms = time_ms(library, flush)
@@ -373,14 +407,16 @@ def serving_kernels(dev, flush) -> tuple[dict, dict]:
             f"{flops} flop, {nbytes} bytes, bound {bound_ms:.4f} ms "
             f"({bound_by}, {peak / 1e12:g} TFLOP/s); kernel at "
             f"{flops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.3f} of its bound "
-            f"(sdpa {flops / library_ms / 1e9:.1f} TFLOP/s)")
-        if attn_row is None:
-            attn_row = dict(name="flash_attention", route="cuda",
-                            source="src/repro_torch/csrc/flash_attention_sm90.cu",
-                            replaces="src/repro/kernels/flash_attention/kernel.py:84",
-                            launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                            bound_ms=bound_ms, bound_by=bound_by,
-                            library_ms=library_ms)
+            f"(sdpa {flops / library_ms / 1e9:.1f} TFLOP/s; the kernel "
+            f"{'faster' if ms < library_ms else 'slower'} than sdpa; sdpa's "
+            f"kernels: {backend})")
+        if label in ATTN_ROWS:
+            name, source = ATTN_ROWS[label]
+            attn_rows[label] = dict(
+                name=name, route="cuda", source=source,
+                replaces="src/repro/kernels/flash_attention/kernel.py:84",
+                launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
         del q, k, v, out, ref
 
     # embedding_bag at MIND serve_bulk widths: the profile table and the
@@ -449,12 +485,13 @@ def serving_kernels(dev, flush) -> tuple[dict, dict]:
                    replaces="src/repro/kernels/embedding_bag/kernel.py:39",
                    launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                    bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
-    return attn_row, bag_row
+    return *(attn_rows[label] for label in ATTN_ROWS), bag_row
 
 
-def lm_serving(dev) -> int:
+def lm_serving(dev) -> tuple[int, int]:
     """Phase 8: minitron-8b at full width.  Returns the flash_attention
-    launches of the bf16 prefill and decode."""
+    launches of the bf16 prefill and decode, and of the fp32 twin's
+    prefill, decode and teacher-forced prefill."""
     import dataclasses
     import gc
 
@@ -553,11 +590,13 @@ def lm_serving(dev) -> int:
         f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card)")
     seq = toks[:LM_F32_BATCH]
     t0 = time.perf_counter()
+    K.reset_launch_counts()
     cache, logits = lm.prefill_step(model, seq, cfg32, LM_MAX_LEN)
     for step in range(LM_DECODE):
         nxt = logits.argmax(-1).to(torch.int32)
         seq = torch.cat([seq, nxt[:, None]], dim=1)
         logits, cache = lm.decode_step(model, cache, nxt, LM_PROMPT + step, cfg32)
+    f32_launches = K.launch_counts()["flash_attention"] + cfg.n_layers
     K.reset_launch_counts()
     _, forced = lm.prefill_step(model, seq, cfg32, LM_MAX_LEN)
     torch.cuda.synchronize()
@@ -575,7 +614,7 @@ def lm_serving(dev) -> int:
     del model, cache, logits, forced
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, f32_launches
 
 
 def mind_serving(dev) -> int:
@@ -989,32 +1028,34 @@ def dijkstra_rows(g, sources) -> "np.ndarray":
     return out.astype(np.float32).reshape(len(sources), g.n)
 
 
-def batched_frontier_rows(g, pg, ell, dev, flush) -> list[dict]:
-    """Phase 3, the batched entries: the frontier of the superstep with
-    the most live rows in a batched solve of the 8 landmark sources of
-    phase 11 (per-lane counts as they come), each entry against its
-    plain version and against 8 single launches on the same lanes, bit
-    for bit; timed through the wrapper, bare, alone under the profiler,
-    as 8 single launches, and against its byte bound.  Returns their
-    rows of the kernels line (launches filled in by phase 11)."""
+def batched_supersteps(g, pg, dev) -> dict:
+    """Supersteps of a batched solve of the 8 landmark sources of phase
+    11, each as (dist, row_idx, count) at the batched fused entry:
+    "balanced", the one with the most live rows (every lane near F);
+    "spread", the one whose lane counts differ most (then the most lanes
+    at 0); and "skewed", the balanced one with every lane but its
+    largest cut to 0 or 1 live rows, as lanes look once they converge
+    at different supersteps: lanes at 0 beside a lane near F (the
+    landmarks' hubs converge together, so their solve has no such
+    superstep)."""
     import torch
 
-    from repro_torch import kernels as K
     from repro_torch.api import Problem, SingleSource, Solver
     from repro_torch.core import engine as E
-    from repro_torch.kernels.relax_push import kernel as push_kernel
-    from repro_torch.kernels.superstep_fused import kernel as fused_kernel
     from repro_torch.serve import pick_landmarks
 
     sources = pick_landmarks(g, SERVE_LANDMARKS)
-    best = {"live": -1}
+    best: dict = {}
     real = E.fused_superstep_batch
 
     def capture(dist, row_idx, count, *rest):
-        live = int(count.sum())
-        if live > best["live"]:
-            best.update(live=live, dist=dist.clone(), row_idx=row_idx.clone(),
-                        count=count.clone())
+        c = count.tolist()
+        keys = {"balanced": (sum(c),),
+                "spread": (max(c) - min(c), c.count(0), sum(c))}
+        for name, key in keys.items():
+            if name not in best or key > best[name]["key"]:
+                best[name] = dict(key=key, dist=dist.clone(), row_idx=row_idx.clone(),
+                                  count=count.clone())
         return real(dist, row_idx, count, *rest)
 
     E.fused_superstep_batch = capture
@@ -1023,103 +1064,183 @@ def batched_frontier_rows(g, pg, ell, dev, flush) -> list[dict]:
             [Problem(pg, SingleSource(v)) for v in sources])
     finally:
         E.fused_superstep_batch = real
-    if best["live"] < 0:
+    if not best:
         fail("the batched solve never launched fused_superstep_batch")
-    dist, idx, cnt = best["dist"], best["row_idx"], best["count"]
+    bal = best["balanced"]
+    big = int(bal["count"].argmax())
+    skewed = torch.tensor([int(bal["count"][s]) if s == big else s % 2
+                           for s in range(bal["count"].numel())],
+                          dtype=torch.int32, device=bal["count"].device)
+    best["skewed"] = dict(key=None, dist=bal["dist"], row_idx=bal["row_idx"], count=skewed)
+    log(f"batched supersteps of the landmark sources {sources}: counts "
+        + ", ".join(f"{k} {v['count'].tolist()}" for k, v in best.items()))
+    return best
+
+
+def atomic_floor_call(lib, dist, idx, cnt, rs, col, wgt, n_out):
+    """The batched fused entry's atomics floor (scripts/frontier_variants.cu,
+    atomic_floor_kernel): the same pre-checked atomic mins on every
+    lane's finite (lane, column, value) triples, listed flat, into the
+    (S, n_out+1) buffer; no strip loads.  Returns the call and the number
+    of triples."""
+    import torch
+
+    from repro_torch import kernels as K
+
+    S, P, R = idx.shape[0], col.shape[0], col.shape[1]
+    cols, vals = [], []
+    for s, k in enumerate(cnt.tolist()):
+        k = max(0, min(k, idx.shape[1]))
+        q = s % P
+        r = idx[s, :k].long().clamp(0, R - 1)
+        v = dist[s][rs[q][r].long()][:, None] + wgt[q][r]
+        keep = v != float("inf")
+        cols.append(col[q][r][keep].long() + s * (n_out + 1))
+        vals.append(v[keep])
+    cols = torch.cat(cols).to(torch.int32).contiguous()
+    vals = torch.cat(vals).contiguous()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call():
+        out = torch.full((S, n_out + 1), float("inf"), device=dist.device)
+        K._lib.check(lib.atomic_floor_launch(cols.data_ptr(), vals.data_ptr(),
+                                             out.data_ptr(), cols.numel(), stream),
+                     "atomic floor")
+        return out
+    return call, cols.numel()
+
+
+def batched_frontier_rows(g, pg, ell, dev, flush, floor_lib) -> list[dict]:
+    """Phase 3, the batched entries, at the balanced and the skewed
+    superstep of a batched solve of the 8 landmark sources of phase 11
+    (``batched_supersteps``): each entry against its plain version and
+    against 8 single launches on the same lanes, bit for bit; timed
+    through the wrapper, bare, alone under the profiler (over wrapper
+    calls: a fresh output, so every atomic runs), as 8 single launches,
+    and against its byte bound; the fused entry also beside its atomics
+    floor.  Returns their rows of the kernels line at the balanced
+    superstep (launches filled in by phase 11)."""
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.kernels.relax_push import kernel as push_kernel
+    from repro_torch.kernels.superstep_fused import kernel as fused_kernel
+
     rs, col, wgt = ell.row_src, ell.col, ell.wgt
-    S, F = idx.shape
     P, R, W = col.shape
     n_out = pg.n_pad
-    counts = cnt.tolist()
-    n_src = [int(torch.unique(rs[s % P][idx[s, :k].long()]).numel())
-             for s, k in enumerate(counts)]
-    live = sum(counts)
-    # the lanes of a rank share its ELL: a row two lanes list is read once
-    rows_read = int(torch.unique(torch.cat([
-        (s % P) * R + idx[s, :k].long() for s, k in enumerate(counts)])).numel())
-    vec = bool(K._lib.vector_strips(W, col, wgt))
-    log(f"batched frontier ({S} lanes, the landmark sources {sources}): the "
-        f"superstep with the most live rows, per-lane counts {counts} of F={F} "
-        f"({live} rows, {rows_read} distinct, {sum(n_src)} source vertices); "
-        f"grids (blocks a lane, "
-        f"lanes): fused {fused_kernel.batch_grid(F, W, S, vec)}, push "
-        f"{push_kernel.batch_grid(F, W, S, True)}")
-    stream = torch.cuda.current_stream().cuda_stream
-    fused_out = torch.full((S, n_out + 1), float("inf"), device=dist.device)
-    push_out = torch.empty((S, F, W), device=dist.device)
-    entries = (
-        dict(name="fused_superstep_batch", kernel="fused_superstep_batch_kernel",
-             source="src/repro_torch/csrc/fused_superstep.cu",
-             replaces="src/repro/kernels/superstep_fused/kernel.py:72",
-             wrapper=lambda: K.fused_superstep_batch_cuda(
-                 dist, idx, cnt, rs, col, wgt, n_out),
-             plain=lambda: K.fused_superstep_batch_ref(
-                 dist, idx, cnt, rs, col, wgt, n_out),
-             single=lambda: [K.fused_superstep_cuda(
-                 dist[s], idx[s], cnt[s:s + 1], rs[s % P], col[s % P],
-                 wgt[s % P], n_out) for s in range(S)],
-             bare=(fused_kernel._batch_launch(), fused_out, (
-                 dist.data_ptr(), idx.data_ptr(), cnt.data_ptr(), rs.data_ptr(),
-                 col.data_ptr(), wgt.data_ptr(), fused_out.data_ptr(), F, R, W, P,
-                 dist.shape[1], n_out + 1, S, int(vec), stream)),
-             # listed row ids, the distinct rows' sources and col+wgt
-             # strips, each lane's source distances and one write of its
-             # output, the counts
-             nbytes=4 * (live + rows_read * (1 + 2 * W) + sum(n_src)
-                         + S * (n_out + 1) + S)),
-        dict(name="relax_push_gather_batch", kernel="relax_push_gather_batch_kernel",
-             source="src/repro_torch/csrc/relax_push.cu",
-             replaces="src/repro/kernels/relax_push/kernel.py:42",
-             wrapper=lambda: K.relax_push_gather_batch_cuda(
-                 dist, idx, cnt, rs, col, wgt),
-             plain=lambda: K.relax_push_gather_batch_ref(dist, idx, cnt, rs, wgt),
-             single=lambda: [K.relax_push_gather_cuda(
-                 dist[s], idx[s], cnt[s:s + 1], rs[s % P], col[s % P],
-                 wgt[s % P]) for s in range(S)],
-             bare=(push_kernel._batch_launch(), push_out, (
-                 dist.data_ptr(), idx.data_ptr(), cnt.data_ptr(), rs.data_ptr(),
-                 wgt.data_ptr(), push_out.data_ptr(), F, R, W, P, dist.shape[1], S,
-                 int(K._lib.vector_strips(W, wgt, push_out)), stream)),
-             nbytes=4 * (live + rows_read * (1 + W) + sum(n_src)
-                         + S * F * W + S)),
-    )
     rows = []
-    for e in entries:
-        name = e["name"]
-        K.reset_launch_counts()
-        out_k = e["wrapper"]()
-        torch.cuda.synchronize()
-        if K.launch_counts()[name] != 1:
-            fail(f"{name}: the wrapper did not launch its kernel once")
-        out_p = e["plain"]()
-        err = max_abs_err(out_k, out_p)
-        if err != 0.0 or out_k.shape != out_p.shape:
-            fail(f"{name}: kernel differs from its plain version (max abs err {err})")
-        singles = torch.stack(e["single"]())
-        if not torch.equal(singles, out_k):
-            fail(f"{name}: differs from {S} single launches on the same lanes")
-        launch, out_b, args = e["bare"]
-        if launch(*args) != 0:
-            fail(f"{name}: the bare launch failed")
-        torch.cuda.synchronize()
-        if not torch.equal(out_b, out_k):
-            fail(f"{name}: the bare launch differs from the wrapper's")
-        ms = time_ms(e["wrapper"], flush)
-        bare_ms = time_ms(lambda: launch(*args), flush)
-        alone_ms = kernel_alone_ms(lambda: launch(*args), flush, (e["kernel"],))
-        single_ms = time_ms(e["single"], flush)
-        plain_ms = time_ms(e["plain"], flush)
-        bound_ms, bound_by = bound(e["nbytes"], live * W)
-        log(f"{name} ({S} lanes): bit-identical to its plain version and to "
-            f"{S} single launches; wrapper {ms:.4f} ms, bare {bare_ms:.4f} ms, "
-            f"alone under the profiler {alone_ms:.4f} ms; {S} single launches "
-            f"{single_ms:.4f} ms; plain {plain_ms:.4f} ms; {e['nbytes']} bytes, "
-            f"bound {bound_ms:.4f} ms at 3.35 TB/s ({bound_ms / alone_ms:.3f} of "
-            f"it alone)")
-        rows.append(dict(name=name, route="cuda", source=e["source"],
-                         replaces=e["replaces"], launches=0, max_abs_err=err,
-                         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, library_ms=None))
+    for label, step in batched_supersteps(g, pg, dev).items():
+        dist, idx, cnt = step["dist"], step["row_idx"], step["count"]
+        S, F = idx.shape
+        counts = cnt.tolist()
+        n_src = [int(torch.unique(rs[s % P][idx[s, :k].long()]).numel())
+                 for s, k in enumerate(counts)]
+        live = sum(counts)
+        # the lanes of a rank share its ELL: a row two lanes list is read once
+        rows_read = int(torch.unique(torch.cat([
+            (s % P) * R + idx[s, :k].long() for s, k in enumerate(counts)])).numel())
+        vec = bool(K._lib.vector_strips(W, col, wgt))
+        log(f"batched frontier, {label} ({S} lanes): per-lane counts {counts} of "
+            f"F={F} ({live} rows, {rows_read} distinct, {sum(n_src)} source "
+            f"vertices); 1-D grids: fused {fused_kernel.batch_grid(F, W, S, vec)} "
+            f"blocks, push {push_kernel.batch_grid(F, W, S, True)}")
+        stream = torch.cuda.current_stream().cuda_stream
+        fused_out = torch.full((S, n_out + 1), float("inf"), device=dist.device)
+        push_out = torch.empty((S, F, W), device=dist.device)
+        fused_launch = fused_kernel._batch_launch()
+        fused_args = (dist.data_ptr(), idx.data_ptr(), cnt.data_ptr(), rs.data_ptr(),
+                      col.data_ptr(), wgt.data_ptr(), fused_out.data_ptr(), F, R, W, P,
+                      dist.shape[1], n_out + 1, S, int(vec), stream)
+
+        def fused_bare():  # into a fresh +inf output, as the wrapper does
+            fused_out.fill_(float("inf"))
+            return fused_launch(*fused_args)
+
+        push_launch = push_kernel._batch_launch()
+        push_args = (dist.data_ptr(), idx.data_ptr(), cnt.data_ptr(), rs.data_ptr(),
+                     wgt.data_ptr(), push_out.data_ptr(), F, R, W, P, dist.shape[1], S,
+                     int(K._lib.vector_strips(W, wgt, push_out)), stream)
+        entries = (
+            dict(name="fused_superstep_batch", kernel="fused_superstep_batch_kernel",
+                 source="src/repro_torch/csrc/fused_superstep.cu",
+                 replaces="src/repro/kernels/superstep_fused/kernel.py:72",
+                 wrapper=lambda: K.fused_superstep_batch_cuda(
+                     dist, idx, cnt, rs, col, wgt, n_out),
+                 plain=lambda: K.fused_superstep_batch_ref(
+                     dist, idx, cnt, rs, col, wgt, n_out),
+                 single=lambda: [K.fused_superstep_cuda(
+                     dist[s], idx[s], cnt[s:s + 1], rs[s % P], col[s % P],
+                     wgt[s % P], n_out) for s in range(S)],
+                 bare=(fused_bare, fused_out),
+                 # listed row ids, the distinct rows' sources and col+wgt
+                 # strips, each lane's source distances and one write of its
+                 # output, the counts
+                 nbytes=4 * (live + rows_read * (1 + 2 * W) + sum(n_src)
+                             + S * (n_out + 1) + S)),
+            dict(name="relax_push_gather_batch", kernel="relax_push_gather_batch_kernel",
+                 source="src/repro_torch/csrc/relax_push.cu",
+                 replaces="src/repro/kernels/relax_push/kernel.py:42",
+                 wrapper=lambda: K.relax_push_gather_batch_cuda(
+                     dist, idx, cnt, rs, col, wgt),
+                 plain=lambda: K.relax_push_gather_batch_ref(dist, idx, cnt, rs, wgt),
+                 single=lambda: [K.relax_push_gather_cuda(
+                     dist[s], idx[s], cnt[s:s + 1], rs[s % P], col[s % P],
+                     wgt[s % P]) for s in range(S)],
+                 bare=(lambda: push_launch(*push_args), push_out),
+                 nbytes=4 * (live + rows_read * (1 + W) + sum(n_src)
+                             + S * F * W + S)),
+        )
+        for e in entries:
+            name = e["name"]
+            K.reset_launch_counts()
+            out_k = e["wrapper"]()
+            torch.cuda.synchronize()
+            if K.launch_counts()[name] != 1:
+                fail(f"{name} ({label}): the wrapper did not launch its kernel once")
+            out_p = e["plain"]()
+            err = max_abs_err(out_k, out_p)
+            if err != 0.0 or out_k.shape != out_p.shape:
+                fail(f"{name} ({label}): kernel differs from its plain version "
+                     f"(max abs err {err})")
+            singles = torch.stack(e["single"]())
+            if not torch.equal(singles, out_k):
+                fail(f"{name} ({label}): differs from {S} single launches on the "
+                     f"same lanes")
+            bare, out_b = e["bare"]
+            if bare() != 0:
+                fail(f"{name} ({label}): the bare launch failed")
+            torch.cuda.synchronize()
+            if not torch.equal(out_b, out_k):
+                fail(f"{name} ({label}): the bare launch differs from the wrapper's")
+            ms = time_ms(e["wrapper"], flush)
+            bare_ms = time_ms(bare, flush)
+            alone_ms = kernel_alone_ms(e["wrapper"], flush, (e["kernel"],))
+            single_ms = time_ms(e["single"], flush)
+            plain_ms = time_ms(e["plain"], flush)
+            bound_ms, bound_by = bound(e["nbytes"], live * W)
+            floor = ""
+            if name == "fused_superstep_batch":
+                call, n_triples = atomic_floor_call(floor_lib, dist, idx, cnt, rs, col,
+                                                    wgt, n_out)
+                if not torch.equal(call(), out_k):
+                    fail(f"atomic floor ({label}): differs from the fused entry")
+                floor_ms = kernel_alone_ms(call, flush, ("atomic_floor_kernel",))
+                floor = (f"; atomics floor {floor_ms:.4f} ms alone over {n_triples} "
+                         f"finite triples (the kernel at {alone_ms / floor_ms:.2f}x it)")
+                del call
+            log(f"{name} ({label}, {S} lanes): bit-identical to its plain version "
+                f"and to {S} single launches; wrapper {ms:.4f} ms, bare {bare_ms:.4f} ms, "
+                f"alone under the profiler {alone_ms:.4f} ms; {S} single launches "
+                f"{single_ms:.4f} ms; plain {plain_ms:.4f} ms; {e['nbytes']} bytes, "
+                f"bound {bound_ms:.4f} ms at 3.35 TB/s ({bound_ms / alone_ms:.3f} of "
+                f"it alone){floor}")
+            if label == "balanced":
+                rows.append(dict(name=name, route="cuda", source=e["source"],
+                                 replaces=e["replaces"], launches=0, max_abs_err=err,
+                                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                 bound_by=bound_by, library_ms=None))
+        del fused_out, push_out, entries
     return rows
 
 
@@ -1426,6 +1547,13 @@ def main() -> None:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     card_line = smi.stdout.strip().splitlines()[0]
     print(card_line, flush=True)
+    # the atomics floor of phase 3 (scripts/frontier_variants.cu), built
+    # beside the library
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import frontier_ab
+
+    pool = ThreadPoolExecutor(1)
+    floor_build = pool.submit(frontier_ab.variants_library)
     built = K.build()
     for line in built.log.splitlines():
         if "registers" in line or "spill" in line or line.startswith("---"):
@@ -1535,7 +1663,8 @@ def main() -> None:
         "src/repro_torch/csrc/relax_ell.cu",
         "src/repro/kernels/relax_ell/kernel.py:45",
     ))
-    batch_rows = batched_frontier_rows(g, pg, ell, dev, flush)
+    batch_rows = batched_frontier_rows(g, pg, ell, dev, flush, floor_build.result())
+    pool.shutdown()
     del flush
 
     # ---- 4. main path ------------------------------------------------
@@ -1611,14 +1740,14 @@ def main() -> None:
         "checks compute in full f32")
     t0 = time.perf_counter()
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    attn_row, bag_row = serving_kernels(dev, flush)
+    attn_row, attn32_row, bag_row = serving_kernels(dev, flush)
     del flush
-    rows += [attn_row, bag_row]
+    rows += [attn_row, attn32_row, bag_row]
     log(f"phase 7 took {time.perf_counter() - t0:.1f} s")
 
     # ---- 8. LM serving, minitron-8b at full width ---------------------
     t0 = time.perf_counter()
-    attn_row["launches"] = lm_serving(dev)
+    attn_row["launches"], attn32_row["launches"] = lm_serving(dev)
     log(f"phase 8 took {time.perf_counter() - t0:.1f} s")
 
     # ---- 9. MIND serving at full width --------------------------------

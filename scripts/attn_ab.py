@@ -1,0 +1,182 @@
+#!/usr/bin/env python3
+"""Time the port's f32 flash_attention kernel against the same kernel
+built from another source tree, in turns, in one process on one NVIDIA
+GPU: the way to hold a change of ``src/repro_torch/csrc/flash_attention.cu``
+against its parent on the same card.
+
+    python3 scripts/attn_ab.py PARENT
+
+PARENT is a checkout (unpack it with ``git archive``).  Its
+``csrc/flash_attention.cu`` and ``csrc/flash_attention_sm90.cu`` are built
+alone into ``build/attn_ab/`` with the library's nvcc flags; this tree's
+kernel is the library's (``kernels/flash_attention``).  The shapes are
+``chip_smoke.py``'s f32 cases of phase 7: case c (B 1, Hq 8, Hkv 2,
+Sq 128, Sk 1024, D 128, causal and not: this tree splits its keys) and
+case d (the fp32 twin's prefill of phase 8: B 2, Hq 32, Hkv 8, S 2048,
+D 128, causal), and the twin's first prefill at S 1920.  For each, both
+kernels are held against the plain version (2e-5) and timed as bare
+launches in the order parent, change, change, parent, three times over,
+by CUDA events after a write that evicts L2 (``chip_smoke.time_ms``)
+and alone under ``torch.profiler``; this tree's wrapper, sdpa and the
+kernels sdpa ran are timed once.  Each of ``VARIANTS`` (an edited copy
+of this tree's ``csrc/flash_attention.cu``, built alone into
+``build/attn_ab/``) is checked and timed bare beside them.  Prints the
+card line, then one JSON line a case.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+CACHE = ROOT / "build" / "attn_ab"
+ROUNDS = 3
+#: name -> edits (text of csrc/flash_attention.cu -> its replacement)
+VARIANTS = {
+    "qk unroll 4": {"#pragma unroll 8\n    for (int c = 0; c < D / 4; ++c) {":
+                    "#pragma unroll 4\n    for (int c = 0; c < D / 4; ++c) {"},
+    "pv unroll 4": {"#pragma unroll 8\n    for (int j = 0; j < kBK; ++j) {":
+                    "#pragma unroll 4\n    for (int j = 0; j < kBK; ++j) {"},
+}
+# label, B, Hq, Hkv, Sq, Sk, D, causal
+CASES = (
+    ("c causal", 1, 8, 2, 128, 1024, 128, True),
+    ("c non-causal", 1, 8, 2, 128, 1024, 128, False),
+    ("d fp32 twin prefill", 2, 32, 8, 2048, 2048, 128, True),
+    ("fp32 twin prefill at 1920", 2, 32, 8, 1920, 1920, 128, True),
+)
+
+
+def attention_entry(name: str, source: Path, sm90: Path):
+    """``flash_attention_launch`` of ``source`` built alone beside
+    ``sm90`` (the bf16 kernel it calls), and whether it takes
+    (n_split, scratch); ptxas's register report printed."""
+    from repro_torch.kernels import _lib
+
+    CACHE.mkdir(parents=True, exist_ok=True)
+    stem = "_".join(name.split())
+    out = CACHE / f"lib{stem}.so"
+    done = subprocess.run([_lib._nvcc(), *_lib.NVCC_FLAGS, "-shared", str(source),
+                           str(sm90), "-o", str(out)], capture_output=True, text=True)
+    if done.returncode != 0:
+        sys.exit(f"nvcc failed on {source} ({name}):\n{done.stdout}{done.stderr}")
+    for line in (done.stdout + done.stderr).splitlines():
+        if ("registers" in line or "spill" in line) and "sm90" not in line:
+            print(f"[{name}] {line.strip()}", flush=True)
+    split = "n_split" in source.read_text()
+    fn = ctypes.CDLL(str(out)).flash_attention_launch
+    fn.argtypes = ([_lib.ptr] * 4 + [_lib.c_int] * 8 + [_lib.c_float]
+                   + ([_lib.c_int, _lib.ptr] if split else []) + [_lib.ptr])
+    fn.restype = _lib.c_int
+    return fn, split
+
+
+def main() -> None:
+    if len(sys.argv) != 2:
+        sys.exit(__doc__)
+    parent_tree = Path(sys.argv[1]).resolve()
+    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT))
+    import torch
+    import torch.nn.functional as F
+
+    import chip_smoke
+    from repro_torch import kernels as K
+    from repro_torch.kernels.flash_attention import kernel as attn
+
+    if not torch.cuda.is_available():
+        sys.exit("CUDA is not available: this script needs an NVIDIA GPU")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True)
+    print(card.stdout.strip(), flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    K.build()
+    csrc = parent_tree / "src" / "repro_torch" / "csrc"
+    entries = {"parent": attention_entry("parent", csrc / "flash_attention.cu",
+                                         csrc / "flash_attention_sm90.cu")}
+    own = ROOT / "src" / "repro_torch" / "csrc" / "flash_attention.cu"
+    for name, edits in VARIANTS.items():
+        text = own.read_text()
+        for old, new in edits.items():
+            if text.count(old) != 1:
+                sys.exit(f"{name}: {old!r} is not in {own.name} exactly once")
+            text = text.replace(old, new)
+        copy = CACHE / f"{'_'.join(name.split())}.cu"
+        CACHE.mkdir(parents=True, exist_ok=True)
+        copy.write_text(text)
+        entries[name] = attention_entry(name, copy, own.parent / "flash_attention_sm90.cu")
+    entries["change"] = (attn._launch(), True)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    gen = torch.Generator(device=dev).manual_seed(chip_smoke.SEED)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for label, B, Hq, Hkv, Sq, Sk, D, causal in CASES:
+        q = torch.randn((B, Hq, Sq, D), generator=gen, device=dev)
+        k = torch.randn((B, Hkv, Sk, D), generator=gen, device=dev)
+        v = torch.randn((B, Hkv, Sk, D), generator=gen, device=dev)
+        n_split = attn.split_plan(B, Hq, Sq, Sk, causal, sms)
+        part = torch.empty(max(1, n_split * B * Hq * Sq * (D + 2)), device=dev)
+        outs = {name: torch.empty_like(q) for name in entries}
+        head = (B, Hq, Hkv, Sq, Sk, D, 0, int(causal), 1.0 / D ** 0.5)
+
+        def bare(name):
+            fn, split = entries[name]
+            extra = (n_split, part.data_ptr()) if split else ()
+            args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), outs[name].data_ptr(),
+                    *head, *extra, stream)
+            return lambda: K._lib.check(fn(*args), name)
+
+        calls = {name: bare(name) for name in outs}
+        ref = K.attention_ref(q, k, v, causal=causal)
+        result = {"case": label, "shape": [B, Hq, Hkv, Sq, Sk, D], "causal": causal,
+                  "n_split": n_split}
+        for name, call in calls.items():
+            call()
+            torch.cuda.synchronize()
+            err = float((outs[name] - ref).abs().max())
+            if not torch.allclose(outs[name], ref, rtol=2e-5, atol=2e-5):
+                sys.exit(f"{label}: the {name} kernel differs from the plain version "
+                         f"(max abs err {err})")
+            result[f"{name} max abs err"] = err
+        turns = ["parent", "change", *VARIANTS, *reversed(VARIANTS), "change", "parent"]
+        for _ in range(ROUNDS):
+            for name in turns:
+                result.setdefault(f"{name} ms", []).append(
+                    round(chip_smoke.time_ms(calls[name], flush), 4))
+        for name in ("parent", "change", "change", "parent"):
+            result.setdefault(f"{name} alone ms", []).append(round(
+                chip_smoke.kernel_alone_ms(calls[name], flush,
+                                           ("flash_attention_kernel", "flash_merge_kernel")),
+                4))
+        result["change wrapper ms"] = round(chip_smoke.time_ms(
+            lambda: K.flash_attention_cuda(q, k, v, causal=causal), flush), 4)
+        mask = None
+        if causal and Sq != Sk:  # torch aligns a causal mask top-left
+            mask = torch.ones((Sq, Sk), dtype=torch.bool, device=dev).tril(Sk - Sq)
+
+        def library():
+            return F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, is_causal=causal and mask is None,
+                enable_gqa=True)
+
+        result["sdpa ms"] = round(chip_smoke.time_ms(library, flush), 4)
+        result["sdpa kernels"] = chip_smoke.library_kernels(library)
+        flops = 4 * B * Hq * D * chip_smoke.attention_pairs(Sq, Sk, causal)
+        nbytes = 4 * 2 * (B * Hq * Sq * D + B * Hkv * Sk * D)
+        bound_ms, bound_by = chip_smoke.bound(nbytes, flops)
+        result.update(flop=flops, bound_ms=round(bound_ms, 4), bound_by=bound_by)
+        for name in ("parent", "change"):
+            best = min(result[f"{name} ms"])
+            result[f"{name} TFLOP/s (best)"] = round(flops / best / 1e9, 2)
+            result[f"{name} share of bound (best)"] = round(bound_ms / best, 4)
+        print(json.dumps(result), flush=True)
+        del q, k, v, part, outs, ref, calls
+
+
+if __name__ == "__main__":
+    main()

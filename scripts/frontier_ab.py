@@ -21,14 +21,24 @@ over:
   under ``torch.profiler`` over the same launches;
 * one warm solve of the main path (``delta:5/sparse/fused``) and of the
   push path, wall time, and the solve's device time by kernel under
-  ``torch.profiler`` (the first round only).
+  ``torch.profiler`` (the first round only);
+* the batched entries (``fused_superstep_batch``, ``relax_push_gather_batch``)
+  through their wrappers at the two supersteps of phase 3's batched
+  solve of the 8 landmark sources (``chip_smoke.batched_supersteps``:
+  the balanced one, every lane near F, and the skewed one, lanes at 0
+  beside a lane near F), held bit for bit against the plain versions
+  first, timed the same two ways (each wrapper call fills a fresh
+  output, so every atomic runs).
 
 In this script's own tree it also builds ``scripts/frontier_variants.cu``
 and times, in turns with the library's kernels and checked bit for bit
 the same way, the bulk-copy ring design of both kernels, the warp
 combine of the fused one, and the floor the fused kernel's atomics set:
 the same pre-checked atomic mins on the same (column, value) pairs,
-listed flat.  Prints one JSON line a tree, and the profiles as text.
+listed flat, for the single entry at both frontiers and for the batched
+one at both supersteps ((lane, column, value) triples).  Prints the
+card line (``nvidia-smi``), one JSON line a tree, and the profiles as
+text.
 """
 
 from __future__ import annotations
@@ -73,6 +83,7 @@ def variants_library():
     from repro_torch.kernels import _lib
 
     out = CACHE / "libfrontier_variants.so"
+    CACHE.mkdir(parents=True, exist_ok=True)
     cmd = [_lib._nvcc(), *_lib.NVCC_FLAGS, "-shared", "-I", str(_lib.CSRC),
            str(VARIANTS), "-o", str(out)]
     done = subprocess.run(cmd, capture_output=True, text=True)
@@ -97,7 +108,8 @@ def kernel_ms(calls: dict, flush) -> dict:
     of its function (``calls``: name in the profile -> function), each
     after a write that evicts L2, from one torch.profiler window.  The
     window starts with untimed writes and a mean is over the launches
-    it recorded: a window can lose its first kernels."""
+    it recorded: a window can lose its first kernels, and one that lost
+    every launch of a kernel is opened again, three windows at most."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -105,24 +117,27 @@ def kernel_ms(calls: dict, flush) -> dict:
 
     for fn in calls.values():
         fn()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(8):
-            flush.zero_()
-        for fn in calls.values():
-            for _ in range(chip_smoke.TIMING_REPS):
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(8):
                 flush.zero_()
-                fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    out = {}
-    for name in calls:
-        mine = [e for e in events if name in e.key]
-        n = sum(e.count for e in mine)
-        if n == 0:
-            sys.exit(f"the profiler recorded no launch of {name}")
-        out[name] = sum(e.self_device_time_total for e in mine) / 1e3 / n
-    return out
+            for fn in calls.values():
+                for _ in range(chip_smoke.TIMING_REPS):
+                    flush.zero_()
+                    fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        out = {}
+        for name in calls:
+            mine = [e for e in events if name in e.key]
+            n = sum(e.count for e in mine)
+            if n:
+                out[name] = sum(e.self_device_time_total for e in mine) / 1e3 / n
+        if len(out) == len(calls):
+            return out
+    sys.exit(f"three profiler windows recorded no launch of "
+             f"{sorted(set(calls) - set(out))}")
 
 
 def time_tree(tree: Path) -> None:
@@ -242,6 +257,35 @@ def time_tree(tree: Path) -> None:
         del want
     del hub, hub_wgt
 
+    # the batched entries at phase 3's two batched supersteps
+    batched, batched_counts = {}, {}
+    for label, st in chip_smoke.batched_supersteps(g, pg, dev).items():
+        bd, bi, bc = st["dist"], st["row_idx"], st["count"]
+        batched_counts[label] = bc.tolist()
+        calls = {
+            "fused_superstep_batch_kernel": lambda bd=bd, bi=bi, bc=bc:
+                K.fused_superstep_batch_cuda(bd, bi, bc, ell.row_src, ell.col, ell.wgt,
+                                             n_out),
+            "relax_push_gather_batch_kernel": lambda bd=bd, bi=bi, bc=bc:
+                K.relax_push_gather_batch_cuda(bd, bi, bc, ell.row_src, ell.col, ell.wgt),
+        }
+        want = {"fused_superstep_batch_kernel": K.fused_superstep_batch_ref(
+                    bd, bi, bc, ell.row_src, ell.col, ell.wgt, n_out),
+                "relax_push_gather_batch_kernel": K.relax_push_gather_batch_ref(
+                    bd, bi, bc, ell.row_src, ell.wgt)}
+        if tree.resolve() == ROOT:
+            calls["atomic_floor_kernel"], _ = chip_smoke.atomic_floor_call(
+                lib, bd, bi, bc, ell.row_src, ell.col, ell.wgt, n_out)
+            want["atomic_floor_kernel"] = want["fused_superstep_batch_kernel"]
+        for key, call in calls.items():
+            got = call()
+            torch.cuda.synchronize()
+            if not torch.equal(got, want[key]):
+                sys.exit(f"{tree}: {key} differs from the plain version at the "
+                         f"{label} batched superstep")
+        del want
+        batched[label] = calls
+
     main = Solver(chip_smoke.SPEC, device="cuda")
     push_solver = Solver(SolverConfig.from_spec("delta:5/sparse", relax_impl="push"),
                          device="cuda")
@@ -251,6 +295,7 @@ def time_tree(tree: Path) -> None:
     result: dict = {"tree": str(tree), "frontiers": {
         fr["label"]: {"class": fr["cls"], "live": fr["live"], "rows": row_cap}
         for fr in frontiers}}
+    result["batched counts"] = batched_counts
     for rnd in range(ROUNDS):
         for fr in frontiers:
             calls = {key: make(fr, col, wgt) for _, key, make in designs.values()}
@@ -258,6 +303,12 @@ def time_tree(tree: Path) -> None:
             for name, (_, key, _) in designs.items():
                 rec = result.setdefault(f"{name} @ {fr['label']}", {"ms": [], "kernel_ms": []})
                 rec["ms"].append(round(chip_smoke.time_ms(calls[key], flush), 4))
+                rec["kernel_ms"].append(round(alone[key], 4))
+        for label, calls in batched.items():
+            alone = kernel_ms(calls, flush)
+            for key, call in calls.items():
+                rec = result.setdefault(f"{key} @ batched {label}", {"ms": [], "kernel_ms": []})
+                rec["ms"].append(round(chip_smoke.time_ms(call, flush), 4))
                 rec["kernel_ms"].append(round(alone[key], 4))
         for label, s in (("main solve", main), ("push solve", push_solver)):
             torch.cuda.synchronize()
@@ -278,6 +329,9 @@ def main() -> None:
         return
     if len(sys.argv) < 2:
         sys.exit(__doc__)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True)
+    print(card.stdout.strip(), flush=True)
     for tree in sys.argv[1:]:
         subprocess.run([sys.executable, __file__, "--tree", tree], check=True)
 

@@ -248,7 +248,8 @@ __global__ void __launch_bounds__(kThreads) fused_superstep_combine_kernel(
     const int* __restrict__ col, const float* __restrict__ wgt,
     float* __restrict__ out, int F, int R, int W, int G) {
   CombineOp op{col, wgt, out};
-  walk_frontier<4>(dist, row_idx, row_src, live_rows(count, F), R, W, G, op);
+  walk_frontier<4>(dist, row_idx, row_src, live_rows(count, F), R, W, G, op, grid_warp(),
+                   grid_warps());
 }
 
 __global__ void atomic_floor_kernel(const int* __restrict__ cols,

@@ -28,10 +28,11 @@
 //
 // The batched entry (fused_superstep_batch_launch) runs S = B·P lanes,
 // lane-major, in one launch, as vmap gives the TPU kernel a batch grid
-// axis: lane s = blockIdx.y walks its own frontier (row_idx[s],
-// count[s]) over graph rank s % P, reads its own distances and
-// scatter-mins into its own output row.  The lanes share the
-// persistent grid (frontier_batch_grid).
+// axis: lane s walks its own frontier (row_idx[s], count[s]) over graph
+// rank s % P, reads its own distances and scatter-mins into its own
+// output row.  One 1-D persistent grid serves all lanes, its warps
+// shared out by the lanes' live rows (minplus.cuh, LaneShares): a lane
+// at 0 takes no warp, a lane near F most of the card.
 #include "minplus.cuh"
 
 namespace {
@@ -71,7 +72,8 @@ __global__ void __launch_bounds__(kThreads) fused_superstep_kernel(
     const int* __restrict__ col, const float* __restrict__ wgt,
     float* __restrict__ out, int F, int R, int W, int G) {
   FusedOp<VEC> op{col, wgt, out};
-  walk_frontier<VEC>(dist, row_idx, row_src, live_rows(count, F), R, W, G, op);
+  walk_frontier<VEC>(dist, row_idx, row_src, live_rows(count, F), R, W, G, op,
+                     grid_warp(), grid_warps());
 }
 
 template <int VEC>
@@ -80,18 +82,17 @@ __global__ void __launch_bounds__(kThreads) fused_superstep_batch_kernel(
     const int* __restrict__ count, const int* __restrict__ row_src,
     const int* __restrict__ col, const float* __restrict__ wgt,
     float* __restrict__ out, int F, int R, int W, int G, int P, int n_dist,
-    int n_out1) {
-  const int s = blockIdx.y;
-  const long long q = s % P;
-  FusedOp<VEC> op{col + q * R * W, wgt + q * R * W,
-                  out + static_cast<long long>(s) * n_out1};
-  walk_frontier<VEC>(dist + static_cast<long long>(s) * n_dist,
-                     row_idx + static_cast<long long>(s) * F, row_src + q * R,
-                     live_rows(count + s, F), R, W, G, op);
+    int n_out1, int S) {
+  visit_share(LiveRows{count, F}, S, [&](const Share& sh) {
+    const long long s = sh.lane, q = sh.lane % P;
+    FusedOp<VEC> op{col + q * R * W, wgt + q * R * W, out + s * n_out1};
+    walk_frontier<VEC>(dist + s * n_dist, row_idx + s * F, row_src + q * R, sh.rows,
+                       R, W, G, op, sh.slot, sh.slots);
+  });
 }
 
 template <int VEC>
-int batch_grid(int F, int W, int S, dim3* grid) {
+int batch_grid(int F, int W, int S, unsigned int* grid) {
   static int cache[kMaxDevices];
   return static_cast<int>(frontier_batch_grid(
       fused_superstep_batch_kernel<VEC>, cache, F, group_lanes(W, VEC), S, grid));
@@ -102,12 +103,12 @@ int launch_batch(const float* dist, const int* row_idx, const int* count,
                  const int* row_src, const int* col, const float* wgt, float* out,
                  int F, int R, int W, int P, int n_dist, int n_out1, int S,
                  cudaStream_t stream) {
-  dim3 grid;
+  unsigned int grid = 0;
   const int err = batch_grid<VEC>(F, W, S, &grid);
   if (err != 0) return err;
   fused_superstep_batch_kernel<VEC><<<grid, kThreads, 0, stream>>>(
       dist, row_idx, count, row_src, col, wgt, out, F, R, W, group_lanes(W, VEC),
-      P, n_dist, n_out1);
+      P, n_dist, n_out1, S);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -153,13 +154,8 @@ extern "C" int fused_superstep_batch_launch(
                                P, n_dist, n_out1, S, stream);
 }
 
-// The grid the batched entry launches for these sizes: grid[0] blocks a
-// lane on x, grid[1] = S lanes on y.
+// The blocks of the 1-D grid the batched entry launches for these sizes.
 extern "C" int fused_superstep_batch_grid(int F, int W, int S, int vec,
                                           unsigned int* grid) {
-  dim3 g;
-  const int err = vec ? batch_grid<4>(F, W, S, &g) : batch_grid<1>(F, W, S, &g);
-  grid[0] = g.x;
-  grid[1] = g.y;
-  return err;
+  return vec ? batch_grid<4>(F, W, S, grid) : batch_grid<1>(F, W, S, grid);
 }

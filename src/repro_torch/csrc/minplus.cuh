@@ -93,31 +93,39 @@ __host__ __device__ __forceinline__ int group_lanes(int W, int vec) {
   return g;
 }
 
+// The warp's index in the grid and the grid's warps.
+__device__ __forceinline__ long long grid_warp() {
+  return (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+}
+__device__ __forceinline__ long long grid_warps() {
+  return static_cast<long long>(gridDim.x) * blockDim.x >> 5;
+}
+
 // Calls op.load(e, ok) for the chunk at ELL offset e and then
 // op.apply(o, e, d, chunk, ok) with o the row-major offset f * W + c * VEC,
-// for every chunk of every live row; ok is false for lanes without a
-// chunk.  Every lane of a warp makes the same calls, so an op may use
-// warp-wide intrinsics.
+// for every chunk of the live rows f = first + i * step + (a row of the
+// warp), i = 0, 1, ...: the warp's rows when `slots` warps walk the
+// frontier, this one at `slot` (the whole grid for a single frontier).
+// ok is false for lanes without a chunk.  Every lane of a warp makes
+// the same calls, so an op may use warp-wide intrinsics.
 template <int VEC, class Op>
 __device__ __forceinline__ void walk_frontier(
     const float* __restrict__ dist, const int* __restrict__ row_idx,
-    const int* __restrict__ row_src, int live, int R, int W, int G, Op& op) {
+    const int* __restrict__ row_src, int live, int R, int W, int G, Op& op,
+    long long slot, long long slots) {
   const int lane = threadIdx.x & 31;
   const int gl = lane & (G - 1);
   const bool leader = gl == 0;
   const int rpw = 32 / G;
   const int chunks = W / VEC;
   const int per_lane = (chunks + G - 1) / G;
-  const long long warp =
-      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  const long long step =
-      (static_cast<long long>(gridDim.x) * blockDim.x >> 5) * rpw;
-  long long f = warp * rpw + lane / G;
+  const long long step = slots * rpw;
+  long long f = slot * rpw + lane / G;
   int r = 0, s = 0, r_next = 0;
   if (leader && f < live) r = clip_row(__ldg(row_idx + f), R);
   if (leader && f + step < live) r_next = clip_row(__ldg(row_idx + f + step), R);
   if (leader && f < live) s = __ldg(row_src + r);
-  for (long long base = warp * rpw; base < live; base += step, f += step) {
+  for (long long base = slot * rpw; base < live; base += step, f += step) {
     const bool row_ok = f < live;
     const long long e0 = static_cast<long long>(__shfl_sync(kFullMask, r, 0, G)) * W;
     const long long o0 = f * W;
@@ -168,7 +176,7 @@ __host__ cudaError_t persistent_blocks(Kernel kernel, int threads, size_t smem,
 // The grid of a frontier kernel: the persistent grid, or fewer blocks
 // where F rows at G lanes each fill fewer.
 template <class Kernel>
-__host__ cudaError_t frontier_grid(Kernel kernel, int* cache, int F, int G,
+__host__ cudaError_t frontier_grid(Kernel kernel, int* cache, long long F, int G,
                                    unsigned int* grid) {
   int blocks = 0;
   const cudaError_t err = persistent_blocks(kernel, kThreads, 0, cache, &blocks);
@@ -179,19 +187,117 @@ __host__ cudaError_t frontier_grid(Kernel kernel, int* cache, int F, int G,
   return cudaSuccess;
 }
 
-// The grid of a batched frontier kernel: S lanes on blockIdx.y share the
-// persistent grid, each lane at least one block and at most what its F
-// rows fill.
+// ---- S lanes on one 1-D persistent grid ---------------------------------
+//
+// A batched kernel walks S frontiers (lanes) at once, lane s with n_s
+// rows to visit (its live rows; for the push gather's tail, its rows
+// past count).  The grid's V warps are shared out by rows, not by
+// lanes: with T = sum n_s over the L lanes that have any, lane s owns
+// warps [a_s, a_{s+1}),
+//
+//   a_s = floor(start_s * (V - L) / T) + (lanes with rows before s),
+//
+// start_s the exclusive prefix of n: one warp at least for a lane with
+// rows (the grid holds a warp at least a lane, frontier_batch_grid),
+// the rest by its share of T.  A lane at 0 takes no warp, and a lane
+// with most of the rows takes most of the card.  Every warp forms the
+// prefix itself from count[0..S) on the device (a warp scan, S/32
+// steps; no host sync, no block sync) and walks its one lane with the
+// lane's fixed stride, so the lanes advance together and a row that two
+// lanes list is read twice close in time, the second time from L2.
+
+// A warp's place: its lane (-1: none), its index among the lane's
+// warps, the lane's warps and the lane's rows.
+struct Share {
+  int lane, slot, slots, rows;
+};
+
+template <class Rows>
+struct LaneShares {
+  Rows rows_of;  // rows_of(s): n_s
+  int S;
+  double scale;  // (V - L) / T
+
+  __device__ __forceinline__ LaneShares(const Rows& rows, int S_, long long warps)
+      : rows_of(rows), S(S_) {
+    const int lane = threadIdx.x & 31;
+    long long total = 0;
+    int lanes = 0;
+    for (int s = lane; s < S; s += 32) {
+      const int n = rows_of(s);
+      total += n;
+      lanes += n > 0;
+    }
+    for (int off = 16; off > 0; off >>= 1) {
+      total += __shfl_xor_sync(kFullMask, total, off);
+      lanes += __shfl_xor_sync(kFullMask, lanes, off);
+    }
+    scale = total > 0 ? static_cast<double>(warps - lanes) / static_cast<double>(total)
+                      : 0.0;
+  }
+
+  // The lane whose range holds warp vw; the same in every lane of the
+  // warp.
+  __device__ __forceinline__ Share find(long long vw) const {
+    const int lane = threadIdx.x & 31;
+    long long before = 0;  // rows of the lanes before this chunk of 32
+    int lanes_before = 0;
+    for (int b = 0; b < S; b += 32) {
+      const int s = b + lane;
+      const int n = s < S ? rows_of(s) : 0;
+      long long x = n;  // inclusive scans of n and of n > 0
+      int y = n > 0;
+      for (int off = 1; off < 32; off <<= 1) {
+        const long long xu = __shfl_up_sync(kFullMask, x, off);
+        const int yu = __shfl_up_sync(kFullMask, y, off);
+        if (lane >= off) {
+          x += xu;
+          y += yu;
+        }
+      }
+      const long long start = before + x - n;
+      const int lb = lanes_before + y - (n > 0);
+      const long long a = __double2ll_rd(static_cast<double>(start) * scale) + lb;
+      const long long a1 =
+          __double2ll_rd(static_cast<double>(start + n) * scale) + lb + (n > 0);
+      const unsigned hit = __ballot_sync(kFullMask, n > 0 && a <= vw && vw < a1);
+      if (hit) {
+        const int src = __ffs(hit) - 1;
+        return Share{b + src, static_cast<int>(__shfl_sync(kFullMask, vw - a, src)),
+                     static_cast<int>(__shfl_sync(kFullMask, a1 - a, src)),
+                     __shfl_sync(kFullMask, n, src)};
+      }
+      before += __shfl_sync(kFullMask, x, 31);
+      lanes_before += __shfl_sync(kFullMask, y, 31);
+    }
+    return Share{-1, 0, 0, 0};
+  }
+};
+
+// n_s of a walk: lane s's live rows.
+struct LiveRows {
+  const int* __restrict__ count;
+  int F;
+  __device__ __forceinline__ int operator()(int s) const { return live_rows(count + s, F); }
+};
+
+// Calls visit(share) with this warp's place if it has a lane;
+// warp-uniform.
+template <class Rows, class Visit>
+__device__ __forceinline__ void visit_share(const Rows& rows, int S, Visit visit) {
+  const Share sh = LaneShares<Rows>(rows, S, grid_warps()).find(grid_warp());
+  if (sh.lane >= 0) visit(sh);
+}
+
+// The grid of a batched frontier kernel: the persistent grid, or fewer
+// blocks where S lanes of F rows at G lanes each fill fewer; a warp at
+// least a lane.
 template <class Kernel>
 __host__ cudaError_t frontier_batch_grid(Kernel kernel, int* cache, int F, int G,
-                                         int S, dim3* grid) {
-  int blocks = 0;
-  const cudaError_t err = persistent_blocks(kernel, kThreads, 0, cache, &blocks);
-  if (err != cudaSuccess) return err;
-  const long long rows_per_block = (kThreads / 32) * (32 / G);
-  const long long need = (F + rows_per_block - 1) / rows_per_block;
-  const long long share = blocks / S > 0 ? blocks / S : 1;
-  *grid = dim3(static_cast<unsigned int>(need < share ? need : share),
-               static_cast<unsigned int>(S), 1);
-  return cudaSuccess;
+                                         int S, unsigned int* grid) {
+  const cudaError_t err =
+      frontier_grid(kernel, cache, static_cast<long long>(F) * S, G, grid);
+  const unsigned int lanes = (S + kThreads / 32 - 1) / (kThreads / 32);
+  if (*grid < lanes) *grid = lanes;
+  return err;
 }

@@ -20,10 +20,11 @@
 // written as +inf with streaming vector stores and no loads.
 //
 // The batched entry (relax_push_gather_batch_launch) runs S = B·P
-// lanes, lane-major, in one launch: lane s = blockIdx.y gathers its
-// own frontier (row_idx[s], count[s]) over graph rank s % P into its
-// own (F, W) block of the (S, F, W) output.  The lanes share the
-// persistent grid (frontier_batch_grid).
+// lanes, lane-major, in one launch: lane s gathers its own frontier
+// (row_idx[s], count[s]) over graph rank s % P into its own (F, W)
+// block of the (S, F, W) output.  One 1-D persistent grid serves all
+// lanes, its warps shared out by the lanes' live rows, then by their
+// rows past count (minplus.cuh, LaneShares).
 #include "minplus.cuh"
 
 namespace {
@@ -43,26 +44,15 @@ struct GatherOp {
   }
 };
 
-// The live rows' candidates, then +inf in the rows past count, by the
-// blocks on gridDim.x.
+// +inf in the rows past `live` of an (F, W) output, streamed past the
+// caches, vector i = first + k * step.
 template <int VEC>
-__device__ __forceinline__ void gather_rows(
-    const float* __restrict__ dist, const int* __restrict__ row_idx,
-    const int* __restrict__ count, const int* __restrict__ row_src,
-    const float* __restrict__ wgt, float* __restrict__ out,
-    int F, int R, int W, int G) {
-  const int live = live_rows(count, F);
-  GatherOp<VEC> op{wgt, out};
-  walk_frontier<VEC>(dist, row_idx, row_src, live, R, W, G, op);
-  // rows past count: +inf, streamed past the caches
+__device__ __forceinline__ void fill_tail(float* __restrict__ out, int live, int F, int W,
+                                          long long first, long long step) {
   typedef typename Chunk<VEC>::F V;
   V* const tail = reinterpret_cast<V*>(out + static_cast<long long>(live) * W);
   const long long n = static_cast<long long>(F - live) * W / VEC;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n; i += stride) {
-    __stcs(tail + i, inf_chunk<VEC>());
-  }
+  for (long long i = first; i < n; i += step) __stcs(tail + i, inf_chunk<VEC>());
 }
 
 template <int VEC>
@@ -71,25 +61,43 @@ __global__ void __launch_bounds__(kThreads) relax_push_gather_kernel(
     const int* __restrict__ count, const int* __restrict__ row_src,
     const float* __restrict__ wgt, float* __restrict__ out,
     int F, int R, int W, int G) {
-  gather_rows<VEC>(dist, row_idx, count, row_src, wgt, out, F, R, W, G);
+  const int live = live_rows(count, F);
+  GatherOp<VEC> op{wgt, out};
+  walk_frontier<VEC>(dist, row_idx, row_src, live, R, W, G, op, grid_warp(), grid_warps());
+  fill_tail<VEC>(out, live, F, W,
+                 static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x,
+                 static_cast<long long>(gridDim.x) * blockDim.x);
 }
+
+// n_s of the tail: lane s's rows past count.
+struct TailRows {
+  const int* __restrict__ count;
+  int F;
+  __device__ __forceinline__ int operator()(int s) const { return F - live_rows(count + s, F); }
+};
 
 template <int VEC>
 __global__ void __launch_bounds__(kThreads) relax_push_gather_batch_kernel(
     const float* __restrict__ dist, const int* __restrict__ row_idx,
     const int* __restrict__ count, const int* __restrict__ row_src,
     const float* __restrict__ wgt, float* __restrict__ out,
-    int F, int R, int W, int G, int P, int n_dist) {
-  const int s = blockIdx.y;
-  const long long q = s % P;
-  gather_rows<VEC>(dist + static_cast<long long>(s) * n_dist,
-                   row_idx + static_cast<long long>(s) * F, count + s,
-                   row_src + q * R, wgt + q * R * W,
-                   out + static_cast<long long>(s) * F * W, F, R, W, G);
+    int F, int R, int W, int G, int P, int n_dist, int S) {
+  const int lane = threadIdx.x & 31;
+  visit_share(LiveRows{count, F}, S, [&](const Share& sh) {
+    const long long s = sh.lane, q = sh.lane % P;
+    GatherOp<VEC> op{wgt + q * R * W, out + s * F * W};
+    walk_frontier<VEC>(dist + s * n_dist, row_idx + s * F, row_src + q * R, sh.rows,
+                       R, W, G, op, sh.slot, sh.slots);
+  });
+  visit_share(TailRows{count, F}, S, [&](const Share& sh) {
+    fill_tail<VEC>(out + static_cast<long long>(sh.lane) * F * W, F - sh.rows, F, W,
+                   static_cast<long long>(sh.slot) * 32 + lane,
+                   static_cast<long long>(sh.slots) * 32);
+  });
 }
 
 template <int VEC>
-int batch_grid(int F, int W, int S, dim3* grid) {
+int batch_grid(int F, int W, int S, unsigned int* grid) {
   static int cache[kMaxDevices];
   return static_cast<int>(frontier_batch_grid(
       relax_push_gather_batch_kernel<VEC>, cache, F, group_lanes(W, VEC), S, grid));
@@ -99,11 +107,11 @@ template <int VEC>
 int launch_batch(const float* dist, const int* row_idx, const int* count,
                  const int* row_src, const float* wgt, float* out, int F, int R,
                  int W, int P, int n_dist, int S, cudaStream_t stream) {
-  dim3 grid;
+  unsigned int grid = 0;
   const int err = batch_grid<VEC>(F, W, S, &grid);
   if (err != 0) return err;
   relax_push_gather_batch_kernel<VEC><<<grid, kThreads, 0, stream>>>(
-      dist, row_idx, count, row_src, wgt, out, F, R, W, group_lanes(W, VEC), P, n_dist);
+      dist, row_idx, count, row_src, wgt, out, F, R, W, group_lanes(W, VEC), P, n_dist, S);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -147,13 +155,8 @@ extern "C" int relax_push_gather_batch_launch(
                                n_dist, S, stream);
 }
 
-// The grid the batched entry launches for these sizes: grid[0] blocks a
-// lane on x, grid[1] = S lanes on y.
+// The blocks of the 1-D grid the batched entry launches for these sizes.
 extern "C" int relax_push_gather_batch_grid(int F, int W, int S, int vec,
                                             unsigned int* grid) {
-  dim3 g;
-  const int err = vec ? batch_grid<4>(F, W, S, &g) : batch_grid<1>(F, W, S, &g);
-  grid[0] = g.x;
-  grid[1] = g.y;
-  return err;
+  return vec ? batch_grid<4>(F, W, S, grid) : batch_grid<1>(F, W, S, grid);
 }

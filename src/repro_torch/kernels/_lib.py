@@ -234,8 +234,7 @@ def check_frontier_batch_args(kernel: str, dist, row_idx, count, row_src,
                                f"{row_src.dtype} {tuple(row_src.shape)}")
     if S % P:
         require(False, kernel, f"{S} lanes do not cover {P} ranks evenly")
-    require(S < 65536, kernel, f"{S} lanes exceed the grid's 65,535")
-    require(max(row_idx.shape[1], R, W, dist.shape[1]) < 2**31, kernel,
+    require(max(S, row_idx.shape[1], R, W, dist.shape[1]) < 2**31, kernel,
             "sizes exceed int32")
 
 

@@ -7,7 +7,13 @@ SXM at its 700 W limit, data sheet), K/V tiles through a TMA ring, p
 split into two bf16 terms so the result stays within one bf16 ulp of
 the f32 reference.  f32 stays on the CUDA cores as fp32 FMAs (67
 TFLOP/s), as the TPU kernel keeps q, k, v and p in fp32 and the f32
-path is held to 2e-5."""
+path is held to 2e-5.
+
+The f32 kernel takes a 128-row q tile a block and 64-key tiles.  Where
+those blocks leave the card's SMs short, :func:`split_plan` cuts the
+key tiles a (head, q tile) visits into chunks, a block each, and a
+second kernel folds their partials; ``ref.py`` has the same split in
+plain torch."""
 
 from __future__ import annotations
 
@@ -20,14 +26,49 @@ from repro_torch.kernels import _lib
 NAME = "flash_attention"
 HEAD_DIMS = (64, 96, 128)
 SEQ_MULTIPLE = 128  # the TPU kernel's block size; the CUDA tiles divide it
+BLOCK_Q, BLOCK_K = 128, 64  # the f32 kernel's q rows a block and keys a tile
 
 
 @functools.cache
 def _launch():
     return _lib.entry(
         "flash_attention_launch",
-        [_lib.ptr] * 4 + [_lib.c_int] * 8 + [_lib.c_float, _lib.ptr],
+        [_lib.ptr] * 4 + [_lib.c_int] * 8 + [_lib.c_float, _lib.c_int]
+        + [_lib.ptr] * 2,
     )
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def key_tiles(q_tile: int, Sq: int, Sk: int, causal: bool) -> int:
+    """Key tiles the f32 kernel visits for q tile ``q_tile``: all of
+    them, or, causal, up to the one that holds the last key its last row
+    sees (tiles wholly above the diagonal are never visited)."""
+    n = Sk // BLOCK_K
+    if causal:
+        n = min(n, (q_tile * BLOCK_Q + BLOCK_Q - 1 + Sk - Sq) // BLOCK_K + 1)
+    return n
+
+
+def chunk_bounds(n_tiles: int, n_split: int, chunk: int) -> tuple[int, int]:
+    """Key tiles [lo, hi) of chunk ``chunk`` of ``n_split``: contiguous,
+    in order, every tile in exactly one chunk."""
+    return chunk * n_tiles // n_split, (chunk + 1) * n_tiles // n_split
+
+
+def split_plan(B: int, Hq: int, Sq: int, Sk: int, causal: bool, sms: int) -> int:
+    """Key chunks a (head, q tile) of the f32 kernel: 1 where its
+    B*Hq*Sq/128 blocks fill the card's ``sms`` SMs (one block an SM),
+    else enough to fill them, at most the key tiles the lightest q tile
+    visits, so that no chunk is empty."""
+    grid = B * Hq * (-(-Sq // BLOCK_Q))
+    if grid == 0 or grid >= sms:
+        return 1
+    fewest = key_tiles(0, Sq, Sk, causal)
+    return max(1, min(fewest, -(-sms // grid)))
 
 
 def check_attention_args(q, k, v, causal: bool) -> None:
@@ -62,14 +103,23 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True) -> torch.Tensor:
     """Launch the kernel; returns (B, Hq, Sq, D) in q's dtype."""
     check_attention_args(q, k, v, causal)
     _lib.check_cuda_tensors(NAME, q=q, k=k, v=v)
+    _lib.require(all(t.data_ptr() % 16 == 0 for t in (q, k, v)), NAME,
+                 "q, k and v must start on 16 bytes (the kernels copy 16-byte chunks)")
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     if out.numel():
+        bf16 = q.dtype == torch.bfloat16
+        n_split = 1 if bf16 else split_plan(B, Hq, Sq, Sk, causal,
+                                            _sms(q.device.index))
+        part = None
+        if n_split > 1:  # each chunk's m, l and acc
+            part = torch.empty(n_split * B * Hq * Sq * (D + 2), dtype=torch.float32,
+                               device=q.device)
         rc = _launch()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, Hq, Hkv, Sq, Sk, D, int(q.dtype == torch.bfloat16),
-            int(causal), 1.0 / D ** 0.5, _lib.stream_of(q),
+            B, Hq, Hkv, Sq, Sk, D, int(bf16), int(causal), 1.0 / D ** 0.5,
+            n_split, None if part is None else part.data_ptr(), _lib.stream_of(q),
         )
         _lib.check(rc, NAME)
         _lib.count_launch(NAME)

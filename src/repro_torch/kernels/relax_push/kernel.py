@@ -7,8 +7,9 @@ is a multiple of 4 and wgt and the output start on 16 bytes, else as
 scalars.
 
 ``relax_push_gather_batch_cuda`` launches the batched entry: S = B·P
-lanes in one launch, lane s on blockIdx.y gathering its own frontier
-over rank s % P (``csrc/relax_push.cu``)."""
+lanes in one launch on one 1-D grid whose warps the lanes share by
+their live rows, lane s gathering its own frontier over rank s % P
+(``csrc/relax_push.cu``)."""
 
 from __future__ import annotations
 
@@ -61,13 +62,13 @@ def _batch_launch():
     )
 
 
-def batch_grid(F: int, W: int, S: int, vec: bool = True) -> tuple[int, int]:
-    """(blocks a lane, lanes): the grid the batched entry launches."""
-    fn = _lib.entry("relax_push_gather_batch_grid",
-                    [_lib.c_int] * 4 + [_lib.ptr])
-    grid = (ctypes.c_uint * 2)()
+def batch_grid(F: int, W: int, S: int, vec: bool = True) -> int:
+    """The blocks of the 1-D grid the batched entry launches: the
+    persistent grid, or fewer where S lanes of F rows fill fewer."""
+    fn = _lib.entry("relax_push_gather_batch_grid", [_lib.c_int] * 4 + [_lib.ptr])
+    grid = ctypes.c_uint()
     _lib.check(fn(F, W, S, int(vec), ctypes.addressof(grid)), BATCH)
-    return grid[0], grid[1]
+    return grid.value
 
 
 def relax_push_gather_batch_cuda(dist, row_idx, count, row_src, col,

@@ -7,8 +7,9 @@ is a multiple of 4 and col and wgt start on 16 bytes, else as
 scalars.
 
 ``fused_superstep_batch_cuda`` launches the batched entry: S = B·P
-lanes in one launch, lane s on blockIdx.y walking its own frontier
-over rank s % P (``csrc/fused_superstep.cu``)."""
+lanes in one launch on one 1-D grid whose warps the lanes share by
+their live rows, lane s walking its own frontier over rank s % P
+(``csrc/fused_superstep.cu``)."""
 
 from __future__ import annotations
 
@@ -64,13 +65,13 @@ def _batch_launch():
     )
 
 
-def batch_grid(F: int, W: int, S: int, vec: bool = True) -> tuple[int, int]:
-    """(blocks a lane, lanes): the grid the batched entry launches."""
-    fn = _lib.entry("fused_superstep_batch_grid",
-                    [_lib.c_int] * 4 + [_lib.ptr])
-    grid = (ctypes.c_uint * 2)()
+def batch_grid(F: int, W: int, S: int, vec: bool = True) -> int:
+    """The blocks of the 1-D grid the batched entry launches: the
+    persistent grid, or fewer where S lanes of F rows fill fewer."""
+    fn = _lib.entry("fused_superstep_batch_grid", [_lib.c_int] * 4 + [_lib.ptr])
+    grid = ctypes.c_uint()
     _lib.check(fn(F, W, S, int(vec), ctypes.addressof(grid)), BATCH)
-    return grid[0], grid[1]
+    return grid.value
 
 
 def fused_superstep_batch_cuda(dist, row_idx, count, row_src, col, wgt,

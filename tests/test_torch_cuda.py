@@ -233,6 +233,46 @@ def test_flash_attention_matches_plain(dev, case, causal):
         torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2, atol=2e-3)
 
 
+# The f32 kernel at Sq 128 over Sk 1024 to 4096 (2 to 16 blocks: its key
+# split engages) and at the fp32 twin's prefill shapes of chip_smoke.py
+# phase 8 (1,920 and 2,048 tokens, 960 and 1,024 blocks: no split); the
+# split as planned, forced off, and forced to 3 chunks (or as many as the
+# lightest q tile's key tiles)
+F32_SPLIT_CASES = [
+    (1, 8, 2, 128, 1024, 128), (1, 4, 1, 128, 2048, 96), (1, 2, 2, 128, 4096, 64),
+    (1, 8, 2, 128, 4096, 128), (2, 32, 8, 1920, 1920, 128), (2, 32, 8, 2048, 2048, 128),
+]
+
+
+@pytest.mark.parametrize("n_split", ["plan", 1, 3])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("case", F32_SPLIT_CASES)
+def test_flash_attention_f32_split_matches_plain(dev, case, causal, n_split, monkeypatch):
+    from repro_torch.kernels.flash_attention import kernel as attn
+
+    B, Hq, Hkv, Sq, Sk, D = case
+    if n_split != "plan":
+        monkeypatch.setattr(attn, "split_plan", lambda B, Hq, Sq, Sk, causal, sms: min(
+            n_split, attn.key_tiles(0, Sq, Sk, causal)))
+    r = np.random.default_rng(Sq + Sk + D + Hq)
+    q, k, v = (torch.as_tensor(r.normal(size=shape).astype(np.float32), device=dev)
+               for shape in ((B, Hq, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, D)))
+    K.reset_launch_counts()
+    out = K.mha(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["flash_attention"] == 1
+    ref = K.attention_ref(q, k, v, causal=causal)
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
+
+
+def test_flash_attention_rejects_unaligned_inputs(dev):
+    q = torch.zeros(1 + 1 * 2 * 128 * 64, device=dev)[1:].view(1, 2, 128, 64)
+    k = torch.zeros((1, 1, 128, 64), device=dev)
+    with pytest.raises(ValueError, match="16 bytes"):
+        K.flash_attention_cuda(q, k, k, causal=True)
+
+
 def bag_in_order(table, idx, w):
     """The TPU kernel's order: out += row * w for l = 0 .. L-1, each
     product and sum rounded (separate torch ops, so no FMA)."""
@@ -648,8 +688,44 @@ def test_batched_frontier_kernels_on_a_large_frontier(dev, W):
     torch.cuda.synchronize()
     assert torch.equal(fused, K.fused_superstep_batch_ref(d, i, c, rs, cl, w, n_out))
     assert torch.equal(gather, K.relax_push_gather_batch_ref(d, i, c, rs, w))
-    blocks, lanes = K.superstep_fused.kernel.batch_grid(20000, W, 16, W % 4 == 0)
-    assert lanes == 16 and blocks >= 1
+    # one 1-D grid for all 16 lanes, at most a block per 8 of their rows
+    blocks = K.superstep_fused.kernel.batch_grid(20000, W, 16, W % 4 == 0)
+    assert 1 <= blocks <= 16 * 20000 // 8
+
+
+# (lanes a rank, P, W): S = lanes·P in 1 .. 40 (past one warp's 32 lanes
+# of the grid's share scan); W 64 on 16-byte strips, 33 and 5 scalar
+SKEWED_CASES = [(1, 1, 64), (2, 1, 64), (3, 1, 33), (8, 1, 64), (4, 2, 5),
+                (8, 2, 64), (8, 2, 33), (20, 2, 64)]
+
+
+@pytest.mark.parametrize("lanes,P,W", SKEWED_CASES)
+def test_batched_frontier_kernels_on_skewed_lanes(dev, lanes, P, W):
+    """Lanes at 0 and 1 beside one lane at F (and one at F - 1): the
+    lane near F takes most of the grid; rows listed past a lane's count
+    are real rows the kernels must not visit."""
+    F = 5000
+    dist, row_idx, _, row_src, col, wgt, n_out = batch_case(
+        lanes * 100 + P * 10 + W, lanes, P, 3000, 4000, W, F, "real_tail")
+    S = lanes * P
+    counts = np.asarray([(0, 1, 0)[s % 3] for s in range(S)], np.int32)
+    counts[S // 2] = F
+    if S > 2:
+        counts[-1] = F - 1
+    d, i, c, rs, cl, w = on(dev, dist, row_idx, counts, row_src, col, wgt)
+    K.reset_launch_counts()
+    fused = K.fused_superstep_batch_cuda(d, i, c, rs, cl, w, n_out)
+    gather = K.relax_push_gather_batch_cuda(d, i, c, rs, cl, w)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["fused_superstep_batch"] == 1
+    assert K.launch_counts()["relax_push_gather_batch"] == 1
+    assert torch.equal(fused, K.fused_superstep_batch_ref(d, i, c, rs, cl, w, n_out))
+    assert torch.equal(gather, K.relax_push_gather_batch_ref(d, i, c, rs, w))
+    for s in range(S):  # S single launches on the same lanes
+        q = s % P
+        args = (d[s], i[s], c[s:s + 1], rs[q], cl[q], w[q])
+        assert torch.equal(fused[s], K.fused_superstep_cuda(*args, n_out))
+        assert torch.equal(gather[s], K.relax_push_gather_cuda(*args))
 
 
 def test_batched_wrappers_reject_bad_inputs(dev):
