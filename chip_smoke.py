@@ -60,6 +60,17 @@ Phases (any failure exits non-zero):
      warm single solves, the push batch against the fused lanes, then 4
      improving edge updates refreshed by warm restarts (resolve), 3
      refreshed entries and a landmark against cold solves and Dijkstra
+ 12. adaptive execution on phase 2's graph: (a) the flight recorder
+     (``/trace``) on the main and push paths, state and metrics equal to
+     phases 4 and 5, the trace reconciling, one launch a push superstep,
+     warm wall within 1.15x of the untraced solve's (min of 3, in
+     turns), host reads at most the untraced solve's plus one a segment
+     (torch.cuda.set_sync_debug_mode); (b) ``/adapt:rho`` from
+     frontier_cap 1024 (equals Dijkstra, grows the cap) and
+     ``/adapt:static`` (equals phase 4); (c) ``/q:bf16`` and ``/q:u16``
+     (equal Dijkstra after the repair loop); (d) the auto-tuner
+     (objective wall, default grid) and 50 Zipf queries through
+     ``Router(tuned=...)``, 8 sampled answers against Dijkstra
 
 Phase 3 also holds the two frontier kernels' batched entries against
 their plain versions and against 8 single launches at two supersteps of
@@ -75,6 +86,7 @@ repository beside it, it fails before printing any result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -138,6 +150,13 @@ SERVE_MAX_BATCH, SERVE_MAX_WAIT_S, SERVE_CACHE_MB = 8, 0.010, 256
 SERVE_UPDATES = 4
 SERVE_SAMPLED = 8   # single-source answers held against Dijkstra
 SERVE_FRESH = 3     # refreshed cache entries held against cold solves
+# adaptive execution, the flight recorder, quantized exchange and the
+# auto-tuner (phase 12): the reference's `launch/obs.py record` gate
+TRACE_GATE = 1.15
+TRACE_REPEATS = 3
+ADAPT_CAP0 = 1024   # /adapt:rho starts here and grows the cap
+TUNED_QUERIES = 50
+TUNED_SAMPLED = 8
 
 
 def log(msg: str) -> None:
@@ -1514,6 +1533,247 @@ def query_service(g, dev) -> tuple[int, int]:
     return serve_batch_launches + fused_batch, push_launches
 
 
+def push_supersteps(trace) -> int:
+    """Supersteps of a traced one-rank solve that ran the push relax (a
+    frontier kernel's launch): those whose eligible rows fit the cap of
+    their segment."""
+    steps = out = 0
+    for seg in trace.segments:
+        rows = trace.rows[steps:steps + seg["supersteps"]]
+        out += sum(r <= seg["frontier_cap"] for r in rows)
+        steps += seg["supersteps"]
+    return out
+
+
+def host_reads(fn) -> int:
+    """Synchronizing CUDA operations (host reads and pageable copies)
+    while ``fn`` runs, as torch.cuda.set_sync_debug_mode("warn") reports
+    them."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchronizing" in str(w.message) for w in caught)
+
+
+def warm_walls(solvers, problem) -> list[float]:
+    """Min over TRACE_REPEATS warm solves of each solver, taken in turns."""
+    import torch
+
+    best = [float("inf")] * len(solvers)
+    for _ in range(TRACE_REPEATS):
+        for i, s in enumerate(solvers):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s.solve(problem)
+            torch.cuda.synchronize()
+            best[i] = min(best[i], time.perf_counter() - t0)
+    return best
+
+
+def adaptive_paths(g, pg, truth, base_sol, base_push, card_line) -> tuple[int, int]:
+    """Phase 12: the flight recorder (/trace) on the main and push paths,
+    the adaptive controller (/adapt:rho from a small cap, /adapt:static),
+    the quantized exchange (/q:bf16, /q:u16) and the spec auto-tuner
+    behind the Router, on phase 2's graph.  Returns the launches of
+    fused_superstep and relax_push_gather on these paths."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.api import Problem, SingleSource, Solver, SolverConfig
+    from repro_torch.launch.serve import build_query_mix
+    from repro_torch.obs import MetricsRegistry, Tracer, use_tracer
+    from repro_torch.serve import Router
+    from repro_torch.tune import AutoTuner
+
+    problem = Problem(pg, SingleSource(SOURCE))
+    fused_total = push_total = 0
+
+    # ---- (a) the flight recorder, fused and push --------------------------
+    for label, kernel, untraced_sol, cfg in (
+        ("fused", "fused_superstep", base_sol, SolverConfig.from_spec(SPEC)),
+        ("push", "relax_push_gather", base_push,
+         SolverConfig.from_spec("delta:5/sparse", relax_impl="push")),
+    ):
+        base = Solver(cfg, device="cuda")
+        traced = Solver(dataclasses.replace(cfg, trace=True), device="cuda")
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sol = traced.solve(problem)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = K.launch_counts()[kernel]
+        tr, m = sol.trace, sol.metrics
+        if sol.state.tobytes() != untraced_sol.state.tobytes():
+            fail(f"traced {label} solve: state differs from the untraced solve")
+        if m.as_dict() != untraced_sol.metrics.as_dict():
+            fail(f"traced {label} solve: metrics differ: {m} vs {untraced_sol.metrics}")
+        tr.reconcile(m)
+        if tr.supersteps != m.supersteps or tr.host_sweeps:
+            fail(f"traced {label} solve: {tr.supersteps} records for "
+                 f"{m.supersteps} supersteps")
+        push_steps = push_supersteps(tr)
+        if launches != push_steps or launches == 0:
+            fail(f"traced {label} solve: {launches} {kernel} launches, "
+                 f"{push_steps} push supersteps")
+        wall_u, wall_t = warm_walls([base, traced], problem)
+        reads_u = host_reads(lambda: base.solve(problem))
+        reads_t = host_reads(lambda: traced.solve(problem))
+        log(f"trace ({label}) {traced.config.name}: {m.supersteps} supersteps in "
+            f"{len(tr.segments)} segments, {sum(tr.sparse_used)} sparse exchanges, "
+            f"{push_steps} push supersteps = {launches} {kernel} launches; "
+            f"state and metrics equal the untraced solve, the trace reconciles; "
+            f"cold traced wall {wall:.4f} s; warm (min of {TRACE_REPEATS}, in "
+            f"turns) untraced {wall_u:.4f} s, traced {wall_t:.4f} s = "
+            f"{wall_t / wall_u:.3f}x (gate {TRACE_GATE}x); host reads untraced "
+            f"{reads_u}, traced {reads_t} (+{reads_t - reads_u} for "
+            f"{len(tr.segments)} segments) on {card_line}")
+        if wall_t > TRACE_GATE * wall_u:
+            fail(f"traced {label} solve {wall_t:.4f} s exceeds {TRACE_GATE}x "
+                 f"the untraced {wall_u:.4f} s")
+        if reads_t > reads_u + len(tr.segments):
+            fail(f"traced {label} solve made {reads_t} host reads, more than "
+                 f"the untraced {reads_u} plus one a segment")
+        if label == "fused":
+            fused_total += launches
+            # the untraced solve's host reads beyond three a superstep
+            fixed_reads = reads_u - 3 * m.supersteps
+            untraced_wall = wall_u
+            main = base
+            with device_profile(f"one warm traced solve, {traced.config.name}",
+                                top=4, kernel=kernel):
+                traced.solve(problem)
+                torch.cuda.synchronize()
+        else:
+            push_total += launches
+
+    # ---- (b) the adaptive controller ---------------------------------------
+    rho = Solver(SolverConfig.from_spec(SPEC + "/adapt:rho",
+                                        frontier_cap=ADAPT_CAP0), device="cuda")
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sol = rho.solve(problem)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = K.launch_counts()["fused_superstep"]
+    st = rho.stats()["adapt"]
+    m = sol.metrics
+    if not np.array_equal(sol.state, truth) or not m.converged:
+        fail(f"/adapt:rho: state differs from Dijkstra at "
+             f"{int((sol.state != truth).sum())} vertices (converged {m.converged})")
+    if m.retraces < 1 or st["cap_growths"] < 1 or launches == 0:
+        fail(f"/adapt:rho from cap {ADAPT_CAP0}: retraces {m.retraces}, "
+             f"cap growths {st['cap_growths']}, {launches} fused launches")
+    fused_total += launches
+    # the same run recorded: the tunables of its last segment
+    rec = Solver(SolverConfig.from_spec(SPEC + "/adapt:rho/trace",
+                                        frontier_cap=ADAPT_CAP0), device="cuda")
+    last = rec.solve(problem).trace.segments[-1]
+    (wall_rho,) = warm_walls([rho], problem)
+    reads_a = host_reads(lambda: rho.solve(problem))
+    log(f"adapt {rho.config.name} from frontier_cap {ADAPT_CAP0}: equals "
+        f"Dijkstra, converged; {m.supersteps} supersteps (main path "
+        f"{base_sol.metrics.supersteps}) in {st['segments']} segments, "
+        f"retraces {m.retraces}, cap growths {st['cap_growths']}, final cap "
+        f"{last['frontier_cap']}, final delta {last['delta']}, "
+        f"{launches} fused_superstep launches; sparse fallbacks "
+        f"{m.sparse_fallbacks} (main path {base_sol.metrics.sparse_fallbacks}); "
+        f"cold wall {wall:.4f} s, warm {wall_rho:.4f} s beside the main path's "
+        f"warm {untraced_wall:.4f} s; host reads {reads_a} (3 a superstep "
+        f"+ {reads_a - 3 * m.supersteps} against the untraced solve's "
+        f"{fixed_reads} + segments {st['segments']}) on {card_line}")
+    if reads_a - 3 * m.supersteps > fixed_reads + st["segments"]:
+        fail(f"/adapt:rho made {reads_a} host reads, more than three a "
+             f"superstep plus one a segment")
+    static = Solver(SPEC + "/adapt:static", device="cuda")
+    K.reset_launch_counts()
+    sol = static.solve(problem)
+    launches = K.launch_counts()["fused_superstep"]
+    fused_total += launches
+    if sol.state.tobytes() != base_sol.state.tobytes() or \
+            sol.metrics.as_dict() != base_sol.metrics.as_dict() or sol.metrics.retraces:
+        fail(f"/adapt:static differs from the main path: {sol.metrics} vs "
+             f"{base_sol.metrics}")
+    wall_u, wall_static = warm_walls([main, static], problem)
+    log(f"adapt {static.config.name}: state and metrics equal the main path's, "
+        f"retraces 0, {launches} fused_superstep launches; warm wall (min of "
+        f"{TRACE_REPEATS}, in turns) {wall_static:.4f} s beside the main "
+        f"path's {wall_u:.4f} s on {card_line}")
+
+    # ---- (c) the quantized exchange ------------------------------------------
+    bm = base_sol.metrics
+    for payload in ("bf16", "u16"):
+        q = Solver(f"{SPEC}/q:{payload}", device="cuda")
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sol = q.solve(problem)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = K.launch_counts()["fused_superstep"]
+        fused_total += launches
+        m = sol.metrics
+        if not np.array_equal(sol.state, truth) or not m.converged:
+            fail(f"/q:{payload}: state differs from Dijkstra at "
+                 f"{int((sol.state != truth).sum())} vertices")
+        if launches == 0:
+            fail(f"/q:{payload} never launched fused_superstep")
+        (wall_q,) = warm_walls([q], problem)
+        log(f"quantized {q.config.name}: equals Dijkstra, converged; "
+            f"repair_sweeps {m.repair_sweeps}, supersteps {m.supersteps} (main "
+            f"path {bm.supersteps}), exchange_bytes {m.exchange_bytes} (main path "
+            f"{bm.exchange_bytes}; one rank moves none), {launches} "
+            f"fused_superstep launches; cold wall {wall:.4f} s, warm "
+            f"{wall_q:.4f} s beside {untraced_wall:.4f} s on {card_line}")
+
+    # ---- (d) the auto-tuner behind the Router --------------------------------
+    t0 = time.perf_counter()
+    tuner = AutoTuner(objective="wall", device="cuda")
+    rec = tuner.search(g)
+    tune_s = time.perf_counter() - t0
+    log(f"auto-tuner (objective wall, {tuner.pilots_run} pilots, grid "
+        f"{len(tuner.orderings)}x{len(tuner.exchanges)}x{len(tuner.partitions)}) "
+        f"in {tune_s:.1f} s: winner {rec.spec!r}, score {rec.score:.4f} s")
+    for row in rec.leaderboard:
+        log(f"  {row['spec']:24s} score {row['score']:.4f} s, supersteps "
+            f"{row['supersteps']}, converged {row['converged']}")
+    registry = MetricsRegistry()
+    router = Router(Solver(SPEC, device="cuda"), g, tuned=tuner.cache,
+                    max_batch=SERVE_MAX_BATCH, max_wait_s=SERVE_MAX_WAIT_S)
+    queries = build_query_mix(g, TUNED_QUERIES, SERVE_ZIPF, SEED)
+    with use_tracer(Tracer(registry=registry)):
+        t0 = time.perf_counter()
+        answers = router.serve(queries)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if router.stats.tuned_batches == 0:
+        fail(f"the Router served no flush through the tuned spec: "
+             f"{router.stats.as_dict()}")
+    full = [a for a in answers if a.query.target is None]
+    picked = full[:: max(1, len(full) // TUNED_SAMPLED)][:TUNED_SAMPLED]
+    rows_ = dijkstra_rows(g, [a.query.source for a in picked])
+    for a, row in zip(picked, rows_):
+        if not np.array_equal(a.solution.state, row):
+            fail(f"tuned answer for source {a.query.source} differs from Dijkstra")
+    lines = registry.expose().count("\n")
+    log(f"tuned router: {len(answers)} queries in {wall:.3f} s through "
+        f"{router.stats.tuned_batches} tuned flushes of {router.stats.batches} "
+        f"(spec {rec.spec!r}); {len(picked)} sampled answers equal Dijkstra; "
+        f"MetricsRegistry.expose() {lines} lines on {card_line}")
+    return fused_total, push_total
+
+
 def main() -> None:
     try:
         import torch
@@ -1765,6 +2025,12 @@ def main() -> None:
     batch_rows[0]["launches"], batch_rows[1]["launches"] = query_service(g, dev)
     rows += batch_rows
     log(f"phase 11 took {time.perf_counter() - t0:.1f} s")
+
+    # ---- 12. adaptive execution, the recorder, /q and the tuner ----------
+    t0 = time.perf_counter()
+    fused12, push12 = adaptive_paths(g, pg, truth, sol, sol_p, card_line)
+    log(f"phase 12 took {time.perf_counter() - t0:.1f} s: {fused12} "
+        f"fused_superstep and {push12} relax_push_gather launches on its paths")
 
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s on {card_line}")
     print(json.dumps({"kernels": rows}), flush=True)

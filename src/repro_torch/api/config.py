@@ -18,10 +18,14 @@ order beside the exchange and a trailing partitioner::
 
 ``/fused`` selects the fused-superstep kernel (``relax_impl="fused"``);
 ``relax_impl="push"`` (the relax_push gather kernel) has no segment.
-``/q``, ``/adapt`` and ``/trace`` parse and round-trip exactly as in
-the JAX package's ``repro.api.config``, but solving with them raises:
-they are not yet ported.  ``config.name`` is identical to the JAX
-package's for every spec.
+``/q[:dtype]`` (``bf16``, bare ``/q``; or ``u16``) quantizes the sparse
+exchange's values, which the solver's repair loop makes exact;
+``/adapt[:policy]`` (bare: ``rho``) runs the segment engine under a
+:mod:`repro_torch.tune` policy that retunes Δ, the frontier cap and the
+exchange between segments; ``/trace`` runs it under the static policy
+to record every superstep (``Solution.trace``).  All of them solve at
+any rank count, on the card or the CPU; ``solve_batch`` refuses them.
+``config.name`` is identical to the JAX package's for every spec.
 """
 
 from __future__ import annotations
@@ -35,38 +39,9 @@ from repro_torch.core.frontier import PAYLOAD_MODES
 from repro_torch.core.ordering import suggest
 from repro_torch.core.processing import ProcessingFn
 from repro_torch.graph.partition import canonical_partitioner
+from repro_torch.tune.policies import canonical_policy
 
 EXCHANGES = EXCHANGE_MODES
-
-#: adaptive-controller policies the JAX package registers, for parsing
-ADAPT_POLICIES = ("rho", "static")
-
-
-def canonical_policy(spec: str) -> str:
-    """Validate an ``/adapt:<policy>`` spec and return its canonical
-    form (``rho[:target_frac]`` with the fraction in (0, 1], or
-    ``static``)."""
-    spec = str(spec).strip()
-    name, _, arg = spec.partition(":")
-    name, arg = name.strip(), (arg.strip() if ":" in spec else None)
-    if name not in ADAPT_POLICIES:
-        raise ValueError(
-            f"unknown adapt policy {name!r}; registered policies: "
-            f"{tuple(sorted(ADAPT_POLICIES))}{suggest(name, ADAPT_POLICIES)}"
-        )
-    if name == "static" and arg is not None:
-        raise ValueError(f"static policy takes no argument, got {arg!r}")
-    if name == "rho" and arg is not None:
-        try:
-            frac = float(arg)
-        except ValueError:
-            raise ValueError(
-                f"rho policy arg must be a float target fraction: {arg!r}"
-            ) from None
-        if not 0.0 < frac <= 1.0:
-            raise ValueError(f"rho target_frac must be in (0, 1]: {frac}")
-    return name if arg is None else f"{name}:{arg}"
-
 
 @dataclasses.dataclass(frozen=True)
 class SolverConfig:

@@ -15,12 +15,20 @@ package vmaps its loop); ``resolve`` is the self-stabilization
 dividend (paper §II): after a perturbation that only improves
 candidate states (weight drops, new edges, added sources) the previous
 fixpoint is a valid start, and one bootstrap sweep over every edge
-regenerates the candidates the perturbation improved.  The quantized
-and adaptive solves are not yet ported.
+regenerates the candidates the perturbation improved.
+
+``/adapt[:policy]`` and ``/trace`` specs solve in segments
+(:func:`repro_torch.tune.run_adaptive`): a policy retunes Δ, the
+frontier cap and the exchange between segments, and the flight
+recorder keeps every superstep's window (``Solution.trace``).
+``/q:{bf16,u16}`` specs exchange round-up quantized values, and a
+repair loop of re-verification sweeps and exact warm restarts makes
+their final state exact.  ``solve_batch`` refuses all three.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import warnings
 from collections import OrderedDict
@@ -48,9 +56,16 @@ from repro_torch.device import resolve_device
 from repro_torch.graph.formats import Graph, graph_fingerprint
 from repro_torch.graph.partition import DeviceELL, PartitionedGraph, partition_graph
 from repro_torch.obs import trace as obs
+from repro_torch.obs.recorder import FlightRecorder, SolveTrace
+from repro_torch.tune.controller import run_adaptive
+from repro_torch.tune.policies import StaticPolicy, make_tune_policy
 
 # consecutive sparse-overflow supersteps before the frontier_cap warning
 OVERFLOW_WARN_STREAK = 3
+
+# hard cap on quantized-payload repair restarts (each restart strictly
+# lowers some committed value, so this is a safety net, not a knob)
+QUANT_REPAIR_MAX_SWEEPS = 25
 
 
 def batch_bucket(b: int) -> int:
@@ -114,7 +129,8 @@ def _warn_metrics(m: WorkMetrics, ecfg: EngineConfig, pg: PartitionedGraph,
             f"{m.overflow_streak} consecutive supersteps (spec "
             f"{spec!r}: row_cap={row_cap}, slot_cap={slot_cap}), each "
             "falling back to the dense exchange; raise frontier_cap "
-            f"(try {grow_frontier_cap(pg.rows_per_rank, row_cap)})",
+            f"(try {grow_frontier_cap(pg.rows_per_rank, row_cap)}) or "
+            "solve with /adapt:rho for automatic cap growth",
             RuntimeWarning,
             stacklevel=4,
         )
@@ -154,6 +170,8 @@ class Solution:
     config: SolverConfig
     padded: np.ndarray         # (P, n_local) committed state, padded
     pg: Optional[PartitionedGraph] = None
+    # per-superstep flight record ('/trace' specs only)
+    trace: Optional[SolveTrace] = None
 
     @property
     def graph(self):
@@ -201,6 +219,10 @@ class Solver:
         # id(graph) -> (graph, fingerprint, PartitionedGraph); bounded LRU
         self._pg_cache: "OrderedDict[int, tuple]" = OrderedDict()
         self._pg_cache_size = 8
+        # adaptive-solve counters ('/adapt' specs only)
+        self._adapt_stats = dict(
+            solves=0, segments=0, retraces=0, cap_growths=0
+        )
 
     def partition(self, graph: Union[Graph, PartitionedGraph]) -> PartitionedGraph:
         if isinstance(graph, PartitionedGraph):
@@ -233,12 +255,13 @@ class Solver:
         return pg
 
     def stats(self) -> dict:
-        """The partition memo's occupancy.  The port runs its engine
-        eagerly and keeps no compiled-engine cache, so there are no
-        engine-cache counters to report."""
+        """The partition memo's occupancy and the adaptive solves'
+        counters.  The port runs its engine eagerly and keeps no
+        compiled-engine cache, so there are no engine-cache counters."""
         return dict(
             partition_memo_size=len(self._pg_cache),
             partition_memo_capacity=self._pg_cache_size,
+            adapt=dict(self._adapt_stats),
         )
 
     def _state(self, planes):
@@ -251,10 +274,7 @@ class Solver:
             ecfg = self.config.engine_config(p)
             D0, T0, L0 = self._state(
                 initial_state(pg, p, problem.source_items()))
-            with obs.span("solver.engine"):
-                res = run_engine(ecfg, pg.to(self.device), pg.n_local,
-                                 D0, T0, L0)
-            sol = self._pack(problem, pg, ecfg, res.D.cpu().numpy(), *res[1:])
+            sol = self._run(problem, pg, ecfg, D0, T0, L0, engine_span=True)
             sp.set(supersteps=sol.metrics.supersteps,
                    converged=sol.metrics.converged)
             return sol
@@ -384,15 +404,131 @@ class Solver:
                        dim=1)
         # warm items restart the KLA level attribute at 0 (a fresh wave)
         L0 = torch.where(p.better(T0, D0), 0.0, float("inf"))
-        res = run_engine(ecfg, ell, pg.n_local, D0, T0, L0)
-        sol = self._pack(problem, pg, ecfg, res.D.cpu().numpy(), *res[1:])
+        sol = self._run(problem, pg, ecfg, D0, T0, L0, engine_span=False)
         # the bootstrap sweep: one superstep's worth of full-graph
         # relaxation, outside the engine
         sol.metrics.relaxations += pg.m
         sol.metrics.supersteps += 1
+        if sol.trace is not None:
+            # the sweep has no engine superstep window; count it so
+            # SolveTrace.reconcile still balances against the metrics
+            sol.trace.host_sweeps += 1
         sp.set(supersteps=sol.metrics.supersteps,
                converged=sol.metrics.converged)
         return sol
+
+    def _run(self, problem, pg, ecfg, D0, T0, L0, engine_span) -> Solution:
+        """Solve from the (P, n_local+1) state on the solver's device:
+        the segment engine for ``/adapt`` and ``/trace``, the repair
+        loop for ``/q``, else one engine run (in a ``solver.engine``
+        span if ``engine_span``, as the JAX package's ``solve`` has)."""
+        if ecfg.adapt_window > 0:
+            return self._solve_adaptive(problem, pg, ecfg, D0, T0, L0)
+        if ecfg.payload != "exact":
+            return self._solve_quantized(problem, pg, ecfg, D0, T0, L0)
+        with obs.span("solver.engine") if engine_span else contextlib.nullcontext():
+            res = run_engine(ecfg, pg.to(self.device), pg.n_local, D0, T0, L0)
+        return self._pack(problem, pg, ecfg, res.D.cpu().numpy(), *res[1:])
+
+    def _solve_adaptive(self, problem, pg, ecfg, D0, T0, L0) -> Solution:
+        """Segmented solve: ``/adapt`` (a fresh policy instance a solve
+        retunes the tunables between segments), ``/trace`` (the static
+        policy, only to publish the superstep windows the flight
+        recorder gathers into ``Solution.trace``), or both."""
+        if self.config.adapt is not None:
+            policy = make_tune_policy(self.config.adapt)
+        else:  # pure /trace: observe without intervening
+            policy = StaticPolicy()
+        recorder = (
+            FlightRecorder(self.config.name) if self.config.trace else None
+        )
+        D, m, report = run_adaptive(
+            ecfg, pg, pg.to(self.device), policy, D0, T0, L0,
+            on_window=recorder.on_window if recorder is not None else None,
+        )
+        if self.config.adapt is not None:
+            st = self._adapt_stats
+            st["solves"] += 1
+            st["segments"] += report.segments
+            st["retraces"] += report.retraces
+            st["cap_growths"] += report.cap_growths
+        padded = D.cpu().numpy()
+        return Solution(
+            state=pg.unpermute(padded.reshape(-1)),
+            metrics=m,
+            problem=problem,
+            config=self.config,
+            padded=padded,
+            pg=pg,
+            trace=recorder.finish(m) if recorder is not None else None,
+        )
+
+    def _solve_quantized(self, problem, pg, ecfg, D0, T0, L0) -> Solution:
+        """Quantized-payload (``/q:...``) solve and its exact repair loop.
+
+        The quantized exchange only inflates candidates (round-up codes;
+        a code that fails its sender's check decodes to +inf), so the
+        engine converges to a state pointwise >= the exact fixpoint,
+        with the initial workitems committed exactly.  A
+        re-verification sweep (``_bootstrap_candidates``, on the
+        device) then either certifies it (no edge improves a committed
+        value, which with exact initial commits pins the least
+        fixpoint) or seeds an exact warm restart from the improving
+        candidates.  Each restart strictly lowers some committed value,
+        so the loop ends; the final state equals an exact solve's.
+        Each sweep counts as one superstep of ``m`` relaxations that
+        moves no exchange bytes."""
+        p = problem.processing_fn
+        ell = pg.to(self.device)
+        nl = pg.n_local
+        res = run_engine(ecfg, ell, nl, D0, T0, L0)
+        D, active = res.D, res.active
+        it_t, commits_t, relax_t, classes_t = res[1:5]
+        fallbacks_t, streak_max = res.fallbacks, res.max_streak
+        worst_col = torch.full((pg.n_parts, 1), float(p.worst),
+                               dtype=torch.float32, device=self.device)
+        sweeps = verifies = 0
+        while active == 0:  # a truncated run skips the repair (warned)
+            T_full = _bootstrap_candidates(ell, nl, p, D)
+            verifies += 1
+            if not bool(p.better(T_full, D.reshape(-1)).any()):
+                break  # certified: the exact least fixpoint
+            if sweeps >= QUANT_REPAIR_MAX_SWEEPS:
+                warnings.warn(
+                    f"quantized repair loop hit {QUANT_REPAIR_MAX_SWEEPS} "
+                    "restarts without certifying the exact fixpoint; the "
+                    "returned state may retain inflated values",
+                    RuntimeWarning,
+                    stacklevel=3,
+                )
+                break
+            sweeps += 1
+            obs.event("repair_sweep", sweep=sweeps)
+            D0r = torch.cat([D, worst_col], dim=1)
+            T0r = torch.cat([T_full.reshape(pg.n_parts, nl), worst_col], dim=1)
+            L0r = torch.where(p.better(T0r, D0r), 0.0, float("inf"))
+            res = run_engine(ecfg, ell, nl, D0r, T0r, L0r)
+            D, active = res.D, res.active
+            it_t += res.supersteps
+            commits_t += res.commits
+            relax_t += res.relaxations
+            classes_t += res.classes
+            fallbacks_t += res.fallbacks
+            streak_max = max(streak_max, res.max_streak)
+        m = _finish_metrics(pg, ecfg, it_t, commits_t, relax_t, classes_t,
+                            active, fallbacks_t, streak_max)
+        m.relaxations += pg.m * verifies
+        m.supersteps += verifies
+        m.repair_sweeps = sweeps
+        padded = D.cpu().numpy()
+        return Solution(
+            state=pg.unpermute(padded.reshape(-1)),
+            metrics=m,
+            problem=problem,
+            config=self.config,
+            padded=padded,
+            pg=pg,
+        )
 
     def _pack(self, problem, pg, ecfg, padded, it, commits, relax, classes,
               active, fallbacks, overflow_streak) -> Solution:

@@ -23,11 +23,19 @@ from repro_torch.core.engine import (
     RELAX_IMPLS,
     EngineConfig,
     EngineResult,
+    Segment,
+    SegmentResult,
     initial_state,
     initial_state_batch,
     run_engine,
+    run_segment,
 )
-from repro_torch.core.metrics import LatencyStats, WorkMetrics, model_time_s
+from repro_torch.core.metrics import (
+    LatencyStats,
+    SuperstepWindow,
+    WorkMetrics,
+    model_time_s,
+)
 from repro_torch.core.ordering import (
     KLA,
     Chaotic,
@@ -45,8 +53,9 @@ __all__ = [
     "LEVELS", "Hierarchy", "as_hierarchy", "make_hierarchy",
     "paper_variant_specs",
     "EXCHANGE_MODES", "RELAX_IMPLS", "EngineConfig", "EngineResult",
-    "initial_state", "initial_state_batch", "run_engine",
-    "LatencyStats", "WorkMetrics", "model_time_s",
+    "Segment", "SegmentResult", "initial_state", "initial_state_batch",
+    "run_engine", "run_segment",
+    "LatencyStats", "SuperstepWindow", "WorkMetrics", "model_time_s",
     "KLA", "Chaotic", "DeltaStepping", "Dijkstra", "Ordering", "TopK",
     "make_ordering", "register_ordering",
     "BFS", "CC", "SSSP", "SSWP", "ProcessingFn",

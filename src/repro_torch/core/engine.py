@@ -24,11 +24,24 @@ superstep:
      the pending count is large),
   6. fold into T and count the pending workitems (termination).
 
-The loop runs eagerly and reads the pending count, the frontier's
-overflow flags and the sparse-exchange vote on the host every
-superstep.  State with a leading lane axis runs B queries at once, as
-the JAX package's ``vmap`` of its loop.  State, metrics and every
-decision match the JAX package's ``repro.core.engine`` bit for bit.
+The loop runs eagerly.  The host reads three things a superstep: the
+frontier's row-overflow flag (dense or push relax), the sparse
+exchange's vote with the capacity-overflow flag, and the pending count;
+the work counters stay on the device and are read once a run.  State
+with a leading lane axis runs B queries at once, as the JAX package's
+``vmap`` of its loop.
+
+:func:`run_segment` is the adaptive engine's entry (``/adapt``,
+``/trace``; ``EngineConfig.adapt_window > 0``): at most ``limit``
+supersteps from a carried (active, last class key, overflow streak),
+with the root Δ and the exchange choice given per segment, returning
+the full state and the segment's per-superstep window (pending,
+eligible, rows, sparse used).  Pending and the sparse choice are values
+the host reads anyway; eligible and rows stay on the device and come
+back with the counters in one host read a segment.
+
+State, metrics and every decision match the JAX package's
+``repro.core.engine`` bit for bit.
 """
 
 from __future__ import annotations
@@ -48,7 +61,7 @@ from repro_torch.core.frontier import (
     sparse_payload,
     unpack_combine,
 )
-from repro_torch.core.ordering import suggest
+from repro_torch.core.ordering import DeltaStepping, suggest
 from repro_torch.core.processing import SSSP, ProcessingFn
 from repro_torch.graph.partition import DeviceELL, PartitionedGraph
 from repro_torch.kernels import (
@@ -81,9 +94,11 @@ class EngineConfig:
     # sparse path (None = rows/8)
     frontier_cap: Optional[int] = None
     relax_impl: str = "ref"
-    # 'exact' only; quantized payloads parse but are not ported
+    # sparse-exchange payload (frontier.PAYLOAD_MODES): 'exact', or the
+    # round-up 'bf16' / 'u16' codes the solver's repair loop makes exact
     payload: str = "exact"
-    # > 0 selects the adaptive segment engine, which is not ported
+    # > 0: the adaptive segment engine (run_segment), at most this many
+    # supersteps a segment
     adapt_window: int = 0
 
     def __post_init__(self):
@@ -117,6 +132,39 @@ class EngineConfig:
     @property
     def hierarchy(self) -> Hierarchy:
         return self.policy
+
+
+class Segment(NamedTuple):
+    """What an adaptive segment starts from and runs with."""
+
+    active: int        # pending workitems carried in
+    last_key: object   # the last root class key (float or f32 tensor)
+    streak: int        # consecutive capacity overflows carried in
+    limit: int         # at most this many supersteps
+    delta: Optional[float]  # the root Δ (None: the spec's ordering)
+    force_ex: int      # 0 the mode's rule, 1 force sparse, 2 force dense
+
+
+class SegmentResult(NamedTuple):
+    """An adaptive segment's state (with the dummy slot, for the next
+    segment), its counters and its per-superstep window."""
+
+    D: torch.Tensor    # (P, n_local+1)
+    T: torch.Tensor
+    L: torch.Tensor
+    supersteps: int
+    commits: int
+    relaxations: int
+    classes: int
+    active: int
+    fallbacks: int
+    last_key: torch.Tensor  # (1,) f32 on the state's device
+    streak: int
+    max_streak: int
+    pending: list      # pending workitems after each superstep
+    eligible: list     # eligible-class size per superstep
+    rows: list         # eligible ELL rows per superstep
+    sparse_used: list  # 1 iff the sparse exchange ran
 
 
 class EngineResult(NamedTuple):
@@ -164,14 +212,50 @@ def run_engine(
     sparse route a kernel launches once a superstep for all B·P (lane,
     rank) pairs (the batched entry); state without a lane axis launches
     the single entry once a rank."""
-    if cfg.payload != "exact":
-        raise NotImplementedError(
-            f"quantized payload {cfg.payload!r} (/q) is not yet ported"
-        )
     if cfg.adapt_window > 0:
-        raise NotImplementedError(
-            "the adaptive segment engine (/adapt, /trace) is not yet ported"
+        raise ValueError(
+            "an adaptive engine config (adapt_window > 0) runs in "
+            "segments: use run_segment"
         )
+    return _run(cfg, ell, n_local, D, T, L, None)
+
+
+def run_segment(
+    cfg: EngineConfig,
+    ell: DeviceELL,
+    n_local: int,
+    D: torch.Tensor,
+    T: torch.Tensor,
+    L: torch.Tensor,
+    seg: Segment,
+) -> SegmentResult:
+    """One adaptive segment from the (P, n_local+1) state: at most
+    ``seg.limit`` supersteps while work is pending, with the root Δ
+    ``seg.delta`` (the key ``floor(T / Δ)`` with Δ a float32 tensor,
+    the op sequence of ``DeltaStepping.class_key``, so it equals the
+    static engine's bit for bit while Δ is the spec's) and the exchange
+    override ``seg.force_ex`` (1 forces sparse, the capacity veto still
+    applying; 2 forces dense).  Counters start at zero, the pending
+    count, class key and overflow streak from ``seg``.  One lane only:
+    the JAX package refuses batched adaptive engines too."""
+    if cfg.adapt_window <= 0:
+        raise ValueError(
+            f"run_segment needs an adaptive engine config (adapt_window "
+            f"> 0): {cfg.adapt_window}"
+        )
+    if D.dim() != 2:
+        raise ValueError(
+            "adaptive segment engines do not support batched sources; "
+            "solve one query at a time"
+        )
+    if seg.force_ex not in (0, 1, 2):
+        raise ValueError(f"force_ex must be 0, 1 or 2: {seg.force_ex}")
+    return _run(cfg, ell, n_local, D, T, L, seg)
+
+
+def _run(cfg, ell, n_local, D, T, L, seg):
+    """The superstep loop of :func:`run_engine` (``seg`` None) and of
+    :func:`run_segment`."""
     lanes = D.dim() == 3
     if not lanes:
         D, T, L = D[None], T[None], L[None]
@@ -235,18 +319,35 @@ def run_engine(
     it = 0
     # per lane: the host's copies of the pending count and the counters
     # the sparse vote moves; the work counters stay on the device
-    active = [1] * B
+    active = [1 if seg is None else int(seg.active)] * B
     supersteps = [0] * B
     fallbacks = [0] * B
-    streak = [0] * B
+    streak = [0 if seg is None else int(seg.streak)] * B
     max_streak = [0] * B
-    active_t = torch.ones(B, dtype=torch.int64, device=dev)
+    active_t = torch.full((B,), active[0], dtype=torch.int64, device=dev)
     commits = torch.zeros(B, dtype=torch.int64, device=dev)
     relax = torch.zeros(B, dtype=torch.int64, device=dev)
     classes = torch.zeros(B, dtype=torch.int64, device=dev)
-    last_key = torch.full((B,), float("nan"), dtype=torch.float32, device=dev)
+    if seg is None:
+        limit = cfg.max_iters
+        last_key = torch.full((B,), float("nan"), dtype=torch.float32,
+                              device=dev)
+    else:
+        limit = int(seg.limit)
+        if isinstance(seg.last_key, torch.Tensor):  # the last segment's
+            last_key = seg.last_key.reshape(1).to(dev)
+        else:
+            last_key = torch.full((1,), float(seg.last_key),
+                                  dtype=torch.float32, device=dev)
+        # the dynamic root Δ, a float32 tensor as DeltaStepping's own
+        delta_t = (None if seg.delta is None else
+                   torch.full((), seg.delta, dtype=torch.float32, device=dev))
+        # the window: pending and the sparse choice are host values the
+        # loop reads anyway; eligible and rows stay on the device
+        pend_w, sparse_w, elig_w, rows_w = [], [], [], []
+    count_work = cfg.collect_metrics or seg is not None
 
-    while max(active) > 0 and it < cfg.max_iters:
+    while max(active) > 0 and it < limit:
         # a converged lane has nothing pending, so it commits and sends
         # nothing; only its counters need holding
         live = [a > 0 for a in active]
@@ -255,8 +356,13 @@ def run_engine(
         # ---- 1+2. ordering hierarchy: fold over annotations ----------
         eligible = p.better(T, D)
         kmin = None
-        for lvl, o in hier.annotations:
-            key = torch.where(eligible, o.class_key(T, L), INF)
+        for ai, (lvl, o) in enumerate(hier.annotations):
+            if (ai == 0 and seg is not None and delta_t is not None
+                    and isinstance(o, DeltaStepping)):
+                raw_key = torch.floor(T / delta_t)  # class_key's op sequence
+            else:
+                raw_key = o.class_key(T, L)
+            key = torch.where(eligible, raw_key, INF)
             if lvl in ("global", "pod"):  # one flat rank axis: pod = all
                 m = key.amin(dim=(1, 2), keepdim=True)
                 eligible = eligible & (key == m)
@@ -365,6 +471,7 @@ def run_engine(
             CLg = torch.where(C == Cg[:, None], CL, INF).amin(1)
             return mine, CLg.reshape(B, n_parts, n_local)
 
+        sp_used = [0] * B
         if cfg.exchange == "pmin":
             mine, mineL = exchange_pmin()
         elif cfg.exchange == "a2a":
@@ -375,10 +482,16 @@ def run_engine(
         else:  # 'sparse' | 'auto'
             extra = [(CL.reshape(S, n_pad), INF)] if use_level else []
             payload, ex_overflow = sparse_payload(
-                C.reshape(S, n_pad), extra, n_parts, slot_cap, worst)
-            ok = ~ex_overflow.reshape(B, n_parts)
+                C.reshape(S, n_pad), extra, n_parts, slot_cap, worst,
+                cfg.payload)
+            cap_ok = ~ex_overflow.reshape(B, n_parts)
+            ok = cap_ok
             if cfg.exchange == "auto":
                 ok = ok & (active_t <= auto_thresh)[:, None]
+            if seg is not None and seg.force_ex == 1:
+                ok = cap_ok  # forced sparse: the capacity veto still applies
+            elif seg is not None and seg.force_ex == 2:
+                ok = torch.zeros_like(ok)
             over = row_overflow | ex_overflow.reshape(B, n_parts)
             # every rank of a lane takes the same branch (the shapes
             # differ); one lane's dense branch serves all lanes
@@ -386,10 +499,11 @@ def run_engine(
                 [ok.all(1), ~over.any(1)]
             ).tolist()
             if all(use_sp):
+                sp_used = [1] * B
                 recv = payload.reshape(B, n_parts, n_parts, -1).transpose(1, 2)
                 mine, mineL = unpack_combine(
                     recv.reshape(S, n_parts, -1), n_local, slot_cap, is_min,
-                    worst, use_level,
+                    worst, use_level, cfg.payload,
                 )
                 mine = mine.reshape(B, n_parts, n_local)
                 if use_level:
@@ -409,18 +523,36 @@ def run_engine(
         if use_level:
             L = torch.where(improved, torch.cat([mineL, inf_col], dim=2), L)
 
-        if cfg.collect_metrics:
-            commits += eligible.sum(dim=(1, 2))
+        if count_work:
+            step_commits = eligible.sum(dim=(1, 2))
+            commits += step_commits
             relax += (elig_rows * row_deg).sum(dim=(1, 2))
             classes += ((kmin != last_key) & live_t).to(torch.int64)
         last_key = kmin
         active_t = p.better(T, D).sum(dim=(1, 2))
+        if seg is not None:
+            elig_w.append(step_commits[0])
+            rows_w.append(elig_rows[0].sum())
         active = active_t.tolist()
+        if seg is not None:
+            pend_w.append(active[0])
+            sparse_w.append(sp_used[0])
         supersteps = [s + lv for s, lv in zip(supersteps, live)]
         it += 1
 
-    out = [supersteps, commits.tolist(), relax.tolist(), classes.tolist(),
-           active, fallbacks, max_streak]
+    # the work counters (and a segment's window): one host read
+    work = [commits, relax, classes]
+    if seg is not None and it:
+        work.append(torch.stack(elig_w + rows_w))
+    work = torch.cat(work).tolist()
+    commits_l, relax_l, classes_l = (work[i * B:(i + 1) * B] for i in range(3))
+    if seg is not None:
+        return SegmentResult(
+            D[0], T[0], L[0], it, commits_l[0], relax_l[0], classes_l[0],
+            active[0], fallbacks[0], last_key, streak[0], max_streak[0],
+            pend_w, work[3:3 + it], work[3 + it:], sparse_w)
+    out = [supersteps, commits_l, relax_l, classes_l, active, fallbacks,
+           max_streak]
     if not lanes:
         return EngineResult(D[0, :, :n_local], *(c[0] for c in out))
     return EngineResult(D[..., :n_local], *out)

@@ -3,7 +3,8 @@
 The counts are the paper's work terms (relaxations, commits, workitems)
 and synchronization terms (classes, supersteps, collective rounds),
 plus exchanged bytes; they are identical to the JAX package's for the
-same graph, spec and rank count.  :class:`LatencyStats` holds the
+same graph, spec and rank count.  :class:`SuperstepWindow` is one
+adaptive segment's per-superstep record, :class:`LatencyStats` the
 serving tier's latency order statistics.
 """
 
@@ -25,8 +26,13 @@ class WorkMetrics:
     converged: bool = True  # False iff the loop hit max_iters with work left
     sparse_fallbacks: int = 0  # sparse-capable supersteps that went dense
     overflow_streak: int = 0  # longest run of consecutive capacity overflows
-    retraces: int = 0       # adaptive engine rebuilds (not ported: always 0)
-    repair_sweeps: int = 0  # quantized-payload repairs (not ported: always 0)
+    # frontier caps an adaptive solve first used after its first cap
+    # (the JAX package compiles an engine for each; the port compiles
+    # nothing and keeps the count for equal metrics)
+    retraces: int = 0
+    # exact warm restarts the quantized-payload repair loop needed to
+    # certify the fixpoint (0 for exact payloads)
+    repair_sweeps: int = 0
 
     def waste_ratio(self) -> float:
         """Relaxations per useful commit — the paper's redundant-work axis."""
@@ -44,9 +50,42 @@ class WorkMetrics:
         )
         if self.sparse_fallbacks:
             s += f" sparse_fallbacks={self.sparse_fallbacks}"
+        if self.retraces:
+            s += f" retraces={self.retraces}"
+        if self.repair_sweeps:
+            s += f" repair_sweeps={self.repair_sweeps}"
         if self.overflow_streak:
             s += f" overflow_streak={self.overflow_streak}"
         return s + ("" if self.converged else " TRUNCATED")
+
+
+@dataclasses.dataclass
+class SuperstepWindow:
+    """Per-superstep metrics of one adaptive segment: what a
+    :mod:`repro_torch.tune` policy maps to the next segment's tunables
+    and what the flight recorder (``/trace``) collects.  Lists hold one
+    entry per superstep the segment ran, all summed over ranks; bytes
+    are derived on the host from the sparse/dense choice and the
+    segment's capacities."""
+
+    pending: list          # pending workitems after each superstep
+    eligible: list         # eligible-class size per superstep
+    rows: list             # eligible ELL rows per superstep
+    sparse_used: list      # 1 iff the sparse exchange ran that superstep
+    bytes_moved: list      # exchange bytes per superstep
+    overflow_streak: int   # consecutive-overflow run live at segment end
+    supersteps_total: int  # supersteps since the solve began
+    n: int                 # padded vertex count (P * n_local)
+    rows_per_rank: int     # ELL rows per rank (the frontier_cap ceiling)
+    sparse_capable: bool   # exchange mode is 'sparse' or 'auto'
+
+    def last_pending(self) -> int:
+        return int(self.pending[-1]) if self.pending else 0
+
+    def mean_eligible(self) -> float:
+        if not self.eligible:
+            return 0.0
+        return sum(self.eligible) / len(self.eligible)
 
 
 @dataclasses.dataclass

@@ -6,15 +6,20 @@ cold solves.  Runs on the card unless ``--device cpu`` is given.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --graph rmat1 \
         --scale 10 --queries 200 --landmarks 8 --updates 4
-    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --scale 9
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --scale 9 \
+        --stats-text --tuned-cache TUNE_cache.json
 
 Prints queries/s, p50/p99 latency, and the cache, router and solver
-stats.
+stats.  ``--metrics-port`` serves the Prometheus text exposition (and
+a JSON ``/stats``) on 127.0.0.1 while the run lasts, ``--stats-text``
+prints it at the end; ``--tuned-cache`` routes flushes through the
+spec a ``launch/tune.py`` search cached for the graph.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 
 import numpy as np
@@ -22,6 +27,7 @@ import numpy as np
 from repro_torch.api import Problem, SingleSource, Solver
 from repro_torch.graph import graph_fingerprint
 from repro_torch.launch.sssp import build_graph
+from repro_torch.obs import MetricsRegistry, Tracer, serve_metrics, use_tracer
 from repro_torch.serve import (
     EdgeUpdate,
     LandmarkIndex,
@@ -31,6 +37,7 @@ from repro_torch.serve import (
     UpdateFeed,
     serve_latency_stats,
 )
+from repro_torch.tune import TunedSpecCache
 
 #: refreshed cache entries the freshness check holds against cold solves
 FRESHNESS_CHECKS = 3
@@ -93,21 +100,77 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="'cuda' (default) or 'cpu' for the plain torch path")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    help="serve Prometheus text exposition on "
+                         "http://127.0.0.1:PORT/metrics (and a JSON /stats) "
+                         "from a daemon thread; 0 picks a free port")
+    ap.add_argument("--stats-text", action="store_true",
+                    help="print the Prometheus text exposition after the "
+                         "run (works without --metrics-port)")
+    ap.add_argument("--tuned-cache", metavar="PATH", default=None,
+                    help="a tuned-spec cache (launch/tune.py --cache) the "
+                         "router consults on every flush")
     args = ap.parse_args(argv)
 
     solver = Solver(args.spec, device=args.device)  # no CUDA: raises here
     g = build_graph(args.graph, args.scale, args.seed)
     print(f"[serve] {g.name}: n={g.n} m={g.m} spec={solver.config.name} "
           f"device={solver.device}")
+    tuned = None
+    if args.tuned_cache is not None:
+        tuned = TunedSpecCache.load(args.tuned_cache)
+        rec = tuned.get(graph_fingerprint(g))
+        print(f"[serve] tuned cache {args.tuned_cache}: {len(tuned)} records, "
+              f"{'spec ' + repr(rec.spec) if rec else 'none'} for this graph")
 
+    # live metrics: the tracer feeds the registry (span histograms and
+    # event counters); --metrics-port serves it over HTTP
+    registry = tracer = server = None
+    if args.metrics_port is not None or args.stats_text:
+        registry = MetricsRegistry()
+        tracer = Tracer(registry=registry)
+        if args.metrics_port is not None:
+            server = serve_metrics(registry, args.metrics_port)
+            print(f"[serve] metrics: http://{server.server_address[0]}:"
+                  f"{server.server_address[1]}/metrics (+ /stats)")
+    try:
+        with use_tracer(tracer) if tracer is not None else contextlib.nullcontext():
+            return _serve(args, solver, g, tuned, registry)
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+
+
+def _serve(args, solver, g, tuned, registry) -> int:
     cache = SolutionCache(byte_budget=args.cache_mb << 20)
     t0 = time.perf_counter()
     lm = LandmarkIndex(solver, g, k=args.landmarks, symmetric=True)
     print(f"[serve] landmark tier: K={lm.k} built in "
           f"{time.perf_counter() - t0:.2f}s ({lm.nbytes} bytes)")
-    router = Router(solver, g, cache=cache, landmarks=lm,
+    router = Router(solver, g, cache=cache, landmarks=lm, tuned=tuned,
                     max_batch=args.max_batch,
                     max_wait_s=args.max_wait_ms / 1e3)
+    if registry is not None:
+        # callback gauges: the exposition always reads live state
+        registry.gauge("repro_router_queries_total",
+                       help="queries admitted", fn=lambda: router.stats.queries)
+        registry.gauge("repro_router_batches_total",
+                       help="admission flushes", fn=lambda: router.stats.batches)
+        registry.gauge("repro_router_tuned_batches_total",
+                       help="flushes served by a tuned-spec solver",
+                       fn=lambda: router.stats.tuned_batches)
+        registry.gauge("repro_router_latency_p99_seconds",
+                       help="p99 over the latency ring",
+                       fn=lambda: router.latency_stats().p99_s)
+        registry.gauge("repro_router_latency_p50_seconds",
+                       help="p50 over the latency ring",
+                       fn=lambda: router.latency_stats().p50_s)
+        registry.gauge("repro_cache_hits_total",
+                       help="solution-cache hits", fn=lambda: cache.stats.hits)
+        registry.gauge("repro_cache_misses_total",
+                       help="solution-cache misses",
+                       fn=lambda: cache.stats.misses)
 
     queries = build_query_mix(g, args.queries, args.zipf, args.seed)
     # warm the kernels and the allocator outside the timed window
@@ -152,6 +215,9 @@ def main(argv=None) -> int:
         print(f"[serve] {checked} refreshed entries verified "
               f"bit-identical to cold solves "
               f"(warm supersteps={warm_total})")
+    if args.stats_text:
+        print("[serve] Prometheus exposition:")
+        print(registry.expose())
     return 0
 
 

@@ -135,17 +135,25 @@ _NOOP = _NoopSpan()
 
 class Tracer:
     """Thread-safe span/event recorder with an injectable monotonic
-    clock and a bounded record buffer.  (The JAX package's Tracer also
-    feeds a metrics registry, which waits for ``obs/export.py``.)"""
+    clock and a bounded record buffer.
+
+    ``registry`` (optional, a :class:`repro_torch.obs.export.
+    MetricsRegistry`) receives every closed span as a
+    ``repro_span_seconds{span=...}`` histogram observation and every
+    event as a ``repro_events_total{event=...}`` counter increment, so
+    the live metrics come from the same instrumentation as the trace.
+    """
 
     def __init__(
         self,
         clock: Callable[[], float] = time.perf_counter,
+        registry: Optional[Any] = None,
         max_records: int = 200_000,
     ):
         if max_records <= 0:
             raise ValueError(f"max_records must be positive: {max_records}")
         self.clock = clock
+        self.registry = registry
         self.max_records = int(max_records)
         self.spans: list[Span] = []
         self.events: list[Event] = []
@@ -192,6 +200,12 @@ class Tracer:
                 self.dropped += 1
             else:
                 self.spans.append(rec)
+        if self.registry is not None:
+            self.registry.histogram(
+                "repro_span_seconds",
+                help="wall seconds per traced span",
+                labels={"span": handle.name},
+            ).observe(rec.duration_s)
 
     # -- public API ----------------------------------------------------
 
@@ -211,6 +225,12 @@ class Tracer:
                 self.dropped += 1
             else:
                 self.events.append(rec)
+        if self.registry is not None:
+            self.registry.counter(
+                "repro_events_total",
+                help="traced point events",
+                labels={"event": name},
+            ).inc()
 
     def clear(self) -> None:
         with self._lock:

@@ -23,8 +23,14 @@ Query kinds:
   index can't bound it (no index, directed graph, unreachable hubs)
   the query silently escalates to the exact path.
 
-The JAX package's router can consult a tuned-spec cache per flush
-(``tuned=``); the port has no ``tune/`` yet, so ``tuned`` must be None.
+When constructed with a ``tuned`` :class:`repro_torch.tune.TunedSpecCache`,
+admission consults it per flush: if the current graph's fingerprint
+has a tuned record whose spec differs from the default solver's, the
+flush solves with a memoized solver built from the tuned spec (same
+rank count and device) and keys the solution cache under the tuned
+config's name, so tuned and default answers never alias.
+Fingerprints are hash-chain aware, so a streamed update falls back to
+the default solver until the mutated graph is re-tuned.
 
 The router is synchronous and single-threaded by design — the engine
 itself is the concurrency (one batched solve serves B queries); an
@@ -37,7 +43,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from collections import deque
-from typing import Callable, Optional, Sequence
+from typing import TYPE_CHECKING, Callable, Optional, Sequence
 
 from repro_torch.api import Problem, SingleSource, Solver
 from repro_torch.api.solver import Solution
@@ -46,6 +52,9 @@ from repro_torch.graph.formats import Graph, graph_fingerprint
 from repro_torch.obs import trace as obs
 from repro_torch.serve.cache import SolutionCache
 from repro_torch.serve.landmarks import LandmarkIndex
+
+if TYPE_CHECKING:  # pragma: no cover - import cycle guard
+    from repro_torch.tune.autotune import TunedSpecCache
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,17 +134,12 @@ class Router:
         *,
         cache: Optional[SolutionCache] = None,
         landmarks: Optional[LandmarkIndex] = None,
-        tuned: None = None,
+        tuned: Optional["TunedSpecCache"] = None,
         max_batch: int = 8,
         max_wait_s: float = 0.01,
         clock: Callable[[], float] = time.monotonic,
         latency_window: int = 1024,
     ):
-        if tuned is not None:
-            raise NotImplementedError(
-                "tuned-spec routing (tuned=...) needs the spec auto-tuner, "
-                "which is not yet ported"
-            )
         if max_batch < 1:
             raise ValueError(f"max_batch must be positive: {max_batch}")
         if latency_window < 1:
@@ -146,6 +150,7 @@ class Router:
         self.graph = graph
         self.cache = cache if cache is not None else SolutionCache()
         self.landmarks = landmarks
+        self.tuned = tuned
         self.max_batch = int(max_batch)
         self.max_wait_s = float(max_wait_s)
         self.clock = clock
@@ -156,6 +161,7 @@ class Router:
         # counted, not silent
         self._latency: deque = deque(maxlen=int(latency_window))
         self._qids = 0
+        self._tuned_solvers: dict = {}  # tuned spec -> memoized Solver
 
     # -- admission ----------------------------------------------------
 
@@ -213,8 +219,11 @@ class Router:
         with obs.span("router.flush", batch=len(tickets),
                       qids=[t.qid for t in tickets]) as sp:
             fp = graph_fingerprint(self.graph)
-            cfg_name = self.solver.config.name
-            sp.set(spec=cfg_name, tuned=False)
+            solver = self._solver_for(fp)
+            if solver is not self.solver:
+                self.stats.tuned_batches += 1
+            cfg_name = solver.config.name
+            sp.set(spec=cfg_name, tuned=solver is not self.solver)
 
             # one solution per distinct (source, processing); cache first
             need: dict = {}
@@ -238,7 +247,12 @@ class Router:
                     Problem(self.graph, SingleSource(src), processing=proc)
                     for (src, proc) in group
                 ]
-                solved = self.solver.solve_batch(problems)
+                if solver.config.adapt is not None and len(problems) > 1:
+                    # adaptive solves do not batch (segment engine): serve
+                    # the flush one query at a time
+                    solved = [solver.solve(pb) for pb in problems]
+                else:
+                    solved = solver.solve_batch(problems)
                 self.stats.batched_solves += len(solved)
                 for (skey, sol) in zip(group, solved):
                     self.cache.put(need[skey], sol)
@@ -266,6 +280,24 @@ class Router:
             return len(tickets)
 
     # -- internals ----------------------------------------------------
+
+    def _solver_for(self, fp) -> Solver:
+        """The solver this flush uses: the tuned-spec solver when the
+        tuned cache has a record for the graph's current fingerprint
+        whose spec differs from the default's, else the default.  Tuned
+        solvers are memoized per spec (their partition memos live on
+        the Solver)."""
+        if self.tuned is None:
+            return self.solver
+        rec = self.tuned.get(fp)
+        if rec is None or rec.spec == self.solver.config.name:
+            return self.solver
+        s = self._tuned_solvers.get(rec.spec)
+        if s is None:
+            s = Solver(rec.spec, n_parts=self.solver.n_parts,
+                       device=self.solver.device)
+            self._tuned_solvers[rec.spec] = s
+        return s
 
     def _try_landmark(self, ticket: Ticket) -> bool:
         q = ticket.query

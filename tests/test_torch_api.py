@@ -12,7 +12,7 @@ from repro.core import make_ordering as ref_make_ordering
 from repro.core import paper_variant_specs as ref_paper_specs
 from repro.launch.sssp import EXAMPLE_HIERARCHIES
 from repro_torch.api import Problem, SingleSource, Solver, SolverConfig
-from repro_torch.core import make_ordering, paper_variant_specs
+from repro_torch.core import dijkstra_reference, make_ordering, paper_variant_specs
 from repro_torch.graph import rmat1
 
 SEGMENTS = ["", "/a2a", "/pmin", "/sparse", "/auto", "/sparse/fused",
@@ -95,9 +95,20 @@ def test_entry_points_default_to_the_card():
     ("delta:5/sparse/trace", "adaptive"),
 ])
 def test_unported_modes_raise_on_solve(spec, what):
+    """The quantized, adaptive and traced modes, which the port refused
+    before it had them, now solve to the fixpoint (their parity with the
+    JAX package: tests/test_torch_{quant,tune,recorder}.py)."""
     g = rmat1(6, seed=0)
-    with pytest.raises(NotImplementedError, match=what):
-        Solver(spec, device="cpu").solve(Problem(g, SingleSource(0)))
+    solver = Solver(spec, device="cpu")
+    sol = solver.solve(Problem(g, SingleSource(0)))
+    assert sol.metrics.converged
+    assert np.array_equal(sol.state, dijkstra_reference(g, 0))
+    assert (sol.trace is not None) == solver.config.trace
+    if what == "quantized":
+        assert solver.config.payload == "bf16"
+    else:  # the segment engine, under a policy or for the recorder
+        assert solver.stats()["adapt"]["solves"] == int(
+            solver.config.adapt is not None)
 
 
 def test_partition_mismatch_raises():

@@ -774,3 +774,106 @@ def test_solve_batch_on_card_matches_cpu(dev, spec, impl, n_parts):
         cpu[0], graph=g, new_sources=ExplicitSources(((3, 0.0, 0), (4, 0.0, 0))))
     assert again.state.tobytes() == warm.state.tobytes()
     assert again.metrics.as_dict() == warm.metrics.as_dict()
+
+
+# ---------------------------------------------- adaptive, traced, quantized
+
+
+def frontier_launches(trace, n_parts):
+    """Launches of a frontier kernel a traced single-rank solve makes: one
+    a superstep whose eligible rows fit its segment's frontier cap."""
+    assert n_parts == 1
+    steps, out = 0, 0
+    for seg in trace.segments:
+        rows = trace.rows[steps:steps + seg["supersteps"]]
+        out += sum(r <= seg["frontier_cap"] for r in rows)
+        steps += seg["supersteps"]
+    return out
+
+
+@pytest.mark.parametrize("spec,impl", [
+    ("delta:5/sparse/trace", "fused"), ("delta:5/sparse/trace", "push"),
+    ("delta:5/auto/trace", "fused"), ("delta:5/sparse/adapt:rho/trace", "fused"),
+    ("delta:5/sparse/adapt:rho", "push"), ("kla:2+threadq/sparse/adapt", "ref"),
+])
+@pytest.mark.parametrize("n_parts", [1, 2])
+def test_segment_solves_on_card_match_cpu(dev, spec, impl, n_parts):
+    """Traced and adaptive solves on the card equal the CPU port's bit
+    for bit (state, metrics, trace less its clocks), launching the
+    frontier kernel on every superstep the trace says the push relax
+    ran."""
+    g = rmat1(10, seed=1)
+    cfg = SolverConfig.from_spec(spec, relax_impl=impl, frontier_cap=32)
+    K.reset_launch_counts()
+    card = Solver(cfg, n_parts=n_parts).solve(Problem(g, SingleSource(0)))
+    launched = K.launch_counts()
+    cpu = Solver(cfg, n_parts=n_parts, device="cpu").solve(
+        Problem(g, SingleSource(0)))
+    assert card.state.tobytes() == cpu.state.tobytes()
+    assert card.metrics.as_dict() == cpu.metrics.as_dict()
+    if cfg.trace:
+        a, b = card.trace.as_dict(), cpu.trace.as_dict()
+        for d in (a, b):
+            for seg in d["segments"]:
+                del seg["t0"], seg["t1"]
+        assert a == b
+        card.trace.reconcile(card.metrics)
+    name = {"fused": "fused_superstep", "push": "relax_push_gather"}.get(impl)
+    if name is not None:
+        assert launched[name] > 0
+        if cfg.trace and n_parts == 1:
+            assert launched[name] == frontier_launches(card.trace, 1)
+
+
+@pytest.mark.parametrize("payload", ["bf16", "u16"])
+@pytest.mark.parametrize("n_parts", [1, 2])
+def test_quantized_solves_on_card_match_cpu(dev, payload, n_parts):
+    g = rmat1(10, seed=1)
+    g.weight[:] = np.random.default_rng(0).uniform(0.5, 60, g.m).astype(np.float32)
+    cfg = SolverConfig.from_spec(f"delta:5/sparse/fused/q:{payload}",
+                                 frontier_cap=64)
+    K.reset_launch_counts()
+    card = Solver(cfg, n_parts=n_parts).solve(Problem(g, SingleSource(0)))
+    assert K.launch_counts()["fused_superstep"] > 0
+    cpu = Solver(cfg, n_parts=n_parts, device="cpu").solve(
+        Problem(g, SingleSource(0)))
+    assert card.state.tobytes() == cpu.state.tobytes()
+    assert card.metrics.as_dict() == cpu.metrics.as_dict()
+    exact = Solver("delta:5/sparse/fused", n_parts=n_parts).solve(
+        Problem(g, SingleSource(0)))
+    assert card.state.tobytes() == exact.state.tobytes()
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_quantized_codes_on_card_match_cpu(dev, seed):
+    """The u16 and bf16 encoders, the pair packing and the owner-side
+    decode give the same bits on the card as on the CPU."""
+    from repro_torch.core import frontier as F
+
+    rng = np.random.default_rng(seed)
+    P, S = 4, int(rng.integers(1, 300))
+    v = rng.uniform(0, 1000, (P, S)).astype(np.float32)
+    v[rng.random((P, S)) < 0.2] = np.inf
+    lo = v.min(axis=1)
+    v = np.where(rng.random((P, S)) < 0.1, lo[:, None], v).astype(np.float32)
+    v[0] = np.inf
+    lo = v.min(axis=1)
+    lo = np.where(np.isfinite(lo), lo, 0).astype(np.float32)
+    vc, lc = on(dev, v, lo)
+    vh, lh = torch.as_tensor(v), torch.as_tensor(lo)
+    assert torch.equal(F._quantize_bf16(vc, lc).cpu(), F._quantize_bf16(vh, lh))
+    qc, sc = F._quantize_u16(vc, lc)
+    qh, sh = F._quantize_u16(vh, lh)
+    assert torch.equal(qc.cpu(), qh) and torch.equal(sc.cpu(), sh)
+    assert torch.equal(F._decode_u16(qc, lc, sc).cpu(), F._decode_u16(qh, lh, sh))
+    assert torch.equal(F._pack_u16_pairs(qc, S).cpu(), F._pack_u16_pairs(qh, S))
+    C = np.where(rng.random(2 * 64) < 0.5, np.inf,
+                 rng.uniform(0, 100, 2 * 64)).astype(np.float32)
+    for payload in ("bf16", "u16"):
+        pc, _ = F.sparse_payload(on(dev, C)[0][None], [], 2, 16, float("inf"), payload)
+        ph, _ = F.sparse_payload(torch.as_tensor(C)[None], [], 2, 16, float("inf"),
+                                 payload)
+        assert torch.equal(pc.cpu(), ph)
+        mc, _ = F.unpack_combine(pc, 64, 16, True, float("inf"), False, payload)
+        mh, _ = F.unpack_combine(ph, 64, 16, True, float("inf"), False, payload)
+        assert torch.equal(mc.cpu(), mh)

@@ -43,7 +43,11 @@ def test_port_imports_no_jax_and_no_reference():
                 "repro_torch.models.gnn.batch", "repro_torch.configs.gin_tu",
                 "repro_torch.configs.cells", "repro_torch.serve.router",
                 "repro_torch.serve.updates", "repro_torch.obs.trace",
-                "repro_torch.launch.serve"):
+                "repro_torch.launch.serve", "repro_torch.tune",
+                "repro_torch.tune.policies", "repro_torch.tune.controller",
+                "repro_torch.tune.autotune", "repro_torch.obs.recorder",
+                "repro_torch.obs.export", "repro_torch.launch.tune",
+                "repro_torch.launch.obs"):
         assert sub in mods, sub
     code = PROBE.format(src=str(ROOT / "src"), root=str(ROOT),
                         modules=mods + ["chip_smoke"])

@@ -253,8 +253,20 @@ def test_router_ticket_result_forces_flush(solver):
 
 
 def test_router_refuses_tuned_routing(solver):
-    with pytest.raises(NotImplementedError, match="tuned"):
-        Router(solver, fresh_graph(), tuned=object())
+    """A tuned-spec cache without a record for the graph (or whose
+    record names the default spec) leaves every flush on the default
+    solver; tests/test_torch_tune.py covers a record that routes."""
+    from repro_torch.tune import TunedRecord, TunedSpecCache
+
+    g = fresh_graph()
+    cache = TunedSpecCache()
+    router = Router(solver, g, tuned=cache)
+    ans = router.submit(Query(7)).result()
+    assert close(dijkstra_reference(g, 7), ans.solution.state)
+    cache.put(TunedRecord(spec=solver.config.name, objective="model",
+                          score=0.0, fingerprint=graph_fingerprint(g)))
+    router.submit(Query(9)).result()
+    assert router.stats.tuned_batches == 0 and router.stats.batches == 2
 
 
 # --------------------------------------------------------- landmarks
