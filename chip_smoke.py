@@ -71,6 +71,17 @@ Phases (any failure exits non-zero):
      (equal Dijkstra after the repair loop); (d) the auto-tuner
      (objective wall, default grid) and 50 Zipf queries through
      ``Router(tuned=...)``, 8 sampled answers against Dijkstra
+ 13. the engine across processes on phase 2's graph: (a) stacked ranks,
+     P = 4 on a flat mesh and on a (2, 2) pod mesh, main spec and
+     ``delta:5 > pod:dijkstra /a2a``, each equal to Dijkstra; (b) gloo,
+     2 and 4 rank processes sharing the card, each holding only its
+     rank's ELL: /sparse/fused, /sparse (push), /a2a, /pmin and /q:u16
+     bit-identical to the stacked solve at the same P (state, padded
+     state, metrics) and to Dijkstra, every process returning the same
+     solution, each rank launching its frontier kernel once a superstep
+     whose frontier fits its cap; warm walls (gloo through host memory
+     on one card, not a scaling figure); (c) NCCL, one process, equal
+     to phase 4
 
 Phase 3 also holds the two frontier kernels' batched entries against
 their plain versions and against 8 single launches at two supersteps of
@@ -157,6 +168,13 @@ TRACE_REPEATS = 3
 ADAPT_CAP0 = 1024   # /adapt:rho starts here and grows the cap
 TUNED_QUERIES = 50
 TUNED_SAMPLED = 8
+# the engine across processes (phase 13)
+DIST_PROCESSES = (2, 4)
+DIST_SPECS = ((SPEC, "fused"), ("delta:5/sparse", "push"), ("delta:5/a2a", "ref"),
+              ("delta:5/pmin", "ref"), (SPEC + "/q:u16", "fused"))
+POD_SPEC = "delta:5 > pod:dijkstra /a2a"
+DIST_TIMEOUT_S = 300
+NCCL_BACKEND = "nccl"
 
 
 def log(msg: str) -> None:
@@ -1774,6 +1792,251 @@ def adaptive_paths(g, pg, truth, base_sol, base_push, card_line) -> tuple[int, i
     return fused_total, push_total
 
 
+def dist_rank(rank: int, world: int, url: str, data_dir: str, device: str) -> None:
+    """Phase 13's rank process: join the gloo group, read the graph the
+    parent wrote (memory-mapped), partition it, and solve each of
+    DIST_SPECS once counted (launches, collectives, the supersteps whose
+    frontier fit this rank's cap) and once warm (timed).  Writes its
+    results to ``data_dir/rank{rank}.pkl``."""
+    import hashlib
+    import os
+    import pickle
+
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.api import Problem, SingleSource, Solver, SolverConfig
+    from repro_torch.core import engine
+    from repro_torch.graph import Graph
+    from repro_torch.launch.mesh import init_ranks, make_rank_mesh
+
+    t_start = time.perf_counter()
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    ranks = init_ranks("gloo", rank, world, make_rank_mesh(world), url)
+    meta = json.loads((Path(data_dir) / "graph.json").read_text())
+    g = Graph(meta["n"], *(np.load(os.path.join(data_dir, f"{k}.npy"), mmap_mode="r")
+                           for k in ("src", "dst", "weight")), name=meta["name"])
+    t0 = time.perf_counter()
+    first = Solver(DIST_SPECS[0][0], n_parts=world, device=dev, ranks=ranks)
+    pg = first.partition(g)
+    ell = first.device_ell(pg)
+    sync()
+    out = dict(partition_s=time.perf_counter() - t0,
+               ell_bytes=sum(t.numel() * t.element_size() for t in (ell.col, ell.wgt)),
+               ell_shape=tuple(ell.col.shape),
+               card_bytes=torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0,
+               start_s=t0 - t_start, solves={})
+    problem = Problem(pg, SingleSource(SOURCE))
+    compact = engine.compact_rows
+    for spec, impl in DIST_SPECS:
+        solver = Solver(SolverConfig.from_spec(spec, relax_impl=impl),
+                        n_parts=world, device=dev, ranks=ranks)
+        fits = []
+
+        def counted(mask, cap):
+            idx, cnt, over = compact(mask, cap)
+            fits.append(not bool(over.any()))
+            return idx, cnt, over
+
+        engine.compact_rows = counted
+        try:
+            K.reset_launch_counts()
+            ranks.counts.clear()
+            sync()
+            t0 = time.perf_counter()
+            sol = solver.solve(problem)
+            sync()
+            cold = time.perf_counter() - t0
+        finally:
+            engine.compact_rows = compact
+        launches = dict(K.launch_counts())
+        collectives = dict(ranks.counts)
+        torch.distributed.barrier()
+        sync()
+        t0 = time.perf_counter()
+        solver.solve(problem)
+        sync()
+        warm = time.perf_counter() - t0
+        out["solves"][spec] = dict(
+            state=sol.state if rank == 0 else None,
+            padded=sol.padded if rank == 0 else None,
+            digest=hashlib.sha256(sol.state.tobytes() + sol.padded.tobytes()).hexdigest(),
+            metrics=sol.metrics.as_dict(), launches=launches, fits=sum(fits),
+            collectives=collectives, cold_s=cold, warm_s=warm)
+    with open(os.path.join(data_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def distributed_paths(g, pg, truth, base_sol, card_line, dev) -> int:
+    """Phase 13: stacked ranks on flat and pod meshes, gloo rank
+    processes sharing the card against the stacked solve at the same P,
+    and NCCL at one process against phase 4.  Returns the
+    fused_superstep launches of rank 0 on the gloo paths."""
+    import pickle
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.api import Problem, SingleSource, Solver, SolverConfig
+    from repro_torch.graph import partition_graph
+    from repro_torch.launch.mesh import (
+        RankMesh,
+        check_backend,
+        init_ranks,
+        make_rank_mesh,
+        spawn_ranks,
+    )
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    card = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+
+    def equal_dijkstra(sol, label):
+        if not np.array_equal(sol.state, truth) or not sol.metrics.converged:
+            fail(f"{label}: state differs from Dijkstra at "
+                 f"{int((sol.state != truth).sum())} vertices")
+
+    # ---- (a) stacked ranks on the card, flat and pod meshes ----------------
+    t0 = time.perf_counter()
+    pgs = {P: partition_graph(g, P) for P in DIST_PROCESSES}
+    log(f"partitioned for P = {DIST_PROCESSES} in {time.perf_counter() - t0:.1f} s")
+    problems = {P: Problem(pgs[P], SingleSource(SOURCE)) for P in DIST_PROCESSES}
+    pods = RankMesh((2, 2), ("pod", "data"))
+    for spec in (POD_SPEC, SPEC):
+        row = []
+        for mesh in (make_rank_mesh(4), pods):
+            sol = Solver(spec, n_parts=4, device=dev, mesh=mesh).solve(problems[4])
+            equal_dijkstra(sol, f"stacked P=4 {spec} on {mesh.axis_names}")
+            row.append(sol.metrics)
+        log(f"stacked P=4 {spec}: flat mesh classes={row[0].classes} "
+            f"supersteps={row[0].supersteps}; pod mesh (2, 2) classes="
+            f"{row[1].classes} supersteps={row[1].supersteps}; both equal Dijkstra")
+
+    # ---- (b) gloo, P processes sharing the card -----------------------------
+    stacked, stacked_warm = {}, {}
+    for P in DIST_PROCESSES:
+        for spec, impl in DIST_SPECS:
+            solver = Solver(SolverConfig.from_spec(spec, relax_impl=impl),
+                            n_parts=P, device=dev)
+            stacked[P, spec] = solver.solve(problems[P])
+            sync()
+            t0 = time.perf_counter()
+            solver.solve(problems[P])
+            sync()
+            stacked_warm[P, spec] = time.perf_counter() - t0
+    fused_total = 0
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        for k in ("src", "dst", "weight"):
+            np.save(Path(tmp) / f"{k}.npy", getattr(g, k))
+        (Path(tmp) / "graph.json").write_text(json.dumps({"n": g.n, "name": g.name}))
+        for P in DIST_PROCESSES:
+            run_dir = Path(tmp) / f"gloo{P}"
+            run_dir.mkdir()
+            t0 = time.perf_counter()
+            spawn_ranks(dist_rank, P, ("file://" + str(run_dir / "store"), str(tmp),
+                                       str(dev) if dev.type == "cpu" else "cuda:0"),
+                        timeout=DIST_TIMEOUT_S)
+            # the rank files sit beside the graph: one run at a time
+            runs = []
+            for r in range(P):
+                with open(Path(tmp) / f"rank{r}.pkl", "rb") as f:
+                    runs.append(pickle.load(f))
+            log(f"gloo P={P}: {P} processes on {card} ran in "
+                f"{time.perf_counter() - t0:.1f} s; each partitioned the graph in "
+                f"{max(r['partition_s'] for r in runs):.1f} s at most and holds "
+                f"its rank's ELL {runs[0]['ell_shape']} on the device: col and "
+                f"wgt {[r['ell_bytes'] for r in runs]} bytes (the whole ELL "
+                f"{(pg.col.nbytes + pg.wgt.nbytes) / 1e6:.0f} MB); device memory "
+                f"allocated {[r['card_bytes'] for r in runs]}")
+            for spec, impl in DIST_SPECS:
+                want = stacked[P, spec]
+                got = runs[0]["solves"][spec]
+                label = f"gloo P={P} {spec} ({impl})"
+                if got["state"].tobytes() != want.state.tobytes() or \
+                        got["padded"].tobytes() != want.padded.tobytes():
+                    fail(f"{label}: state differs from the stacked solve")
+                if got["metrics"] != want.metrics.as_dict():
+                    fail(f"{label}: metrics differ: {got['metrics']} vs "
+                         f"{want.metrics.as_dict()}")
+                equal_dijkstra(want, label)
+                for r in range(1, P):
+                    other = runs[r]["solves"][spec]
+                    if other["digest"] != got["digest"] or other["metrics"] != got["metrics"]:
+                        fail(f"{label}: rank {r} returned another solution")
+                kernel = {"fused": "fused_superstep", "push": "relax_push_gather"}.get(impl)
+                per_rank = [run["solves"][spec]["launches"].get(kernel, 0) if kernel else 0
+                            for run in runs]
+                fits = [run["solves"][spec]["fits"] for run in runs]
+                if kernel and (per_rank != fits or per_rank[0] == 0):
+                    fail(f"{label}: {kernel} launches a rank {per_rank}, supersteps "
+                         f"whose frontier fit the rank's cap {fits}")
+                if kernel == "fused_superstep":
+                    fused_total += per_rank[0]
+                coll = got["collectives"]
+                m = got["metrics"]
+                steps = max(1, m["supersteps"])
+                log(f"{label}: equals the stacked solve and Dijkstra on every rank; "
+                    f"supersteps={m['supersteps']} sparse_fallbacks={m['sparse_fallbacks']} "
+                    f"repair_sweeps={m['repair_sweeps']} exchange_bytes="
+                    f"{m['exchange_bytes']}; {kernel or 'no frontier kernel'} launches "
+                    f"a rank {per_rank} (frontier fit {fits}); rank 0 collectives "
+                    f"{ {k: v for k, v in coll.items() if k != 'bytes'} } = "
+                    f"{sum(v for k, v in coll.items() if k != 'bytes') / steps:.2f} a "
+                    f"superstep, {coll.get('bytes', 0)} bytes sent "
+                    f"({coll.get('bytes', 0) / steps:.0f} a superstep); wall cold "
+                    f"{got['cold_s']:.4f} s, warm {got['warm_s']:.4f} s; the stacked "
+                    f"P={P} solve warm {stacked_warm[P, spec]:.4f} s - gloo through "
+                    f"host memory on one card, not a scaling figure; {card_line}")
+            exact = runs[0]["solves"][SPEC]["metrics"]["exchange_bytes"]
+            quant = runs[0]["solves"][SPEC + "/q:u16"]["metrics"]["exchange_bytes"]
+            log(f"gloo P={P}: /q:u16 exchange_bytes {quant} against the exact "
+                f"spec's {exact} ({quant / max(1, exact):.3f}x)")
+            for r in range(P):
+                (Path(tmp) / f"rank{r}.pkl").unlink()
+
+    # ---- (c) NCCL, one process ------------------------------------------
+    check_backend(NCCL_BACKEND, 1, dev)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        ranks = init_ranks(NCCL_BACKEND, 0, 1, make_rank_mesh(1),
+                           "file://" + str(Path(tmp) / "store"))
+        try:
+            solver = Solver(SPEC, device=dev, ranks=ranks)
+            problem = Problem(pg, SingleSource(SOURCE))
+            K.reset_launch_counts()
+            sync()
+            t0 = time.perf_counter()
+            sol = solver.solve(problem)
+            sync()
+            cold = time.perf_counter() - t0
+            launches = K.launch_counts()["fused_superstep"]
+            t0 = time.perf_counter()
+            solver.solve(problem)
+            sync()
+            warm = time.perf_counter() - t0
+        finally:
+            torch.distributed.destroy_process_group()
+    if sol.state.tobytes() != base_sol.state.tobytes() or \
+            sol.metrics.as_dict() != base_sol.metrics.as_dict():
+        fail(f"{NCCL_BACKEND} P=1: differs from phase 4: {sol.metrics} vs "
+             f"{base_sol.metrics}")
+    if launches == 0:
+        fail(f"{NCCL_BACKEND} P=1 never launched fused_superstep")
+    fused_total += launches
+    log(f"{NCCL_BACKEND} P=1 {solver.config.name}: state and metrics equal phase 4's; "
+        f"{launches} fused_superstep launches; wall cold {cold:.4f} s, warm "
+        f"{warm:.4f} s; {card_line}")
+    return fused_total
+
+
 def main() -> None:
     try:
         import torch
@@ -2031,6 +2294,12 @@ def main() -> None:
     fused12, push12 = adaptive_paths(g, pg, truth, sol, sol_p, card_line)
     log(f"phase 12 took {time.perf_counter() - t0:.1f} s: {fused12} "
         f"fused_superstep and {push12} relax_push_gather launches on its paths")
+
+    # ---- 13. the engine across processes --------------------------------
+    t0 = time.perf_counter()
+    fused13 = distributed_paths(g, pg, truth, sol, card_line, dev)
+    log(f"phase 13 took {time.perf_counter() - t0:.1f} s: {fused13} "
+        f"fused_superstep launches on rank 0 of its paths")
 
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s on {card_line}")
     print(json.dumps({"kernels": rows}), flush=True)

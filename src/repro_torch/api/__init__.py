@@ -9,11 +9,17 @@ from repro_torch.api.problem import (
     Problem,
     SingleSource,
     as_source_spec,
+    get_processing,
+    processing_names,
+    register_processing,
+    registered_processing,
 )
 from repro_torch.api.solver import Solution, Solver, batch_bucket, exchange_words
 
 __all__ = [
     "SolverConfig", "as_config", "EveryVertex", "ExplicitSources",
     "MultiSource", "Problem", "SingleSource", "as_source_spec",
+    "get_processing", "processing_names", "register_processing",
+    "registered_processing",
     "Solution", "Solver", "batch_bucket", "exchange_words",
 ]

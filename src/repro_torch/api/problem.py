@@ -6,6 +6,9 @@ function π and the initial workitem set S of one query.
     Problem(g, SingleSource(0), processing="sswp")  # widest path
     Problem(g, MultiSource([0, 9]))              # several sources
     Problem(g, ExplicitSources([(3, 1.5, 0)]))   # raw (vertex, state, level)
+
+``processing`` is a registered name or a :class:`ProcessingFn`; new
+problems plug in with :func:`register_processing`.
 """
 
 from __future__ import annotations
@@ -22,15 +25,43 @@ from repro_torch.graph.formats import Graph
 from repro_torch.graph.partition import PartitionedGraph
 
 
+_REGISTRY: dict = dict(PROCESSING_FNS)
+
+
+def register_processing(
+    fn: ProcessingFn, *, overwrite: bool = False
+) -> ProcessingFn:
+    """Register ``fn`` under ``fn.name`` so problems can refer to it by
+    string.  Returns ``fn``.  Refuses a name already taken by another
+    function unless ``overwrite``."""
+    if not overwrite and _REGISTRY.get(fn.name, fn) is not fn:
+        raise ValueError(
+            f"processing {fn.name!r} already registered; "
+            "pass overwrite=True to replace it"
+        )
+    _REGISTRY[fn.name] = fn
+    return fn
+
+
+def registered_processing() -> dict:
+    """A copy of the processing-function registry (name -> fn)."""
+    return dict(_REGISTRY)
+
+
+def processing_names() -> tuple:
+    """The registered processing-function names, sorted."""
+    return tuple(sorted(_REGISTRY))
+
+
 def get_processing(p: Union[str, ProcessingFn]) -> ProcessingFn:
     if isinstance(p, ProcessingFn):
         return p
     try:
-        return PROCESSING_FNS[p]
+        return _REGISTRY[p]
     except KeyError:
         raise ValueError(
-            f"unknown processing {p!r}; registered: {sorted(PROCESSING_FNS)}"
-            f"{suggest(str(p), PROCESSING_FNS)}"
+            f"unknown processing {p!r}; registered: {sorted(_REGISTRY)}"
+            f"{suggest(str(p), _REGISTRY)}"
         ) from None
 
 

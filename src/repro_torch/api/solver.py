@@ -10,6 +10,21 @@ and memoized; the ELL buffers are copied to the device once per
 partition.  ``device=None`` means the card, and raises without CUDA;
 ``device="cpu"`` runs the plain torch path.
 
+By default the ranks are stacked on the one device.  ``mesh`` (a
+:class:`~repro_torch.launch.mesh.RankMesh`) names their axes, which
+gives the ordering hierarchy's ``pod`` scope; ``ranks``, the result of
+:func:`~repro_torch.launch.mesh.init_ranks`, runs one rank in each
+process of a ``torch.distributed`` group instead:
+
+    ranks = init_ranks("gloo", rank, 4, make_rank_mesh(4, pods=2), url)
+    sol = Solver(spec, n_parts=4, ranks=ranks).solve(problem)
+
+Each process then holds only its rank's share of the ELL on its
+device, launches the frontier kernels for that rank, and returns the
+same :class:`Solution` as every other process (the full state,
+gathered).  ``solve``, ``solve_batch``, ``/adapt``, ``/trace`` and
+``/q`` run on either; ``resolve`` and ``serve/`` run stacked only.
+
 ``solve_batch`` runs B queries as B lanes of one engine run (the JAX
 package vmaps its loop); ``resolve`` is the self-stabilization
 dividend (paper §II): after a perturbation that only improves
@@ -52,9 +67,11 @@ from repro_torch.core.frontier import (
 )
 from repro_torch.core.metrics import WorkMetrics
 from repro_torch.core.processing import ProcessingFn
+from repro_torch.core.ranks import StackedRanks
 from repro_torch.device import resolve_device
 from repro_torch.graph.formats import Graph, graph_fingerprint
 from repro_torch.graph.partition import DeviceELL, PartitionedGraph, partition_graph
+from repro_torch.launch.mesh import RankMesh, make_rank_mesh
 from repro_torch.obs import trace as obs
 from repro_torch.obs.recorder import FlightRecorder, SolveTrace
 from repro_torch.tune.controller import run_adaptive
@@ -202,7 +219,8 @@ class Solution:
 class Solver:
     """One (SolverConfig, rank count, device); problems supply graph +
     sources + processing.  The ``n_parts`` ranks are stacked on the one
-    device."""
+    device, over ``mesh`` (default: one flat axis), unless ``ranks``
+    puts one rank in each process (the module docstring)."""
 
     def __init__(
         self,
@@ -210,11 +228,24 @@ class Solver:
         *,
         n_parts: int = 1,
         device=None,
+        mesh: Optional[RankMesh] = None,
+        ranks=None,
     ):
         self.config = as_config(config)
         if n_parts < 1:
             raise ValueError(f"n_parts must be positive: {n_parts}")
         self.n_parts = int(n_parts)
+        if ranks is not None:
+            if mesh is not None and mesh != ranks.mesh:
+                raise ValueError(f"mesh {mesh} differs from the process "
+                                 f"group's {ranks.mesh}")
+            mesh = ranks.mesh
+        mesh = make_rank_mesh(self.n_parts) if mesh is None else mesh
+        if mesh.size != self.n_parts:
+            raise ValueError(f"mesh {mesh.shape} holds {mesh.size} ranks, "
+                             f"the solver runs {self.n_parts}")
+        self.mesh = mesh
+        self.ranks = StackedRanks(mesh) if ranks is None else ranks
         self.device = resolve_device(device)
         # id(graph) -> (graph, fingerprint, PartitionedGraph); bounded LRU
         self._pg_cache: "OrderedDict[int, tuple]" = OrderedDict()
@@ -264,8 +295,31 @@ class Solver:
             adapt=dict(self._adapt_stats),
         )
 
+    @property
+    def stacked(self) -> bool:
+        """True iff every rank runs in this process."""
+        return self.ranks.rank is None
+
+    def require_stacked(self, what: str) -> None:
+        """Refuse ``what`` on a process backend, which it does not run."""
+        if not self.stacked:
+            raise ValueError(
+                f"{what} runs on stacked ranks only: over a process "
+                "backend it waits for ROADMAP.md Queue 1 item 1 (resolve "
+                "and serve/ over ProcessRanks); use a Solver without "
+                "ranks=")
+
+    def device_ell(self, pg: PartitionedGraph) -> DeviceELL:
+        """The ELL of the ranks this process runs, on its device."""
+        return pg.to(self.device, rank=self.ranks.rank)
+
     def _state(self, planes):
-        return tuple(torch.as_tensor(a, device=self.device) for a in planes)
+        return tuple(torch.as_tensor(self.ranks.local_ranks(a),
+                                     device=self.device) for a in planes)
+
+    def _gather(self, D: torch.Tensor, dim: int = 0) -> np.ndarray:
+        """The committed state of every rank, on the host."""
+        return self.ranks.gather(D, dim).cpu().numpy()
 
     def solve(self, problem: Problem) -> Solution:
         with obs.span("solver.solve", spec=self.config.name) as sp:
@@ -331,8 +385,9 @@ class Solver:
         D0, T0, L0 = self._state(initial_state_batch(pg, p, items))
         with obs.span("solver.solve_batch", spec=self.config.name,
                       batch=B, batch_padded=Bpad):
-            res = run_engine(ecfg, pg.to(self.device), pg.n_local, D0, T0, L0)
-        D = res.D.cpu().numpy()  # (Bpad, P, n_local)
+            res = run_engine(ecfg, self.device_ell(pg), pg.n_local, D0, T0, L0,
+                             self.ranks)
+        D = self._gather(res.D, 1)  # (Bpad, P, n_local)
         return [
             self._pack(problems[b], pg, ecfg, D[b], *(c[b] for c in res[1:]))
             for b in range(B)
@@ -357,6 +412,7 @@ class Solver:
         perturbation improved.  Correct whenever the prior state
         dominates the new fixpoint (weight decreases, edge or source
         additions); cold-solve after weight increases or deletions."""
+        self.require_stacked("resolve")
         with obs.span("solver.resolve", spec=self.config.name) as sp:
             return self._resolve(prev, new_sources, graph, sp)
 
@@ -387,7 +443,7 @@ class Solver:
                 f"new graph ({pg.partitioner}); cold-solve instead"
             )
         ecfg = self.config.engine_config(p)
-        ell = pg.to(self.device)
+        ell = self.device_ell(pg)
         committed = torch.as_tensor(prev.padded, dtype=torch.float32,
                                     device=self.device)
         # the committed prior state, with the per-rank dummy slot restored
@@ -395,7 +451,8 @@ class Solver:
                                dtype=torch.float32, device=self.device)
         D0 = torch.cat([committed, worst_col], dim=1)
         with obs.span("solver.bootstrap_sweep", m=pg.m):
-            T_full = _bootstrap_candidates(ell, pg.n_local, p, committed)
+            T_full = _bootstrap_candidates(ell, pg.n_local, p, committed,
+                                           self.ranks).reshape(-1)
         for v, s, _ in problem.source_items():
             pid = int(pg.padded_id(int(v)))  # owner map: original -> slot
             T_full[pid] = p.reduce(T_full[pid],
@@ -427,8 +484,9 @@ class Solver:
         if ecfg.payload != "exact":
             return self._solve_quantized(problem, pg, ecfg, D0, T0, L0)
         with obs.span("solver.engine") if engine_span else contextlib.nullcontext():
-            res = run_engine(ecfg, pg.to(self.device), pg.n_local, D0, T0, L0)
-        return self._pack(problem, pg, ecfg, res.D.cpu().numpy(), *res[1:])
+            res = run_engine(ecfg, self.device_ell(pg), pg.n_local, D0, T0, L0,
+                             self.ranks)
+        return self._pack(problem, pg, ecfg, self._gather(res.D), *res[1:])
 
     def _solve_adaptive(self, problem, pg, ecfg, D0, T0, L0) -> Solution:
         """Segmented solve: ``/adapt`` (a fresh policy instance a solve
@@ -443,8 +501,9 @@ class Solver:
             FlightRecorder(self.config.name) if self.config.trace else None
         )
         D, m, report = run_adaptive(
-            ecfg, pg, pg.to(self.device), policy, D0, T0, L0,
+            ecfg, pg, self.device_ell(pg), policy, D0, T0, L0,
             on_window=recorder.on_window if recorder is not None else None,
+            ranks=self.ranks,
         )
         if self.config.adapt is not None:
             st = self._adapt_stats
@@ -452,7 +511,7 @@ class Solver:
             st["segments"] += report.segments
             st["retraces"] += report.retraces
             st["cap_growths"] += report.cap_growths
-        padded = D.cpu().numpy()
+        padded = self._gather(D)
         return Solution(
             state=pg.unpermute(padded.reshape(-1)),
             metrics=m,
@@ -477,21 +536,24 @@ class Solver:
         candidates.  Each restart strictly lowers some committed value,
         so the loop ends; the final state equals an exact solve's.
         Each sweep counts as one superstep of ``m`` relaxations that
-        moves no exchange bytes."""
+        moves no exchange bytes (the word model's; a process backend
+        moves its candidates to their owners in one all-to-all)."""
         p = problem.processing_fn
-        ell = pg.to(self.device)
+        ell = self.device_ell(pg)
         nl = pg.n_local
-        res = run_engine(ecfg, ell, nl, D0, T0, L0)
+        ranks = self.ranks
+        res = run_engine(ecfg, ell, nl, D0, T0, L0, ranks)
         D, active = res.D, res.active
         it_t, commits_t, relax_t, classes_t = res[1:5]
         fallbacks_t, streak_max = res.fallbacks, res.max_streak
-        worst_col = torch.full((pg.n_parts, 1), float(p.worst),
+        worst_col = torch.full((ranks.local, 1), float(p.worst),
                                dtype=torch.float32, device=self.device)
         sweeps = verifies = 0
         while active == 0:  # a truncated run skips the repair (warned)
-            T_full = _bootstrap_candidates(ell, nl, p, D)
+            T_full = _bootstrap_candidates(ell, nl, p, D, ranks)
             verifies += 1
-            if not bool(p.better(T_full, D.reshape(-1)).any()):
+            improving = ranks.sum(p.better(T_full, D).sum().reshape(1))
+            if not int(improving):
                 break  # certified: the exact least fixpoint
             if sweeps >= QUANT_REPAIR_MAX_SWEEPS:
                 warnings.warn(
@@ -505,9 +567,9 @@ class Solver:
             sweeps += 1
             obs.event("repair_sweep", sweep=sweeps)
             D0r = torch.cat([D, worst_col], dim=1)
-            T0r = torch.cat([T_full.reshape(pg.n_parts, nl), worst_col], dim=1)
+            T0r = torch.cat([T_full, worst_col], dim=1)
             L0r = torch.where(p.better(T0r, D0r), 0.0, float("inf"))
-            res = run_engine(ecfg, ell, nl, D0r, T0r, L0r)
+            res = run_engine(ecfg, ell, nl, D0r, T0r, L0r, ranks)
             D, active = res.D, res.active
             it_t += res.supersteps
             commits_t += res.commits
@@ -520,7 +582,7 @@ class Solver:
         m.relaxations += pg.m * verifies
         m.supersteps += verifies
         m.repair_sweeps = sweeps
-        padded = D.cpu().numpy()
+        padded = self._gather(D)
         return Solution(
             state=pg.unpermute(padded.reshape(-1)),
             metrics=m,
@@ -547,27 +609,35 @@ class Solver:
 
 
 def _bootstrap_candidates(ell: DeviceELL, n_local: int, p: ProcessingFn,
-                          committed: torch.Tensor) -> torch.Tensor:
+                          committed: torch.Tensor,
+                          ranks=None) -> torch.Tensor:
     """One synchronous relaxation of every out-edge of ``committed``
-    ((P, n_local), on the ELL's device): the self-stabilizing kernel's
-    re-verification sweep.  Returns the (n_pad,) candidates to seed T
-    with.  A min or max does not depend on order, so this equals the
-    JAX package's host sweep bit for bit."""
+    (the local ranks' (P_loc, n_local) state, on the ELL's device): the
+    self-stabilizing kernel's re-verification sweep.  Each local rank
+    scatters its candidates over all n_pad vertices, and one all-to-all
+    with a combine brings them to their owners.  Returns the local
+    ranks' (P_loc, n_local) candidates to seed T with.  A min or max
+    does not depend on order, so this equals the JAX package's host
+    sweep bit for bit.  ``ranks`` as the engine's (None: stacked)."""
     row_src, col, wgt, _ = ell
-    n_parts, R, _ = col.shape
-    n_pad = n_parts * n_local
+    P_loc, R, _ = col.shape
+    if ranks is None:
+        ranks = StackedRanks(P_loc)
+    n_pad = ranks.world * n_local
     dev = committed.device
-    worst_col = torch.full((n_parts, 1), float(p.worst), dtype=torch.float32,
+    worst_col = torch.full((P_loc, 1), float(p.worst), dtype=torch.float32,
                            device=dev)
     state_ext = torch.cat([committed, worst_col], dim=1)  # dummy slot n_local
     src_state = torch.gather(state_ext, 1, row_src.to(torch.int64))  # (P, R)
     cand = p.edge_update(src_state[..., None], wgt).expand(col.shape)
-    # the padding of row (q, r) goes to a spill column of its own,
-    # n_pad + q·R + r, dropped after (core/frontier.py)
-    spill = torch.arange(n_pad, n_pad + n_parts * R,
-                         device=dev).reshape(n_parts, R, 1)
+    # the padding of row r goes to a spill column of its own, n_pad + r,
+    # dropped after (core/frontier.py)
+    spill = torch.arange(n_pad, n_pad + R, device=dev).reshape(R, 1)
     idx = torch.where(col == n_pad, spill, col)
-    buf = torch.full((n_pad + n_parts * R,), float(p.worst),
+    buf = torch.full((P_loc, n_pad + R), float(p.worst),
                      dtype=torch.float32, device=dev)
-    buf.scatter_reduce_(0, idx.reshape(-1), cand.reshape(-1), p.scatter_op)
-    return buf[:n_pad]
+    buf.scatter_reduce_(1, idx.reshape(P_loc, -1), cand.reshape(P_loc, -1),
+                        p.scatter_op)
+    X = ranks.all_to_all(
+        buf[None, :, :n_pad].reshape(1, P_loc, ranks.world, n_local))
+    return p.reduce_array(X, 2)[0]

@@ -7,7 +7,9 @@ the AGM root, and each further annotation refines eligibility within
 the selection above it at its scope:
 
     global  min over every rank (the AGM root decision)
-    pod     min over the ranks of a pod (all ranks on a flat mesh)
+    pod     min over the ranks of one pod: the ranks that share an index
+            on the mesh's ``pod`` axis (``launch/mesh.py::RankMesh``);
+            every rank on a mesh without one
     device  rank-local reduction
     chunk   rank-local; a TopK annotation drains the B smallest items
 

@@ -1,9 +1,13 @@
-"""Rank-stacked EAGM execution engine (torch).
+"""EAGM execution engine (torch).
 
-The graph is 1D-partitioned over P ranks (paper §V), and all P ranks
-live on one device: state tensors are ``(P, n_local+1)``, a global
-min over ranks is an ``amin`` over the rank axis, and an all-to-all is
-a transpose.  Per owned vertex v every rank keeps
+The graph is 1D-partitioned over P ranks (paper §V).  By default all P
+ranks live on one device: state tensors are ``(P, n_local+1)``, a
+global min over ranks is an ``amin`` over the rank axis, and an
+all-to-all is a transpose.  With a process backend
+(:class:`repro_torch.core.ranks.ProcessRanks`) each process holds one
+rank, its state is ``(1, n_local+1)``, and each of those steps is a
+``torch.distributed`` collective.  The engine calls both through the
+ranks object (``core/ranks.py``).  Per owned vertex v every rank keeps
 
     D[v] — committed state (the paper's ``distance`` mapping), and
     T[v] — the best pending workitem state for v.
@@ -25,11 +29,13 @@ superstep:
   6. fold into T and count the pending workitems (termination).
 
 The loop runs eagerly.  The host reads three things a superstep: the
-frontier's row-overflow flag (dense or push relax), the sparse
-exchange's vote with the capacity-overflow flag, and the pending count;
-the work counters stay on the device and are read once a run.  State
-with a leading lane axis runs B queries at once, as the JAX package's
-``vmap`` of its loop.
+frontier's row-overflow flag (dense or push relax; each process its
+own rank's, as the JAX package's ``lax.cond`` decides per rank), the
+sparse exchange's vote with the capacity-overflow flag, and the pending
+count; the work counters stay on the device, summed locally, and are
+reduced over the ranks and read once a run.  State with a leading lane
+axis runs B queries at once, as the JAX package's ``vmap`` of its
+loop.
 
 :func:`run_segment` is the adaptive engine's entry (``/adapt``,
 ``/trace``; ``EngineConfig.adapt_window > 0``): at most ``limit``
@@ -63,6 +69,7 @@ from repro_torch.core.frontier import (
 )
 from repro_torch.core.ordering import DeltaStepping, suggest
 from repro_torch.core.processing import SSSP, ProcessingFn
+from repro_torch.core.ranks import StackedRanks
 from repro_torch.graph.partition import DeviceELL, PartitionedGraph
 from repro_torch.kernels import (
     fused_superstep,
@@ -149,7 +156,7 @@ class SegmentResult(NamedTuple):
     """An adaptive segment's state (with the dummy slot, for the next
     segment), its counters and its per-superstep window."""
 
-    D: torch.Tensor    # (P, n_local+1)
+    D: torch.Tensor    # (P, n_local+1); (1, n_local+1) a process
     T: torch.Tensor
     L: torch.Tensor
     supersteps: int
@@ -172,7 +179,7 @@ class EngineResult(NamedTuple):
     axis, ``D`` is (B, P, n_local) and every counter a list of B ints,
     one a lane."""
 
-    D: torch.Tensor   # (P, n_local) committed state
+    D: torch.Tensor   # (P, n_local) committed state (the local ranks')
     supersteps: int
     commits: int
     relaxations: int
@@ -197,9 +204,16 @@ def run_engine(
     D: torch.Tensor,
     T: torch.Tensor,
     L: torch.Tensor,
+    ranks=None,
 ) -> EngineResult:
     """Run supersteps from the (P, n_local+1) state (D, T, L) until no
     workitem is pending or ``cfg.max_iters`` is reached.
+
+    ``ranks`` carries the rank-axis collectives (``core/ranks.py``):
+    None stacks every rank of ``ell`` on its device; a
+    :class:`~repro_torch.core.ranks.ProcessRanks` runs this process's
+    rank, with ``ell`` and the state holding that rank only.  The
+    result is the local ranks' state; the counters are global.
 
     State of shape (B, P, n_local+1) runs B lanes (independent queries
     on one graph) as the JAX package's ``vmap`` of its loop does: every
@@ -210,14 +224,14 @@ def run_engine(
     branches give the same candidates wherever both apply.  The host
     reads three things a superstep, each for all lanes at once.  On the
     sparse route a kernel launches once a superstep for all B·P (lane,
-    rank) pairs (the batched entry); state without a lane axis launches
-    the single entry once a rank."""
+    local rank) pairs (the batched entry); state without a lane axis
+    launches the single entry once a local rank."""
     if cfg.adapt_window > 0:
         raise ValueError(
             "an adaptive engine config (adapt_window > 0) runs in "
             "segments: use run_segment"
         )
-    return _run(cfg, ell, n_local, D, T, L, None)
+    return _run(cfg, ell, n_local, D, T, L, None, ranks)
 
 
 def run_segment(
@@ -228,6 +242,7 @@ def run_segment(
     T: torch.Tensor,
     L: torch.Tensor,
     seg: Segment,
+    ranks=None,
 ) -> SegmentResult:
     """One adaptive segment from the (P, n_local+1) state: at most
     ``seg.limit`` supersteps while work is pending, with the root Δ
@@ -237,7 +252,8 @@ def run_segment(
     override ``seg.force_ex`` (1 forces sparse, the capacity veto still
     applying; 2 forces dense).  Counters start at zero, the pending
     count, class key and overflow streak from ``seg``.  One lane only:
-    the JAX package refuses batched adaptive engines too."""
+    the JAX package refuses batched adaptive engines too.  ``ranks`` as
+    in :func:`run_engine`; the window is global."""
     if cfg.adapt_window <= 0:
         raise ValueError(
             f"run_segment needs an adaptive engine config (adapt_window "
@@ -250,10 +266,10 @@ def run_segment(
         )
     if seg.force_ex not in (0, 1, 2):
         raise ValueError(f"force_ex must be 0, 1 or 2: {seg.force_ex}")
-    return _run(cfg, ell, n_local, D, T, L, seg)
+    return _run(cfg, ell, n_local, D, T, L, seg, ranks)
 
 
-def _run(cfg, ell, n_local, D, T, L, seg):
+def _run(cfg, ell, n_local, D, T, L, seg, ranks):
     """The superstep loop of :func:`run_engine` (``seg`` None) and of
     :func:`run_segment`."""
     lanes = D.dim() == 3
@@ -266,10 +282,17 @@ def _run(cfg, ell, n_local, D, T, L, seg):
     worst = float(p.worst)
     op = p.scatter_op
     row_src, col, wgt, row_deg = ell
-    n_parts, R, W = col.shape
+    if ranks is None:
+        ranks = StackedRanks(col.shape[0])
+    n_parts = ranks.world  # global: the shapes of the exchange
+    P_loc, R, W = col.shape
+    if P_loc != ranks.local or D.shape[1] != P_loc:
+        raise ValueError(
+            f"the ELL holds {P_loc} ranks and the state {D.shape[1]}, but "
+            f"this process runs {ranks.local} of {n_parts}")
     n_pad = n_parts * n_local
     B = D.shape[0]
-    S = B * n_parts  # (lane, rank) pairs, lane-major
+    S = B * P_loc  # (lane, local rank) pairs, lane-major
     dev = D.device
     rs1 = row_src.to(torch.int64)[None]  # (1, P, R): shared by every lane
     col1 = col[None]
@@ -286,9 +309,9 @@ def _run(cfg, ell, n_local, D, T, L, seg):
         slot_cap, use_level, cfg.payload
     ) >= nplanes * n_local
     kernel_ok = p.name == "sssp" and not use_level
-    worst_col = torch.full((B, n_parts, 1), worst, dtype=torch.float32,
+    worst_col = torch.full((B, P_loc, 1), worst, dtype=torch.float32,
                            device=dev)
-    inf_col = torch.full((B, n_parts, 1), INF, dtype=torch.float32, device=dev)
+    inf_col = torch.full((B, P_loc, 1), INF, dtype=torch.float32, device=dev)
 
     def scatter(cols, vals, fill, how):
         """(B or 1, P, A, W) columns and (B, P, A, W) candidates
@@ -299,11 +322,11 @@ def _run(cfg, ell, n_local, D, T, L, seg):
         A = cols.shape[2]
         spill = torch.arange(n_pad, n_pad + A, device=dev)[:, None]
         idx = torch.where(cols == n_pad, spill, cols)
-        buf = torch.full((B, n_parts, n_pad + A), fill, dtype=torch.float32,
+        buf = torch.full((B, P_loc, n_pad + A), fill, dtype=torch.float32,
                          device=dev)
         buf.scatter_reduce_(
-            2, idx.reshape(idx.shape[0], n_parts, -1).expand(B, -1, -1),
-            vals.reshape(B, n_parts, -1), how)
+            2, idx.reshape(idx.shape[0], P_loc, -1).expand(B, -1, -1),
+            vals.reshape(B, P_loc, -1), how)
         return buf[..., :n_pad]
 
     def level_scatter(cols, cands, lvl_cands, C):
@@ -363,8 +386,8 @@ def _run(cfg, ell, n_local, D, T, L, seg):
             else:
                 raw_key = o.class_key(T, L)
             key = torch.where(eligible, raw_key, INF)
-            if lvl in ("global", "pod"):  # one flat rank axis: pod = all
-                m = key.amin(dim=(1, 2), keepdim=True)
+            if lvl in ("global", "pod"):  # pod: the mesh's pod axis
+                m = ranks.min_over(key, lvl)
                 eligible = eligible & (key == m)
                 if lvl == "global":
                     kmin = m.reshape(B)
@@ -412,20 +435,20 @@ def _run(cfg, ell, n_local, D, T, L, seg):
                     C = kernel(D.reshape(S, -1),
                                f_idx.reshape(S, row_cap).contiguous(),
                                f_cnt.reshape(S), row_src, col, wgt, n_pad)
-                else:  # one launch a rank
+                else:  # one launch a local rank
                     kernel = fused_superstep if fused else relax_push_rows
                     C = torch.stack([
                         kernel(D[0, q], f_idx[0, q], f_cnt[0, q], row_src[q],
                                col[q], wgt[q], n_pad)
-                        for q in range(n_parts)
+                        for q in range(P_loc)
                     ])
-                return C[..., :n_pad].reshape(B, n_parts, n_pad), None
+                return C[..., :n_pad].reshape(B, P_loc, n_pad), None
             fi = f_idx.to(torch.int64)
             valid = fi < R
             fic = fi.clamp(max=R - 1)
             srcg = torch.where(valid, _rows(rs1.expand(B, -1, -1), fic),
                                n_local)
-            strip = fic[..., None].expand(B, n_parts, row_cap, W)
+            strip = fic[..., None].expand(B, P_loc, row_cap, W)
             colg = torch.where(
                 valid[..., None],
                 torch.gather(col1.expand(B, -1, -1, -1), 2, strip), n_pad)
@@ -444,36 +467,29 @@ def _run(cfg, ell, n_local, D, T, L, seg):
         if sparse_mode:
             f_idx, f_cnt, row_overflow = compact_rows(
                 elig_rows.reshape(S, R), row_cap)
-            f_idx = f_idx.reshape(B, n_parts, row_cap)
-            f_cnt = f_cnt.reshape(B, n_parts)
-            row_overflow = row_overflow.reshape(B, n_parts)
+            f_idx = f_idx.reshape(B, P_loc, row_cap)
+            f_cnt = f_cnt.reshape(B, P_loc)
+            row_overflow = row_overflow.reshape(B, P_loc)
             # a rank whose frontier overflows F sweeps densely; the dense
             # and push candidates agree wherever both apply, so one dense
-            # sweep serves every rank of every lane
+            # sweep serves every local rank of every lane (a process
+            # decides for its own rank alone)
             C, CL = relax_dense() if bool(row_overflow.any()) else relax_push()
         else:
             C, CL = relax_dense()
 
         # ---- 5. exchange candidates to owners -------------------------
         def exchange_a2a():
-            X = C.reshape(B, n_parts, n_parts, n_local).transpose(1, 2)
+            X = ranks.all_to_all(C.reshape(B, P_loc, n_parts, n_local))
             mine = p.reduce_array(X, 2)
             if not use_level:
                 return mine, None
-            XL = CL.reshape(B, n_parts, n_parts, n_local).transpose(1, 2)
+            XL = ranks.all_to_all(CL.reshape(B, P_loc, n_parts, n_local))
             return mine, torch.where(X == mine[:, :, None], XL, INF).amin(2)
-
-        def exchange_pmin():
-            Cg = p.reduce_array(C, 1)
-            mine = Cg.reshape(B, n_parts, n_local)
-            if not use_level:
-                return mine, None
-            CLg = torch.where(C == Cg[:, None], CL, INF).amin(1)
-            return mine, CLg.reshape(B, n_parts, n_local)
 
         sp_used = [0] * B
         if cfg.exchange == "pmin":
-            mine, mineL = exchange_pmin()
+            mine, mineL = ranks.reduce(C, is_min, CL if use_level else None)
         elif cfg.exchange == "a2a":
             mine, mineL = exchange_a2a()
         elif static_dense:
@@ -484,7 +500,7 @@ def _run(cfg, ell, n_local, D, T, L, seg):
             payload, ex_overflow = sparse_payload(
                 C.reshape(S, n_pad), extra, n_parts, slot_cap, worst,
                 cfg.payload)
-            cap_ok = ~ex_overflow.reshape(B, n_parts)
+            cap_ok = ~ex_overflow.reshape(B, P_loc)
             ok = cap_ok
             if cfg.exchange == "auto":
                 ok = ok & (active_t <= auto_thresh)[:, None]
@@ -492,22 +508,24 @@ def _run(cfg, ell, n_local, D, T, L, seg):
                 ok = cap_ok  # forced sparse: the capacity veto still applies
             elif seg is not None and seg.force_ex == 2:
                 ok = torch.zeros_like(ok)
-            over = row_overflow | ex_overflow.reshape(B, n_parts)
+            over = row_overflow | ex_overflow.reshape(B, P_loc)
             # every rank of a lane takes the same branch (the shapes
-            # differ); one lane's dense branch serves all lanes
-            use_sp, no_overflow = torch.stack(
-                [ok.all(1), ~over.any(1)]
+            # differ, and a process on the other branch would wait in a
+            # collective for ever): the vote reaches every rank first;
+            # one lane's dense branch serves all lanes
+            use_sp, no_overflow = ranks.vote(
+                torch.stack([ok, ~over]).to(torch.int32)
             ).tolist()
             if all(use_sp):
                 sp_used = [1] * B
-                recv = payload.reshape(B, n_parts, n_parts, -1).transpose(1, 2)
+                recv = ranks.all_to_all(payload.reshape(B, P_loc, n_parts, -1))
                 mine, mineL = unpack_combine(
                     recv.reshape(S, n_parts, -1), n_local, slot_cap, is_min,
                     worst, use_level, cfg.payload,
                 )
-                mine = mine.reshape(B, n_parts, n_local)
+                mine = mine.reshape(B, P_loc, n_local)
                 if use_level:
-                    mineL = mineL.reshape(B, n_parts, n_local)
+                    mineL = mineL.reshape(B, P_loc, n_local)
             else:
                 mine, mineL = exchange_a2a()
             for b in range(B):
@@ -529,7 +547,7 @@ def _run(cfg, ell, n_local, D, T, L, seg):
             relax += (elig_rows * row_deg).sum(dim=(1, 2))
             classes += ((kmin != last_key) & live_t).to(torch.int64)
         last_key = kmin
-        active_t = p.better(T, D).sum(dim=(1, 2))
+        active_t = ranks.sum(p.better(T, D).sum(dim=(1, 2)))
         if seg is not None:
             elig_w.append(step_commits[0])
             rows_w.append(elig_rows[0].sum())
@@ -540,17 +558,21 @@ def _run(cfg, ell, n_local, D, T, L, seg):
         supersteps = [s + lv for s, lv in zip(supersteps, live)]
         it += 1
 
-    # the work counters (and a segment's window): one host read
-    work = [commits, relax, classes]
+    # the work counters (and a segment's window), summed over the ranks:
+    # one collective and one host read.  The class count is global
+    # already (kmin is), so it is not summed.
+    work = [commits, relax]
     if seg is not None and it:
         work.append(torch.stack(elig_w + rows_w))
-    work = torch.cat(work).tolist()
-    commits_l, relax_l, classes_l = (work[i * B:(i + 1) * B] for i in range(3))
+    work = torch.cat([ranks.sum(torch.cat(work)), classes]).tolist()
+    commits_l, relax_l = work[:B], work[B:2 * B]
+    classes_l = work[-B:]
+    window = work[2 * B:-B]
     if seg is not None:
         return SegmentResult(
             D[0], T[0], L[0], it, commits_l[0], relax_l[0], classes_l[0],
             active[0], fallbacks[0], last_key, streak[0], max_streak[0],
-            pend_w, work[3:3 + it], work[3 + it:], sparse_w)
+            pend_w, window[:it], window[it:], sparse_w)
     out = [supersteps, commits_l, relax_l, classes_l, active, fallbacks,
            max_streak]
     if not lanes:

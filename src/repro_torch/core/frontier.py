@@ -15,8 +15,10 @@
   codes round up only, so every decoded candidate is >= the exact one
   and the self-stabilizing kernel repairs the error.
 
-Every function takes a leading rank axis: the engine stacks its P
-ranks on one device.  Capacities are static Python ints.
+Every function takes a leading rank axis: the local ranks, all P of
+them when the engine stacks its ranks on one device, one in a process
+of the process backend (the payload still has P destinations).
+Capacities are static Python ints.
 
 The codecs keep u32 words in int64 tensors (torch has few uint32
 ops) and do their shifts, masks and carries there; a float's bits come

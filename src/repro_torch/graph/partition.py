@@ -210,19 +210,24 @@ class PartitionedGraph:
     def rows_per_rank(self) -> int:
         return int(self.row_src.shape[1])
 
-    def to(self, device) -> DeviceELL:
+    def to(self, device, rank: Optional[int] = None) -> DeviceELL:
         """The ELL buffers on ``device``, copied there on first use and
-        kept for later solves."""
+        kept for later solves: every rank's, or with ``rank=r`` only rank
+        r's, as a (1, R, W) stack (a process of the process backend
+        holds its own rank's share alone)."""
         device = torch.device(device)
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
-        key = str(device)
+        if rank is not None and not 0 <= rank < self.n_parts:
+            raise ValueError(f"rank {rank} outside [0, {self.n_parts})")
+        key = (str(device), rank)
         buf = self._device.get(key)
         if buf is None:
-            col = torch.as_tensor(self.col, device=device)
-            wgt = torch.as_tensor(self.wgt, device=device)
+            part = slice(None) if rank is None else slice(rank, rank + 1)
+            col = torch.as_tensor(self.col[part], device=device)
+            wgt = torch.as_tensor(self.wgt[part], device=device)
             buf = DeviceELL(
-                row_src=torch.as_tensor(self.row_src, device=device),
+                row_src=torch.as_tensor(self.row_src[part], device=device),
                 col=col,
                 wgt=wgt,
                 row_deg=(wgt < float("inf")).sum(dim=2),

@@ -20,6 +20,11 @@ for the aggregate), Σ ``eligible`` equals ``commits``, and the last
 ``pending`` entry is 0 iff the solve converged.
 :meth:`SolveTrace.reconcile` machine-checks all of this against a
 ``WorkMetrics``.
+
+Over a process backend (``core/ranks.py::ProcessRanks``) every
+window is global, so every process records the same trace; only the
+segments' wall timestamps are each process's own, and rank 0's trace is
+the one a caller reports.
 """
 
 from __future__ import annotations

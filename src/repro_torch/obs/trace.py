@@ -11,6 +11,8 @@ and the serving tier (``router.flush``, ``landmarks.build``,
   (parent attribution) is thread-local.
 * Testable time: the clock is injected (``Tracer(clock=...)``).
 * Bounded: past ``max_records`` new records are dropped and counted.
+* Per process: over a process backend each rank process keeps its own
+  tracer; a caller reports rank 0's.
 
 Usage::
 

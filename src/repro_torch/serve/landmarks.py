@@ -85,6 +85,7 @@ class LandmarkIndex:
         symmetric: bool = False,
         processing: str = "sssp",
     ):
+        solver.require_stacked("the landmark index")
         self.solver = solver
         self.graph = graph
         self.symmetric = bool(symmetric)

@@ -140,6 +140,7 @@ class Router:
         clock: Callable[[], float] = time.monotonic,
         latency_window: int = 1024,
     ):
+        solver.require_stacked("the Router")
         if max_batch < 1:
             raise ValueError(f"max_batch must be positive: {max_batch}")
         if latency_window < 1:

@@ -110,6 +110,7 @@ class UpdateFeed:
         landmarks: Optional[LandmarkIndex] = None,
         refresh: str = "eager",
     ):
+        solver.require_stacked("the update feed")
         if refresh not in ("eager", "lazy"):
             raise ValueError(
                 f"refresh must be 'eager' or 'lazy', got {refresh!r}"

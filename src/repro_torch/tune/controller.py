@@ -60,11 +60,18 @@ def run_adaptive(
     T0: torch.Tensor,
     L0: torch.Tensor,
     on_window: Optional[Callable[[SuperstepWindow, dict], None]] = None,
+    ranks=None,
 ) -> tuple[torch.Tensor, WorkMetrics, AdaptReport]:
     """Drive the segment engine to convergence (or ``max_iters``) under
     ``policy`` from the (P, n_local+1) state on ``ell``'s device.
     Returns the padded (P, n_local) committed state (on the device),
     exact WorkMetrics, and the controller's AdaptReport.
+
+    ``ranks`` is the engine's (``core/ranks.py``; None: stacked).  Over
+    a process backend the state and ``ell`` are this process's rank's
+    and the returned state too; every window, decision and metric is
+    global, so every process takes the same decisions and records the
+    same flight record.
 
     ``on_window`` is the flight-recorder tap: when given, it is called
     once per segment, the last one included and before the policy is
@@ -99,7 +106,8 @@ def run_adaptive(
     force = 0
 
     D, T, L = D0, T0, L0
-    active = int(p.better(T0, D0).sum())
+    pending = p.better(T0, D0).sum().reshape(1)
+    active = int(pending if ranks is None else ranks.sum(pending))
     last_key = float("nan")
     streak = 0
 
@@ -126,7 +134,7 @@ def run_adaptive(
             t0_seg = obs.now()
             r = run_segment(ecfg_seg, ell, nl, D, T, L,
                             Segment(active, last_key, streak, limit, delta,
-                                    force))
+                                    force), ranks)
             D, T, L = r.D, r.T, r.L
             it = r.supersteps
             if it == 0:

@@ -10,6 +10,8 @@ the card alone:
 """
 
 import dataclasses
+import os
+import pickle
 
 import numpy as np
 import pytest
@@ -877,3 +879,58 @@ def test_quantized_codes_on_card_match_cpu(dev, seed):
         mc, _ = F.unpack_combine(pc, 64, 16, True, float("inf"), False, payload)
         mh, _ = F.unpack_combine(ph, 64, 16, True, float("inf"), False, payload)
         assert torch.equal(mc.cpu(), mh)
+
+
+# ---------------------------------------- the process backend on the card
+
+GLOO_SPECS = [("delta:5/sparse/fused", "fused"), ("delta:5/sparse", "push"),
+              ("delta:5+threadq/a2a", "ref"), ("kla:2 > pod:dijkstra /pmin", "ref"),
+              ("delta:5/sparse/q:u16", "fused")]
+
+
+def gloo_rank(rank, world, url, out_dir):
+    """A rank process on cuda:0: solve GLOO_SPECS over gloo, write the
+    solutions and this rank's kernel launches."""
+    from repro_torch.launch.mesh import init_ranks, make_rank_mesh
+
+    torch.cuda.set_device(0)
+    ranks = init_ranks("gloo", rank, world, make_rank_mesh(world), url)
+    g = rmat1(12, seed=1)
+    out = {}
+    for spec, impl in GLOO_SPECS:
+        K.reset_launch_counts()
+        sol = Solver(SolverConfig.from_spec(spec, relax_impl=impl), n_parts=world,
+                     device="cuda:0", ranks=ranks).solve(Problem(g, SingleSource(0)))
+        torch.cuda.synchronize()
+        out[spec] = (sol.state, sol.padded, sol.metrics.as_dict(),
+                     dict(K.launch_counts()))
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def test_gloo_ranks_on_card_match_stacked(dev, tmp_path):
+    """Two gloo processes sharing cuda:0, one rank each, against the
+    stacked solve at P = 2 on the card: the same state, padded state and
+    metrics on both processes, each launching its frontier kernel."""
+    from repro_torch.launch.mesh import spawn_ranks
+
+    spawn_ranks(gloo_rank, 2, ("file://" + str(tmp_path / "store"), str(tmp_path)),
+                timeout=600)
+    runs = []
+    for r in range(2):
+        with open(tmp_path / f"rank{r}.pkl", "rb") as f:
+            runs.append(pickle.load(f))
+    g = rmat1(12, seed=1)
+    for spec, impl in GLOO_SPECS:
+        want = Solver(SolverConfig.from_spec(spec, relax_impl=impl), n_parts=2,
+                      device="cuda").solve(Problem(g, SingleSource(0)))
+        for r in range(2):
+            state, padded, metrics, launches = runs[r][spec]
+            assert state.tobytes() == want.state.tobytes(), (spec, r)
+            assert padded.tobytes() == want.padded.tobytes(), (spec, r)
+            assert metrics == want.metrics.as_dict(), (spec, r)
+            if impl == "fused":
+                assert launches["fused_superstep"] > 0, (spec, r)
+            if impl == "push":
+                assert launches["relax_push_gather"] > 0, (spec, r)

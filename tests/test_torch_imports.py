@@ -47,7 +47,8 @@ def test_port_imports_no_jax_and_no_reference():
                 "repro_torch.tune.policies", "repro_torch.tune.controller",
                 "repro_torch.tune.autotune", "repro_torch.obs.recorder",
                 "repro_torch.obs.export", "repro_torch.launch.tune",
-                "repro_torch.launch.obs"):
+                "repro_torch.launch.obs", "repro_torch.launch.mesh",
+                "repro_torch.core.ranks"):
         assert sub in mods, sub
     code = PROBE.format(src=str(ROOT / "src"), root=str(ROOT),
                         modules=mods + ["chip_smoke"])
