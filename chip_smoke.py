@@ -82,6 +82,24 @@ Phases (any failure exits non-zero):
      whose frontier fits its cap; warm walls (gloo through host memory
      on one card, not a scaling figure); (c) NCCL, one process, equal
      to phase 4
+ 14. resolve and the query service across processes on phase 2's
+     graph, gloo processes sharing the card: (a) at P = 2 and 4,
+     ``resolve`` after phase 11's first improving update and after
+     adding a source, bit-identical to the stacked resolve at the same
+     P (state, padded state, metrics) and to a cold solve's state, warm
+     walls beside the stacked ones; (b) at P = 2 the query service at
+     the reference service CLI's defaults (phase 11's mix, landmarks,
+     cache and 4 improving updates), rank 0 serving and the other rank
+     following: every answer equal to the stacked service's on the same
+     mix, the cache, router, landmark and feed counters equal on every
+     rank, refreshed entries equal to cold solves; q/s, p50/p99, flush
+     and update walls, broadcasts a flush and each rank's peak card
+     memory; then rank 0 holds the batched fused and push entries at
+     its largest superstep (its share of the ELL) against their plain
+     versions and times them (wrapper, bare, alone, bound); (c)
+     ``launch.sssp --root delta:5 --variant buffer --exchange sparse
+     --partition ebal --verify`` on phase 2's graph equals Dijkstra and
+     prints its load-balance lines
 
 Phase 3 also holds the two frontier kernels' batched entries against
 their plain versions and against 8 single launches at two supersteps of
@@ -175,6 +193,11 @@ DIST_SPECS = ((SPEC, "fused"), ("delta:5/sparse", "push"), ("delta:5/a2a", "ref"
 POD_SPEC = "delta:5 > pod:dijkstra /a2a"
 DIST_TIMEOUT_S = 300
 NCCL_BACKEND = "nccl"
+# resolve and the query service across processes (phase 14): (a) at
+# RESOLVE_PROCESSES, (b) the service at SERVICE_PROCESSES
+RESOLVE_PROCESSES = (2, 4)
+SERVICE_PROCESSES = 2
+SERVICE_TIMEOUT_S = 900
 
 
 def log(msg: str) -> None:
@@ -1157,6 +1180,23 @@ def batched_frontier_rows(g, pg, ell, dev, flush, floor_lib) -> list[dict]:
     and against its byte bound; the fused entry also beside its atomics
     floor.  Returns their rows of the kernels line at the balanced
     superstep (launches filled in by phase 11)."""
+    rows = []
+    for label, step in batched_supersteps(g, pg, dev).items():
+        entries = batched_entry_rows(label, step["dist"], step["row_idx"],
+                                     step["count"], ell, pg.n_pad, flush, floor_lib)
+        if label == "balanced":
+            rows += entries
+    return rows
+
+
+def batched_entry_rows(label, dist, idx, cnt, ell, n_out, flush, floor_lib) -> list[dict]:
+    """One batched superstep (``dist``, ``idx``, ``cnt`` at the batched
+    fused entry over ``ell``'s P ranks): each batched entry against its
+    plain version and S single launches, bit for bit; timed through the
+    wrapper, bare, alone under the profiler, as S single launches, and
+    against its byte bound; the fused entry also beside its atomics
+    floor when ``floor_lib`` is given.  Returns their rows of the
+    kernels line."""
     import torch
 
     from repro_torch import kernels as K
@@ -1165,119 +1205,115 @@ def batched_frontier_rows(g, pg, ell, dev, flush, floor_lib) -> list[dict]:
 
     rs, col, wgt = ell.row_src, ell.col, ell.wgt
     P, R, W = col.shape
-    n_out = pg.n_pad
     rows = []
-    for label, step in batched_supersteps(g, pg, dev).items():
-        dist, idx, cnt = step["dist"], step["row_idx"], step["count"]
-        S, F = idx.shape
-        counts = cnt.tolist()
-        n_src = [int(torch.unique(rs[s % P][idx[s, :k].long()]).numel())
-                 for s, k in enumerate(counts)]
-        live = sum(counts)
-        # the lanes of a rank share its ELL: a row two lanes list is read once
-        rows_read = int(torch.unique(torch.cat([
-            (s % P) * R + idx[s, :k].long() for s, k in enumerate(counts)])).numel())
-        vec = bool(K._lib.vector_strips(W, col, wgt))
-        log(f"batched frontier, {label} ({S} lanes): per-lane counts {counts} of "
-            f"F={F} ({live} rows, {rows_read} distinct, {sum(n_src)} source "
-            f"vertices); 1-D grids: fused {fused_kernel.batch_grid(F, W, S, vec)} "
-            f"blocks, push {push_kernel.batch_grid(F, W, S, True)}")
-        stream = torch.cuda.current_stream().cuda_stream
-        fused_out = torch.full((S, n_out + 1), float("inf"), device=dist.device)
-        push_out = torch.empty((S, F, W), device=dist.device)
-        fused_launch = fused_kernel._batch_launch()
-        fused_args = (dist.data_ptr(), idx.data_ptr(), cnt.data_ptr(), rs.data_ptr(),
-                      col.data_ptr(), wgt.data_ptr(), fused_out.data_ptr(), F, R, W, P,
-                      dist.shape[1], n_out + 1, S, int(vec), stream)
+    S, F = idx.shape
+    counts = cnt.tolist()
+    n_src = [int(torch.unique(rs[s % P][idx[s, :k].long()]).numel())
+             for s, k in enumerate(counts)]
+    live = sum(counts)
+    # the lanes of a rank share its ELL: a row two lanes list is read once
+    rows_read = int(torch.unique(torch.cat([
+        (s % P) * R + idx[s, :k].long() for s, k in enumerate(counts)])).numel())
+    vec = bool(K._lib.vector_strips(W, col, wgt))
+    log(f"batched frontier, {label} ({S} lanes): per-lane counts {counts} of "
+        f"F={F} ({live} rows, {rows_read} distinct, {sum(n_src)} source "
+        f"vertices); 1-D grids: fused {fused_kernel.batch_grid(F, W, S, vec)} "
+        f"blocks, push {push_kernel.batch_grid(F, W, S, True)}")
+    stream = torch.cuda.current_stream().cuda_stream
+    fused_out = torch.full((S, n_out + 1), float("inf"), device=dist.device)
+    push_out = torch.empty((S, F, W), device=dist.device)
+    fused_launch = fused_kernel._batch_launch()
+    fused_args = (dist.data_ptr(), idx.data_ptr(), cnt.data_ptr(), rs.data_ptr(),
+                  col.data_ptr(), wgt.data_ptr(), fused_out.data_ptr(), F, R, W, P,
+                  dist.shape[1], n_out + 1, S, int(vec), stream)
 
-        def fused_bare():  # into a fresh +inf output, as the wrapper does
-            fused_out.fill_(float("inf"))
-            return fused_launch(*fused_args)
+    def fused_bare():  # into a fresh +inf output, as the wrapper does
+        fused_out.fill_(float("inf"))
+        return fused_launch(*fused_args)
 
-        push_launch = push_kernel._batch_launch()
-        push_args = (dist.data_ptr(), idx.data_ptr(), cnt.data_ptr(), rs.data_ptr(),
-                     wgt.data_ptr(), push_out.data_ptr(), F, R, W, P, dist.shape[1], S,
-                     int(K._lib.vector_strips(W, wgt, push_out)), stream)
-        entries = (
-            dict(name="fused_superstep_batch", kernel="fused_superstep_batch_kernel",
-                 source="src/repro_torch/csrc/fused_superstep.cu",
-                 replaces="src/repro/kernels/superstep_fused/kernel.py:72",
-                 wrapper=lambda: K.fused_superstep_batch_cuda(
-                     dist, idx, cnt, rs, col, wgt, n_out),
-                 plain=lambda: K.fused_superstep_batch_ref(
-                     dist, idx, cnt, rs, col, wgt, n_out),
-                 single=lambda: [K.fused_superstep_cuda(
-                     dist[s], idx[s], cnt[s:s + 1], rs[s % P], col[s % P],
-                     wgt[s % P], n_out) for s in range(S)],
-                 bare=(fused_bare, fused_out),
-                 # listed row ids, the distinct rows' sources and col+wgt
-                 # strips, each lane's source distances and one write of its
-                 # output, the counts
-                 nbytes=4 * (live + rows_read * (1 + 2 * W) + sum(n_src)
-                             + S * (n_out + 1) + S)),
-            dict(name="relax_push_gather_batch", kernel="relax_push_gather_batch_kernel",
-                 source="src/repro_torch/csrc/relax_push.cu",
-                 replaces="src/repro/kernels/relax_push/kernel.py:42",
-                 wrapper=lambda: K.relax_push_gather_batch_cuda(
-                     dist, idx, cnt, rs, col, wgt),
-                 plain=lambda: K.relax_push_gather_batch_ref(dist, idx, cnt, rs, wgt),
-                 single=lambda: [K.relax_push_gather_cuda(
-                     dist[s], idx[s], cnt[s:s + 1], rs[s % P], col[s % P],
-                     wgt[s % P]) for s in range(S)],
-                 bare=(lambda: push_launch(*push_args), push_out),
-                 nbytes=4 * (live + rows_read * (1 + W) + sum(n_src)
-                             + S * F * W + S)),
-        )
-        for e in entries:
-            name = e["name"]
-            K.reset_launch_counts()
-            out_k = e["wrapper"]()
-            torch.cuda.synchronize()
-            if K.launch_counts()[name] != 1:
-                fail(f"{name} ({label}): the wrapper did not launch its kernel once")
-            out_p = e["plain"]()
-            err = max_abs_err(out_k, out_p)
-            if err != 0.0 or out_k.shape != out_p.shape:
-                fail(f"{name} ({label}): kernel differs from its plain version "
-                     f"(max abs err {err})")
-            singles = torch.stack(e["single"]())
-            if not torch.equal(singles, out_k):
-                fail(f"{name} ({label}): differs from {S} single launches on the "
-                     f"same lanes")
-            bare, out_b = e["bare"]
-            if bare() != 0:
-                fail(f"{name} ({label}): the bare launch failed")
-            torch.cuda.synchronize()
-            if not torch.equal(out_b, out_k):
-                fail(f"{name} ({label}): the bare launch differs from the wrapper's")
-            ms = time_ms(e["wrapper"], flush)
-            bare_ms = time_ms(bare, flush)
-            alone_ms = kernel_alone_ms(e["wrapper"], flush, (e["kernel"],))
-            single_ms = time_ms(e["single"], flush)
-            plain_ms = time_ms(e["plain"], flush)
-            bound_ms, bound_by = bound(e["nbytes"], live * W)
-            floor = ""
-            if name == "fused_superstep_batch":
-                call, n_triples = atomic_floor_call(floor_lib, dist, idx, cnt, rs, col,
-                                                    wgt, n_out)
-                if not torch.equal(call(), out_k):
-                    fail(f"atomic floor ({label}): differs from the fused entry")
-                floor_ms = kernel_alone_ms(call, flush, ("atomic_floor_kernel",))
-                floor = (f"; atomics floor {floor_ms:.4f} ms alone over {n_triples} "
-                         f"finite triples (the kernel at {alone_ms / floor_ms:.2f}x it)")
-                del call
-            log(f"{name} ({label}, {S} lanes): bit-identical to its plain version "
-                f"and to {S} single launches; wrapper {ms:.4f} ms, bare {bare_ms:.4f} ms, "
-                f"alone under the profiler {alone_ms:.4f} ms; {S} single launches "
-                f"{single_ms:.4f} ms; plain {plain_ms:.4f} ms; {e['nbytes']} bytes, "
-                f"bound {bound_ms:.4f} ms at 3.35 TB/s ({bound_ms / alone_ms:.3f} of "
-                f"it alone){floor}")
-            if label == "balanced":
-                rows.append(dict(name=name, route="cuda", source=e["source"],
-                                 replaces=e["replaces"], launches=0, max_abs_err=err,
-                                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                 bound_by=bound_by, library_ms=None))
-        del fused_out, push_out, entries
+    push_launch = push_kernel._batch_launch()
+    push_args = (dist.data_ptr(), idx.data_ptr(), cnt.data_ptr(), rs.data_ptr(),
+                 wgt.data_ptr(), push_out.data_ptr(), F, R, W, P, dist.shape[1], S,
+                 int(K._lib.vector_strips(W, wgt, push_out)), stream)
+    entries = (
+        dict(name="fused_superstep_batch", kernel="fused_superstep_batch_kernel",
+             source="src/repro_torch/csrc/fused_superstep.cu",
+             replaces="src/repro/kernels/superstep_fused/kernel.py:72",
+             wrapper=lambda: K.fused_superstep_batch_cuda(
+                 dist, idx, cnt, rs, col, wgt, n_out),
+             plain=lambda: K.fused_superstep_batch_ref(
+                 dist, idx, cnt, rs, col, wgt, n_out),
+             single=lambda: [K.fused_superstep_cuda(
+                 dist[s], idx[s], cnt[s:s + 1], rs[s % P], col[s % P],
+                 wgt[s % P], n_out) for s in range(S)],
+             bare=(fused_bare, fused_out),
+             # listed row ids, the distinct rows' sources and col+wgt
+             # strips, each lane's source distances and one write of its
+             # output, the counts
+             nbytes=4 * (live + rows_read * (1 + 2 * W) + sum(n_src)
+                         + S * (n_out + 1) + S)),
+        dict(name="relax_push_gather_batch", kernel="relax_push_gather_batch_kernel",
+             source="src/repro_torch/csrc/relax_push.cu",
+             replaces="src/repro/kernels/relax_push/kernel.py:42",
+             wrapper=lambda: K.relax_push_gather_batch_cuda(
+                 dist, idx, cnt, rs, col, wgt),
+             plain=lambda: K.relax_push_gather_batch_ref(dist, idx, cnt, rs, wgt),
+             single=lambda: [K.relax_push_gather_cuda(
+                 dist[s], idx[s], cnt[s:s + 1], rs[s % P], col[s % P],
+                 wgt[s % P]) for s in range(S)],
+             bare=(lambda: push_launch(*push_args), push_out),
+             nbytes=4 * (live + rows_read * (1 + W) + sum(n_src)
+                         + S * F * W + S)),
+    )
+    for e in entries:
+        name = e["name"]
+        K.reset_launch_counts()
+        out_k = e["wrapper"]()
+        torch.cuda.synchronize()
+        if K.launch_counts()[name] != 1:
+            fail(f"{name} ({label}): the wrapper did not launch its kernel once")
+        out_p = e["plain"]()
+        err = max_abs_err(out_k, out_p)
+        if err != 0.0 or out_k.shape != out_p.shape:
+            fail(f"{name} ({label}): kernel differs from its plain version "
+                 f"(max abs err {err})")
+        singles = torch.stack(e["single"]())
+        if not torch.equal(singles, out_k):
+            fail(f"{name} ({label}): differs from {S} single launches on the "
+                 f"same lanes")
+        bare, out_b = e["bare"]
+        if bare() != 0:
+            fail(f"{name} ({label}): the bare launch failed")
+        torch.cuda.synchronize()
+        if not torch.equal(out_b, out_k):
+            fail(f"{name} ({label}): the bare launch differs from the wrapper's")
+        ms = time_ms(e["wrapper"], flush)
+        bare_ms = time_ms(bare, flush)
+        alone_ms = kernel_alone_ms(e["wrapper"], flush, (e["kernel"],))
+        single_ms = time_ms(e["single"], flush)
+        plain_ms = time_ms(e["plain"], flush)
+        bound_ms, bound_by = bound(e["nbytes"], live * W)
+        floor = ""
+        if name == "fused_superstep_batch" and floor_lib is not None:
+            call, n_triples = atomic_floor_call(floor_lib, dist, idx, cnt, rs, col,
+                                                wgt, n_out)
+            if not torch.equal(call(), out_k):
+                fail(f"atomic floor ({label}): differs from the fused entry")
+            floor_ms = kernel_alone_ms(call, flush, ("atomic_floor_kernel",))
+            floor = (f"; atomics floor {floor_ms:.4f} ms alone over {n_triples} "
+                     f"finite triples (the kernel at {alone_ms / floor_ms:.2f}x it)")
+            del call
+        log(f"{name} ({label}, {S} lanes): bit-identical to its plain version "
+            f"and to {S} single launches; wrapper {ms:.4f} ms, bare {bare_ms:.4f} ms, "
+            f"alone under the profiler {alone_ms:.4f} ms; {S} single launches "
+            f"{single_ms:.4f} ms; plain {plain_ms:.4f} ms; {e['nbytes']} bytes, "
+            f"bound {bound_ms:.4f} ms at 3.35 TB/s ({bound_ms / alone_ms:.3f} of "
+            f"it alone){floor}")
+        rows.append(dict(name=name, route="cuda", source=e["source"],
+                         replaces=e["replaces"], launches=0, max_abs_err=err,
+                         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=None))
+    del fused_out, push_out, entries
     return rows
 
 
@@ -2037,6 +2073,477 @@ def distributed_paths(g, pg, truth, base_sol, card_line, dev) -> int:
     return fused_total
 
 
+def phase14_inputs(g):
+    """Phase 11's first improving update applied to a copy of ``g``, and
+    the vertex (a)'s source addition adds (the top landmark hub)."""
+    import numpy as np
+
+    from repro_torch.graph import Graph
+    from repro_torch.launch.serve import improving_updates
+    from repro_torch.serve import pick_landmarks
+
+    upd = next(improving_updates(g, SERVE_UPDATES, SEED + 1))
+    weight = np.array(g.weight)
+    weight[(g.src == upd.src) & (g.dst == upd.dst)] = np.float32(upd.weight)
+    g2 = Graph(g.n, g.src, g.dst, weight, name=g.name)
+    return upd, g2, pick_landmarks(g, 1)[0]
+
+
+def digest(sol) -> str:
+    import hashlib
+
+    return hashlib.sha256(sol.state.tobytes() + sol.padded.tobytes()).hexdigest()
+
+
+def answer_record(a) -> tuple:
+    """An answer as comparable values: the query, its bounds or distance,
+    and its solution's digest and metrics (``served_by`` and the latency
+    depend on the flush boundaries, which the wall clock sets)."""
+    sol = a.solution
+    return ((a.query.source, a.query.target, a.query.exact), a.served_by == "landmark",
+            a.distance, a.lower, a.upper,
+            None if sol is None else (digest(sol), sol.metrics.as_dict()))
+
+
+def resolve_cases(solver, g, g2, v, sync):
+    """(a): a solve of SOURCE on ``g``, then resolve after the improving
+    update (``g2``) and after adding source ``v``: each case's solution
+    (first call) and warm wall (a second call)."""
+    from repro_torch.api import Problem, SingleSource
+
+    prev = solver.solve(Problem(g, SingleSource(SOURCE)))
+    out = {}
+    for kind, call in (("update", lambda: solver.resolve(prev, graph=g2)),
+                       ("source", lambda: solver.resolve(prev, [v]))):
+        sol = call()
+        sync()
+        t0 = time.perf_counter()
+        call()
+        sync()
+        out[kind] = (sol, time.perf_counter() - t0)
+    return out
+
+
+def service_rank(rank: int, world: int, url: str, data_dir: str, device: str,
+                 serve: bool) -> None:
+    """Phase 14's rank process: join the gloo group, read the graph the
+    parent wrote, run (a) resolve after the improving update and after
+    the source addition, and with ``serve`` (b) the query service at the
+    reference service CLI's defaults: rank 0 serves, the others follow;
+    then the batched fused entry at its largest superstep in this rank,
+    checked and timed on rank 0.  Writes ``data_dir/rank{rank}.pkl``."""
+    import gc
+    import os
+    import pickle
+
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.api import Problem, SingleSource, Solver
+    from repro_torch.core import engine as E
+    from repro_torch.graph import Graph, graph_fingerprint
+    from repro_torch.launch.mesh import init_ranks, make_rank_mesh
+    from repro_torch.launch.serve import build_query_mix, improving_updates
+    from repro_torch.obs import trace as obs
+    from repro_torch.serve import (
+        LandmarkIndex,
+        Router,
+        SolutionCache,
+        UpdateFeed,
+        serve_latency_stats,
+    )
+    from repro_torch.serve.stream import stream_for
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.set_device(dev)
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    ranks = init_ranks("gloo", rank, world, make_rank_mesh(world), url)
+    meta = json.loads((Path(data_dir) / "graph.json").read_text())
+    g = Graph(meta["n"], *(np.load(os.path.join(data_dir, f"{k}.npy"), mmap_mode="r")
+                           for k in ("src", "dst", "weight")), name=meta["name"])
+    upd, g2, v = phase14_inputs(g)
+    leader = rank == 0
+    out = dict(resolve={})
+
+    # ---- (a) resolve after the update and after the source addition ---
+    solver = Solver(SPEC, n_parts=world, device=dev, ranks=ranks)
+    K.reset_launch_counts()
+    for kind, (sol, wall) in resolve_cases(solver, g, g2, v, sync).items():
+        out["resolve"][kind] = dict(
+            state=sol.state if leader else None, padded=sol.padded if leader else None,
+            digest=digest(sol), metrics=sol.metrics.as_dict(), warm_s=wall)
+    out["resolve_launches"] = dict(K.launch_counts())
+    del solver, sol
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    if not serve:
+        with open(os.path.join(data_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+        torch.distributed.destroy_process_group()
+        return
+
+    # ---- (b) the query service: rank 0 serves, the others follow ----
+    gs = Graph(g.n, np.array(g.src), np.array(g.dst), np.array(g.weight), name=g.name)
+    solver = Solver(SPEC, n_parts=world, device=dev, ranks=ranks)
+    stream = stream_for(solver)
+    tracer = obs.Tracer()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    mem0 = torch.cuda.memory_allocated(dev) if on_card else 0
+
+    def round_of(drive):
+        if leader:
+            res = drive()
+            router.close()
+            return res
+        return router.follow()
+
+    with obs.use_tracer(tracer):
+        t0 = time.perf_counter()
+        lm = LandmarkIndex(solver, gs, k=SERVE_LANDMARKS, symmetric=True)
+        sync()
+        build_s = time.perf_counter() - t0
+        cache = SolutionCache(byte_budget=SERVE_CACHE_MB << 20)
+        router = Router(solver, gs, cache=cache, landmarks=lm,
+                        max_batch=SERVE_MAX_BATCH, max_wait_s=SERVE_MAX_WAIT_S)
+        feed = UpdateFeed(gs, solver, cache=cache, landmarks=lm)
+        queries = build_query_mix(gs, SERVE_QUERIES, SERVE_ZIPF, SEED)
+        round_of(lambda: router.serve(queries[:SERVE_MAX_BATCH]))  # warm-up
+        cache.clear()
+        cache.stats.hits = cache.stats.misses = 0
+        tracer.clear()
+        sent = stream.broadcasts
+
+        def mix():
+            tickets = []
+            for q in queries:
+                tickets.append(router.submit(q))
+                router.pump()
+            router.flush()
+            return tickets
+
+        K.reset_launch_counts()  # the main path's run: the mix
+        ranks.counts.clear()
+        sync()
+        t0 = time.perf_counter()
+        tickets = round_of(mix)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = dict(K.launch_counts())
+        collectives = dict(ranks.counts)
+        broadcasts = stream.broadcasts - sent
+        answers = [t.answer for t in tickets]
+        lm_mix = array_digest(lm.dist)  # the matrix the mix was served from
+        flushes = [sp.duration_s for sp in tracer.find("router.flush")]
+        lat = serve_latency_stats(answers)
+
+        # the 4 improving updates, each timed on rank 0
+        def updates():
+            walls = []
+            for u in improving_updates(gs, SERVE_UPDATES, SEED + 1):
+                t1 = time.perf_counter()
+                feed.apply(u)
+                sync()
+                walls.append(time.perf_counter() - t1)
+            return walls
+
+        tracer.clear()
+        apply_s = round_of(updates)  # (a follower's: the tickets it replayed, none)
+        repart_s = sum(sp.duration_s for sp in tracer.find("solver.partition"))
+    fp = graph_fingerprint(gs)
+    # freshness, on every rank (the caches agree; the solves are collective)
+    fresh = cache.entries_for(fp)[:SERVE_FRESH]
+    stale = [key[1] for key, sol in fresh if sol.state.tobytes() != solver.solve(
+        Problem(gs, SingleSource(key[1]))).state.tobytes()]
+    cold_lm = solver.solve(Problem(gs, SingleSource(lm.landmarks[0])))
+    gc.collect()
+    parts = {id(sol.pg): sol.pg for _, sol in cache.entries_for(fp)}
+    parts.update({id(sol.pg): sol.pg for sol in lm.solutions})
+    out.update(
+        answers=[answer_record(a) for a in answers],
+        latencies=[a.latency_s for a in answers],
+        cache=cache.stats.as_dict(), keys=list(cache.keys()),
+        router=router.stats.as_dict(), feed=feed.stats.as_dict(),
+        landmarks=array_digest(lm.dist), landmarks_mix=lm_mix, landmark_s=build_s,
+        fingerprint=fp,
+        wall_s=wall, p50_s=lat.p50_s, p99_s=lat.p99_s, flushes=flushes,
+        apply_s=apply_s, repartition_s=repart_s, launches=launches,
+        collectives=collectives, broadcasts=broadcasts, fresh=len(fresh), stale=stale,
+        landmark_fresh=cold_lm.state.tobytes() == lm.solutions[0].state.tobytes(),
+        mem_start=mem0,
+        mem_peak=torch.cuda.max_memory_allocated(dev) if on_card else 0,
+        mem_now=torch.cuda.memory_allocated(dev) if on_card else 0,
+        partitions=len(parts),
+        partitions_on_card=sum(bool(pg._device) for pg in parts.values()),
+        memo=solver.stats()["partition_memo_size"])
+    # the mix's answers hold the partition they were solved on; drop them
+    del parts, fresh, cold_lm, answers, tickets
+    gc.collect()
+    out["mem_dropped"] = torch.cuda.memory_allocated(dev) if on_card else 0
+
+    # ---- the batched fused entry in this rank, at its largest superstep
+    best = {}
+    real = E.fused_superstep_batch
+
+    def capture(dist, row_idx, count, *rest):
+        live = int(count.sum())
+        if live > best.get("live", -1):
+            best.update(live=live, dist=dist.clone(), row_idx=row_idx.clone(),
+                        count=count.clone())
+        return real(dist, row_idx, count, *rest)
+
+    E.fused_superstep_batch = capture
+    try:
+        solver.solve_batch([Problem(gs, SingleSource(u)) for u in lm.landmarks])
+    finally:
+        E.fused_superstep_batch = real
+    if leader:
+        flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+        pg = solver.partition(gs)
+        out["batch_rows"] = batched_entry_rows(
+            f"rank 0 of P={world}, its largest superstep of a batch of the "
+            f"{len(lm.landmarks)} landmarks", best["dist"], best["row_idx"],
+            best["count"], solver.device_ell(pg), pg.n_pad, flush, None)
+        out["batch_shape"] = (tuple(solver.device_ell(pg).col.shape), pg.n_pad)
+    torch.distributed.barrier()
+    with open(os.path.join(data_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def array_digest(a) -> str:
+    import hashlib
+
+    return hashlib.sha256(a.tobytes()).hexdigest()
+
+
+def spawn_phase14(world: int, tmp: Path, dev, serve: bool, timeout: float) -> list:
+    """Run ``service_rank`` in ``world`` gloo processes sharing the card;
+    returns each rank's results."""
+    import pickle
+
+    from repro_torch.launch.mesh import spawn_ranks
+
+    run_dir = tmp / f"gloo{world}"
+    run_dir.mkdir()
+    t0 = time.perf_counter()
+    try:
+        spawn_ranks(service_rank, world, ("file://" + str(run_dir / "store"), str(tmp),
+                                          "cuda:0" if dev.type == "cuda" else "cpu",
+                                          serve), timeout=timeout)
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"phase 14 at P={world}: {e}")
+    runs = []
+    for r in range(world):
+        path = tmp / f"rank{r}.pkl"
+        with open(path, "rb") as f:
+            runs.append(pickle.load(f))
+        path.unlink()
+    log(f"gloo P={world}: {world} processes ran in {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
+def stacked_service(solver, g, queries, sync):
+    """(b)'s reference: the same landmarks and query mix through the
+    stacked service at the same P (a warm-up batch first, as the rank
+    processes serve)."""
+    from repro_torch.serve import LandmarkIndex, Router, SolutionCache
+
+    lm = LandmarkIndex(solver, g, k=SERVE_LANDMARKS, symmetric=True)
+    cache = SolutionCache(byte_budget=SERVE_CACHE_MB << 20)
+    router = Router(solver, g, cache=cache, landmarks=lm,
+                    max_batch=SERVE_MAX_BATCH, max_wait_s=SERVE_MAX_WAIT_S)
+    router.serve(queries[:SERVE_MAX_BATCH])
+    cache.clear()
+    sync()
+    t0 = time.perf_counter()
+    tickets = []
+    for q in queries:
+        tickets.append(router.submit(q))
+        router.pump()
+    router.flush()
+    sync()
+    wall = time.perf_counter() - t0
+    return [answer_record(t.answer) for t in tickets], wall, lm.dist
+
+
+def process_service(g, dev, card_line) -> tuple[int, dict]:
+    """Phase 14: (a) resolve over gloo at P 2 and 4 against the stacked
+    resolve and a cold solve; (b) the query service over gloo at P 2
+    against the stacked service, answer for answer, every rank's
+    counters equal; the batched fused entry at a rank's shape against
+    its plain version; (c) the SSSP CLI's reference flags.  Returns the
+    fused_superstep_batch launches of rank 0 in (b)'s mix, and that
+    entry's row of the kernels line (at the rank's shape)."""
+    import contextlib
+    import gc
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.api import MultiSource, Problem, SingleSource, Solver
+    from repro_torch.launch import sssp as sssp_cli
+    from repro_torch.launch.serve import build_query_mix
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    upd, g2, v = phase14_inputs(g)
+    log(f"phase 11's first improving update {upd}; the source addition adds {v}")
+
+    # ---- the stacked references at the same P ---------------------------
+    stacked, solvers = {}, {}
+    for P in RESOLVE_PROCESSES:
+        solver = solvers[P] = Solver(SPEC, n_parts=P, device=dev)
+        cases = resolve_cases(solver, g, g2, v, sync)
+        cold = {"update": solver.solve(Problem(g2, SingleSource(SOURCE))),
+                "source": solver.solve(Problem(g, MultiSource((SOURCE, v))))}
+        for kind, (sol, wall) in cases.items():
+            if sol.state.tobytes() != cold[kind].state.tobytes():
+                fail(f"stacked P={P} resolve ({kind}) differs from a cold solve")
+            stacked[P, kind] = (sol, wall)
+    queries = build_query_mix(g, SERVE_QUERIES, SERVE_ZIPF, SEED)
+    want_answers, stacked_wall, want_lm = stacked_service(
+        solvers[SERVICE_PROCESSES], g, queries, sync)
+    log(f"stacked P={SERVICE_PROCESSES} service: {len(queries)} queries in "
+        f"{stacked_wall:.3f} s = {len(queries) / stacked_wall:.1f} q/s")
+    del solvers, solver, cases, cold
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # ---- gloo processes sharing the card --------------------------------
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        tmp = Path(tmp)
+        for k in ("src", "dst", "weight"):
+            np.save(tmp / f"{k}.npy", getattr(g, k))
+        (tmp / "graph.json").write_text(json.dumps({"n": g.n, "name": g.name}))
+        runs = {P: spawn_phase14(P, tmp, dev, P == SERVICE_PROCESSES,
+                                 SERVICE_TIMEOUT_S if P == SERVICE_PROCESSES
+                                 else DIST_TIMEOUT_S)
+                for P in sorted(RESOLVE_PROCESSES, reverse=True)}
+
+    # ---- (a) resolve -----------------------------------------------------
+    for P in RESOLVE_PROCESSES:
+        for kind in ("update", "source"):
+            want, want_wall = stacked[P, kind]
+            got = runs[P][0]["resolve"][kind]
+            label = f"gloo P={P} resolve after the {kind}"
+            if got["state"].tobytes() != want.state.tobytes() or \
+                    got["padded"].tobytes() != want.padded.tobytes():
+                fail(f"{label}: differs from the stacked resolve")
+            if got["metrics"] != want.metrics.as_dict():
+                fail(f"{label}: metrics differ: {got['metrics']} vs "
+                     f"{want.metrics.as_dict()}")
+            for r in range(1, P):
+                other = runs[P][r]["resolve"][kind]
+                if other["digest"] != got["digest"] or other["metrics"] != got["metrics"]:
+                    fail(f"{label}: rank {r} returned another solution")
+            log(f"{label}: equals the stacked resolve (state, padded state, "
+                f"metrics) on every rank and a cold solve's state; supersteps "
+                f"{got['metrics']['supersteps']}; warm wall {got['warm_s']:.4f} s "
+                f"(ranks {[run['resolve'][kind]['warm_s'] for run in runs[P]]}), the "
+                f"stacked P={P} resolve's {want_wall:.4f} s; {card_line}")
+        log(f"gloo P={P} resolves: rank 0 launches "
+            f"{ {k: n for k, n in runs[P][0]['resolve_launches'].items() if n} }")
+
+    # ---- (b) the query service -------------------------------------------
+    P = SERVICE_PROCESSES
+    svc = runs[P]
+    lead = svc[0]
+    if len(lead["answers"]) != len(want_answers):
+        fail(f"gloo P={P} service: {len(lead['answers'])} answers, the stacked "
+             f"service {len(want_answers)}")
+    for i, (got, want) in enumerate(zip(lead["answers"], want_answers)):
+        if got != want:
+            fail(f"gloo P={P} service: answer {i} ({got[0]}) differs from the "
+                 f"stacked service's")
+    if lead["landmarks_mix"] != array_digest(want_lm):
+        fail(f"gloo P={P} service: the landmark matrix differs from the stacked one's")
+    for r in range(1, P):
+        for key in ("answers", "cache", "keys", "router", "feed", "landmarks",
+                    "landmarks_mix", "fingerprint", "fresh", "stale", "landmark_fresh"):
+            if svc[r][key] != lead[key]:
+                fail(f"gloo P={P} service: rank {r}'s {key} differs from rank 0's")
+    if lead["stale"] or not lead["landmark_fresh"] or lead["fresh"] < SERVE_FRESH:
+        fail(f"gloo P={P} service: refreshed entries {lead['stale']} or the "
+             f"landmark differ from cold solves ({lead['fresh']} checked)")
+    # each rank launches the batched entry on the supersteps whose
+    # frontier fits its own cap
+    batch_launches = lead["launches"].get("fused_superstep_batch", 0)
+    if not all(run["launches"].get("fused_superstep_batch", 0) for run in svc):
+        fail(f"gloo P={P} service: fused_superstep_batch launches a rank "
+             f"{[run['launches'] for run in svc]}")
+    flushes = len(lead["flushes"])
+    wall = lead["wall_s"]
+    log(f"gloo P={P} service: {SERVE_QUERIES} queries in {wall:.3f} s = "
+        f"{SERVE_QUERIES / wall:.1f} q/s (stacked P={P}: "
+        f"{SERVE_QUERIES / stacked_wall:.1f} q/s), p50 {lead['p50_s'] * 1e3:.1f} ms, "
+        f"p99 {lead['p99_s'] * 1e3:.1f} ms; every answer equals the stacked "
+        f"service's; {flushes} flushes, flush wall mean "
+        f"{np.mean(lead['flushes']):.3f} s; {lead['broadcasts']} broadcasts "
+        f"({lead['broadcasts'] / max(1, flushes):.2f} a flush, the close's "
+        f"included); rank 0 collectives "
+        f"{ {k: n for k, n in lead['collectives'].items() if k != 'bytes'} }; "
+        f"fused_superstep_batch launches a rank "
+        f"{[run['launches'].get('fused_superstep_batch', 0) for run in svc]}, "
+        f"fused_superstep {[run['launches'].get('fused_superstep', 0) for run in svc]}; "
+        f"landmarks built in {lead['landmark_s']:.3f} s; {card_line}")
+    log(f"gloo P={P} service: cache {lead['cache']}, router {lead['router']}, "
+        f"feed {lead['feed']} - equal on every rank")
+    log(f"gloo P={P} updates: apply {[round(x, 3) for x in lead['apply_s']]} s "
+        f"(re-partitions {lead['repartition_s']:.3f} s in all on rank 0); "
+        f"{lead['fresh']} refreshed entries and a landmark equal cold solves")
+    for r, run in enumerate(svc):
+        log(f"gloo P={P} rank {r} card memory: {run['mem_start'] / 2**30:.2f} GiB "
+            f"when (b) began, peak {run['mem_peak'] / 2**30:.2f} GiB, "
+            f"{run['mem_now'] / 2**30:.2f} GiB after the updates with the mix's "
+            f"answers held, {run['mem_dropped'] / 2**30:.2f} GiB once they are "
+            f"dropped; the cache's and landmarks' solutions reference "
+            f"{run['partitions']} partition(s), {run['partitions_on_card']} with an "
+            f"ELL on the card; the solver's memo holds {run['memo']}")
+    row = dict(lead["batch_rows"][0])
+    row["name"] = f"fused_superstep_batch (a rank of P {P})"
+    row["launches"] = batch_launches
+    (ell_shape, n_out) = lead["batch_shape"]
+    log(f"the batched entries at a rank's shape (ELL {ell_shape}, n_out {n_out}): "
+        f"bit-identical to their plain versions in rank 0")
+
+    # ---- (c) the SSSP CLI's reference flags -------------------------------
+    argv = ["--device", dev.type, "--scale", str(SCALE), "--seed", str(SEED),
+            "--root", "delta:5", "--variant", "buffer", "--exchange", "sparse",
+            "--partition", "ebal", "--verify"]
+    real_graph = sssp_cli.build_graph
+    # phase 2's graph is the one the CLI would generate: skip the 25 s
+    sssp_cli.build_graph = (lambda kind, scale, seed: g
+                            if (kind, scale, seed) == ("rmat1", SCALE, SEED)
+                            else real_graph(kind, scale, seed))
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = sssp_cli.main(argv)
+    finally:
+        sssp_cli.build_graph = real_graph
+    out = buf.getvalue()
+    for line in out.splitlines():
+        log(f"cli: {line}")
+    if rc != 0 or "verify vs Dijkstra: OK" not in out or \
+            "load balance (ebal)" not in out or "straggler ratio" not in out:
+        fail(f"launch.sssp {' '.join(argv)}: exit {rc}, no verified state or no "
+             "load-balance lines")
+    log(f"launch.sssp {' '.join(argv)}: equals Dijkstra in "
+        f"{time.perf_counter() - t0:.1f} s (phase 2's graph)")
+    return batch_launches, row
+
+
 def main() -> None:
     try:
         import torch
@@ -2300,6 +2807,13 @@ def main() -> None:
     fused13 = distributed_paths(g, pg, truth, sol, card_line, dev)
     log(f"phase 13 took {time.perf_counter() - t0:.1f} s: {fused13} "
         f"fused_superstep launches on rank 0 of its paths")
+
+    # ---- 14. resolve and the query service across processes -------------
+    t0 = time.perf_counter()
+    batch14, rank_row = process_service(g, dev, card_line)
+    rows.append(rank_row)
+    log(f"phase 14 took {time.perf_counter() - t0:.1f} s: {batch14} "
+        f"fused_superstep_batch launches on rank 0 of the service's mix")
 
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s on {card_line}")
     print(json.dumps({"kernels": rows}), flush=True)

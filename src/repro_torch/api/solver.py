@@ -22,8 +22,10 @@ process of a ``torch.distributed`` group instead:
 Each process then holds only its rank's share of the ELL on its
 device, launches the frontier kernels for that rank, and returns the
 same :class:`Solution` as every other process (the full state,
-gathered).  ``solve``, ``solve_batch``, ``/adapt``, ``/trace`` and
-``/q`` run on either; ``resolve`` and ``serve/`` run stacked only.
+gathered).  ``solve``, ``solve_batch``, ``resolve``, ``/adapt``,
+``/trace`` and ``/q`` run on either, as does the query service
+(:mod:`repro_torch.serve`): rank 0 admits and batches the queries and
+every other rank replays its commands (``Router.follow``).
 
 ``solve_batch`` runs B queries as B lanes of one engine run (the JAX
 package vmaps its loop); ``resolve`` is the self-stabilization
@@ -300,15 +302,6 @@ class Solver:
         """True iff every rank runs in this process."""
         return self.ranks.rank is None
 
-    def require_stacked(self, what: str) -> None:
-        """Refuse ``what`` on a process backend, which it does not run."""
-        if not self.stacked:
-            raise ValueError(
-                f"{what} runs on stacked ranks only: over a process "
-                "backend it waits for ROADMAP.md Queue 1 item 1 (resolve "
-                "and serve/ over ProcessRanks); use a Solver without "
-                "ranks=")
-
     def device_ell(self, pg: PartitionedGraph) -> DeviceELL:
         """The ELL of the ranks this process runs, on its device."""
         return pg.to(self.device, rank=self.ranks.rank)
@@ -412,7 +405,6 @@ class Solver:
         perturbation improved.  Correct whenever the prior state
         dominates the new fixpoint (weight decreases, edge or source
         additions); cold-solve after weight increases or deletions."""
-        self.require_stacked("resolve")
         with obs.span("solver.resolve", spec=self.config.name) as sp:
             return self._resolve(prev, new_sources, graph, sp)
 
@@ -444,21 +436,24 @@ class Solver:
             )
         ecfg = self.config.engine_config(p)
         ell = self.device_ell(pg)
-        committed = torch.as_tensor(prev.padded, dtype=torch.float32,
-                                    device=self.device)
-        # the committed prior state, with the per-rank dummy slot restored
-        worst_col = torch.full((pg.n_parts, 1), float(p.worst),
+        ranks = self.ranks
+        # the local ranks' rows of the committed prior state, with the
+        # per-rank dummy slot restored
+        committed = torch.as_tensor(ranks.local_ranks(prev.padded),
+                                    dtype=torch.float32, device=self.device)
+        worst_col = torch.full((ranks.local, 1), float(p.worst),
                                dtype=torch.float32, device=self.device)
         D0 = torch.cat([committed, worst_col], dim=1)
         with obs.span("solver.bootstrap_sweep", m=pg.m):
-            T_full = _bootstrap_candidates(ell, pg.n_local, p, committed,
-                                           self.ranks).reshape(-1)
+            T = _bootstrap_candidates(ell, pg.n_local, p, committed, ranks)
+        first = ranks.rank or 0  # the global rank of local row 0
         for v, s, _ in problem.source_items():
-            pid = int(pg.padded_id(int(v)))  # owner map: original -> slot
-            T_full[pid] = p.reduce(T_full[pid],
-                                   torch.tensor(s, dtype=torch.float32))
-        T0 = torch.cat([T_full.reshape(pg.n_parts, pg.n_local), worst_col],
-                       dim=1)
+            # owner map: original id -> (rank, slot); seeded by its owner
+            owner, slot = (int(x) for x in pg.owner_slot(int(v)))
+            if first <= owner < first + ranks.local:
+                T[owner - first, slot] = p.reduce(
+                    T[owner - first, slot], torch.tensor(s, dtype=torch.float32))
+        T0 = torch.cat([T, worst_col], dim=1)
         # warm items restart the KLA level attribute at 0 (a fresh wave)
         L0 = torch.where(p.better(T0, D0), 0.0, float("inf"))
         sol = self._run(problem, pg, ecfg, D0, T0, L0, engine_span=False)
@@ -641,3 +636,13 @@ def _bootstrap_candidates(ell: DeviceELL, n_local: int, p: ProcessingFn,
     X = ranks.all_to_all(
         buf[None, :, :n_pad].reshape(1, P_loc, ranks.world, n_local))
     return p.reduce_array(X, 2)[0]
+
+
+def solve(
+    problem: Problem,
+    config: Union[str, SolverConfig, None] = None,
+    **solver_args,
+) -> Solution:
+    """One-shot convenience: ``Solver(config, **solver_args).solve(problem)``
+    (``solver_args``: ``n_parts``, ``device``, ``mesh``, ``ranks``)."""
+    return Solver(config, **solver_args).solve(problem)

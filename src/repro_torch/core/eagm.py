@@ -38,6 +38,15 @@ LEVELS = ("global", "pod", "device", "chunk")
 #: levels whose decision is rank-local (no cross-rank reduction)
 LOCAL_LEVELS = ("device", "chunk")
 
+#: the collective realizing each level's decision, in the JAX package's
+#: words (``describe`` prints them)
+LEVEL_SCOPE = {
+    "global": "pmin over all mesh axes",
+    "pod": "pmin over intra-pod axes",
+    "device": "device-local reduction",
+    "chunk": "device-local top-B drain",
+}
+
 # paper variant name -> spatial level carrying the sub-root annotation
 VARIANT_LEVEL = {
     "buffer": None,
@@ -191,6 +200,20 @@ class Hierarchy:
             return f"{self.root.spec}+{v}"
         return self.spec
 
+    def describe(self) -> str:
+        """One clause per annotation with its collective scope."""
+        def scope(lvl, o):
+            if lvl in LOCAL_LEVELS and isinstance(o, TopK):
+                return f"device-local top-{o.drain} drain"
+            if lvl in LOCAL_LEVELS:
+                return "device-local minimal class"
+            return LEVEL_SCOPE[lvl]
+
+        return "; ".join(
+            f"{lvl}: {o.spec} ({scope(lvl, o)})"
+            for lvl, o in self.annotations
+        )
+
 
 def make_hierarchy(
     root: Union[str, Ordering],
@@ -239,3 +262,14 @@ def paper_variant_specs(deltas=(3.0, 5.0, 7.0), ks=(1, 2, 3)) -> list:
     ]
     specs.append("dijkstra+buffer")
     return specs
+
+
+def paper_variant_grid(
+    deltas=(3.0, 5.0, 7.0), ks=(1, 2, 3), chunk_size: int = DEFAULT_CHUNK
+) -> list:
+    """:func:`paper_variant_specs` as hierarchies."""
+    grid = []
+    for spec in paper_variant_specs(deltas, ks):
+        root, variant = spec.split("+", 1)
+        grid.append(make_hierarchy(root, variant, chunk_size))
+    return grid

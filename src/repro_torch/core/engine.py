@@ -616,3 +616,13 @@ def initial_state_batch(
     (B, P, n_local+1) arrays (D, T, L) for a run of B lanes."""
     per = [initial_state(pg, processing, s) for s in sources_batch]
     return tuple(np.stack(planes) for planes in zip(*per))
+
+
+def sssp_sources(source: int) -> list[tuple]:
+    """The SSSP initial workitem set {⟨source, 0⟩} as (vertex, state, level)."""
+    return [(int(source), 0.0, 0)]
+
+
+def cc_sources(n: int) -> list[tuple]:
+    """The CC initial workitem set {⟨v, v⟩ : v ∈ V}."""
+    return [(v, float(v), 0) for v in range(n)]

@@ -167,6 +167,11 @@ register_ordering("kla", lambda a: KLA(int(a) if a else 2))
 register_ordering("topk", _parse_topk)
 
 
+def ordering_kinds() -> tuple:
+    """The registered canonical ordering kinds."""
+    return tuple(sorted(_REGISTRY))
+
+
 def suggest(word: str, choices) -> str:
     """``" (did you mean 'x'?)"`` when a close match exists, else ""."""
     close = difflib.get_close_matches(word, list(choices), n=1, cutoff=0.6)

@@ -17,13 +17,16 @@ same operations on one of two objects:
 Every operation takes local tensors whose dim 1 is the local rank axis
 (length ``local``) and returns what every rank of the scope agrees on.
 A tensor's bytes pass through unchanged, so integer payloads bitcast to
-float32 arrive bit for bit.  Gloo takes CUDA tensors for every
+float32 arrive bit for bit.  ``broadcast_object`` carries host objects
+from one rank to all in call order (the query service's commands,
+:mod:`repro_torch.serve.stream`).  Gloo takes CUDA tensors for every
 operation used here and stages them through host memory itself.
 """
 
 from __future__ import annotations
 
 import collections
+import pickle
 from typing import Optional
 
 import torch
@@ -92,6 +95,11 @@ class StackedRanks:
     def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """The local ranks' rows along ``dim``, gathered from every rank."""
         return x
+
+    def broadcast_object(self, obj, src: int = 0):
+        """``src``'s picklable object on every rank, in call order: here
+        the object itself."""
+        return obj
 
 
 class ProcessRanks:
@@ -175,3 +183,24 @@ class ProcessRanks:
         self._tally("all_gather", x)
         self._dist.all_gather(parts, x)
         return torch.cat(parts, dim=dim)
+
+    def broadcast_object(self, obj, src: int = 0):
+        """``src``'s object, pickled, on every rank: its length, then its
+        bytes, as two broadcasts of one group in call order.  Gloo sends
+        host tensors; NCCL a tensor on this process's current card.
+        Counted as one ``broadcast`` of the pickled bytes."""
+        dev = (torch.device("cuda", torch.cuda.current_device())
+               if self.backend == "nccl" else torch.device("cpu"))
+        if self.rank == src:
+            data = torch.frombuffer(bytearray(pickle.dumps(obj)),
+                                    dtype=torch.uint8).to(dev)
+            size = torch.tensor([data.numel()], dtype=torch.int64, device=dev)
+        else:
+            size = torch.zeros(1, dtype=torch.int64, device=dev)
+        self._dist.broadcast(size, src)
+        if self.rank != src:
+            data = torch.empty(int(size), dtype=torch.uint8, device=dev)
+        self.counts["broadcast"] += 1
+        self.counts["bytes"] += data.numel() if self.rank == src else 0
+        self._dist.broadcast(data, src)
+        return obj if self.rank == src else pickle.loads(data.cpu().numpy().tobytes())

@@ -264,13 +264,39 @@ class PartitionedGraph:
             return False
         return self.perm is None or bool(np.array_equal(self.perm, other.perm))
 
-    def describe(self) -> str:
-        occupancy = float(np.sum(self.col != self.n_pad)) / max(1, self.col.size)
+    # -- load-balance statistics --------------------------------------
+
+    def load_stats(self) -> dict:
+        """Per-rank load balance: real edges and virtual rows per rank,
+        ELL occupancy, and straggler ratios (max/mean, 1.0 is perfect
+        balance; the dense relax costs every rank the padded max, so
+        ``straggler_rows`` is the stacked ELL's padding overhead)."""
+        edges = np.sum(self.col != self.n_pad, axis=(1, 2))
+        rows = np.sum(self.row_src != self.n_local, axis=1)
+
+        def _straggler(x):
+            mean = float(np.mean(x))
+            return float(np.max(x)) / mean if mean > 0 else 1.0
+
+        return dict(
+            edges_per_rank=[int(e) for e in edges],
+            rows_per_rank=[int(r) for r in rows],
+            max_rows=self.rows_per_rank,
+            ell_occupancy=float(edges.sum()) / max(1, self.col.size),
+            straggler_rows=_straggler(rows),
+            straggler_edges=_straggler(edges),
+        )
+
+    def describe(self, stats: Optional[dict] = None) -> str:
+        """One line: shape, ELL density, partitioner and the row
+        straggler ratio (``stats``: a :meth:`load_stats` already taken)."""
+        st = stats if stats is not None else self.load_stats()
         return (
             f"{self.name}: n={self.n} m={self.m} P={self.n_parts} "
             f"n_local={self.n_local} rows/rank={self.rows_per_rank} "
-            f"W={self.width} ell_density={occupancy:.3f} "
-            f"partition={self.partitioner}"
+            f"W={self.width} ell_density={st['ell_occupancy']:.3f} "
+            f"partition={self.partitioner} "
+            f"straggler={st['straggler_rows']:.2f}"
         )
 
 

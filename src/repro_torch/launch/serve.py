@@ -14,19 +14,40 @@ stats.  ``--metrics-port`` serves the Prometheus text exposition (and
 a JSON ``/stats``) on 127.0.0.1 while the run lasts, ``--stats-text``
 prints it at the end; ``--tuned-cache`` routes flushes through the
 spec a ``launch/tune.py`` search cached for the graph.
+
+``--backend gloo`` (or ``nccl``) with ``--ranks P`` (and ``--pods K``)
+serves over P rank processes, one rank each, as ``launch/sssp.py``
+runs them: rank 0 admits, batches and times the queries and prints;
+every other rank replays its commands (``Router.follow``) and runs the
+same batched solves on its share of the ELL.  The warm-up, the timed
+mix and the updates are three rounds of commands, each ended by
+``Router.close``; the freshness check then runs on every rank.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --backend gloo --ranks 2 --scale 9
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import os
+import tempfile
 import time
 
 import numpy as np
+import torch
 
 from repro_torch.api import Problem, SingleSource, Solver
+from repro_torch.device import resolve_device
 from repro_torch.graph import graph_fingerprint
-from repro_torch.launch.sssp import build_graph
+from repro_torch.launch.mesh import (
+    check_backend,
+    init_ranks,
+    make_rank_mesh,
+    spawn_ranks,
+)
+from repro_torch.launch.sssp import BACKENDS, RANK_TIMEOUT_S, build_graph
 from repro_torch.obs import MetricsRegistry, Tracer, serve_metrics, use_tracer
 from repro_torch.serve import (
     EdgeUpdate,
@@ -110,23 +131,72 @@ def main(argv=None) -> int:
     ap.add_argument("--tuned-cache", metavar="PATH", default=None,
                     help="a tuned-spec cache (launch/tune.py --cache) the "
                          "router consults on every flush")
+    ap.add_argument("--ranks", type=int, default=1,
+                    help="rank count P the graph is partitioned over")
+    ap.add_argument("--pods", type=int, default=1,
+                    help="pods the ranks split into (the 'pod' scope)")
+    ap.add_argument("--backend", default="stacked", choices=BACKENDS,
+                    help="stacked: every rank in this process; gloo or "
+                         "nccl: one rank a process, rank 0 serving")
     args = ap.parse_args(argv)
+    if args.backend == "stacked":
+        solver = Solver(args.spec, n_parts=args.ranks, device=args.device,
+                        mesh=make_rank_mesh(args.ranks, args.pods))
+        return run(args, solver, show=True)
+    # refuse what cannot run before any process group starts
+    check_backend(args.backend, args.ranks,
+                  torch.device(args.device or "cuda"))
+    make_rank_mesh(args.ranks, args.pods)
+    args.device = resolve_device(args.device).type
+    if args.device == "cuda":
+        from repro_torch.kernels import build
 
-    solver = Solver(args.spec, device=args.device)  # no CUDA: raises here
+        build()  # once, before the rank processes would each compile it
+    with tempfile.TemporaryDirectory() as tmp:
+        spawn_ranks(rank_main, args.ranks,
+                    (args, "file://" + os.path.join(tmp, "store")),
+                    timeout=RANK_TIMEOUT_S)
+    return 0
+
+
+def rank_main(rank: int, world: int, args, init_method: str) -> None:
+    """One rank process of the service: join the group, serve (rank 0)
+    or follow, and exit non-zero on a failed check."""
+    if args.device == "cpu":
+        device = torch.device("cpu")
+        torch.set_num_threads(max(1, torch.get_num_threads() // world))
+    else:
+        device = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    ranks = init_ranks(args.backend, rank, world,
+                       make_rank_mesh(world, args.pods), init_method)
+    try:
+        solver = Solver(args.spec, n_parts=world, device=device, ranks=ranks)
+        rc = run(args, solver, show=rank == 0)
+    finally:
+        torch.distributed.destroy_process_group()
+    if rc:
+        raise SystemExit(rc)
+
+
+def run(args, solver, show: bool) -> int:
+    """Serve on ``solver``; every rank of a process backend runs it, and
+    ``show`` (rank 0) prints and serves the metrics."""
     g = build_graph(args.graph, args.scale, args.seed)
-    print(f"[serve] {g.name}: n={g.n} m={g.m} spec={solver.config.name} "
-          f"device={solver.device}")
+    say = print if show else (lambda *a, **k: None)
+    say(f"[serve] {g.name}: n={g.n} m={g.m} spec={solver.config.name} "
+        f"device={solver.device} backend={args.backend} ranks={solver.n_parts}")
     tuned = None
     if args.tuned_cache is not None:
         tuned = TunedSpecCache.load(args.tuned_cache)
         rec = tuned.get(graph_fingerprint(g))
-        print(f"[serve] tuned cache {args.tuned_cache}: {len(tuned)} records, "
-              f"{'spec ' + repr(rec.spec) if rec else 'none'} for this graph")
+        say(f"[serve] tuned cache {args.tuned_cache}: {len(tuned)} records, "
+            f"{'spec ' + repr(rec.spec) if rec else 'none'} for this graph")
 
     # live metrics: the tracer feeds the registry (span histograms and
     # event counters); --metrics-port serves it over HTTP
     registry = tracer = server = None
-    if args.metrics_port is not None or args.stats_text:
+    if show and (args.metrics_port is not None or args.stats_text):
         registry = MetricsRegistry()
         tracer = Tracer(registry=registry)
         if args.metrics_port is not None:
@@ -135,22 +205,34 @@ def main(argv=None) -> int:
                   f"{server.server_address[1]}/metrics (+ /stats)")
     try:
         with use_tracer(tracer) if tracer is not None else contextlib.nullcontext():
-            return _serve(args, solver, g, tuned, registry)
+            return _serve(args, solver, g, tuned, registry, say)
     finally:
         if server is not None:
             server.shutdown()
             server.server_close()
 
 
-def _serve(args, solver, g, tuned, registry) -> int:
+def _serve(args, solver, g, tuned, registry, say) -> int:
     cache = SolutionCache(byte_budget=args.cache_mb << 20)
     t0 = time.perf_counter()
     lm = LandmarkIndex(solver, g, k=args.landmarks, symmetric=True)
-    print(f"[serve] landmark tier: K={lm.k} built in "
-          f"{time.perf_counter() - t0:.2f}s ({lm.nbytes} bytes)")
+    say(f"[serve] landmark tier: K={lm.k} built in "
+        f"{time.perf_counter() - t0:.2f}s ({lm.nbytes} bytes)")
     router = Router(solver, g, cache=cache, landmarks=lm, tuned=tuned,
                     max_batch=args.max_batch,
                     max_wait_s=args.max_wait_ms / 1e3)
+    leader = solver.ranks.rank in (None, 0)
+
+    def round_of(drive):
+        """One round of commands: rank 0 drives and closes, the other
+        ranks replay it."""
+        if leader:
+            out = drive()
+            router.close()
+            return out
+        router.follow()
+        return None
+
     if registry is not None:
         # callback gauges: the exposition always reads live state
         registry.gauge("repro_router_queries_total",
@@ -174,48 +256,52 @@ def _serve(args, solver, g, tuned, registry) -> int:
 
     queries = build_query_mix(g, args.queries, args.zipf, args.seed)
     # warm the kernels and the allocator outside the timed window
-    router.serve(queries[: args.max_batch])
+    round_of(lambda: router.serve(queries[: args.max_batch]))
     cache.clear()
     cache.stats.hits = cache.stats.misses = 0
 
-    t0 = time.perf_counter()
-    tickets = []
-    for q in queries:
-        tickets.append(router.submit(q))
-        router.pump()
-    router.flush()
-    wall = time.perf_counter() - t0
-    answers = [t.result() for t in tickets]
+    def mix():
+        t0 = time.perf_counter()
+        tickets = []
+        for q in queries:
+            tickets.append(router.submit(q))
+            router.pump()
+        router.flush()
+        return time.perf_counter() - t0, [t.result() for t in tickets]
 
-    lat = serve_latency_stats(answers)
-    print(f"[serve] {len(answers)} queries in {wall:.2f}s = "
-          f"{len(answers) / wall:.1f} q/s")
-    print(f"[serve] latency {lat}")
-    print(f"[serve] cache {cache.stats}")
-    print(f"[serve] router {router.stats.as_dict()}")
-    print(f"[serve] solver {solver.stats()}")
+    mixed = round_of(mix)
+    if leader:
+        wall, answers = mixed
+        lat = serve_latency_stats(answers)
+        say(f"[serve] {len(answers)} queries in {wall:.2f}s = "
+            f"{len(answers) / wall:.1f} q/s")
+        say(f"[serve] latency {lat}")
+        say(f"[serve] cache {cache.stats}")
+        say(f"[serve] router {router.stats.as_dict()}")
+        say(f"[serve] solver {solver.stats()}")
 
     if args.updates:
         feed = UpdateFeed(g, solver, cache=cache, landmarks=lm)
-        warm_total = 0
-        for upd in improving_updates(g, args.updates, args.seed + 1):
-            warm_total += feed.apply(upd).warm_supersteps
-        print(f"[serve] applied {args.updates} improving updates: "
-              f"{feed.stats.as_dict()}")
+        warm_total = round_of(lambda: sum(
+            feed.apply(upd).warm_supersteps
+            for upd in improving_updates(g, args.updates, args.seed + 1)))
+        say(f"[serve] applied {args.updates} improving updates: "
+            f"{feed.stats.as_dict()}")
         # freshness: refreshed entries equal cold solves on the new graph
+        # (every rank: the caches are the same and the solves collective)
         checked = 0
         for key, sol in cache.entries_for(graph_fingerprint(g))[:FRESHNESS_CHECKS]:
             cold = solver.solve(Problem(g, SingleSource(key[1])))
             if not np.array_equal(sol.state, cold.state):
-                print(f"[serve] FRESHNESS MISMATCH: source {key[1]} differs "
-                      f"from a cold solve at "
-                      f"{int((sol.state != cold.state).sum())} vertices")
+                say(f"[serve] FRESHNESS MISMATCH: source {key[1]} differs "
+                    f"from a cold solve at "
+                    f"{int((sol.state != cold.state).sum())} vertices")
                 return 1
             checked += 1
-        print(f"[serve] {checked} refreshed entries verified "
-              f"bit-identical to cold solves "
-              f"(warm supersteps={warm_total})")
-    if args.stats_text:
+        say(f"[serve] {checked} refreshed entries verified "
+            f"bit-identical to cold solves "
+            f"(warm supersteps={warm_total})")
+    if registry is not None and args.stats_text:
         print("[serve] Prometheus exposition:")
         print(registry.expose())
     return 0

@@ -8,6 +8,16 @@ Dijkstra.  Several ``--sources`` solve as one batch (``solve_batch``).
     PYTHONPATH=src python -m repro_torch.launch.sssp --scale 20 \
         --sources 0 17 90 --verify
 
+Without ``--spec`` the spec is composed as the JAX package's CLI does,
+``root+variant/exchange`` from ``--root``, ``--variant`` and
+``--exchange`` (defaults ``delta:5``, ``buffer``, ``a2a``), once any of
+them is given; with none of the three it is ``delta:5/sparse/fused``,
+the path through the fused-superstep kernel.  ``--chunk`` and
+``--partition`` override the spec's chunk size and partitioner;
+``--verify`` also prints the partition's load balance.
+``--list-variants`` prints the preset grid and example hierarchies
+with their collective scopes, and exits.
+
 ``--ranks P`` partitions over P ranks and ``--pods K`` splits them into
 K pods (the ``pod`` scope of a hierarchy spec).  ``--backend stacked``
 (the default) runs every rank in this process; ``gloo`` or ``nccl`` run
@@ -39,9 +49,11 @@ from repro_torch.api import (
     Problem,
     SingleSource,
     Solver,
+    SolverConfig,
     processing_names,
 )
-from repro_torch.core import dijkstra_reference
+from repro_torch.core import EXCHANGE_MODES, dijkstra_reference, paper_variant_specs
+from repro_torch.core.eagm import VARIANT_LEVEL
 from repro_torch.device import resolve_device
 from repro_torch.graph import grid_road_graph, rmat1, rmat2, small_world_graph
 from repro_torch.launch import mesh
@@ -53,6 +65,10 @@ from repro_torch.launch.mesh import (
 )
 
 BACKENDS = ("stacked",) + mesh.BACKENDS
+# the spec without --spec, --root, --variant or --exchange
+DEFAULT_SPEC = "delta:5/sparse/fused"
+# what --root, --variant and --exchange default to once one is given
+COMPOSE_DEFAULTS = dict(root="delta:5", variant="buffer", exchange="a2a")
 # seconds the rank processes may run before the CLI stops them all
 RANK_TIMEOUT_S = 3600.0
 
@@ -67,6 +83,56 @@ def build_graph(kind: str, scale: int, seed: int):
     if kind == "smallworld":
         return small_world_graph(1 << scale, seed=seed)
     raise SystemExit(f"unknown graph kind {kind}")
+
+
+#: example beyond-paper hierarchies shown by --list-variants
+EXAMPLE_HIERARCHIES = [
+    "delta:5 > pod:dijkstra",
+    "delta:5 > pod:dijkstra > chunk:delta:1",
+    "delta:7 > pod:delta:3 > chunk:topk:64",
+    "chaotic > device:dijkstra > chunk:topk:32",
+    "kla:2 > pod:dijkstra > device:dijkstra",
+]
+
+
+def list_variants_lines() -> list:
+    """The preset (paper) grid plus example composed hierarchies, each
+    with the collective scope realizing every annotation."""
+    lines = ["preset grid (paper Figures 5-7, legacy grammar "
+             "root+variant):"]
+    for spec in paper_variant_specs():
+        cfg = SolverConfig.from_spec(spec)
+        lines.append(f"  {cfg.name:26s} {cfg.hierarchy.describe()}")
+    lines.append("")
+    lines.append("example composed hierarchies (grammar v2: "
+                 "'root > level:ordering > ...[/exchange]'):")
+    for spec in EXAMPLE_HIERARCHIES:
+        cfg = SolverConfig.from_spec(spec)
+        lines.append(f"  {spec:44s} {cfg.hierarchy.describe()}")
+    lines.append("")
+    lines.append("levels: global > pod > device > chunk; orderings: "
+                 "chaotic | dijkstra | delta:D | kla:K | topk:B; "
+                 "exchange: a2a | pmin | sparse | auto")
+    return lines
+
+
+def solver_config(args) -> SolverConfig:
+    """The spec of the command line: ``--spec``, else ``root+variant/
+    exchange`` once one of those is given, else DEFAULT_SPEC; with
+    ``--chunk`` and ``--partition`` applied."""
+    spec = args.spec
+    if spec is None:
+        given = {k: getattr(args, k) for k in COMPOSE_DEFAULTS
+                 if getattr(args, k) is not None}
+        if given:
+            parts = {**COMPOSE_DEFAULTS, **given}
+            spec = f"{parts['root']}+{parts['variant']}/{parts['exchange']}"
+        else:
+            spec = DEFAULT_SPEC
+    overrides = dict(chunk_size=args.chunk)
+    if args.partition is not None:
+        overrides["partition"] = args.partition
+    return SolverConfig.from_spec(spec, **overrides)
 
 
 def oracle(g, source: int) -> np.ndarray:
@@ -141,7 +207,15 @@ def solve_and_report(args, solver: Solver, show: bool) -> int:
         profile_solve(solver, problems[0], show=show)
     if not show:
         return 0
-    print(f"[sssp] {pg.describe()}")
+    stats = pg.load_stats()  # one scan, for describe and --verify
+    print(f"[sssp] {pg.describe(stats)}")
+    if args.verify:
+        print(f"[sssp] load balance ({pg.partitioner}): "
+              f"rows/rank={stats['rows_per_rank']} (padded to "
+              f"{stats['max_rows']}) edges/rank={stats['edges_per_rank']}")
+        print(f"[sssp] straggler ratio: rows={stats['straggler_rows']:.3f} "
+              f"edges={stats['straggler_edges']:.3f} "
+              f"ell_occupancy={stats['ell_occupancy']:.3f}")
     print(f"[sssp] backend={args.backend} ranks={solver.n_parts} "
           f"mesh={solver.mesh.shape}{solver.mesh.axis_names} "
           f"ELL on the device of rank 0: {ell_bytes} bytes")
@@ -179,7 +253,8 @@ def rank_main(rank: int, world: int, args, init_method: str) -> None:
     ranks = init_ranks(args.backend, rank, world,
                        make_rank_mesh(world, args.pods), init_method)
     try:
-        solver = Solver(args.spec, n_parts=world, device=device, ranks=ranks)
+        solver = Solver(solver_config(args), n_parts=world, device=device,
+                        ranks=ranks)
         rc = solve_and_report(args, solver, show=rank == 0)
     finally:
         torch.distributed.destroy_process_group()
@@ -187,15 +262,33 @@ def rank_main(rank: int, world: int, args, init_method: str) -> None:
         raise SystemExit(rc)
 
 
-def main(argv=None) -> int:
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--graph", default="rmat1",
                     choices=["rmat1", "rmat2", "road", "smallworld"])
     ap.add_argument("--scale", type=int, default=12)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--spec", default="delta:5/sparse/fused",
+    ap.add_argument("--spec", default=None,
                     help="solver spec, e.g. delta:5+threadq/a2a or "
-                         "'delta:5 > pod:dijkstra /sparse'")
+                         "'delta:5 > pod:dijkstra /sparse' (default "
+                         f"{DEFAULT_SPEC}, or root+variant/exchange once "
+                         "one of those flags is given)")
+    ap.add_argument("--list-variants", action="store_true",
+                    help="enumerate the preset grid + example composed "
+                         "hierarchies with their collective scopes, "
+                         "then exit")
+    ap.add_argument("--root", default=None,
+                    help="root ordering (default delta:5)")
+    ap.add_argument("--variant", default=None, choices=sorted(VARIANT_LEVEL),
+                    help="EAGM variant (default buffer)")
+    ap.add_argument("--exchange", default=None, choices=list(EXCHANGE_MODES),
+                    help="candidate exchange (default a2a)")
+    ap.add_argument("--partition", default=None, metavar="STRATEGY",
+                    help="graph partitioner: block | shuffle[:seed] | "
+                         "ebal | degree (also the spec's @segment, e.g. "
+                         "'delta:5/sparse@ebal'; the flag wins)")
+    ap.add_argument("--chunk", type=int, default=1024,
+                    help="the threadq drain size B")
     ap.add_argument("--sources", type=int, nargs="+", default=[0],
                     help="source vertices; more than one solve as one batch")
     ap.add_argument("--problem", default="sssp", choices=processing_names(),
@@ -214,15 +307,23 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="solve once more under torch.profiler and print "
                          "device time by operator and the device busy share")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None) -> int:
+    args = parser().parse_args(argv)
+    if args.list_variants:
+        for line in list_variants_lines():
+            print(line)
+        return 0
 
     torchrun = "RANK" in os.environ and "WORLD_SIZE" in os.environ
     if args.ranks is None:
         args.ranks = int(os.environ["WORLD_SIZE"]) if torchrun else 1
     if args.backend == "stacked":
         mesh = make_rank_mesh(args.ranks, args.pods)
-        solver = Solver(args.spec, n_parts=args.ranks, device=args.device,
-                        mesh=mesh)
+        solver = Solver(solver_config(args), n_parts=args.ranks,
+                        device=args.device, mesh=mesh)
         return solve_and_report(args, solver, show=True)
 
     # refuse what cannot run before any process group starts

@@ -25,6 +25,11 @@ escalation path.
     feed = UpdateFeed(g, solver, cache=router.cache)
     feed.apply(EdgeUpdate(src=3, dst=7, weight=0.5))   # warm refresh
 
+Over a process backend (``Solver(..., ranks=init_ranks(...))``) every
+rank builds the same objects; rank 0 then serves and every other rank
+calls ``router.follow()``, which replays rank 0's calls until its
+``router.close()`` (:mod:`repro_torch.serve.stream`).
+
 Service CLI: ``python -m repro_torch.launch.serve``.
 """
 

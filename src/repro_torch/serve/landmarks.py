@@ -18,6 +18,11 @@ only the lower bound is offered and the router escalates to an exact
 solve.  ``exact=`` escalation is always available: the router routes
 the query through the full single-source path (cached, batched).
 
+Over a process backend every rank builds the index (one collective
+``solve_batch``) at the same point, and its refreshes go through the
+service's command stream (:mod:`repro_torch.serve.stream`), so every
+rank holds the same matrix.
+
 The landmark solutions are ordinary :class:`Solution` objects, so the
 streaming-update feed refreshes them with the same self-stabilizing
 warm restarts as any cached answer.
@@ -34,6 +39,7 @@ from repro_torch.api import Problem, SingleSource, Solver
 from repro_torch.api.solver import Solution
 from repro_torch.graph.formats import Graph, graph_fingerprint
 from repro_torch.obs import trace as obs
+from repro_torch.serve.stream import recorded, stream_for
 
 
 @dataclasses.dataclass
@@ -85,8 +91,9 @@ class LandmarkIndex:
         symmetric: bool = False,
         processing: str = "sssp",
     ):
-        solver.require_stacked("the landmark index")
         self.solver = solver
+        self._stream = stream_for(solver)
+        self._oid = self._stream.register(self)
         self.graph = graph
         self.symmetric = bool(symmetric)
         self.processing = processing
@@ -139,12 +146,14 @@ class LandmarkIndex:
 
     # -- streaming updates --------------------------------------------
 
+    @recorded
     def refresh(self, *, warm: bool = True) -> "LandmarkIndex":
         """Re-converge every landmark solution against the (perturbed)
         graph.  ``warm=True`` uses self-stabilizing warm restarts
         (exact after improving updates); ``warm=False`` cold-solves
         (required after non-improving updates).  Falls back to cold
         per-landmark when the partition layout changed."""
+        self._stream.sync()
         with obs.span("landmarks.refresh", k=self.k, warm=warm) as sp:
             if warm:
                 fresh = []

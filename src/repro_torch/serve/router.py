@@ -32,6 +32,11 @@ config's name, so tuned and default answers never alias.
 Fingerprints are hash-chain aware, so a streamed update falls back to
 the default solver until the mutated graph is re-tuned.
 
+Over a process backend (``Solver(..., ranks=)``) rank 0 admits, batches
+and times the queries and every other rank replays its calls
+(:mod:`repro_torch.serve.stream`): rank 0 calls :meth:`Router.close`
+when done, the others :meth:`Router.follow`.
+
 The router is synchronous and single-threaded by design — the engine
 itself is the concurrency (one batched solve serves B queries); an
 injectable ``clock`` makes the timeout trigger testable without
@@ -52,6 +57,7 @@ from repro_torch.graph.formats import Graph, graph_fingerprint
 from repro_torch.obs import trace as obs
 from repro_torch.serve.cache import SolutionCache
 from repro_torch.serve.landmarks import LandmarkIndex
+from repro_torch.serve.stream import recorded, stream_for
 
 if TYPE_CHECKING:  # pragma: no cover - import cycle guard
     from repro_torch.tune.autotune import TunedSpecCache
@@ -140,7 +146,6 @@ class Router:
         clock: Callable[[], float] = time.monotonic,
         latency_window: int = 1024,
     ):
-        solver.require_stacked("the Router")
         if max_batch < 1:
             raise ValueError(f"max_batch must be positive: {max_batch}")
         if latency_window < 1:
@@ -163,9 +168,25 @@ class Router:
         self._latency: deque = deque(maxlen=int(latency_window))
         self._qids = 0
         self._tuned_solvers: dict = {}  # tuned spec -> memoized Solver
+        self._stream = stream_for(solver)
+        self._oid = self._stream.register(self)
+
+    # -- the process backend's command stream -------------------------
+
+    def follow(self) -> list:
+        """On a rank other than 0 of a process backend: replay rank 0's
+        service calls until it closes; returns the tickets of the
+        replayed submits, in order."""
+        return [r for name, r in self._stream.follow() if name == "submit"]
+
+    def close(self) -> None:
+        """On rank 0 of a process backend: end the other ranks'
+        :meth:`follow` (a no-op on stacked ranks)."""
+        self._stream.close()
 
     # -- admission ----------------------------------------------------
 
+    @recorded
     def submit(self, query: Query) -> Ticket:
         self._qids += 1
         ticket = Ticket(self, query, self.clock(), qid=self._qids)
@@ -210,12 +231,14 @@ class Router:
 
     # -- flush --------------------------------------------------------
 
+    @recorded
     def flush(self) -> int:
         """Serve every pending ticket now.  Returns how many were
         answered."""
         tickets, self._pending = self._pending, []
         if not tickets:
             return 0
+        self._stream.sync()  # the other ranks solve this flush with us
         self.stats.batches += 1
         with obs.span("router.flush", batch=len(tickets),
                       qids=[t.qid for t in tickets]) as sp:
@@ -295,8 +318,10 @@ class Router:
             return self.solver
         s = self._tuned_solvers.get(rec.spec)
         if s is None:
-            s = Solver(rec.spec, n_parts=self.solver.n_parts,
-                       device=self.solver.device)
+            base = self.solver
+            s = Solver(rec.spec, n_parts=base.n_parts, device=base.device,
+                       mesh=base.mesh,
+                       ranks=None if base.stacked else base.ranks)
             self._tuned_solvers[rec.spec] = s
         return s
 

@@ -22,6 +22,11 @@ on the refresh policy.  A layout change under a data-dependent
 partitioner (``ebal`` boundaries moving) downgrades warm refreshes to
 cold solves automatically (``resolve`` raises, the feed catches).
 
+Over a process backend an update goes out from rank 0 in stream order
+(:mod:`repro_torch.serve.stream`); every rank applies it to its own
+copy of the graph, re-partitions it and takes its own share of the ELL
+(``Solver.device_ell``) in the refreshes' solves.
+
 Edge deletion is implemented as weight := +inf (min-plus identity):
 the ELL shape is untouched and the edge stops contributing to any
 path, which is equivalent to removal for every registered semiring.
@@ -40,6 +45,7 @@ from repro_torch.graph.formats import Graph, chain_fingerprint, graph_fingerprin
 from repro_torch.obs import trace as obs
 from repro_torch.serve.cache import SolutionCache
 from repro_torch.serve.landmarks import LandmarkIndex
+from repro_torch.serve.stream import recorded, stream_for
 
 INF = float("inf")
 
@@ -110,7 +116,6 @@ class UpdateFeed:
         landmarks: Optional[LandmarkIndex] = None,
         refresh: str = "eager",
     ):
-        solver.require_stacked("the update feed")
         if refresh not in ("eager", "lazy"):
             raise ValueError(
                 f"refresh must be 'eager' or 'lazy', got {refresh!r}"
@@ -121,10 +126,14 @@ class UpdateFeed:
         self.landmarks = landmarks
         self.refresh = refresh
         self.stats = FeedStats()
+        self._stream = stream_for(solver)
+        self._oid = self._stream.register(self)
 
     # -- the one entry point ------------------------------------------
 
+    @recorded
     def apply(self, upd: EdgeUpdate) -> UpdateResult:
+        self._stream.sync()  # every rank applies it, in stream order
         with obs.span("feed.apply", src=upd.src, dst=upd.dst,
                       delete=upd.delete) as sp:
             res = self._apply(upd)

@@ -623,12 +623,14 @@ def test_gin_on_card_matches_cpu(dev, cell, scale):
         assert bool((err <= 1e-5 * ref.abs().max(1).values).all())
 
 
-def batch_case(seed, lanes, P, n_local, R, W, F, kind=""):
+def batch_case(seed, lanes, P, n_local, R, W, F, kind="", world=None):
     """S = lanes·P lanes over a P-rank ELL with non-integer weights; lane
     counts cycle through 0, 1 and F and random ones.  kind "real_tail":
-    the rows listed past a lane's count are real rows, not fill."""
+    the rows listed past a lane's count are real rows, not fill.
+    ``world``: the ranks the destinations span (default P); a process of
+    the process backend holds P = 1 rank of ``world``."""
     r = np.random.default_rng(seed)
-    S, n_out = lanes * P, P * n_local
+    S, n_out = lanes * P, (world or P) * n_local
     dist = np.full((S, n_local + 1), np.inf, np.float32)
     hot = r.random((S, n_local)) < 0.4
     dist[:, :n_local][hot] = r.uniform(0, 50, int(hot.sum())).astype(np.float32)
@@ -726,6 +728,34 @@ def test_batched_frontier_kernels_on_skewed_lanes(dev, lanes, P, W):
     for s in range(S):  # S single launches on the same lanes
         q = s % P
         args = (d[s], i[s], c[s:s + 1], rs[q], cl[q], w[q])
+        assert torch.equal(fused[s], K.fused_superstep_cuda(*args, n_out))
+        assert torch.equal(gather[s], K.relax_push_gather_cuda(*args))
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("lanes,W", [(1, 64), (8, 64), (8, 33), (3, 5)])
+@pytest.mark.parametrize("kind", ["", "real_tail"])
+def test_batched_entries_at_a_ranks_shape(dev, world, lanes, W, kind):
+    """The batched entries as a rank process of the process backend
+    launches them: one rank's ELL (P = 1), its destinations over all
+    ``world`` ranks' slots, ``lanes`` lanes; against the plain versions
+    and single launches on the same lanes."""
+    dist, row_idx, counts, row_src, col, wgt, n_out = batch_case(
+        world * 100 + lanes * 10 + W, lanes, 1, 900, 1200, W, 300, kind,
+        world=world)
+    assert n_out == world * 900 and int(col.max()) <= n_out
+    d, i, c, rs, cl, w = on(dev, dist, row_idx, counts, row_src, col, wgt)
+    K.reset_launch_counts()
+    fused = K.fused_superstep_batch_cuda(d, i, c, rs, cl, w, n_out)
+    gather = K.relax_push_gather_batch_cuda(d, i, c, rs, cl, w)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["fused_superstep_batch"] == 1
+    assert K.launch_counts()["relax_push_gather_batch"] == 1
+    assert fused.shape == (lanes, n_out + 1)
+    assert torch.equal(fused, K.fused_superstep_batch_ref(d, i, c, rs, cl, w, n_out))
+    assert torch.equal(gather, K.relax_push_gather_batch_ref(d, i, c, rs, w))
+    for s in range(lanes):
+        args = (d[s], i[s], c[s:s + 1], rs[0], cl[0], w[0])
         assert torch.equal(fused[s], K.fused_superstep_cuda(*args, n_out))
         assert torch.equal(gather[s], K.relax_push_gather_cuda(*args))
 

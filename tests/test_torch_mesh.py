@@ -10,12 +10,13 @@
 
 for ``delta:5 > pod:dijkstra``, ``kla:2 > pod:dijkstra >
 device:dijkstra`` and the ``nodeq`` specs of ``paper_variant_specs()``
-on the dense exchanges (a2a, pmin): state and ``metrics.as_dict()``
-equal.  The references run in subprocesses, as
+on the dense exchanges (a2a, pmin) and the sparse one: state and
+``metrics.as_dict()`` equal.  The references run in subprocesses, as
 ``tests/test_distributed_subprocess.py`` runs them (the XLA flag lives
-only in the child), while the port solves here.  The reference's sparse
-exchange fails at P = 8 (ROADMAP.md Queue 3), so the sparse pod runs
-are held against Dijkstra and the process runs against the stacked
+only in the child), while the port solves here.  The reference solves
+single sparse queries at P = 8 and 4 (only its batched sparse solve
+fails under jax 0.9.0), so the sparse pod runs are held to its
+state and metrics, to Dijkstra, and the process runs to the stacked
 port.
 """
 
@@ -84,7 +85,7 @@ def start_reference(n_dev, tmp):
     shape, names = REF_MESHES[n_dev]
     jobs_path = os.path.join(tmp, f"jobs{n_dev}.pkl")
     with open(jobs_path, "wb") as f:
-        pickle.dump((GRAPHS, dense_jobs()), f)
+        pickle.dump((GRAPHS, dense_jobs() + sparse_jobs()), f)
     env = dict(os.environ, PYTHONPATH="src", JAX_PLATFORMS="cpu",
                XLA_FLAGS=f"--xla_force_host_platform_device_count={n_dev}")
     out_path = os.path.join(tmp, f"ref{n_dev}.pkl")
@@ -180,12 +181,18 @@ def test_process_pod_mesh_matches_reference_4(runs, key):
 
 @pytest.mark.parametrize("job", sparse_jobs(), ids=lambda j: j[0])
 def test_sparse_pod_mesh_reaches_dijkstra(runs, job):
+    """The sparse pod runs: the stacked one at P 8 equals the reference
+    at 8, the stacked and process ones at P 4 the reference at 4, and
+    all reach Dijkstra."""
     key, gi, _ = job
     truth = runs["dijkstra"][gi].tobytes()
     for run in ("stacked8", "stacked4", "process4"):
         (state, _, metrics, _), = runs[run][key]
         assert state.tobytes() == truth, run
         assert metrics["converged"]
+    assert_ref(runs["stacked8"][key], runs["ref8"][key])
+    assert_ref(runs["stacked4"][key], runs["ref4"][key])
+    assert_ref(runs["process4"][key], runs["ref4"][key])
     assert_same(runs["process4"][key], runs["stacked4"][key])
 
 

@@ -402,6 +402,39 @@ def test_feed_lazy_mode_invalidates_only(solver):
     assert close(dijkstra_reference(g, 0), a.solution.state)
 
 
+def test_service_keeps_no_superseded_partition(solver):
+    """After improving updates the service (cache, landmarks, feed,
+    router, solver memo) refers only to the current partition: the one
+    it solved the mix on dies once the caller drops its answers, and
+    lives while they are kept (a caller's Solution holds its partition
+    and the ELL copied to the device)."""
+    import gc
+    import weakref
+
+    from repro_torch.launch.serve import build_query_mix, improving_updates
+
+    def service(keep):
+        g = fresh_graph()
+        cache = SolutionCache(byte_budget=1 << 20)
+        lm = LandmarkIndex(solver, g, k=4, symmetric=True)
+        router = Router(solver, g, cache=cache, landmarks=lm, max_batch=4)
+        answers = router.serve(build_query_mix(g, 40, 1.3, seed=4))
+        first = weakref.ref(solver.partition(g))
+        feed = UpdateFeed(g, solver, cache=cache, landmarks=lm)
+        for upd in improving_updates(g, 2, seed=5):
+            assert feed.apply(upd).warm_refreshes > 0
+        if not keep:
+            del answers
+        gc.collect()
+        parts = {id(s.pg) for _, s in cache.entries_for(graph_fingerprint(g))}
+        parts |= {id(s.pg) for s in lm.solutions}
+        assert parts == {id(solver.partition(g))}
+        return first() is not None
+
+    assert not service(keep=False)
+    assert service(keep=True)
+
+
 def test_feed_layout_change_falls_back_to_cold():
     """At two ranks under ebal, insertions from one vertex move the
     ownership boundary: resolve refuses and the feed cold-solves."""
