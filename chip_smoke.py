@@ -100,6 +100,18 @@ Phases (any failure exits non-zero):
      ``launch.sssp --root delta:5 --variant buffer --exchange sparse
      --partition ebal --verify`` on phase 2's graph equals Dijkstra and
      prints its load-balance lines
+ 15. the port's static-analysis gate and the superstep roofline on
+     phase 2's graph: (a) ``run_report`` on the quick grid at 4 stacked
+     ranks on the card with the repository's baseline: the gate passes,
+     its fingerprints and host reads equal the same report's on the CPU,
+     every /fused point that names no fused-kernel escape launched its
+     kernel; the engine lint reports the escapes of
+     ``kla:2+buffer/sparse/fused`` and of bfs at the main spec, not the
+     main spec; ``python -m repro_torch.launch.analyze --quick --ranks 4``
+     exits 0; (b) ``superstep_profile`` at the superstep with the largest
+     frontier for the main spec, push and ``delta:5/a2a`` (charged bytes
+     by op, the kernel's closed form, device time, the memory bound and
+     its share), then over one whole warm main solve
 
 Phase 3 also holds the two frontier kernels' batched entries against
 their plain versions and against 8 single launches at two supersteps of
@@ -117,8 +129,10 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -128,9 +142,6 @@ SCALE = 20
 SEED = 0
 SOURCE = 0
 SPEC = "delta:5/sparse/fused"
-MEM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
-F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
-BF16_OPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 TIMING_REPS = 20
 # LM serving (phase 8): minitron-8b, prompts from lm_batch
 LM_ARCH = "minitron-8b"
@@ -198,6 +209,11 @@ NCCL_BACKEND = "nccl"
 RESOLVE_PROCESSES = (2, 4)
 SERVICE_PROCESSES = 2
 SERVICE_TIMEOUT_S = 900
+# the static-analysis gate and the superstep profile (phase 15)
+GATE_RANKS = 4
+GATE_ESCAPES = (("kla:2+buffer/sparse/fused", "sssp"), (SPEC, "bfs"))
+GATE_TIMEOUT_S = 300
+PROFILE_SPECS = ((SPEC, "fused"), ("delta:5/sparse", "push"), ("delta:5/a2a", "ref"))
 
 
 def log(msg: str) -> None:
@@ -270,12 +286,6 @@ def max_abs_err(a, b) -> float:
     return float((a[fin] - b[fin]).abs().max())
 
 
-def bound(nbytes: int, ops: int, ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
-    t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
-    t_ops = ops / ops_per_s * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 @contextlib.contextmanager
 def device_profile(label: str, top: int = 6, kernel: str | None = None):
     """Log device time by kernel over the block (torch.profiler): the
@@ -311,12 +321,6 @@ def device_profile(label: str, top: int = 6, kernel: str | None = None):
 def rel_err(a, b) -> float:
     """Largest difference as a share of b's largest magnitude."""
     return float((a.float() - b.float()).abs().max() / b.float().abs().max())
-
-
-def attention_pairs(Sq: int, Sk: int, causal: bool) -> int:
-    """(query, key) pairs the attention visits: each causal row i sees
-    keys up to i + Sk - Sq."""
-    return Sq * (Sk - Sq) + Sq * (Sq + 1) // 2 if causal else Sq * Sk
 
 
 ATTN_CASES = (
@@ -414,6 +418,11 @@ def serving_kernels(dev, flush) -> tuple[dict, dict, dict]:
     from repro_torch import kernels as K
     from repro_torch.configs import get_arch
     from repro_torch.data import mind_batch
+    from repro_torch.roofline import BF16_OPS_PER_S, F32_OPS_PER_S, bound
+    from repro_torch.roofline.kernels import (
+        embedding_bag_traffic,
+        flash_attention_traffic,
+    )
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
@@ -456,8 +465,8 @@ def serving_kernels(dev, flush) -> tuple[dict, dict, dict]:
         ms = time_ms(lambda: K.flash_attention_cuda(q, k, v, causal=causal), flush)
         plain_ms = time_ms(lambda: K.attention_ref(q, k, v, causal=causal), flush)
         library_ms = time_ms(library, flush)
-        nbytes = q.element_size() * 2 * (B * Hq * Sq * D + B * Hkv * Sk * D)
-        flops = 4 * B * Hq * D * attention_pairs(Sq, Sk, causal)
+        nbytes, flops = flash_attention_traffic(B, Hq, Hkv, Sq, Sk, D, causal,
+                                                q.element_size())
         peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
         bound_ms, bound_by = bound(nbytes, flops, peak)
         log(f"flash_attention ({label}: B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Sk={Sk} "
@@ -529,8 +538,8 @@ def serving_kernels(dev, flush) -> tuple[dict, dict, dict]:
     plain_ms = time_ms(lambda: K.embedding_bag_ref(table, idx, w), flush)
     library_ms = time_ms(library, flush)
     rows_touched = int(torch.unique(idx[w != 0]).numel())  # rows a 0 weight skips
-    nbytes = 4 * (rows_touched * d + 2 * B * L + B * d)
-    bound_ms, bound_by = bound(nbytes, 2 * B * L * d)
+    nbytes, ops = embedding_bag_traffic(rows_touched, B, L, d)
+    bound_ms, bound_by = bound(nbytes, ops)
     log(f"embedding_bag (table {tuple(table.shape)}, B={B} L={L}, f32 weights, "
         f"{float((w == 0).float().mean()):.3f} of them 0): max abs err {err:.3g} "
         f"({rel:.3g} of max |out|, tol 1e-6); bit-identical to the in-order sum; kernel {ms:.4f} ms "
@@ -775,6 +784,8 @@ def spmm_check(label, x_pad, col, wgt, flush) -> list[dict]:
 
     from repro_torch import kernels as K
     from repro_torch.kernels.spmm_ell.kernel import _launch as spmm_launch
+    from repro_torch.roofline import bound
+    from repro_torch.roofline.kernels import spmm_ell_traffic
 
     (n_x, d), (R, W) = x_pad.shape, col.shape
     chunks = [(lo, min(R, lo + SPMM_CHUNK_ROWS)) for lo in range(0, R, SPMM_CHUNK_ROWS)]
@@ -834,8 +845,8 @@ def spmm_check(label, x_pad, col, wgt, flush) -> list[dict]:
             del A
         used = col if op == "sum" else col[wgt > 0]  # rows of x the op reads
         rows_read = int(torch.unique(used).numel())
-        nbytes = 4 * (2 * R * W + rows_read * d + R * d)
-        bound_ms, bound_by = bound(nbytes, (2 if op == "sum" else 1) * nnz * d)
+        nbytes, ops = spmm_ell_traffic(R, W, rows_read, d, nnz, op)
+        bound_ms, bound_by = bound(nbytes, ops)
         check = (f"max abs err {err:.3g} ({err / scale:.3g} of max |out|, tol {SPMM_SUM_TOL})"
                  if op == "sum" else "bit-identical")
         log(f"spmm_ell ({label}: x {tuple(x_pad.shape)}, ELL R={R} W={W}, {nnz} weights "
@@ -869,6 +880,8 @@ def vertex_check(label, x, ell, graph, flush) -> dict:
         vertex_launch_args,
         vertex_plan,
     )
+    from repro_torch.roofline import MEM_BYTES_PER_S, bound
+    from repro_torch.roofline.kernels import spmm_ell_vertex_traffic
 
     col, wgt, row_ptr, deg = ell.col, ell.wgt, ell.row_ptr, ell.deg
     (n, d), (R, W) = x.shape, col.shape
@@ -917,8 +930,8 @@ def vertex_check(label, x, ell, graph, flush) -> dict:
     lib_err = float((torch.sparse.mm(csr, x) - out).abs().max())
     library_ms = time_ms(lambda: torch.sparse.mm(csr, x), flush)
     # live col and wgt, the rows of x they name, once each, row_ptr, deg, out
-    nbytes = 8 * m + 4 * rows_read * d + 8 * (n + 1) + 4 * n + 4 * n * d
-    bound_ms, bound_by = bound(nbytes, 2 * m * d)
+    nbytes, ops = spmm_ell_vertex_traffic(m, rows_read, n, d)
+    bound_ms, bound_by = bound(nbytes, ops)
     gather_ms = 4 * m * d / MEM_BYTES_PER_S * 1e3
     log(f"spmm_ell vertex sum ({label}: x {tuple(x.shape)}, ELL R={R} W={W}, {m} live "
         f"slots, {plan.fat_vertex.shape[0]} vertices of more than {plan.split_rows} "
@@ -1202,6 +1215,11 @@ def batched_entry_rows(label, dist, idx, cnt, ell, n_out, flush, floor_lib) -> l
     from repro_torch import kernels as K
     from repro_torch.kernels.relax_push import kernel as push_kernel
     from repro_torch.kernels.superstep_fused import kernel as fused_kernel
+    from repro_torch.roofline import bound
+    from repro_torch.roofline.kernels import (
+        fused_superstep_batch_traffic,
+        relax_push_gather_batch_traffic,
+    )
 
     rs, col, wgt = ell.row_src, ell.col, ell.wgt
     P, R, W = col.shape
@@ -1247,11 +1265,8 @@ def batched_entry_rows(label, dist, idx, cnt, ell, n_out, flush, floor_lib) -> l
                  dist[s], idx[s], cnt[s:s + 1], rs[s % P], col[s % P],
                  wgt[s % P], n_out) for s in range(S)],
              bare=(fused_bare, fused_out),
-             # listed row ids, the distinct rows' sources and col+wgt
-             # strips, each lane's source distances and one write of its
-             # output, the counts
-             nbytes=4 * (live + rows_read * (1 + 2 * W) + sum(n_src)
-                         + S * (n_out + 1) + S)),
+             traffic=fused_superstep_batch_traffic(live, rows_read, W,
+                                                   sum(n_src), S, n_out)),
         dict(name="relax_push_gather_batch", kernel="relax_push_gather_batch_kernel",
              source="src/repro_torch/csrc/relax_push.cu",
              replaces="src/repro/kernels/relax_push/kernel.py:42",
@@ -1262,8 +1277,8 @@ def batched_entry_rows(label, dist, idx, cnt, ell, n_out, flush, floor_lib) -> l
                  dist[s], idx[s], cnt[s:s + 1], rs[s % P], col[s % P],
                  wgt[s % P]) for s in range(S)],
              bare=(lambda: push_launch(*push_args), push_out),
-             nbytes=4 * (live + rows_read * (1 + W) + sum(n_src)
-                         + S * F * W + S)),
+             traffic=relax_push_gather_batch_traffic(live, rows_read, W,
+                                                     sum(n_src), S, F)),
     )
     for e in entries:
         name = e["name"]
@@ -1292,7 +1307,8 @@ def batched_entry_rows(label, dist, idx, cnt, ell, n_out, flush, floor_lib) -> l
         alone_ms = kernel_alone_ms(e["wrapper"], flush, (e["kernel"],))
         single_ms = time_ms(e["single"], flush)
         plain_ms = time_ms(e["plain"], flush)
-        bound_ms, bound_by = bound(e["nbytes"], live * W)
+        nbytes, ops = e["traffic"]
+        bound_ms, bound_by = bound(nbytes, ops)
         floor = ""
         if name == "fused_superstep_batch" and floor_lib is not None:
             call, n_triples = atomic_floor_call(floor_lib, dist, idx, cnt, rs, col,
@@ -1306,7 +1322,7 @@ def batched_entry_rows(label, dist, idx, cnt, ell, n_out, flush, floor_lib) -> l
         log(f"{name} ({label}, {S} lanes): bit-identical to its plain version "
             f"and to {S} single launches; wrapper {ms:.4f} ms, bare {bare_ms:.4f} ms, "
             f"alone under the profiler {alone_ms:.4f} ms; {S} single launches "
-            f"{single_ms:.4f} ms; plain {plain_ms:.4f} ms; {e['nbytes']} bytes, "
+            f"{single_ms:.4f} ms; plain {plain_ms:.4f} ms; {nbytes} bytes, "
             f"bound {bound_ms:.4f} ms at 3.35 TB/s ({bound_ms / alone_ms:.3f} of "
             f"it alone){floor}")
         rows.append(dict(name=name, route="cuda", source=e["source"],
@@ -2544,6 +2560,169 @@ def process_service(g, dev, card_line) -> tuple[int, dict]:
     return batch_launches, row
 
 
+def analysis_gate(card_line) -> int:
+    """Phase 15 (a): the port's static-analysis gate on the card, the
+    quick grid at GATE_RANKS stacked ranks with the repository's
+    baseline: gate ok; fingerprints and host reads equal to the same
+    report on the CPU; every /fused point that no fused-kernel-escape
+    names launched its kernel; the escape cases reported and the main
+    spec not; the CLI exits 0.  Returns the kernel launches of the
+    report's /fused points."""
+    from repro_torch import kernels as K
+    from repro_torch.analyze.engine_lint import StepShape, lint_engine
+    from repro_torch.analyze.report import render_report, run_report
+    from repro_torch.api import SolverConfig, get_processing
+
+    baseline = str(ROOT / "analyze_baseline_torch.json")
+    # the CLI in a process of its own, beside the reports below
+    tmp = tempfile.TemporaryDirectory()
+    t_cli = time.perf_counter()
+    cli = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.analyze", "--quick",
+         "--ranks", str(GATE_RANKS), "--json", str(Path(tmp.name) / "report.json")],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    reports = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        K.reset_launch_counts()
+        reports[device] = rep = run_report(quick=True, device=device,
+                                           n_parts=GATE_RANKS,
+                                           baseline_path=baseline)
+        log(f"analyze gate on {device} (quick grid, {GATE_RANKS} stacked ranks): "
+            f"{rep['points']} points, {rep['traced_engines']} engines run, "
+            f"{rep['counts']} findings ({len(rep['baselined'])} baselined), "
+            f"gate {'OK' if rep['ok'] else 'FAIL'} in "
+            f"{time.perf_counter() - t0:.1f} s on {card_line}")
+    card, cpu = reports["cuda"], reports["cpu"]
+    if not card["ok"]:
+        fail(f"the analyze gate failed on the card:\n{render_report(card)}")
+
+    def fingerprints(r):
+        return sorted(f["fp"] for f in r["findings"] + r["baselined"])
+
+    def syncs(r):
+        return {s: e["host_syncs"] for s, e in r["engine"].items()}
+
+    if fingerprints(card) != fingerprints(cpu):
+        fail("the analyze findings differ between the card and the CPU")
+    if syncs(card) != syncs(cpu):
+        fail(f"host reads differ between the card and the CPU: {syncs(card)} "
+             f"against {syncs(cpu)}")
+    escaped = {f["subject"] for f in card["findings"] + card["baselined"]
+               if f["rule"] == "fused-kernel-escape"}
+    fused = {s: e for s, e in card["engine"].items()
+             if e["kernel"] == "fused_superstep"}
+    for s, e in fused.items():
+        if s not in escaped and e["kernel_calls"] == 0:
+            fail(f"analyze gate: {s} names no escape but launched no fused_superstep")
+    launches = sum(e["kernel_calls"] for e in fused.values())
+    per_step = {s: f"{e['host_syncs']}/{e['supersteps']}" for s, e in card["engine"].items()}
+    fused_launches = {s: e["kernel_calls"] for s, e in fused.items()}
+    log(f"analyze gate: fingerprints and host reads equal on the card and the CPU; "
+        f"fused_superstep launches of the /fused points {fused_launches}; "
+        f"host reads / supersteps by engine: {per_step}; {card_line}")
+    for spec, proc in GATE_ESCAPES + ((SPEC, "sssp"),):
+        cfg = SolverConfig.from_spec(spec).engine_config(get_processing(proc))
+        K.reset_launch_counts()
+        found = lint_engine(cfg, StepShape(), GATE_RANKS, "cuda")
+        escape = [f for f in found if f.rule == "fused-kernel-escape"]
+        stats = [f.message for f in found if f.rule == "engine-stats"]
+        want = (spec, proc) != (SPEC, "sssp")
+        if bool(escape) != want:
+            fail(f"analyze: {spec} ({proc}) {'not ' if want else ''}reported as "
+                 f"a fused-kernel escape: {[str(f) for f in found]}")
+        log(f"analyze {spec} ({proc}): {'fused-kernel-escape reported' if want else 'no escape'}"
+            f", fused_superstep launches {K.launch_counts()['fused_superstep']}; {stats[0]}; "
+            f"{card_line}")
+    try:
+        out, err = cli.communicate(timeout=GATE_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        cli.kill()
+        cli.communicate()
+        fail(f"python -m repro_torch.launch.analyze did not end in {GATE_TIMEOUT_S} s")
+    finally:
+        tmp.cleanup()
+    if cli.returncode != 0:
+        fail(f"python -m repro_torch.launch.analyze --quick --ranks {GATE_RANKS} "
+             f"exited {cli.returncode}:\n{out[-3000:]}{err[-3000:]}")
+    log(f"python -m repro_torch.launch.analyze --quick --ranks {GATE_RANKS}: exit 0 "
+        f"in {time.perf_counter() - t_cli:.1f} s (beside the reports); "
+        f"{out.strip().splitlines()[-2]}; {card_line}")
+    return launches
+
+
+def largest_class_state(g, pg, truth):
+    """The engine state at the main path's superstep with the largest
+    frontier that fits its row capacity (phase 3's largest frontier):
+    D holds the classes below it, T those up to it, so the class is
+    exactly what is pending.  Returns ((D, T, L) of (1, n_local+1), the
+    class, its rows)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import DeltaStepping
+    from repro_torch.core.frontier import frontier_caps
+
+    row_cap, _ = frontier_caps(pg.rows_per_rank, pg.width, pg.n_local, 1)
+    cls = DeltaStepping(5.0).class_key(torch.as_tensor(truth), None).numpy()
+    rs = pg.row_src[0]
+    real = rs < g.n
+    row_cls = cls[rs[real]]
+    fin = np.isfinite(row_cls)
+    counts = np.bincount(row_cls[fin].astype(np.int64))
+    fits = np.flatnonzero((counts > 0) & (counts <= row_cap))
+    c = int(fits[np.argmax(counts[fits])])
+    pad = np.full(pg.n_local + 1, np.inf, dtype=np.float32)
+    D, T = pad.copy(), pad.copy()
+    D[:g.n] = np.where(cls < c, truth, np.inf)
+    T[:g.n] = np.where(cls <= c, truth, np.inf)
+    return (D[None], T[None], pad[None].copy()), c, int(counts[c]), row_cap
+
+
+def superstep_profiles(g, pg, truth, supersteps, card_line) -> None:
+    """Phase 15 (b): the superstep profile at full width (rmat1 scale 20,
+    one rank) at the superstep with the largest frontier, for the main
+    spec, push and a2a: charged bytes by op, the kernel's closed form,
+    device time, the memory bound and its share; then one whole warm
+    main solve."""
+    from repro_torch.api import SolverConfig, get_processing
+    from repro_torch.roofline import superstep_profile
+
+    sssp = get_processing("sssp")
+    state, c, rows, row_cap = largest_class_state(g, pg, truth)
+    log(f"superstep profile: delta class {c}, {rows} of F={row_cap} rows pending "
+        f"(rmat1 scale {SCALE}, one rank, ELL W {pg.width}); {card_line}")
+    for spec, impl in PROFILE_SPECS:
+        ecfg = SolverConfig.from_spec(spec, relax_impl=impl).engine_config(sssp)
+        pr = superstep_profile(ecfg, pg, "cuda", state=state)
+        if pr["supersteps"] != 1:
+            fail(f"superstep profile {spec} ({impl}) ran {pr['supersteps']} supersteps")
+        want = {"fused": "fused_superstep", "push": "relax_push_gather"}.get(impl)
+        if want is not None and pr["launches"].get(want, 0) != 1:
+            fail(f"superstep profile {spec} ({impl}): launches {pr['launches']}, "
+                 f"not one {want}")
+        kernel = ""
+        if "kernel_bytes" in pr:
+            kernel = (f"; {pr['kernel']} closed form {pr['kernel_bytes']} bytes "
+                      f"({pr['kernel_bytes'] / pr['hbm_bytes_per_superstep']:.3f} of "
+                      f"the charge), the plain relax's superstep {pr['hbm_bytes_unfused']} "
+                      f"bytes, its relax region {pr['relax_region_bytes']}")
+        log(f"superstep profile {spec} (relax {impl}): {pr['hbm_bytes_per_superstep']} "
+            f"bytes charged; by op {pr['hbm_by_op']}{kernel}; device "
+            f"{pr['device_ms']:.4f} ms, memory bound {pr['bound_ms']:.4f} ms "
+            f"({pr['bound_share']:.3f} of it), launches {pr['launches']}; {card_line}")
+    ecfg = SolverConfig.from_spec(SPEC).engine_config(sssp)
+    pr = superstep_profile(ecfg, pg, "cuda", source=SOURCE)
+    if pr["supersteps"] != supersteps:
+        fail(f"profiled main solve ran {pr['supersteps']} supersteps, not {supersteps}")
+    log(f"whole warm main solve {SPEC}: {pr['supersteps']} supersteps, "
+        f"{pr['hbm_bytes_total']} bytes charged ({pr['hbm_bytes_per_superstep']} a "
+        f"superstep; by op {pr['hbm_by_op']}), memory term {pr['t_memory_ms']:.3f} ms; "
+        f"device {pr['device_ms']:.3f} ms ({pr['bound_share']:.3f} of it), warm wall "
+        f"{pr['wall_s']:.4f} s; launches {pr['launches']}; {card_line}")
+
+
 def main() -> None:
     try:
         import torch
@@ -2564,6 +2743,12 @@ def main() -> None:
     from repro_torch.core.selfstab import in_ell, synchronous_sweep
     from repro_torch.graph import partition_graph, rmat1
     from repro_torch.launch.sssp import oracle
+    from repro_torch.roofline import bound
+    from repro_torch.roofline.kernels import (
+        fused_superstep_traffic,
+        relax_ell_traffic,
+        relax_push_gather_traffic,
+    )
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
@@ -2621,8 +2806,9 @@ def main() -> None:
     n_out = pg.n_pad
     rows = []
 
-    def compare(name, kernel_fn, plain_fn, nbytes, ops, source, replaces,
+    def compare(name, kernel_fn, plain_fn, traffic, source, replaces,
                 label=""):
+        nbytes, ops = traffic
         K.reset_launch_counts()
         out_k = kernel_fn()
         torch.cuda.synchronize()
@@ -2655,10 +2841,7 @@ def main() -> None:
             "fused_superstep",
             lambda: K.fused_superstep_cuda(dist, f_idx, f_cnt, rs, col, wgt, n_out),
             lambda: K.fused_superstep_ref(dist, f_idx, f_cnt, rs, col, wgt, n_out),
-            # listed row ids and sources, col+wgt strips, source distances,
-            # one write of the output
-            4 * (2 * live + 2 * live * W + n_src + n_out + 1) + 4,
-            live * W,
+            fused_superstep_traffic(live, W, n_src, n_out),
             "src/repro_torch/csrc/fused_superstep.cu",
             "src/repro/kernels/superstep_fused/kernel.py:72",
             label,
@@ -2667,8 +2850,7 @@ def main() -> None:
             "relax_push_gather",
             lambda: K.relax_push_gather_cuda(dist, f_idx, f_cnt, rs, col, wgt),
             lambda: K.relax_push_gather_ref(dist, f_idx, f_cnt, rs, wgt),
-            4 * (2 * live + live * W + n_src + row_cap * W) + 4,
-            live * W,
+            relax_push_gather_traffic(live, W, n_src, row_cap),
             "src/repro_torch/csrc/relax_push.cu",
             "src/repro/kernels/relax_push/kernel.py:42",
             label,
@@ -2688,8 +2870,7 @@ def main() -> None:
         "relax_ell",
         lambda: K.relax_ell_cuda(d_ext, in_col_t, in_wgt_t),
         lambda: K.relax_ell_ref(d_ext, in_col_t, in_wgt_t),
-        4 * (2 * R_in * W_in + g.n + 1 + R_in),
-        R_in * W_in * 2,
+        relax_ell_traffic(R_in, W_in, g.n),
         "src/repro_torch/csrc/relax_ell.cu",
         "src/repro/kernels/relax_ell/kernel.py:45",
     ))
@@ -2814,6 +2995,13 @@ def main() -> None:
     rows.append(rank_row)
     log(f"phase 14 took {time.perf_counter() - t0:.1f} s: {batch14} "
         f"fused_superstep_batch launches on rank 0 of the service's mix")
+
+    # ---- 15. the static-analysis gate and the superstep profile ---------
+    t0 = time.perf_counter()
+    gate15 = analysis_gate(card_line)
+    superstep_profiles(g, pg, truth, m.supersteps, card_line)
+    log(f"phase 15 took {time.perf_counter() - t0:.1f} s: {gate15} "
+        f"fused_superstep launches on the gate's /fused points; {card_line}")
 
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s on {card_line}")
     print(json.dumps({"kernels": rows}), flush=True)

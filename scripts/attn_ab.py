@@ -87,6 +87,8 @@ def main() -> None:
     import chip_smoke
     from repro_torch import kernels as K
     from repro_torch.kernels.flash_attention import kernel as attn
+    from repro_torch.roofline import bound
+    from repro_torch.roofline.kernels import flash_attention_traffic
 
     if not torch.cuda.is_available():
         sys.exit("CUDA is not available: this script needs an NVIDIA GPU")
@@ -166,9 +168,8 @@ def main() -> None:
 
         result["sdpa ms"] = round(chip_smoke.time_ms(library, flush), 4)
         result["sdpa kernels"] = chip_smoke.library_kernels(library)
-        flops = 4 * B * Hq * D * chip_smoke.attention_pairs(Sq, Sk, causal)
-        nbytes = 4 * 2 * (B * Hq * Sq * D + B * Hkv * Sk * D)
-        bound_ms, bound_by = chip_smoke.bound(nbytes, flops)
+        nbytes, flops = flash_attention_traffic(B, Hq, Hkv, Sq, Sk, D, causal, 4)
+        bound_ms, bound_by = bound(nbytes, flops)
         result.update(flop=flops, bound_ms=round(bound_ms, 4), bound_by=bound_by)
         for name in ("parent", "change"):
             best = min(result[f"{name} ms"])

@@ -219,6 +219,25 @@ class SolverConfig:
             base += f"@{self.partition}"
         return base
 
+    def lint(
+        self,
+        *,
+        shape: Optional[dict] = None,
+        mesh_axes=("data",),
+        processing: str = "sssp",
+    ) -> list:
+        """Parse-time cross-checks on this config (exchange ×
+        frontier_cap × partitioner × hierarchy interactions); returns a
+        list of ``repro_torch.analyze.findings.Finding``.  Pure spec
+        arithmetic: runs nothing.  ``shape`` (optional, ``dict(n_local,
+        rows, width, n_parts)``) enables the capacity rules; see
+        ``repro_torch.analyze.spec_check``."""
+        from repro_torch.analyze.spec_check import check_config
+
+        return check_config(
+            self, shape=shape, mesh_axes=mesh_axes, processing=processing
+        )
+
     def engine_config(self, processing: ProcessingFn) -> EngineConfig:
         return EngineConfig(
             policy=self.hierarchy,

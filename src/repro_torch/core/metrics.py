@@ -160,22 +160,41 @@ class LatencyStats:
         )
 
 
-# The JAX package's linear cost model, with its per-unit costs
-# calibrated for a TPU v5e pod (relaxation throughput, small-collective
-# latency, interconnect bandwidth).  They are that target's constants,
-# kept so both packages report the same modelled time; nothing here is
-# a GPU measurement.
-COST_RELAX_S = 2.0e-9
-COST_SUPERSTEP_S = 15e-6
-COST_BYTE_S = 1.0 / 45e9
+# The linear cost model of the JAX package, with per-unit costs for one
+# NVIDIA H100 80GB HBM3 at its 700.00 W limit, derived from a
+# chip_smoke.py run on that card (PERF.md §5): the main solve
+# (delta:5/sparse/fused, rmat1 scale 20, one rank) took 28.460 ms of
+# device time for 33,117,948 relaxations in a 0.1180 s warm wall over
+# 66 supersteps, and the a2a solve over gloo at 2 processes on the card
+# took 0.5657 s warm against the stacked solve's 0.2823 s while each
+# rank sent 138,412,032 exchange bytes.
+COST_RELAX_S = 8.59e-10      # 28.460 ms / 33,117,948 relaxations
+COST_SUPERSTEP_S = 1.36e-3   # (0.1180 s - 28.460 ms) / 66: the host's share
+COST_BYTE_S = 2.05e-9        # (0.5657 - 0.2823) s / 138,412,032 bytes
 
 
-def model_time_s(m: WorkMetrics, n_chips: int = 1) -> float:
-    """Cost-model seconds for one solve on ``n_chips`` of the modelled
-    TPU pod (work terms divide across chips; superstep latency does
-    not)."""
+@dataclasses.dataclass(frozen=True)
+class CostModel:
+    """Per-unit costs of :func:`model_time_s`, in seconds."""
+
+    relax_s: float = COST_RELAX_S
+    superstep_s: float = COST_SUPERSTEP_S
+    byte_s: float = COST_BYTE_S
+
+
+def model_time_s(m: WorkMetrics, n_chips: int = 1,
+                 cost: "CostModel | tuple | None" = None) -> float:
+    """Cost-model seconds for one solve on ``n_chips`` cards (work terms
+    divide across cards; superstep latency does not).  ``cost`` is a
+    :class:`CostModel` or a (relax, superstep, byte) tuple of seconds;
+    None takes the H100 figures above."""
+    relax_s, superstep_s, byte_s = (
+        dataclasses.astuple(CostModel()) if cost is None
+        else dataclasses.astuple(cost) if isinstance(cost, CostModel)
+        else tuple(cost)
+    )
     return (
-        COST_RELAX_S * m.relaxations / n_chips
-        + COST_SUPERSTEP_S * m.supersteps
-        + COST_BYTE_S * m.exchange_bytes / n_chips
+        relax_s * m.relaxations / n_chips
+        + superstep_s * m.supersteps
+        + byte_s * m.exchange_bytes / n_chips
     )

@@ -15,6 +15,7 @@ with a plain torch version that CPU tensors take.
 from repro_torch.kernels._lib import (
     KERNELS,
     build,
+    call_counts,
     launch_counts,
     library,
     reset_launch_counts,
@@ -56,7 +57,7 @@ from repro_torch.kernels.superstep_fused import (
 )
 
 __all__ = [
-    "KERNELS", "build", "launch_counts", "library", "reset_launch_counts",
+    "KERNELS", "build", "call_counts", "launch_counts", "library", "reset_launch_counts",
     "relax_ell_cuda", "relax_ell_ref", "relax_rows",
     "relax_push_gather", "relax_push_gather_cuda", "relax_push_gather_ref",
     "relax_push_rows", "relax_push_gather_batch", "relax_push_gather_batch_cuda",

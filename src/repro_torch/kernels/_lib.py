@@ -10,11 +10,17 @@ lists ``build/``).  A library whose sources are unchanged is reused.
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` raises on a nonzero code.  Each
 wrapper counts its launches through :func:`count_launch`, so a run can
-show that a path went through its kernels.
+show that a path went through its kernels.  Each public op counts its
+calls by route (``cuda``: the kernel, ``ref``: the plain version a CPU
+tensor takes) through :func:`count_call` or :func:`kernel_call`, so a
+run on either device shows which ops a path called; the frontier ops'
+:func:`kernel_call` also tells listeners (``roofline/ops.py``'s
+recorder) where a call starts and ends.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import hashlib
@@ -40,7 +46,12 @@ KERNELS = ("fused_superstep", "relax_push_gather", "relax_ell",
            "flash_attention", "embedding_bag", "spmm_ell",
            "fused_superstep_batch", "relax_push_gather_batch")
 
+#: the routes a public op takes
+ROUTES = ("cuda", "ref")
+
 _launches = dict.fromkeys(KERNELS, 0)
+_calls = {k: dict.fromkeys(ROUTES, 0) for k in KERNELS}
+_listeners: list = []
 _lib: "ctypes.CDLL | None" = None
 _build: "Build | None" = None
 
@@ -249,11 +260,47 @@ def count_launch(kernel: str) -> None:
     _launches[kernel] += 1
 
 
+def count_call(kernel: str, route: str) -> None:
+    _calls[kernel][route] += 1
+
+
+@contextlib.contextmanager
+def kernel_call(kernel: str, route: str, **shape):
+    """Count one call of ``kernel``'s public op on ``route`` and tell
+    each listener (an object with ``enter(kernel, route, shape)`` and
+    ``exit()``) where it starts and ends; ``shape`` names the sizes of
+    the call."""
+    _calls[kernel][route] += 1
+    for listener in _listeners:
+        listener.enter(kernel, route, shape)
+    try:
+        yield
+    finally:
+        for listener in reversed(_listeners):
+            listener.exit()
+
+
+def add_listener(listener) -> None:
+    _listeners.append(listener)
+
+
+def remove_listener(listener) -> None:
+    _listeners.remove(listener)
+
+
+def call_counts() -> dict:
+    """Calls per kernel's public op and route since the last
+    :func:`reset_launch_counts`: ``{kernel: {"cuda": n, "ref": n}}``."""
+    return {k: dict(v) for k, v in _calls.items()}
+
+
 def launch_counts() -> dict:
     """Launches per kernel since the last :func:`reset_launch_counts`."""
     return dict(_launches)
 
 
 def reset_launch_counts() -> None:
+    """Set every launch count and call count to 0."""
     for k in _launches:
         _launches[k] = 0
+        _calls[k] = dict.fromkeys(ROUTES, 0)

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _lib
 from repro_torch.kernels.embedding_bag.kernel import embedding_bag_cuda
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 
@@ -14,7 +15,9 @@ IMPLS = ("ref", "pallas", "pallas_interpret")
 def bag_sum(table, idx, w) -> torch.Tensor:
     """(B, d) f32 weighted bag sums ``sum_l w[b, l] * table[idx[b, l]]``."""
     if table.device.type == "cpu":
+        _lib.count_call("embedding_bag", "ref")
         return embedding_bag_ref(table, idx, w)
+    _lib.count_call("embedding_bag", "cuda")
     return embedding_bag_cuda(table, idx, w)
 
 

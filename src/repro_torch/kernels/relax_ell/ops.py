@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _lib
 from repro_torch.kernels.relax_ell.kernel import relax_ell_cuda
 from repro_torch.kernels.relax_ell.ref import relax_ell_ref
 
@@ -13,5 +14,7 @@ from repro_torch.kernels.relax_ell.ref import relax_ell_ref
 def relax_rows(dist, col, wgt) -> torch.Tensor:
     """(R,) f32 row minima ``min_w dist[col[r, w]] + wgt[r, w]``."""
     if dist.device.type == "cpu":
+        _lib.count_call("relax_ell", "ref")
         return relax_ell_ref(dist, col, wgt)
+    _lib.count_call("relax_ell", "cuda")
     return relax_ell_cuda(dist, col, wgt)

@@ -2,12 +2,14 @@
 feeds (gather, then a torch scatter-min, as in the JAX package's
 ``relax_push/ops.py``), for one lane and for S lanes in one launch.  A
 CUDA tensor launches the kernel; a CPU tensor takes the plain torch
-version."""
+version.  Each gather call is counted by route
+(``kernels/_lib.py::kernel_call``)."""
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _lib
 from repro_torch.kernels.relax_push.kernel import (
     relax_push_gather_batch_cuda,
     relax_push_gather_cuda,
@@ -22,9 +24,13 @@ from repro_torch.kernels.superstep_fused.ref import lane_rows
 def relax_push_gather(dist, row_idx, count, row_src, col,
                       wgt) -> torch.Tensor:
     """(F, W) f32 candidates of the listed rows; +inf past ``count``."""
-    if dist.device.type == "cpu":
-        return relax_push_gather_ref(dist, row_idx, count, row_src, wgt)
-    return relax_push_gather_cuda(dist, row_idx, count, row_src, col, wgt)
+    cpu = dist.device.type == "cpu"
+    with _lib.kernel_call("relax_push_gather", "ref" if cpu else "cuda",
+                          lanes=1, rows=row_idx.shape[-1], width=wgt.shape[-1],
+                          n_local=dist.shape[-1] - 1):
+        if cpu:
+            return relax_push_gather_ref(dist, row_idx, count, row_src, wgt)
+        return relax_push_gather_cuda(dist, row_idx, count, row_src, col, wgt)
 
 
 def relax_push_rows(dist, row_idx, count, row_src, col, wgt,
@@ -51,10 +57,15 @@ def relax_push_gather_batch(dist, row_idx, count, row_src, col,
                             wgt) -> torch.Tensor:
     """(S, F, W) f32: lane s's candidates of its listed rows of rank
     s % P; +inf past ``count[s]``."""
-    if dist.device.type == "cpu":
-        return relax_push_gather_batch_ref(dist, row_idx, count, row_src, wgt)
-    return relax_push_gather_batch_cuda(dist, row_idx, count, row_src, col,
-                                        wgt)
+    cpu = dist.device.type == "cpu"
+    with _lib.kernel_call("relax_push_gather_batch", "ref" if cpu else "cuda",
+                          lanes=row_idx.shape[0], rows=row_idx.shape[-1],
+                          width=wgt.shape[-1], n_local=dist.shape[-1] - 1):
+        if cpu:
+            return relax_push_gather_batch_ref(dist, row_idx, count, row_src,
+                                               wgt)
+        return relax_push_gather_batch_cuda(dist, row_idx, count, row_src,
+                                            col, wgt)
 
 
 def relax_push_rows_batch(dist, row_idx, count, row_src, col, wgt,

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _lib
 from repro_torch.kernels.spmm_ell.kernel import spmm_ell_cuda, spmm_ell_vertex_cuda
 from repro_torch.kernels.spmm_ell.ref import spmm_ell_ref, spmm_ell_vertex_ref
 
@@ -17,7 +18,9 @@ IMPLS = ("ref", "pallas", "pallas_interpret")
 def spmm_rows(x, col, wgt, op: str = "sum") -> torch.Tensor:
     """(R, d) f32 rows ``reduce_s x[col[r, s]] * wgt[r, s]``."""
     if x.device.type == "cpu":
+        _lib.count_call("spmm_ell", "ref")
         return spmm_ell_ref(x, col, wgt, op)
+    _lib.count_call("spmm_ell", "cuda")
     return spmm_ell_cuda(x, col, wgt, op)
 
 
@@ -27,7 +30,9 @@ def vertex_sum(x, col, wgt, row_ptr, deg) -> torch.Tensor:
     neighbour ELL (``models/gnn/ell.py``); padding is never read, so x
     needs no zero row."""
     if x.device.type == "cpu":
+        _lib.count_call("spmm_ell", "ref")
         return spmm_ell_vertex_ref(x, col, wgt, row_ptr, deg)
+    _lib.count_call("spmm_ell", "cuda")
     return spmm_ell_vertex_cuda(x, col, wgt, row_ptr, deg)
 
 

@@ -15,9 +15,10 @@ spec wins over the router's default config); ``launch/tune.py`` drives
 search / inspect / export from the command line.
 
 The ``model`` objective is :func:`repro_torch.core.metrics.model_time_s`,
-the JAX package's linear cost model with its TPU constants, kept so
-both packages rank the same way; ``wall`` is the objective that
-measures this machine (a warm pilot solve, on the card by default).
+the JAX package's linear cost model with per-unit costs measured on an
+H100 (``cost=`` takes others, the JAX package's for one); ``wall`` is
+the objective that measures this machine (a warm pilot solve, on the
+card by default).
 The cache's JSON is the JAX package's: either package loads the
 other's file.
 """
@@ -154,6 +155,7 @@ class AutoTuner:
         orderings: Optional[tuple] = None,
         exchanges: Optional[tuple] = None,
         partitions: Optional[tuple] = None,
+        cost=None,
     ) -> None:
         from repro_torch.device import resolve_device
 
@@ -181,6 +183,7 @@ class AutoTuner:
             if partitions is not None
             else (("block",) if quick else _FULL_PARTITIONS)
         )
+        self.cost = cost
         self.pilots_run = 0
         self._partitions: dict = {}  # (id(graph), partitioner) -> (graph, pg)
 
@@ -223,7 +226,7 @@ class AutoTuner:
         elif self.objective == "wall":
             score = float(wall)
         else:
-            score = model_time_s(m, n_chips=n_chips)
+            score = model_time_s(m, n_chips=n_chips, cost=self.cost)
         if not m.converged:
             # inflate by inverse progress: committed / n vertices
             n = int(np.asarray(sol.state).shape[0])

@@ -964,3 +964,86 @@ def test_gloo_ranks_on_card_match_stacked(dev, tmp_path):
                 assert launches["fused_superstep"] > 0, (spec, r)
             if impl == "push":
                 assert launches["relax_push_gather"] > 0, (spec, r)
+
+
+# ------------------------------------------- analyze and roofline on the card
+
+
+@pytest.mark.parametrize("n_parts", [1, 4])
+@pytest.mark.parametrize("spec,impl,processing", [
+    ("delta:5/sparse/fused", "fused", "sssp"), ("delta:5/sparse", "push", "sssp"),
+    ("delta:5/a2a", "ref", "sssp"), ("delta:5/pmin", "ref", "sssp"),
+    ("kla:2+buffer/sparse/fused", "fused", "sssp"),
+    ("delta:5/sparse/fused", "fused", "bfs"),
+    ("delta:5/sparse/fused/q:u16", "fused", "sssp"),
+])
+def test_engine_lint_on_card_matches_cpu(dev, spec, impl, processing, n_parts):
+    """The engine lint's run on the card: the same supersteps, host
+    reads, collectives, charged bytes and findings as on the CPU; a
+    kernel spec's kernel launched on the card exactly where the CPU run
+    called its op."""
+    from repro_torch.analyze import engine_lint
+    from repro_torch.analyze.findings import fingerprint
+    from repro_torch.api import get_processing
+
+    cfg = SolverConfig.from_spec(spec, relax_impl=impl).engine_config(
+        get_processing(processing))
+    shape = engine_lint.StepShape()
+    runs = {}
+    for d in ("cuda", "cpu"):
+        K.reset_launch_counts()
+        runs[d] = engine_lint.run_step(cfg, shape, n_parts, d)
+    card, cpu = runs["cuda"], runs["cpu"]
+    assert card.error is None and cpu.error is None
+    for field in ("supersteps", "host_reads", "collectives", "payloads", "f64_ops",
+                  "hbm_bytes"):
+        assert getattr(card, field) == getattr(cpu, field), field
+    assert (card.kernel_calls > 0) == (cpu.kernel_calls > 0)
+    assert card.kernel_calls == cpu.kernel_calls
+    sh = dataclasses.replace(shape, n_parts=n_parts)
+    assert sorted(map(fingerprint, engine_lint.lint_run(cfg, card, sh))) == \
+        sorted(map(fingerprint, engine_lint.lint_run(cfg, cpu, sh)))
+
+
+@pytest.mark.parametrize("spec,impl", [("delta:5/sparse/fused", "fused"),
+                                       ("delta:5/sparse", "push"),
+                                       ("delta:5/a2a", "ref")])
+def test_superstep_profile_on_card(dev, spec, impl):
+    """Charged bytes on the card equal the CPU's; the card adds device
+    time, the bound and its share, and the kernel's launches."""
+    from repro_torch.api import get_processing
+    from repro_torch.roofline import superstep_profile
+
+    cfg = SolverConfig.from_spec(spec, relax_impl=impl).engine_config(
+        get_processing("sssp"))
+    shape = {"n_local": 256, "width": 16, "n_parts": 2}
+    card = superstep_profile(cfg, shape, "cuda")
+    cpu = superstep_profile(cfg, shape, "cpu")
+    for key in ("supersteps", "hbm_bytes_total", "hbm_by_op",
+                "collective_counts", "exchange_payload_bytes_per_superstep"):
+        assert card[key] == cpu[key], key
+    assert card["device_ms"] > 0 and card["wall_s"] > 0
+    assert card["bound_ms"] == max(card["t_memory_ms"], card["t_collective_ms"])
+    assert 0 < card["bound_share"] == card["bound_ms"] / card["device_ms"]
+    kernel = {"fused": "fused_superstep", "push": "relax_push_gather"}.get(impl)
+    if kernel:
+        assert card["launches"][kernel] == card["kernel_calls"][f"{kernel}/cuda"]
+        assert cpu["kernel_calls"][f"{kernel}/ref"] == card["launches"][kernel]
+    else:
+        assert not card["launches"]
+
+
+def test_recorder_counts_host_reads_and_routes_on_card(dev):
+    from repro_torch.roofline import OpRecorder
+
+    x = torch.arange(16, dtype=torch.float32, device=dev)
+    with OpRecorder() as rec:
+        vals = (x * 2).tolist()
+        flag = bool(x.sum() > 0)
+    assert len(vals) == 16 and flag
+    assert rec.host_reads == ["tolist", "__bool__"]
+    g = rmat1(10, seed=3)
+    K.reset_launch_counts()
+    Solver("delta:5/sparse/fused", device="cuda").solve(Problem(g, SingleSource(0)))
+    calls = K.call_counts()["fused_superstep"]
+    assert calls["ref"] == 0 and calls["cuda"] == K.launch_counts()["fused_superstep"] > 0
