@@ -4,7 +4,7 @@
 neighbour sum of every layer runs through the ``spmm_ell`` kernel.
 """
 
-from repro_torch.configs.cells import GNN_SHAPES
+from repro_torch.configs.cells import GNN_SHAPES, TRAIN_ITEMS, train_unported
 from repro_torch.models.gnn.gin import GINConfig
 
 ARCH_ID = "gin-tu"
@@ -27,3 +27,10 @@ def _flops(cell: str, cfg) -> float:
     n = sh["n"] * sh.get("batch", 1)
     per_node = 2 * (cfg.d_hidden * cfg.d_hidden * 2)
     return 3.0 * cfg.n_layers * (e * cfg.d_hidden + n * per_node)
+
+
+def make_cell(cell: str, ranks: int = 1, reduced: bool = False):
+    """Every gin-tu cell trains (the JAX package's ``gnn_train_cell``)."""
+    if cell not in GNN_SHAPES:
+        raise KeyError(f"unknown {ARCH_ID} cell {cell!r}: {SHAPES}")
+    train_unported(ARCH_ID, cell, TRAIN_ITEMS["gnn"])

@@ -5,10 +5,12 @@
 attends through the flash-attention kernel.
 """
 
+from repro_torch.configs.cells import LM_SHAPES, lm_cell
 from repro_torch.models.lm import LMConfig
 
 ARCH_ID = "minitron-8b"
 FAMILY = "lm"
+SHAPES = list(LM_SHAPES)
 
 
 def make_config(reduced: bool = False) -> LMConfig:
@@ -23,3 +25,7 @@ def make_config(reduced: bool = False) -> LMConfig:
         n_kv_heads=8, d_ff=16384, vocab=256000, mlp_type="relu2",
         attn_impl="pallas", attn_chunk=2048,
     )
+
+
+def make_cell(cell: str, ranks: int = 1, reduced: bool = False):
+    return lm_cell(ARCH_ID, make_config(reduced), cell, ranks)

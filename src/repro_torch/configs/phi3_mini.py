@@ -5,10 +5,12 @@ RoPE + SwiGLU.  On the card the full config attends through the
 flash-attention kernel.
 """
 
+from repro_torch.configs.cells import LM_SHAPES, lm_cell
 from repro_torch.models.lm import LMConfig
 
 ARCH_ID = "phi3-mini-3.8b"
 FAMILY = "lm"
+SHAPES = list(LM_SHAPES)
 
 
 def make_config(reduced: bool = False) -> LMConfig:
@@ -23,3 +25,7 @@ def make_config(reduced: bool = False) -> LMConfig:
         n_kv_heads=32, d_ff=8192, vocab=32064,
         attn_impl="pallas", attn_chunk=2048,
     )
+
+
+def make_cell(cell: str, ranks: int = 1, reduced: bool = False):
+    return lm_cell(ARCH_ID, make_config(reduced), cell, ranks)

@@ -77,6 +77,20 @@ class LMConfig:
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {self.attn_impl!r}")
 
+    def n_params(self) -> int:
+        """Weights less the norm scales, embedding and head untied (the
+        JAX package's count)."""
+        d, f, L, V = self.d_model, self.d_ff, self.n_layers, self.vocab
+        dh = self.head_dim
+        attn = d * self.n_heads * dh + 2 * d * self.n_kv_heads * dh \
+            + self.n_heads * dh * d
+        mlp = (3 if self.mlp_type == "swiglu" else 2) * d * f
+        return L * (attn + mlp) + 2 * V * d
+
+    def n_active_params(self) -> int:
+        """Per-token active parameters: all of them (no MoE is ported)."""
+        return self.n_params()
+
     @property
     def head_dim(self) -> int:
         return self.d_model // self.n_heads

@@ -1047,3 +1047,28 @@ def test_recorder_counts_host_reads_and_routes_on_card(dev):
     Solver("delta:5/sparse/fused", device="cuda").solve(Problem(g, SingleSource(0)))
     calls = K.call_counts()["fused_superstep"]
     assert calls["ref"] == 0 and calls["cuda"] == K.launch_counts()["fused_superstep"] > 0
+
+
+@pytest.mark.parametrize("n_parts", [1, 4])
+def test_cell_plan_bytes_equal_the_resident_partition_on_card(dev, n_parts):
+    """The SSSP plan at a real partition's shape: its argument bytes equal
+    the ELL and state a solve holds on the card, row_deg the rest of the
+    resident plan (rmat1 scale 12, the reduced cells' W 8)."""
+    from repro_torch.configs.cells import sssp_plan
+    from repro_torch.core.engine import initial_state, sssp_sources
+    from repro_torch.core.processing import SSSP
+    from repro_torch.graph import partition_graph
+    from repro_torch.launch.dryrun import superstep_peak
+
+    pg = partition_graph(rmat1(12, seed=0), n_parts, width=8)
+    cfg = SolverConfig.from_spec("delta:5/sparse/fused")
+    plan = sssp_plan("sssp", "rmat1_s12", cfg, n_parts=n_parts, n_local=pg.n_local,
+                     rows=pg.rows_per_rank, width=pg.width)
+    ell = pg.to(dev)
+    state = on(dev, *initial_state(pg, SSSP, sssp_sources(0)))
+    size = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+    assert all(t.is_cuda for t in list(ell) + state)
+    assert size([ell.row_src, ell.col, ell.wgt] + state) == plan.arg_bytes
+    assert size(list(ell) + state) == n_parts * superstep_peak(plan)["resident"]
+    sol = Solver(cfg, n_parts=n_parts, device="cuda").solve(Problem(pg, SingleSource(0)))
+    assert sol.metrics.converged

@@ -49,7 +49,12 @@ def test_port_imports_no_jax_and_no_reference():
                 "repro_torch.obs.export", "repro_torch.launch.tune",
                 "repro_torch.launch.obs", "repro_torch.launch.mesh",
                 "repro_torch.core.ranks", "repro_torch.core.agm",
-                "repro_torch.serve.stream"):
+                "repro_torch.serve.stream", "repro_torch.configs",
+                "repro_torch.configs.sssp_cfg", "repro_torch.configs.mind_cfg",
+                "repro_torch.configs.phi3_mini", "repro_torch.launch.dryrun",
+                "repro_torch.bench", "repro_torch.bench.variants",
+                "repro_torch.bench.table1", "repro_torch.bench.scaling",
+                "repro_torch.bench.run"):
         assert sub in mods, sub
     code = PROBE.format(src=str(ROOT / "src"), root=str(ROOT),
                         modules=mods + ["chip_smoke"])
