@@ -4,8 +4,8 @@ NVIDIA GPU, at the sizes its users run on one card: SSSP on rmat1
 (Graph500 R-MAT, weights 1..100) at scale 20, seed 0, one rank; LM
 serving of minitron-8b at full width (32 layers, 7.73 B parameters,
 random weights from the seed); MIND serving at full width (2^20 items,
-2^17 profile ids); GIN inference (gin-tu at full width) on rmat1 at
-scale 21, the size of ogb-products.
+2^17 profile ids); GIN inference and training (gin-tu at full width)
+on rmat1 at scale 21, the size of ogb-products.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --trace-spread 3   # phase 12(a)'s timing alone
@@ -52,6 +52,19 @@ Phases (any failure exits non-zero):
      CSR; gin-tu forwards through the vertex sum (5 launches each, no
      index_add_) on rmat1 scale 21 with 100 features; logits against
      the plain segment-sum route
+ 10b. GIN training on phase 10's graph and batch: the vertex sum over the
+     transpose ELL (the backward's) bit for bit against its plain version,
+     timed as in 10; one loss and backward at full width through both
+     routes (each backward vertex sum bit for bit against the plain
+     Function's; gradients leaf by leaf within 1e-3 of the leaf's max
+     |grad|); train steps of the ogb_products plan (AdamW, warmup-cosine,
+     clip; 9 spmm_ell launches a step, 4 over the transpose ELL, no
+     index_add/scatter/index_put; ms/step, nodes/s, peak memory, busy
+     share) beside the segment-sum route's step; a resume through a
+     checkpoint bit-identical to a straight run; then a few steps of
+     gin-tu's full_graph_sm (a Cora-sized graph, d 1433), molecule (128
+     graphs of 30 atoms as one block-diagonal graph, against a loop over
+     the graphs) and minibatch_lg (one fanout block of 1024 seeds) cells
  11. the SSSP query service on a copy of phase 2's graph
      (``delta:5/sparse/fused``): a landmark tier of 8 hubs (one
      solve_batch, each lane against Dijkstra), 200 Zipf-skewed queries
@@ -198,6 +211,24 @@ SPMM_SUM_TOL = 1e-5
 # another order differs by about sqrt(k) 2^-24 of its size: 1.9e-5 at
 # the largest in-degree, 102,632; the bound leaves 5x for the 5 layers
 GIN_LOGIT_TOL = 1e-4
+# GIN training (phase 10b) on phase 10's graph and batch: warm steps
+# after the cold one, and the steps of the resume check (straight, and
+# half, a checkpoint, a restore and the other half)
+GIN_TRAIN_WARM, GIN_RESUME_STEPS = 3, 4
+# kernel-route gradients vs the segment-sum route's, leaf by leaf, as a
+# share of the leaf's max |grad|: the logits already differ by up to
+# GIN_LOGIT_TOL of a node's scale, the backward carries that through 5
+# more layers of f32 sums in another order (the transpose ELL's rows
+# against atomic adds), and each weight's gradient is one sum over 2M
+# nodes.  At rmat1 scale 15 on the CPU the worst leaf was 7.0e-6; the
+# bound is 10x GIN_LOGIT_TOL
+GIN_GRAD_TOL = 1e-3
+# the other three cells (phase 10b(e)): steps each, and the kernel
+# route's first loss against the plain route's, as a share of it (a mean
+# of f32 log-likelihoods or squared errors summed in another order; 1e-7
+# on the CPU); the minibatch block's seeds and fanouts are the cell's
+CELL_STEPS = 2
+CELL_LOSS_TOL = 1e-5
 # the query service (phase 11): the reference service CLI's defaults
 SERVE_QUERIES, SERVE_ZIPF, SERVE_LANDMARKS = 200, 1.3, 8
 SERVE_MAX_BATCH, SERVE_MAX_WAIT_S, SERVE_CACHE_MB = 8, 0.010, 256
@@ -884,6 +915,36 @@ def spmm_check(label, x_pad, col, wgt, flush) -> list[dict]:
     return out_rows
 
 
+def ell_graph(ell) -> tuple:
+    """What vertex_check needs of a neighbour ELL beside it: (live
+    slots m, rows of x they read, the (n, n) CSR of its live slots)."""
+    import torch
+
+    from repro_torch.kernels.spmm_ell.ref import live_slots
+
+    W = ell.col.shape[1]
+    live = torch.arange(W, device=ell.col.device) < live_slots(ell.row_ptr, ell.deg, W)[:, None]
+    live_col = ell.col[live]
+    csr = torch.sparse_csr_tensor(
+        torch.cat([ell.row_ptr.new_zeros(1), torch.cumsum(ell.deg.long(), 0)]),
+        live_col.long(), ell.wgt[live], size=(ell.n, ell.n), check_invariants=False)
+    return int(live_col.numel()), int(torch.unique(live_col).numel()), csr
+
+
+def vertex_chunks(n: int) -> list:
+    return [(v0, min(n, v0 + SPMM_CHUNK_VERTICES)) for v0 in range(0, n, SPMM_CHUNK_VERTICES)]
+
+
+def plain_vertex_chunk(x, ell, starts, v0, v1):
+    """The plain in-order vertex sum of x over vertices [v0, v1) of the
+    ELL (``starts``: its row_ptr on the host)."""
+    from repro_torch import kernels as K
+
+    r0, r1 = starts[v0], starts[v1]
+    return K.spmm_ell_vertex_ref(x, ell.col[r0:r1], ell.wgt[r0:r1],
+                                 ell.row_ptr[v0:v1 + 1] - r0, ell.deg[v0:v1])
+
+
 def vertex_check(label, x, ell, graph, flush) -> dict:
     """Phase 10, step 3b: the vertex sum (spmm_ell_vertex_cuda, GIN's
     neighbour sum) bit for bit against its plain in-order version over
@@ -913,13 +974,10 @@ def vertex_check(label, x, ell, graph, flush) -> dict:
     if K.launch_counts()["spmm_ell"] != 1:
         fail(f"spmm_ell vertex sum ({label}): the wrapper did not launch its kernel")
     starts = row_ptr.tolist()
-    chunks = [(v0, min(n, v0 + SPMM_CHUNK_VERTICES))
-              for v0 in range(0, n, SPMM_CHUNK_VERTICES)]
+    chunks = vertex_chunks(n)
 
     def plain_chunk(v0, v1):
-        r0, r1 = starts[v0], starts[v1]
-        return K.spmm_ell_vertex_ref(x, col[r0:r1], wgt[r0:r1],
-                                     row_ptr[v0:v1 + 1] - r0, deg[v0:v1])
+        return plain_vertex_chunk(x, ell, starts, v0, v1)
 
     for v0, v1 in chunks:
         if not bits_equal(out[v0:v1], plain_chunk(v0, v1)):
@@ -1024,20 +1082,10 @@ def gin_inference(dev) -> dict:
     h[g.n] = 0
     spmm_check(f"layers 2-5, d={cfg.d_hidden}", h, ell.col, ell.wgt, flush)
     # the vertex sum, the forward's: no zero row
-    from repro_torch.kernels.spmm_ell.ref import live_slots
-
-    live = torch.arange(W, device=dev) < live_slots(ell.row_ptr, ell.deg, W)[:, None]
-    live_col = ell.col[live]
-    m = int(live_col.numel())
-    rows_read = int(torch.unique(live_col).numel())
-    csr = torch.sparse_csr_tensor(
-        torch.cat([ell.row_ptr.new_zeros(1), torch.cumsum(ell.deg.long(), 0)]),
-        live_col.long(), ell.wgt[live], size=(g.n, g.n), check_invariants=False)
-    del live, live_col
-    graph = (m, rows_read, csr)
+    graph = ell_graph(ell)
     row = vertex_check(f"layer 1, d={cfg.d_in}", b["x"], ell, graph, flush)
     vertex_check(f"layers 2-5, d={cfg.d_hidden}", h[:g.n].contiguous(), ell, graph, flush)
-    del x_pad, h, csr, graph
+    del x_pad, h, graph
     cora = erdos_renyi_graph(CORA_N, CORA_AVG_DEGREE, seed=SEED)
     cfg_sm = get_arch("gin-tu").make_config(False, "full_graph_sm")
     cb = {k: torch.as_tensor(v, device=dev)
@@ -1106,6 +1154,323 @@ def gin_inference(dev) -> dict:
         fail(f"GIN logits: kernel route differs from the segment-sum route by {worst:.3g} "
              f"of a node's max |logit| (tolerance {GIN_LOGIT_TOL})")
     row["launches"] = launches
+    return row, g, b
+
+
+def finite_tree(tree) -> bool:
+    import torch
+    from torch.utils._pytree import tree_leaves
+
+    return all(bool(torch.isfinite(t).all()) for t in tree_leaves(tree))
+
+
+def leaf_gaps(a, b) -> list:
+    """(max |a - b| / max |b|, leaf path) of every leaf of two trees."""
+    from torch.utils._pytree import keystr, tree_flatten_with_path
+
+    fa, fb = tree_flatten_with_path(a)[0], tree_flatten_with_path(b)[0]
+    return [(float((x - y).abs().max() / y.abs().max().clamp(min=1e-30)), keystr(path))
+            for (path, x), (_, y) in zip(fa, fb)]
+
+
+@contextlib.contextmanager
+def launches_by_ell(transpose_col):
+    """Count the vertex-sum launches over the transpose ELL (whose col
+    tensor is ``transpose_col``) and over any other ELL, by the wrapper
+    the op calls; yields the dict of counts."""
+    from repro_torch.kernels.spmm_ell import ops
+
+    counts = {"forward": 0, "transpose": 0}
+    real = ops.spmm_ell_vertex_cuda
+
+    def counted(x, col, wgt, row_ptr, deg):
+        counts["transpose" if col is transpose_col else "forward"] += 1
+        return real(x, col, wgt, row_ptr, deg)
+
+    ops.spmm_ell_vertex_cuda = counted
+    try:
+        yield counts
+    finally:
+        ops.spmm_ell_vertex_cuda = real
+
+
+def train_steps(step, params, opt, batch, first, last, n_layers, label) -> tuple:
+    """Steps ``first`` .. ``last - 1`` of a train step on the kernel
+    route, each with exactly 2 n_layers - 1 spmm_ell launches (every
+    layer forward, all but the first backward) and a finite loss, grad
+    norm and params.  Returns (params, opt, losses, walls in s)."""
+    import torch
+
+    from repro_torch import kernels as K
+
+    walls, losses = [], []
+    for i in range(first, last):
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch, i)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        launches = K.launch_counts()["spmm_ell"]
+        if launches != 2 * n_layers - 1:
+            fail(f"{label}: step {i} launched spmm_ell {launches} times, not "
+                 f"{2 * n_layers - 1} ({n_layers} forward, {n_layers - 1} backward)")
+        if not (finite_tree(m) and finite_tree(params)):
+            fail(f"{label}: step {i} gave a non-finite loss, grad norm or param "
+                 f"({ {k: float(v) for k, v in m.items()} })")
+        losses.append(float(m["loss"]))
+    return params, opt, losses, walls
+
+
+def cell_train(name, dev, batch, plain_loss, card_line) -> None:
+    """Phase 10b(e): CELL_STEPS steps of gin-tu's ``name`` cell through
+    its plan's step (the kernel route); the first step's loss against
+    ``plain_loss(params, cfg)``, the same loss by a plain route."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.gnn import gin
+    from repro_torch.train import TrainConfig, init_train_state
+
+    mod = get_arch("gin-tu")
+    plan, cfg = mod.make_cell(name), mod.make_config(False, name)
+    params = gin.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg)
+    with torch.no_grad():
+        ref = float(plain_loss(params, cfg))
+    torch.cuda.reset_peak_memory_stats()
+    _, _, losses, walls = train_steps(plan.fn, params, init_train_state(params, TrainConfig()),
+                                      batch, 0, CELL_STEPS, cfg.n_layers,
+                                      f"{name} train step")
+    gap = abs(losses[0] - ref) / abs(ref)
+    shapes = {k: tuple(v.shape) for k, v in batch.items()}
+    log(f"gin-tu {name} {shapes}: {CELL_STEPS} train steps through the cell's plan, "
+        f"{2 * cfg.n_layers - 1} spmm_ell launches each, cold {walls[0] * 1e3:.2f} ms, "
+        f"then {', '.join(f'{w * 1e3:.2f}' for w in walls[1:])} ms; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; losses "
+        f"{', '.join(f'{v:.6g}' for v in losses)}, the first against the plain route's "
+        f"{ref:.6g}: {gap:.3g} of it (tol {CELL_LOSS_TOL}); {card_line}")
+    if not gap <= CELL_LOSS_TOL:
+        fail(f"{name}: the kernel route's loss differs from the plain route's by "
+             f"{gap:.3g} of it (tolerance {CELL_LOSS_TOL})")
+
+
+def gin_training(dev, g, b, card_line) -> dict:
+    """Phase 10b: GIN training on phase 10's graph and batch (gin-tu at
+    ogb_products widths on rmat1 scale 21), then gin-tu's other three
+    cells.  Returns the kernels-line row of the vertex sum over the
+    transpose ELL, the backward's."""
+    import gc
+
+    import numpy as np
+    import torch
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.cells import GNN_SHAPES
+    from repro_torch.data import gnn_flat_batch, molecule_batch
+    from repro_torch.graph import FanoutSampler, erdos_renyi_graph
+    from repro_torch.kernels.spmm_ell import ops as spmm_ops
+    from repro_torch.models.gnn import gin, neighbor_ell, transpose_ell
+    from repro_torch.train import Checkpointer, TrainConfig, build_train_step, init_train_state
+    from repro_torch.train.train_step import value_and_grad
+
+    mod = get_arch("gin-tu")
+    cfg = mod.make_config(False, GIN_CELL)
+    seg = dataclasses.replace(cfg, agg_impl="segment_sum")
+    L = cfg.n_layers
+    edges = (b["edge_src"], b["edge_dst"], b["edge_mask"])
+    fwd = neighbor_ell(*edges, g.n)  # phase 10's, from the memo
+
+    # ---- (a) the transpose ELL's vertex sum against its plain version --
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tell = transpose_ell(*edges, g.n)
+    torch.cuda.synchronize()
+    log(f"transpose ELL (the reversed edges' neighbour ELL) built on the card in "
+        f"{time.perf_counter() - t0:.3f} s: R={tell.col.shape[0]} W={tell.col.shape[1]}, "
+        f"{(tell.col.nbytes + tell.wgt.nbytes) / 1e9:.3f} GB beside the forward ELL's "
+        f"{(fwd.col.nbytes + fwd.wgt.nbytes) / 1e9:.3f} GB")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    upstream = torch.randn((g.n, cfg.d_hidden), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(SEED + 1))
+    row = vertex_check(f"backward over the transpose ELL, d={cfg.d_hidden}", upstream, tell,
+                       ell_graph(tell), flush)
+    row["ell"] = "transpose (the GIN backward)"
+    del flush, upstream
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (b) one loss and backward through both routes ---------------
+    params = gin.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg)
+    seen = []  # (incoming gradient, its sum over the transpose ELL)
+    real = spmm_ops.vertex_sum
+
+    def recording(x, col, wgt, row_ptr, deg):
+        out = real(x, col, wgt, row_ptr, deg)
+        if col is tell.col:
+            seen.append((x, out))
+        return out
+
+    spmm_ops.vertex_sum = recording
+    try:
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss_k, grads_k = value_and_grad(
+            lambda p, bb: gin.node_classification_loss(p, bb, cfg))(params, b)
+        torch.cuda.synchronize()
+        kernel_s = time.perf_counter() - t0
+    finally:
+        spmm_ops.vertex_sum = real
+    launches = K.launch_counts()["spmm_ell"]
+    if launches != 2 * L - 1 or len(seen) != L - 1:
+        fail(f"loss and backward: {launches} spmm_ell launches, {len(seen)} over the "
+             f"transpose ELL (want {2 * L - 1} and {L - 1})")
+    starts = tell.row_ptr.tolist()
+    for i, (up, out) in enumerate(seen):
+        for v0, v1 in vertex_chunks(g.n):
+            if not bits_equal(out[v0:v1], plain_vertex_chunk(up, tell, starts, v0, v1)):
+                fail(f"backward vertex sum {i + 1} of {L - 1}: the kernel's gradient is not "
+                     f"bit-identical to the plain Function's on vertices [{v0}, {v1})")
+    del seen
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    loss_s, grads_s = value_and_grad(
+        lambda p, bb: gin.node_classification_loss(p, bb, seg))(params, b)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    if K.launch_counts()["spmm_ell"]:
+        fail("the segment-sum route launched spmm_ell")
+    if not (finite_tree(grads_k) and finite_tree(grads_s)
+            and np.isfinite([float(loss_k), float(loss_s)]).all()):
+        fail("loss and backward: a loss or a gradient is not finite")
+    gaps = sorted(leaf_gaps(grads_k, grads_s), reverse=True)
+    log(f"GIN loss and backward at full width over {g.n} nodes: kernel route "
+        f"{kernel_s * 1e3:.2f} ms cold ({launches} spmm_ell launches: {L} forward, {L - 1} "
+        f"backward over the transpose ELL, each bit-identical to the plain Function's), "
+        f"segment-sum route {plain_s * 1e3:.2f} ms; loss {float(loss_k):.6g} against "
+        f"{float(loss_s):.6g}; gradients leaf by leaf at most {gaps[0][0]:.3g} of the "
+        f"leaf's max |grad| ({gaps[0][1]}; tol {GIN_GRAD_TOL}), next "
+        f"{', '.join(f'{v:.3g} {k}' for v, k in gaps[1:4])}")
+    if not gaps[0][0] <= GIN_GRAD_TOL:
+        fail(f"gradients: the kernel route differs from the segment-sum route by "
+             f"{gaps[0][0]:.3g} of {gaps[0][1]}'s max |grad| (tolerance {GIN_GRAD_TOL})")
+    del grads_k, grads_s
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (c) train steps through the cell's plan -----------------------
+    step = mod.make_cell(GIN_CELL).fn  # AdamW, warmup-cosine, clip 1.0
+    tc = TrainConfig()
+    opt = init_train_state(params, tc)
+    torch.cuda.reset_peak_memory_stats()
+    with launches_by_ell(tell.col) as by_ell:
+        p, o, losses, walls = train_steps(step, params, opt, b, 0, 1 + GIN_TRAIN_WARM, L,
+                                          "GIN train step")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        with device_profile("one warm GIN train step, kernel route", top=10) as ops_seen:
+            p, o, more, _ = train_steps(step, p, o, b, 1 + GIN_TRAIN_WARM,
+                                        2 + GIN_TRAIN_WARM, L, "GIN train step")
+    steps = 2 + GIN_TRAIN_WARM
+    if by_ell != {"forward": L * steps, "transpose": (L - 1) * steps}:
+        fail(f"train steps: vertex-sum launches by ELL {by_ell}, want {L * steps} forward "
+             f"and {(L - 1) * steps} over the transpose ELL")
+    scatters = sorted({k for k in ops_seen
+                       if any(w in k for w in ("index_add", "scatter", "index_put"))})
+    if scatters:
+        fail(f"the kernel route's train step ran {scatters}: no sum may combine rows "
+             f"outside the kernel")
+    warm = min(walls[1:])
+    seg_step = build_train_step(lambda pp, bb: gin.node_classification_loss(pp, bb, seg), tc)
+    seg_walls = []
+    sp, so = params, init_train_state(params, tc)
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(2):
+        t0 = time.perf_counter()
+        sp, so, sm = seg_step(sp, so, b, i)
+        torch.cuda.synchronize()
+        seg_walls.append(time.perf_counter() - t0)
+    seg_peak = torch.cuda.max_memory_allocated() / 2**30
+    del sp, so
+    log(f"GIN train steps ({cfg.name} {GIN_CELL} plan: AdamW, warmup-cosine, clip "
+        f"{tc.adamw.clip_norm}) over {g.n} nodes: cold {walls[0] * 1e3:.2f} ms (builds the "
+        f"transpose plan), warm {', '.join(f'{w * 1e3:.2f}' for w in walls[1:])} ms "
+        f"({g.n / warm:.4g} nodes/s); peak memory {peak:.2f} GiB; spmm_ell launches "
+        f"{2 * L - 1} a step ({by_ell['forward']} forward and {by_ell['transpose']} over "
+        f"the transpose ELL in {steps} steps); losses "
+        f"{', '.join(f'{v:.6g}' for v in losses + more)}; no index_add, scatter or "
+        f"index_put; segment-sum route's step cold {seg_walls[0] * 1e3:.2f} ms, warm "
+        f"{seg_walls[1] * 1e3:.2f} ms ({seg_walls[1] / warm:.2f}x), peak memory "
+        f"{seg_peak:.2f} GiB; {card_line}")
+    row["launches"] = by_ell["transpose"]
+    del p, o
+
+    # ---- (d) resume from a checkpoint, bit for bit ---------------------
+    half = GIN_RESUME_STEPS // 2
+    straight = train_steps(step, params, init_train_state(params, tc), b, 0,
+                           GIN_RESUME_STEPS, L, "resume check")[:2]
+    first = train_steps(step, params, init_train_state(params, tc), b, 0, half, L,
+                        "resume check")[:2]
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = Checkpointer(tmp)
+        t0 = time.perf_counter()
+        ck.save(half, {"params": first[0], "opt": first[1]})
+        tree, manifest = ck.restore(device=dev)
+        ck_s = time.perf_counter() - t0
+    resumed = train_steps(step, tree["params"], tree["opt"], b, manifest["step"],
+                          GIN_RESUME_STEPS, L, "resume check")[:2]
+    pairs = list(zip(tree_leaves(resumed), tree_leaves(straight)))
+    differ = sum(not (x.dtype == y.dtype and torch.equal(x, y)) for x, y in pairs)
+    if differ:
+        fail(f"resume: {differ} of {len(pairs)} leaves of the params and optimizer state "
+             f"after {half} steps, a checkpoint and {half} more differ from "
+             f"{GIN_RESUME_STEPS} steps straight")
+    log(f"resume: {GIN_RESUME_STEPS} steps straight and {half} steps, save + restore "
+        f"({ck_s:.3f} s), {half} more: params and optimizer state bit-identical "
+        f"({len(pairs)} leaves)")
+    del straight, first, resumed, tree, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (e) gin-tu's other three cells -------------------------------
+    cora = erdos_renyi_graph(CORA_N, CORA_AVG_DEGREE, seed=SEED)
+    cfg_sm = mod.make_config(False, "full_graph_sm")
+    cb = {k: torch.as_tensor(v, device=dev)
+          for k, v in gnn_flat_batch(cora, cfg_sm.d_in, cfg_sm.n_classes, seed=SEED).items()}
+    cell_train("full_graph_sm", dev, cb, lambda pp, c: gin.node_classification_loss(
+        pp, cb, dataclasses.replace(c, agg_impl="segment_sum")), card_line)
+    sh = GNN_SHAPES["molecule"]
+    mb = {k: torch.as_tensor(v, device=dev)
+          for k, v in molecule_batch(0, sh["batch"], sh["n"], sh["e"], seed=SEED).items()}
+
+    def per_graph(pp, c):  # the reference's map over the graphs, one plain forward each
+        c = dataclasses.replace(c, agg_impl="segment_sum")
+        pred = torch.stack([gin.forward(pp, mb["x"][i], mb["edge_src"][i], mb["edge_dst"][i],
+                                        mb["edge_mask"][i], c).mean()
+                            for i in range(sh["batch"])])
+        return torch.mean((pred - mb["y"]) ** 2)
+
+    cell_train("molecule", dev, mb, per_graph, card_line)
+    sh = GNN_SHAPES["minibatch_lg"]
+    cfg_mb = mod.make_config(False, "minibatch_lg")
+    t0 = time.perf_counter()
+    sampler = FanoutSampler(g, sh["fanouts"], seed=SEED)
+    pool = np.flatnonzero(np.diff(sampler.csr.row_ptr))  # vertices with out-edges
+    seeds = np.random.default_rng(SEED).choice(pool, sh["seeds"], replace=False)
+    blk = sampler.sample(seeds)
+    t1 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    n_pad = blk.nodes.shape[0]
+    xb = {"x": torch.randn((n_pad, cfg_mb.d_in), generator=gen, device=dev),
+          "labels": torch.randint(0, cfg_mb.n_classes, (n_pad,), generator=gen, device=dev,
+                                  dtype=torch.int32)}
+    xb |= {k: torch.as_tensor(getattr(blk, k), device=dev)
+           for k in ("edge_src", "edge_dst", "edge_mask")}
+    log(f"minibatch_lg block from phase 10's graph: {sh['seeds']} seeds among {pool.size} "
+        f"vertices with out-edges, fanouts {sh['fanouts']}: {blk.n_nodes} nodes and "
+        f"{blk.n_edges} edges of {n_pad} and {blk.edge_src.shape[0]} padded, sampled in "
+        f"{t1 - t0:.1f} s; features drawn on the card for the block only")
+    cell_train("minibatch_lg", dev, xb, lambda pp, c: gin.node_classification_loss(
+        pp, xb, dataclasses.replace(c, agg_impl="segment_sum")), card_line)
     return row
 
 
@@ -3192,8 +3557,15 @@ def main() -> None:
 
     # ---- 10. GIN inference at full width, ogb-products scale -----------
     t0 = time.perf_counter()
-    rows.append(gin_inference(dev))
+    gin_row, gin_graph, gin_batch = gin_inference(dev)
+    rows.append(gin_row)
     log(f"phase 10 took {time.perf_counter() - t0:.1f} s")
+
+    # ---- 10b. GIN training on phase 10's graph; gin-tu's other cells ---
+    t0 = time.perf_counter()
+    rows.append(gin_training(dev, gin_graph, gin_batch, card_line))
+    del gin_graph, gin_batch
+    log(f"phase 10b took {time.perf_counter() - t0:.1f} s")
 
     # ---- 11. the SSSP query service on a copy of phase 2's graph -------
     t0 = time.perf_counter()

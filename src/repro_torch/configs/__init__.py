@@ -12,7 +12,13 @@ item that brings it.
 """
 
 from repro_torch.configs import gin_tu, mind_cfg, minitron, phi3_mini, sssp_cfg
-from repro_torch.configs.cells import GNN_SHAPES, LM_SHAPES, RECSYS_SHAPES, TRAIN_ITEMS
+from repro_torch.configs.cells import (
+    GNN_SHAPES,
+    LM_SHAPES,
+    RECSYS_SHAPES,
+    TRAIN_ITEMS,
+    TRAINED_FAMILIES,
+)
 
 _MODULES = [phi3_mini, minitron, mind_cfg, gin_tu, sssp_cfg]
 
@@ -48,6 +54,10 @@ def _is_train(family: str, cell: str) -> bool:
     return family == "gnn" or _SHAPES[family][cell].get("kind") == "train"
 
 
+def _waits(arch: str, family: str, cell: str) -> bool:
+    return arch in UNPORTED or (_is_train(family, cell) and family not in TRAINED_FAMILIES)
+
+
 def reference_cells(include_sssp: bool = True) -> list:
     """The JAX package's ``all_cells()``: every (arch, cell) pair."""
     return [(a, c) for a, fam in REFERENCE_ARCHS
@@ -57,8 +67,7 @@ def reference_cells(include_sssp: bool = True) -> list:
 #: (arch, cell) -> the ROADMAP.md Queue 1 item that brings it
 EXCLUDED = {
     (a, c): (UNPORTED[a] if a in UNPORTED else TRAIN_ITEMS[fam])
-    for a, fam in REFERENCE_ARCHS for c in _SHAPES[fam]
-    if a in UNPORTED or _is_train(fam, c)
+    for a, fam in REFERENCE_ARCHS for c in _SHAPES[fam] if _waits(a, fam, c)
 }
 
 

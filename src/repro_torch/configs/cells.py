@@ -18,30 +18,33 @@ scanned layer once; the port neither scans nor compiles, so it has no
 counterpart.
 
 The port shards no model over cards (``ROADMAP.md`` Queue 1 item 5.6):
-an LM or MIND plan's arguments are the whole model and batch, whatever
-its rank count.  An SSSP plan's arguments are stacked over its ranks,
-one row of each a rank.  Train cells wait for training (Queue 1 item
-5) and raise.
+an LM, MIND or GNN plan's arguments are the whole model and batch,
+whatever its rank count.  An SSSP plan's arguments are stacked over its
+ranks, one row of each a rank.  A GNN train plan (:func:`gnn_train_cell`)
+also carries its train step as ``fn``, which runs on real tensors of the
+arguments' shapes; the LM and MIND train cells wait for their training
+(Queue 1 items 5.4, 5.5) and raise.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
-from torch.utils._pytree import tree_leaves
+from torch.utils._pytree import tree_leaves, tree_map
 
 from repro_torch.api.config import SolverConfig
 from repro_torch.models import lm as lm_mod
 from repro_torch.models.mind import MINDConfig
+from repro_torch.train import TrainConfig, build_train_step, init_state
 
 
 @dataclasses.dataclass
 class CellPlan:
     arch: str
     cell: str
-    kind: str                      # prefill | decode | serve | sssp
+    kind: str                      # train | prefill | decode | serve | sssp
     args: tuple                    # pytrees of meta tensors
     model_flops: float = 0.0       # useful FLOPs per execution
     notes: str = ""
@@ -50,6 +53,9 @@ class CellPlan:
     # (n_parts, n_local, rows, width) the arguments were made from
     config: Optional[SolverConfig] = None
     shape: Optional[dict] = None
+    # train only: the step (params, opt_state, batch, step) -> (params,
+    # opt_state, metrics), for tensors of the arguments' shapes
+    fn: Optional[Callable] = None
 
     @property
     def arg_bytes(self) -> int:
@@ -70,10 +76,13 @@ def train_unported(arch: str, cell: str, item: str):
 # ------------------------------------------------------------------ #
 # LM cells
 
-#: the ROADMAP.md item that brings each family's train cells
+#: the ROADMAP.md item that brings each family's train cells (a GNN
+#: family's: those of the GNN archs not ported yet)
 TRAIN_ITEMS = {"lm": "5.4 (lm_loss and LM training)",
-               "gnn": "5.1 (GIN training)",
+               "gnn": "5.2 (the rest of the GNN zoo)",
                "recsys": "5.5 (MIND training)"}
+#: the families whose train cells the port plans
+TRAINED_FAMILIES = ("gnn",)
 
 
 def lm_flops_train(cfg: lm_mod.LMConfig, B: int, S: int) -> float:
@@ -211,6 +220,30 @@ def gnn_packed_batch_shapes(sh: dict, *, triplets: bool) -> dict:
         batch["tri_ji"] = meta((b, t), torch.int32)
         batch["tri_mask"] = meta((b, t), torch.bool)
     return batch
+
+
+def gnn_train_cell(arch: str, cell: str, loss_fn, init_fn, mcfg, ranks: int = 1, *,
+                   coords: bool, triplets: bool, model_flops: float) -> CellPlan:
+    """A GNN train cell: the JAX package's ``gnn_train_cell`` arguments
+    (params, AdamW state, batch, step) as meta tensors, and its step,
+    ``build_train_step(loss_fn(·, ·, mcfg))`` at ``TrainConfig()``.  The
+    params' shapes come from ``init_fn`` on the CPU (a GNN's weights are
+    a few hundred KB), then stand as meta tensors."""
+    sh = GNN_SHAPES[cell]
+    tc = TrainConfig()
+    params = tree_map(lambda p: meta(p.shape, p.dtype),
+                      init_fn(torch.Generator().manual_seed(0), mcfg))
+    if cell == "molecule":
+        batch = gnn_packed_batch_shapes(sh, triplets=triplets)
+    else:
+        batch = gnn_flat_batch_shapes(sh, coords=coords, triplets=triplets)
+    return CellPlan(
+        arch=arch, cell=cell, kind="train",
+        args=(params, init_state(params, tc.adamw), batch, meta((), torch.int32)),
+        model_flops=model_flops,
+        notes=f"{cell}: " + ", ".join(f"{k}={v}" for k, v in sh.items()),
+        ranks=ranks, fn=build_train_step(lambda p, b: loss_fn(p, b, mcfg), tc),
+    )
 
 
 # ------------------------------------------------------------------ #

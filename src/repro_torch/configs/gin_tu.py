@@ -1,10 +1,14 @@
 """gin-tu [arXiv:1810.00826].
 
 5 layers, d_hidden 64, sum aggregator, learnable eps.  On the card the
-neighbour sum of every layer runs through the ``spmm_ell`` kernel.
+neighbour sum of every layer runs through the ``spmm_ell`` kernel,
+forward and (over the transpose ELL) backward.
 """
 
-from repro_torch.configs.cells import GNN_SHAPES, TRAIN_ITEMS, train_unported
+import torch
+
+from repro_torch.configs.cells import GNN_SHAPES, gnn_train_cell
+from repro_torch.models.gnn import gin
 from repro_torch.models.gnn.gin import GINConfig
 
 ARCH_ID = "gin-tu"
@@ -29,8 +33,29 @@ def _flops(cell: str, cfg) -> float:
     return 3.0 * cfg.n_layers * (e * cfg.d_hidden + n * per_node)
 
 
+def _molecule_loss(params, batch, cfg):
+    """Graph-level regression for the packed molecule cell: mean-pool
+    each graph's node logits, then the squared error against ``y``,
+    averaged over the B graphs.  The JAX package maps the forward over
+    the graphs (``vmap``); here they are one block-diagonal graph of B·n
+    nodes (graph b's edges shifted by b·n), so each layer is one
+    neighbour sum: one kernel launch, not B."""
+    x = batch["x"]
+    B, n, d = x.shape
+    off = (torch.arange(B, device=x.device) * n)[:, None].to(batch["edge_src"].dtype)
+    logits = gin.forward(params, x.reshape(B * n, d),
+                         (batch["edge_src"] + off).reshape(-1),
+                         (batch["edge_dst"] + off).reshape(-1),
+                         batch["edge_mask"].reshape(-1), cfg)
+    pred = torch.mean(logits.reshape(B, -1), dim=1)
+    return torch.mean((pred - batch["y"]) ** 2)
+
+
 def make_cell(cell: str, ranks: int = 1, reduced: bool = False):
     """Every gin-tu cell trains (the JAX package's ``gnn_train_cell``)."""
     if cell not in GNN_SHAPES:
         raise KeyError(f"unknown {ARCH_ID} cell {cell!r}: {SHAPES}")
-    train_unported(ARCH_ID, cell, TRAIN_ITEMS["gnn"])
+    cfg = make_config(reduced, cell)
+    loss = _molecule_loss if cell == "molecule" else gin.node_classification_loss
+    return gnn_train_cell(ARCH_ID, cell, loss, gin.init_params, cfg, ranks,
+                          coords=False, triplets=False, model_flops=_flops(cell, cfg))

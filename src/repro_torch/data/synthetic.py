@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from repro_torch.models.gnn.batch import flat_batch_from_graph
+from repro_torch.models.gnn.batch import flat_batch_from_graph, random_molecule_batch
 
 
 def _rng(seed: int, step: int) -> np.random.Generator:
@@ -59,3 +59,16 @@ def gnn_flat_batch(graph, d_feat: int, n_classes: int, *,
     if coords:
         out["coords"] = fb.coords
     return out
+
+
+def molecule_batch(step: int, batch: int, n_atoms: int, n_edges: int,
+                   *, triplets: bool = False, seed: int = 0) -> dict:
+    """The packed molecule batch of ``step`` as the dict the molecule
+    loss takes (numpy).  Triplets raise ``NotImplementedError`` until
+    DimeNet is ported."""
+    mb = random_molecule_batch(batch, n_atoms, n_edges, seed=seed + 7919 * step,
+                               with_triplets=triplets)
+    return {
+        "x": mb.x, "coords": mb.coords, "edge_src": mb.edge_src,
+        "edge_dst": mb.edge_dst, "edge_mask": mb.edge_mask, "y": mb.y,
+    }

@@ -25,6 +25,7 @@ from repro_torch.graph.partition import (
     from_arrays,
     partition_graph,
 )
+from repro_torch.graph.sampler import FanoutSampler, SampledBlock
 
 __all__ = [
     "CSR", "Graph", "chain_fingerprint", "clear_fingerprint_chain", "coo_to_csr",
@@ -33,4 +34,5 @@ __all__ = [
     "small_world_graph",
     "PARTITIONER_KINDS", "DeviceELL", "PartitionedGraph",
     "canonical_partitioner", "from_arrays", "partition_graph",
+    "FanoutSampler", "SampledBlock",
 ]

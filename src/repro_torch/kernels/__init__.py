@@ -9,7 +9,8 @@ with a plain torch version that CPU tensors take.
   flash_attention   streaming-softmax GQA attention (LM prefill)
   embedding_bag     gather + weighted sum per bag (MIND profile pooling)
   spmm_ell          ELL SpMM, sum or max over slots, or straight into
-                    vertex sums (GNN neighbour sums)
+                    vertex sums (GNN neighbour sums, forward and, over
+                    the transpose ELL, backward)
 """
 
 from repro_torch.kernels._lib import (
@@ -39,6 +40,7 @@ from repro_torch.kernels.relax_push import (
     relax_push_rows_batch,
 )
 from repro_torch.kernels.spmm_ell import (
+    VertexSum,
     aggregate_neighbors,
     spmm_ell_cuda,
     spmm_ell_ref,
@@ -68,5 +70,5 @@ __all__ = [
     "attention_ref", "flash_attention_cuda", "mha",
     "bag_pool", "bag_sum", "embedding_bag_cuda", "embedding_bag_ref",
     "aggregate_neighbors", "spmm_rows", "spmm_ell_cuda", "spmm_ell_ref",
-    "vertex_sum", "spmm_ell_vertex_cuda", "spmm_ell_vertex_ref",
+    "vertex_sum", "VertexSum", "spmm_ell_vertex_cuda", "spmm_ell_vertex_ref",
 ]

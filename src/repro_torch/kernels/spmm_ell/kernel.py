@@ -23,8 +23,11 @@ NAME = "spmm_ell"
 SPLIT_ROWS = 2
 #: the last col whose range was read: (weak reference, version, min, max)
 _checked = None
-#: the last vertex plan: (key of weak references and versions, VertexPlan)
-_planned = None
+#: vertex plans kept, newest first: a train step sums over two ELLs in
+#: turn (a graph's neighbour ELL forward, its transpose backward)
+PLANS_KEPT = 2
+#: the last PLANS_KEPT vertex plans: (weak references, key, VertexPlan)
+_planned: list = []
 
 
 @functools.cache
@@ -120,18 +123,18 @@ def check_vertex_args(x, col, wgt, row_ptr, deg) -> None:
 def vertex_plan(x, col, row_ptr, deg, split_rows: int) -> VertexPlan:
     """Check a neighbour ELL and plan the vertex sum over it, splitting
     the vertices of more than ``split_rows`` (>= 1) rows; remembered for
-    the last (col, row_ptr, deg) until one of them is written or freed,
-    since the GIN forward sums over one ELL every layer.  Raises unless
+    the last PLANS_KEPT (col, row_ptr, deg) until one of them is written
+    or freed, since the GIN forward sums over one ELL every layer and its
+    backward over the transpose ELL.  Raises unless
     row_ptr runs from 0 to R without falling, every deg[v] fits v's
     rows, and every live slot's col lies in [0, n_x).  A few host reads;
     n >= 1."""
-    global _planned
     _lib.require(split_rows >= 1, NAME, f"split_rows must be >= 1, got {split_rows}")
     tensors = (col, row_ptr, deg)
     key = (*(t._version for t in tensors), split_rows, x.shape[0])
-    if _planned is not None:
-        refs, old_key, plan = _planned
+    for i, (refs, old_key, plan) in enumerate(_planned):
         if old_key == key and all(r() is t for r, t in zip(refs, tensors)):
+            _planned.insert(0, _planned.pop(i))
             return plan
     R, W = col.shape
     nrows = row_ptr[1:] - row_ptr[:-1]
@@ -162,7 +165,8 @@ def vertex_plan(x, col, row_ptr, deg, split_rows: int) -> VertexPlan:
                                       output_size=n_fat_rows) + rank
     plan = VertexPlan(fat_vertex.to(torch.int32), fat_start, fat_row,
                       live[fat_row].to(torch.int32), split_rows)
-    _planned = (tuple(weakref.ref(t) for t in tensors), key, plan)
+    _planned.insert(0, (tuple(weakref.ref(t) for t in tensors), key, plan))
+    del _planned[PLANS_KEPT:]
     return plan
 
 

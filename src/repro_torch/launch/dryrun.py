@@ -20,8 +20,9 @@ writes one record to ``<out>/<arch>__<cell>__P<ranks>.json``:
 
 A card runs one rank: an SSSP plan at P ranks holds 1/P of the stacked
 arguments a card, as the process backend (``core/ranks.py``) does.  The
-port shards no model (``ROADMAP.md`` Queue 1 item 5.6), so an LM or
-MIND cell holds all its arguments on every card.  Nothing here builds a
+port shards no model (``ROADMAP.md`` Queue 1 item 5.6), so an LM, MIND
+or GNN train cell holds all its arguments (a train cell's: params,
+AdamW state, batch and step) on every card.  Nothing here builds a
 graph, runs an engine loop or a model forward, or reaches a kernel: a
 meta tensor has no values for the engine's host reads, and no kernel op
 takes one.

@@ -1,10 +1,16 @@
 from repro_torch.models.gnn import gin
-from repro_torch.models.gnn.batch import FlatGraphBatch, flat_batch_from_graph
+from repro_torch.models.gnn.batch import (
+    FlatGraphBatch,
+    PackedGraphBatch,
+    flat_batch_from_graph,
+    random_molecule_batch,
+)
 from repro_torch.models.gnn.ell import (
     NeighborELL,
     build_neighbor_ell,
     neighbor_ell,
     neighbor_sum,
+    transpose_ell,
 )
 from repro_torch.models.gnn.layers import (
     gather_src,
@@ -16,8 +22,9 @@ from repro_torch.models.gnn.layers import (
 )
 
 __all__ = [
-    "gin", "FlatGraphBatch", "flat_batch_from_graph",
+    "gin", "FlatGraphBatch", "PackedGraphBatch", "flat_batch_from_graph",
+    "random_molecule_batch",
     "NeighborELL", "build_neighbor_ell", "neighbor_ell", "neighbor_sum",
-    "gather_src", "init_mlp", "mlp_apply", "scatter_max", "scatter_mean",
+    "transpose_ell", "gather_src", "init_mlp", "mlp_apply", "scatter_max", "scatter_mean",
     "scatter_sum",
 ]

@@ -15,6 +15,11 @@ slots are the first ``deg[v]`` of them: ``row_ptr`` and ``deg`` say
 where, and the vertex sum reads only those, never the padding.  The
 build runs in torch on the edges' device, so on the card it is a sort
 there.
+
+The transpose ELL is the neighbour ELL of the reversed edges
+(``build_neighbor_ell(edge_dst, edge_src, edge_mask, n)``): the vertex
+sum over it is the gradient of the vertex sum over the neighbour ELL,
+so training builds it (once a graph) for the backward.
 """
 
 from __future__ import annotations
@@ -23,10 +28,11 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import vertex_sum
+from repro_torch.kernels import VertexSum
 
 # memo of the last graph only, so a graph the caller drops pins no more
-# than one ELL on the card: (key, edge tensors, ELL), keyed by the edge
+# than its two ELLs on the card: (key, edge tensors, {"forward": ELL,
+# "transpose": ELL}, each built at first need), keyed by the edge
 # tensors' identity and version counters (an in-place torch update
 # invalidates) + n; it holds its edge tensors, so their ids are not
 # reused while it lives
@@ -71,18 +77,42 @@ def build_neighbor_ell(edge_src, edge_dst, edge_mask, n: int,
     return NeighborELL(row_ptr, deg.to(torch.int32), col.view(R, W), wgt.view(R, W), n)
 
 
-def neighbor_ell(edge_src, edge_dst, edge_mask, n: int) -> NeighborELL:
-    """:func:`build_neighbor_ell`, memoised for the last graph asked."""
+def _last_graph(edge_src, edge_dst, edge_mask, n: int) -> dict:
     global _LAST
     edges = (edge_src, edge_dst, edge_mask)
     key = (*(id(t) for t in edges), *(t._version for t in edges), n)
     if _LAST is None or _LAST[0] != key:
-        _LAST = (key, edges, build_neighbor_ell(*edges, n))
+        _LAST = (key, edges, {})
     return _LAST[2]
 
 
-def neighbor_sum(ell: NeighborELL, x) -> torch.Tensor:
+def neighbor_ell(edge_src, edge_dst, edge_mask, n: int) -> NeighborELL:
+    """:func:`build_neighbor_ell`, memoised for the last graph asked."""
+    ells = _last_graph(edge_src, edge_dst, edge_mask, n)
+    if "forward" not in ells:
+        ells["forward"] = build_neighbor_ell(edge_src, edge_dst, edge_mask, n)
+    return ells["forward"]
+
+
+def transpose_ell(edge_src, edge_dst, edge_mask, n: int) -> NeighborELL:
+    """The transpose ELL (the reversed edges' neighbour ELL), memoised
+    with :func:`neighbor_ell`'s for the last graph asked."""
+    ells = _last_graph(edge_src, edge_dst, edge_mask, n)
+    if "transpose" not in ells:
+        ells["transpose"] = build_neighbor_ell(edge_dst, edge_src, edge_mask, n)
+    return ells["transpose"]
+
+
+def _layout(ell: NeighborELL) -> tuple:
+    return ell.col, ell.wgt, ell.row_ptr, ell.deg
+
+
+def neighbor_sum(ell: NeighborELL, x, transpose=None) -> torch.Tensor:
     """(n, d) ``sum over in-edges (src -> v) of x[src] * mask``: the
     kernel op's vertex sum, each row's live slots in order, then each
-    vertex's rows in order (the same bits every call)."""
-    return vertex_sum(x, ell.col, ell.wgt, ell.row_ptr, ell.deg)
+    vertex's rows in order (the same bits every call).  Differentiable
+    in x (``VertexSum``): the backward sums the incoming gradient over
+    ``transpose()``, the transpose ELL (:func:`transpose_ell`), called at
+    the first backward; without it x must need no gradient."""
+    t = None if transpose is None else (lambda: _layout(transpose()))
+    return VertexSum.apply(x, _layout(ell), t)

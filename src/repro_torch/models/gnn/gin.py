@@ -1,4 +1,4 @@
-"""GIN (Graph Isomorphism Network, arXiv:1810.00826), inference.
+"""GIN (Graph Isomorphism Network, arXiv:1810.00826).
 
 h_i' = MLP( (1 + eps) * h_i + sum_{j in N(i)} h_j ),  eps learnable.
 Assigned config: 5 layers, d_hidden 64, sum aggregator.
@@ -11,7 +11,9 @@ on the CPU), each vertex's live slots row by row in order;
 ``scatter_sum(gather_src(x, edge_src) * mask, edge_dst, n)``, walked in
 chunks of edges so that the gathered messages stay a few GB at
 ogb-products scale.  Tests and the card's reference check use the
-second.  Training (a backward ``spmm_ell``) is not ported yet.
+second.  Both routes are differentiable: the first through
+``VertexSum``, whose backward runs the same kernel over the transpose
+ELL; the second through torch's own autograd.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.gnn.ell import neighbor_ell, neighbor_sum
+from repro_torch.models.gnn.ell import neighbor_ell, neighbor_sum, transpose_ell
 from repro_torch.models.gnn.layers import gather_src, init_mlp, mlp_apply
 
 AGG_IMPLS = ("spmm_ell", "segment_sum")
@@ -59,23 +61,28 @@ def init_params(gen: torch.Generator, cfg: GINConfig) -> dict:
 
 def segment_neighbor_sum(x, edge_src, edge_dst, w) -> torch.Tensor:
     """(n, d) ``scatter_sum(gather_src(x, edge_src) * w, edge_dst, n)``,
-    EDGE_CHUNK edges at a time."""
+    EDGE_CHUNK edges at a time.  The sum is ``scatter_add_``, whose
+    backward keeps only the index: ``index_add_``'s keeps every chunk of
+    messages, 16 GB a layer at ogb-products scale."""
     out = torch.zeros_like(x)
     for lo in range(0, edge_src.shape[0], EDGE_CHUNK):
         hi = lo + EDGE_CHUNK
-        out.index_add_(0, edge_dst[lo:hi], gather_src(x, edge_src[lo:hi]) * w[lo:hi])
+        msgs = gather_src(x, edge_src[lo:hi]) * w[lo:hi]
+        out.scatter_add_(0, edge_dst[lo:hi].long()[:, None].expand_as(msgs), msgs)
     return out
 
 
 def forward(params, x, edge_src, edge_dst, edge_mask, cfg: GINConfig):
     """Node logits (N, n_classes).  Edge tensors are int32 or int64;
-    the spmm_ell route memoises the neighbour ELL per edge tensors."""
+    the spmm_ell route memoises the neighbour ELL per edge tensors (and
+    the transpose ELL, at the first backward)."""
     n = x.shape[0]
     if cfg.agg_impl == "spmm_ell":
-        ell = neighbor_ell(edge_src, edge_dst, edge_mask, n)
+        edges = (edge_src, edge_dst, edge_mask)
+        ell = neighbor_ell(*edges, n)
 
         def aggregate(h):
-            return neighbor_sum(ell, h)
+            return neighbor_sum(ell, h, lambda: transpose_ell(*edges, n))
     else:
         w = edge_mask.to(x.dtype)[:, None]
 
@@ -87,10 +94,13 @@ def forward(params, x, edge_src, edge_dst, edge_mask, cfg: GINConfig):
 
 
 def node_classification_loss(params, batch, cfg: GINConfig) -> torch.Tensor:
-    """Mean cross-entropy of the node logits against ``batch["labels"]``
-    (its value; no backward)."""
+    """Mean cross-entropy of the node logits against ``batch["labels"]``.
+    The label's logit is picked by a mask, not a gather, so the backward
+    scatters nothing."""
     logits = forward(params, batch["x"], batch["edge_src"], batch["edge_dst"],
                      batch["edge_mask"], cfg).float()
     logz = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, 1, batch["labels"].long()[:, None])[:, 0]
+    pick = batch["labels"].long()[:, None] == torch.arange(logits.shape[1],
+                                                           device=logits.device)
+    ll = torch.where(pick, logits, 0.0).sum(-1)
     return torch.mean(logz - ll)

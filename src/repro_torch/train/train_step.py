@@ -1,0 +1,107 @@
+"""Generic train step: microbatch gradient accumulation, optional
+int8+error-feedback accumulator compression, global-norm clip, AdamW,
+LR schedule.
+
+``build_train_step(loss_fn, cfg)`` returns a function
+    (params, opt_state, batch, step) -> (params, opt_state, metrics)
+over trees of tensors, as the JAX package's does; gradients come from
+``torch.autograd.grad``, and nothing is updated in place.
+``loss_fn(params, batch)`` must return a scalar loss (the model
+closures carry their configs).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
+
+from repro_torch.train import compression
+from repro_torch.train.optimizer import AdamWConfig, apply_updates, init_state
+from repro_torch.train.schedule import warmup_cosine
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    adamw: AdamWConfig = AdamWConfig()
+    microbatches: int = 1          # grad-accumulation chunks per step
+    compress_accum: bool = False   # int8+EF gradient accumulator
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+
+
+def _split_batch(batch, n: int) -> list:
+    """Each leaf (B, ...) cut into n chunks (B/n, ...): the JAX
+    package's reshape to (n, B/n, ...), as the list its scan walks.
+    Defined for batches whose rows are independent (a flat graph
+    batch's edges index nodes outside their chunk)."""
+    def r(x):
+        if x.shape[0] % n:
+            raise ValueError(f"leading axis {tuple(x.shape)} does not split into {n}")
+        return x.reshape((n, x.shape[0] // n) + tuple(x.shape[1:]))
+
+    leaves, spec = tree_flatten(tree_map(r, batch))
+    return [tree_unflatten([x[i] for x in leaves], spec) for i in range(n)]
+
+
+def value_and_grad(loss_fn: Callable) -> Callable:
+    """``(params, batch) -> (loss, grads)``: the loss detached, the
+    gradient of every param leaf (zeros where the loss does not reach
+    it, as ``jax.grad`` gives)."""
+    def grad_fn(params, batch):
+        leaves, spec = tree_flatten(params)
+        leaves = [p.detach().requires_grad_(True) for p in leaves]
+        with torch.enable_grad():
+            loss = loss_fn(tree_unflatten(leaves, spec), batch)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        return loss.detach(), tree_unflatten(grads, spec)
+
+    return grad_fn
+
+
+def build_train_step(loss_fn: Callable, cfg: TrainConfig) -> Callable:
+    grad_fn = value_and_grad(loss_fn)
+
+    def train_step(params, opt_state, batch, step):
+        if cfg.microbatches > 1:
+            def zeros(dtype):
+                return tree_map(lambda p: torch.zeros(p.shape, dtype=dtype,
+                                                      device=p.device), params)
+
+            if cfg.compress_accum:
+                gacc = {"q": zeros(torch.int8),
+                        "scale": tree_map(lambda p: torch.zeros((), device=p.device),
+                                          params)}
+                err = compression.init_error_tree(params)
+            else:
+                gacc = zeros(torch.float32)
+            ltot = torch.zeros((), dtype=torch.float32)
+            for mb in _split_batch(batch, cfg.microbatches):
+                loss, grads = grad_fn(params, mb)
+                if cfg.compress_accum:
+                    # int8 error-feedback accumulation
+                    summed = tree_map(lambda a, g: a + g.to(torch.float32),
+                                      compression.dequantize_tree(gacc), grads)
+                    gacc, err = compression.ef_compress_tree(summed, err)
+                else:
+                    gacc = tree_map(lambda a, g: a + g.to(torch.float32), gacc, grads)
+                ltot = ltot.to(loss.device) + loss
+            grads = compression.dequantize_tree(gacc) if cfg.compress_accum else gacc
+            grads = tree_map(lambda g: g / cfg.microbatches, grads)
+            loss = ltot / cfg.microbatches
+        else:
+            loss, grads = grad_fn(params, batch)
+
+        lr_scale = warmup_cosine(step, warmup_steps=cfg.warmup_steps,
+                                 total_steps=cfg.total_steps).to(loss.device)
+        params, opt_state, om = apply_updates(params, grads, opt_state, cfg.adamw, lr_scale)
+        return params, opt_state, {"loss": loss, **om}
+
+    return train_step
+
+
+def init_train_state(params, cfg: TrainConfig) -> dict:
+    return init_state(params, cfg.adamw)

@@ -48,16 +48,18 @@ def test_shape_tables_equal_the_reference():
 
 
 def test_all_cells_are_the_reference_less_the_named_31():
+    """31 before gin-tu's four train cells planned; 27 since."""
     ref = ref_configs.all_cells()
     assert configs.reference_cells() == ref and len(ref) == 47
-    assert len(configs.EXCLUDED) == 31
+    assert len(configs.EXCLUDED) == 27
     assert set(configs.EXCLUDED) <= set(ref)
     assert configs.all_cells() == [p for p in ref if p not in configs.EXCLUDED]
-    assert len(configs.all_cells()) == 16
+    assert len(configs.all_cells()) == 20
     kinds = {}
     for arch, _ in configs.all_cells():
         kinds[arch] = kinds.get(arch, 0) + 1
-    assert kinds == {"phi3-mini-3.8b": 3, "minitron-8b": 3, "mind": 3, "sssp": 7}
+    assert kinds == {"phi3-mini-3.8b": 3, "minitron-8b": 3, "gin-tu": 4, "mind": 3,
+                     "sssp": 7}
     assert configs.all_cells(include_sssp=False) == [
         p for p in ref_configs.all_cells(include_sssp=False)
         if p not in configs.EXCLUDED]
@@ -113,8 +115,18 @@ def test_sssp_reduced_and_ranked_plans(cell, topo):
 
 @pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "minitron-8b", "mind", "gin-tu"])
 def test_train_cells_raise(arch):
+    """The LM and MIND train cells raise, naming their item; gin-tu's
+    four plan as train cells that carry their step."""
     mod = configs.get_arch(arch)
     train = [c for c in mod.SHAPES if (arch, c) in configs.EXCLUDED]
+    if arch == "gin-tu":
+        assert not train
+        for cell in mod.SHAPES:
+            plan = mod.make_cell(cell)
+            assert plan.kind == "train" and callable(plan.fn)
+        with pytest.raises(KeyError, match="unknown"):
+            mod.make_cell("no_such_cell")
+        return
     assert train, arch
     for cell in train:
         with pytest.raises(NotImplementedError, match="item 5"):

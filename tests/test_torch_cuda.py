@@ -1,5 +1,5 @@
 """The port's CUDA kernels, its solve, its serving paths and GIN
-inference on the card, held against the plain torch versions on the
+inference and training on the card, held against the plain torch versions on the
 same inputs: the min-plus kernels, the embedding bag and the spmm_ell
 max bit-identical, attention within the reference's tolerances (2e-5
 f32, 2e-2 bf16), the spmm_ell sum within 1e-5 of max |ref|.  Needs an NVIDIA GPU and
@@ -621,6 +621,97 @@ def test_gin_on_card_matches_cpu(dev, cell, scale):
     for ref in (cpu, plain.cpu()):
         err = (out.cpu() - ref).abs().max(1).values
         assert bool((err <= 1e-5 * ref.abs().max(1).values).all())
+
+
+def directed_ells(dev, seed, n=3000):
+    """A directed graph (each edge one way) of 30,000 random edges, a
+    hub of 3,000 in-edges and a source of 3,000 out-edges, a fifth of
+    the edges masked: its neighbour ELL and transpose ELL on the card."""
+    from repro_torch.models.gnn import build_neighbor_ell
+
+    r = np.random.default_rng(seed)
+    src = np.concatenate([r.integers(0, n, 30000), r.integers(0, n, 3000), np.full(3000, 9)])
+    dst = np.concatenate([r.integers(0, n, 30000), np.full(3000, 5), r.integers(0, n, 3000)])
+    edges = on(dev, src, dst, r.random(src.shape[0]) > 0.2)
+    return (build_neighbor_ell(*edges, n),
+            build_neighbor_ell(edges[1], edges[0], edges[2], n))
+
+
+@pytest.mark.parametrize("split_rows", [None, 1])
+@pytest.mark.parametrize("d", [64, 100])
+def test_vertex_sum_backward_on_card_matches_plain(dev, d, split_rows, monkeypatch):
+    """VertexSum's backward launches the kernel over the transpose ELL:
+    one launch forward, one backward, the gradient bit for bit the plain
+    Function's on the card and on the CPU."""
+    from repro_torch.kernels.spmm_ell import kernel
+
+    if split_rows is not None:
+        monkeypatch.setattr(kernel, "SPLIT_ROWS", split_rows)
+    fwd, bwd = directed_ells(dev, seed=d)
+    lay = [(e.col, e.wgt, e.row_ptr, e.deg) for e in (fwd, bwd)]
+    r = np.random.default_rng(d + 1)
+    x, g = on(dev, r.normal(size=(fwd.n, d)).astype(np.float32),
+              r.normal(size=(fwd.n, d)).astype(np.float32))
+    xg = x.clone().requires_grad_(True)
+    K.reset_launch_counts()
+    out = K.VertexSum.apply(xg, lay[0], lambda: lay[1])
+    (grad,) = torch.autograd.grad(out, xg, g)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["spmm_ell"] == 2
+    assert bits_equal(out.detach(), K.spmm_ell_vertex_ref(x, *lay[0]))
+    assert bits_equal(grad, K.spmm_ell_vertex_ref(g, *lay[1]))
+    cpu = [tuple(t.cpu() for t in e) for e in lay]
+    xc = x.cpu().requires_grad_(True)
+    (grad_cpu,) = torch.autograd.grad(K.VertexSum.apply(xc, cpu[0], lambda: cpu[1]), xc, g.cpu())
+    assert bits_equal(grad.cpu(), grad_cpu)
+
+
+@pytest.mark.parametrize("cell,scale", [("ogb_products", 12), ("full_graph_sm", 9),
+                                        ("molecule", 0)])
+def test_gin_train_step_on_card_matches_cpu(dev, cell, scale):
+    """Two train steps of the cell's plan (AdamW, warmup-cosine, clip)
+    through the kernel route on the card (9 launches a step: 5 forward,
+    4 backward over the transpose ELL) against the same steps on the
+    CPU and the segment-sum route on the card: loss within 1e-5 of
+    |loss|, params within 1e-5 (both sum in another order; an update is
+    about lr = 3e-4 in size)."""
+    from repro_torch.data import molecule_batch
+    from repro_torch.train import TrainConfig, build_train_step, init_train_state
+
+    mod = get_arch("gin-tu")
+    plan, cfg = mod.make_cell(cell), mod.make_config(False, cell)
+    if cell == "molecule":
+        batch = molecule_batch(0, 128, 30, 64, seed=0)
+    else:
+        batch = gnn_flat_batch(rmat1(scale, seed=0), cfg.d_in, cfg.n_classes, seed=0)
+    params = gin.init_params(generator(0, "cpu"), cfg)
+    loss = mod._molecule_loss if cell == "molecule" else gin.node_classification_loss
+    tmap = torch.utils._pytree.tree_map
+
+    def run(device, agg_impl):
+        c = dataclasses.replace(cfg, agg_impl=agg_impl)
+        step = plan.fn if agg_impl == "spmm_ell" else build_train_step(
+            lambda p_, b_: loss(p_, b_, c), TrainConfig())
+        p = tmap(lambda t: t.to(device), params)
+        s = init_train_state(p, TrainConfig())
+        b = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+        losses = []
+        for i in range(2):
+            K.reset_launch_counts()
+            p, s, m = step(p, s, b, i)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+                assert K.launch_counts()["spmm_ell"] == (9 if agg_impl == "spmm_ell" else 0)
+            losses.append(float(m["loss"]))
+        return tmap(lambda t: t.cpu(), p), losses
+
+    card, card_loss = run(dev, "spmm_ell")
+    for p, losses in (run(torch.device("cpu"), "spmm_ell"), run(dev, "segment_sum")):
+        for a, b in zip(card_loss, losses):
+            assert np.isfinite(a) and abs(a - b) <= 1e-5 * abs(b)
+        for a, b in zip(torch.utils._pytree.tree_leaves(card),
+                        torch.utils._pytree.tree_leaves(p)):
+            assert float((a - b).abs().max()) <= 1e-5
 
 
 def batch_case(seed, lanes, P, n_local, R, W, F, kind="", world=None):

@@ -54,7 +54,10 @@ def test_port_imports_no_jax_and_no_reference():
                 "repro_torch.configs.phi3_mini", "repro_torch.launch.dryrun",
                 "repro_torch.bench", "repro_torch.bench.variants",
                 "repro_torch.bench.table1", "repro_torch.bench.scaling",
-                "repro_torch.bench.run"):
+                "repro_torch.bench.run", "repro_torch.train",
+                "repro_torch.train.schedule", "repro_torch.train.optimizer",
+                "repro_torch.train.compression", "repro_torch.train.train_step",
+                "repro_torch.train.checkpoint", "repro_torch.graph.sampler"):
         assert sub in mods, sub
     code = PROBE.format(src=str(ROOT / "src"), root=str(ROOT),
                         modules=mods + ["chip_smoke"])
