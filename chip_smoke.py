@@ -5,7 +5,8 @@ NVIDIA GPU, at the sizes its users run on one card: SSSP on rmat1
 serving of minitron-8b at full width (32 layers, 7.73 B parameters,
 random weights from the seed); MIND serving at full width (2^20 items,
 2^17 profile ids); GIN inference and training (gin-tu at full width)
-on rmat1 at scale 21, the size of ogb-products.
+on rmat1 at scale 21, the size of ogb-products; EGNN, MACE and DimeNet
+training at full width on a fanout block of that graph.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --trace-spread 3   # phase 12(a)'s timing alone
@@ -65,6 +66,17 @@ Phases (any failure exits non-zero):
      gin-tu's full_graph_sm (a Cora-sized graph, d 1433), molecule (128
      graphs of 30 atoms as one block-diagonal graph, against a loop over
      the graphs) and minibatch_lg (one fanout block of 1024 seeds) cells
+ 10c. EGNN, MACE and DimeNet at full width on phase 10b's molecule,
+     full_graph_sm and minibatch_lg inputs (DimeNet's triplets capped at
+     2 and padded to the plan's T): 2 train steps of each cell's plan,
+     every segment sum through the spmm_ell vertex sum over a segment ELL
+     (15, 4 and 24 launches a step), the first loss against the
+     segment-sum route's (1e-5; 2e-2 for DimeNet's bf16 cells), gradients
+     on the molecule cells (1e-3 of a leaf's max |grad|), ms, nodes/s,
+     peak memory, one profiled minibatch_lg step each; then each new
+     vertex-sum shape of those steps (edges into nodes at d 64, 3, 1152
+     and 128, triplets into edges at d 128, and the W = 1 transpose) bit
+     for bit against its plain version, timed beside index_add_
  11. the SSSP query service on a copy of phase 2's graph
      (``delta:5/sparse/fused``): a landmark tier of 8 hubs (one
      solve_batch, each lane against Dijkstra), 200 Zipf-skewed queries
@@ -229,6 +241,27 @@ GIN_GRAD_TOL = 1e-3
 # on the CPU); the minibatch block's seeds and fanouts are the cell's
 CELL_STEPS = 2
 CELL_LOSS_TOL = 1e-5
+# the rest of the GNN zoo (phase 10c): egnn, mace and dimenet on these
+# cells, the minibatch_lg one drawn in phase 10b from phase 10's graph,
+# each cell's first loss within CELL_LOSS_TOL of the plain route's
+# (DimeNet's bf16 cells too: at TRIPLET_CAP 2 a segment sums at most 2
+# live bf16 messages, which round alike in f32 and in bf16); gradients
+# leaf by leaf on every molecule cell (f32, GIN_GRAD_TOL) and on
+# ZOO_FLAT_GRADS, whose bf16 messages take segment_sum's upcast and
+# cast-back, within ZOO_BF16_GRAD_TOL: there the bf16 atomics of the
+# gathers' backward (shared by both routes) make each route differ from
+# itself run to run by up to 0.0068 of a leaf's max |grad| on the H100,
+# and with deterministic algorithms the routes differ by 0.0044 (an f32
+# sum's order flips a bf16 rounding downstream; scripts/zoo_bf16_grads.py);
+# 2e-2 is 5 bf16 steps of 2^-8, the CPU tests' bf16 tolerance
+ZOO_MODELS = ("egnn", "mace", "dimenet")
+ZOO_CELLS = ("molecule", "full_graph_sm", "minibatch_lg")
+ZOO_FLAT_GRADS = ("dimenet", "minibatch_lg")
+ZOO_BF16_GRAD_TOL = 2e-2
+# spmm_ell launches a train step at L layers (blocks), forward + backward:
+# EGNN's last coordinate update reaches no loss
+ZOO_LAUNCHES = {"egnn": lambda L: 4 * L - 1, "mace": lambda L: 2 * L,
+                "dimenet": lambda L: 4 * L}
 # the query service (phase 11): the reference service CLI's defaults
 SERVE_QUERIES, SERVE_ZIPF, SERVE_LANDMARKS = 200, 1.3, 8
 SERVE_MAX_BATCH, SERVE_MAX_WAIT_S, SERVE_CACHE_MB = 8, 0.010, 256
@@ -915,20 +948,23 @@ def spmm_check(label, x_pad, col, wgt, flush) -> list[dict]:
     return out_rows
 
 
-def ell_graph(ell) -> tuple:
+def ell_graph(ell, n_cols: int | None = None) -> tuple:
     """What vertex_check needs of a neighbour ELL beside it: (live
-    slots m, rows of x they read, the (n, n) CSR of its live slots)."""
+    slots m, those of nonzero weight, the rows of x these read, the
+    (n, n_cols) CSR of its live slots; n_cols, the rows of x, defaults
+    to n)."""
     import torch
 
     from repro_torch.kernels.spmm_ell.ref import live_slots
 
     W = ell.col.shape[1]
     live = torch.arange(W, device=ell.col.device) < live_slots(ell.row_ptr, ell.deg, W)[:, None]
-    live_col = ell.col[live]
+    live_col, live_wgt = ell.col[live], ell.wgt[live]
     csr = torch.sparse_csr_tensor(
         torch.cat([ell.row_ptr.new_zeros(1), torch.cumsum(ell.deg.long(), 0)]),
-        live_col.long(), ell.wgt[live], size=(ell.n, ell.n), check_invariants=False)
-    return int(live_col.numel()), int(torch.unique(live_col).numel()), csr
+        live_col.long(), live_wgt, size=(ell.n, n_cols or ell.n), check_invariants=False)
+    nz_col = live_col[live_wgt != 0]
+    return int(live_col.numel()), int(nz_col.numel()), int(torch.unique(nz_col).numel()), csr
 
 
 def vertex_chunks(n: int) -> list:
@@ -945,14 +981,15 @@ def plain_vertex_chunk(x, ell, starts, v0, v1):
                                  ell.row_ptr[v0:v1 + 1] - r0, ell.deg[v0:v1])
 
 
-def vertex_check(label, x, ell, graph, flush) -> dict:
+def vertex_check(label, x, ell, graph, flush, library=None) -> dict:
     """Phase 10, step 3b: the vertex sum (spmm_ell_vertex_cuda, GIN's
     neighbour sum) bit for bit against its plain in-order version over
     all n vertices (in chunks of SPMM_CHUNK_VERTICES), timed through the
     wrapper, as a bare launch and alone under the profiler, beside
-    torch.sparse.mm on the (n, n) CSR of the same edges.  ``graph``:
-    (live col, m, rows of x the live slots read, the CSR).  Returns its
-    row of the kernels line."""
+    torch.sparse.mm on the (n, n_x) CSR of the same edges, or beside
+    ``library`` (a (name, call) pair: one PyTorch call computing the same
+    sums).  ``graph``: ell_graph's (m, nnz, rows of x, the CSR).
+    Returns its row of the kernels line."""
     import torch
 
     from repro_torch import kernels as K
@@ -966,8 +1003,10 @@ def vertex_check(label, x, ell, graph, flush) -> dict:
     from repro_torch.roofline.kernels import spmm_ell_vertex_traffic
 
     col, wgt, row_ptr, deg = ell.col, ell.wgt, ell.row_ptr, ell.deg
-    (n, d), (R, W) = x.shape, col.shape
-    m, rows_read, csr = graph
+    n, d, (R, W) = ell.n, x.shape[1], col.shape
+    m, nnz, rows_read, csr = graph
+    lib_name, lib_call = library or (f"torch.sparse.mm (CSR, {n} x {x.shape[0]})",
+                                      lambda: torch.sparse.mm(csr, x))
     K.reset_launch_counts()
     out = K.spmm_ell_vertex_cuda(x, col, wgt, row_ptr, deg)
     torch.cuda.synchronize()
@@ -1006,18 +1045,19 @@ def vertex_check(label, x, ell, graph, flush) -> dict:
             plain_out[v0:v1] = plain_chunk(v0, v1)
 
     plain_ms = time_ms(plain, flush, reps=3)
-    lib_err = float((torch.sparse.mm(csr, x) - out).abs().max())
-    library_ms = time_ms(lambda: torch.sparse.mm(csr, x), flush)
-    # live col and wgt, the rows of x they name, once each, row_ptr, deg, out
-    nbytes, ops = spmm_ell_vertex_traffic(m, rows_read, n, d)
+    lib_err = float((lib_call() - out).abs().max())
+    library_ms = time_ms(lib_call, flush)
+    # live wgt, the col of the nonzero ones and the rows of x these name,
+    # once each, row_ptr, deg, out
+    nbytes, ops = spmm_ell_vertex_traffic(m, rows_read, n, d, nnz)
     bound_ms, bound_by = bound(nbytes, ops)
     gather_ms = 4 * m * d / MEM_BYTES_PER_S * 1e3
     log(f"spmm_ell vertex sum ({label}: x {tuple(x.shape)}, ELL R={R} W={W}, {m} live "
-        f"slots, {plan.fat_vertex.shape[0]} vertices of more than {plan.split_rows} "
+        f"slots, {nnz} of nonzero weight, {plan.fat_vertex.shape[0]} vertices of more than {plan.split_rows} "
         f"rows in {plan.fat_row.shape[0]} scratch rows): bit-identical to the plain "
         f"in-order version ({len(chunks)} chunks) and launch to launch; kernel "
         f"{ms:.4f} ms (bare launch {bare_ms:.4f} ms, alone under the profiler "
-        f"{alone_ms:.4f} ms), plain {plain_ms:.4f} ms, torch.sparse.mm (CSR, n x n) "
+        f"{alone_ms:.4f} ms), plain {plain_ms:.4f} ms, {lib_name} "
         f"{library_ms:.4f} ms (max abs diff {lib_err:.3g}); {rows_read} rows of x read, "
         f"{nbytes} bytes, bound {bound_ms:.4f} ms ({bound_by}; {bound_ms / alone_ms:.3f} "
         f"of it alone); every live slot's row from memory, no reuse, {4 * m * d} bytes: "
@@ -1253,11 +1293,12 @@ def cell_train(name, dev, batch, plain_loss, card_line) -> None:
              f"{gap:.3g} of it (tolerance {CELL_LOSS_TOL})")
 
 
-def gin_training(dev, g, b, card_line) -> dict:
+def gin_training(dev, g, b, card_line) -> tuple:
     """Phase 10b: GIN training on phase 10's graph and batch (gin-tu at
     ogb_products widths on rmat1 scale 21), then gin-tu's other three
     cells.  Returns the kernels-line row of the vertex sum over the
-    transpose ELL, the backward's."""
+    transpose ELL, the backward's, and the minibatch_lg block (phase
+    10c trains the rest of the zoo on it)."""
     import gc
 
     import numpy as np
@@ -1471,7 +1512,233 @@ def gin_training(dev, g, b, card_line) -> dict:
         f"{t1 - t0:.1f} s; features drawn on the card for the block only")
     cell_train("minibatch_lg", dev, xb, lambda pp, c: gin.node_classification_loss(
         pp, xb, dataclasses.replace(c, agg_impl="segment_sum")), card_line)
-    return row
+    return row, blk
+
+
+def zoo_batches(dev, blk) -> dict:
+    """Phase 10c's batch of each cell on the card, with coordinates and
+    DimeNet's triplets (the other models read neither list): the
+    molecule batch (128 graphs of 30 atoms, 64 edge slots, 512 triplet
+    slots), phase 10b's Cora-sized ER graph (d 1433) and the
+    minibatch_lg block of phase 10b with features, labels and
+    coordinates drawn on the card, its triplets capped at 2 an edge and
+    padded with (0, 0, masked) to the plan's T."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.cells import GNN_SHAPES
+    from repro_torch.configs.dimenet_cfg import TRIPLET_CAP, make_cell
+    from repro_torch.data import gnn_flat_batch, molecule_batch
+    from repro_torch.graph import erdos_renyi_graph
+    from repro_torch.models.gnn import build_triplets
+
+    def on_card(batch):
+        return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+    sh = GNN_SHAPES["molecule"]
+    out = {"molecule": on_card(molecule_batch(0, sh["batch"], sh["n"], sh["e"], triplets=True,
+                                              triplet_pad=sh["triplet_pad"], seed=SEED))}
+    sh = GNN_SHAPES["full_graph_sm"]
+    cora = erdos_renyi_graph(CORA_N, CORA_AVG_DEGREE, seed=SEED)
+    out["full_graph_sm"] = on_card(gnn_flat_batch(cora, sh["d_feat"], sh["classes"],
+                                                  coords=True, triplets=True,
+                                                  triplet_cap=TRIPLET_CAP, seed=SEED))
+    sh = GNN_SHAPES["minibatch_lg"]
+    n_pad, e_pad = blk.nodes.shape[0], blk.edge_src.shape[0]
+    t0 = time.perf_counter()
+    kj, ji = build_triplets(blk.edge_src, blk.edge_dst, n_pad, TRIPLET_CAP, seed=SEED)
+    t_tri = time.perf_counter() - t0
+    T = make_cell("minibatch_lg").args[2]["tri_kj"].shape[0]
+    if kj.shape[0] > T:
+        fail(f"minibatch_lg: {kj.shape[0]} triplets do not fit the plan's {T}")
+    tri = {"tri_kj": np.zeros(T, np.int32), "tri_ji": np.zeros(T, np.int32),
+           "tri_mask": np.zeros(T, bool)}
+    tri["tri_kj"][:kj.shape[0]], tri["tri_ji"][:kj.shape[0]] = kj, ji
+    tri["tri_mask"][:kj.shape[0]] = True
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    mb = {"x": torch.randn((n_pad, sh["d_feat"]), generator=gen, device=dev),
+          "coords": torch.randn((n_pad, 3), generator=gen, device=dev),
+          "labels": torch.randint(0, sh["classes"], (n_pad,), generator=gen, device=dev,
+                                  dtype=torch.int32)}
+    mb |= {k: torch.as_tensor(getattr(blk, k), device=dev)
+           for k in ("edge_src", "edge_dst", "edge_mask")}
+    out["minibatch_lg"] = mb | on_card(tri)
+    log(f"phase 10c batches: molecule {tuple(out['molecule']['x'].shape)}, "
+        f"{int(out['molecule']['tri_mask'].sum())} live triplets of "
+        f"{out['molecule']['tri_mask'].numel()}; full_graph_sm {cora.n} nodes, {cora.m} "
+        f"edges, {int(out['full_graph_sm']['tri_kj'].shape[0])} triplets; minibatch_lg "
+        f"{n_pad} / {e_pad} padded, {kj.shape[0]} triplets (cap {TRIPLET_CAP}) of T={T}, "
+        f"built on the host in {t_tri:.2f} s")
+    return out
+
+
+def zoo_cell(name, cell, dev, batch, card_line, grads: bool) -> dict:
+    """Phase 10c(a): CELL_STEPS train steps of ``name``'s ``cell`` through
+    its plan's step (the kernel route), each with ZOO_LAUNCHES spmm_ell
+    launches and finite (on minibatch_lg one more under the profiler);
+    the first loss against the segment-sum route's from the same params,
+    within CELL_LOSS_TOL; with ``grads``, one loss and backward on both
+    routes, leaf by leaf within GIN_GRAD_TOL (ZOO_BF16_GRAD_TOL for bf16
+    messages).  Returns the vertex-sum launches of the steps by shape
+    (rows of x, n, d: K.launch_shapes)."""
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_arch
+    from repro_torch.models import gnn
+    from repro_torch.train import TrainConfig, init_train_state
+    from repro_torch.train.train_step import value_and_grad
+
+    arch, model = get_arch(name), getattr(gnn, name)
+    plan, cfg = arch.make_cell(cell), arch.make_config(False, cell)
+    seg = dataclasses.replace(cfg, agg_impl="segment_sum")
+    loss = model.regression_loss if cell == "molecule" else model.node_classification_loss
+    L = getattr(cfg, "n_blocks", None) or cfg.n_layers
+    bf16 = getattr(cfg, "msg_dtype", "float32") != "float32"
+    params = model.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg)
+    with torch.no_grad():
+        ref = float(loss(params, batch, seg))
+    grad_note = ""
+    if grads:
+        _, gk = value_and_grad(lambda p, b: loss(p, b, cfg))(params, batch)
+        _, gs = value_and_grad(lambda p, b: loss(p, b, seg))(params, batch)
+        gaps = sorted(leaf_gaps(gk, gs), reverse=True)
+        grad_tol = ZOO_BF16_GRAD_TOL if bf16 else GIN_GRAD_TOL
+        if not (finite_tree(gk) and gaps[0][0] <= grad_tol):
+            fail(f"{name} {cell}: gradients of the kernel route differ from the segment-sum "
+                 f"route's by {gaps[0][0]:.3g} of {gaps[0][1]}'s max |grad| (tolerance "
+                 f"{grad_tol}), or are not finite")
+        grad_note = (f"; gradients against the segment-sum route's at most {gaps[0][0]:.3g} "
+                     f"of a leaf's max |grad| ({gaps[0][1]}; tol {grad_tol})")
+        del gk, gs
+    opt = init_train_state(params, TrainConfig())
+    want = ZOO_LAUNCHES[name](L)
+    walls, losses = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # on minibatch_lg one more step under the profiler, its wall not kept
+    profiled = CELL_STEPS if cell == "minibatch_lg" else None
+    by_shape: dict = {}
+    for i in range(CELL_STEPS + (profiled is not None)):
+        K.reset_launch_counts()
+        with (device_profile(f"{name} {cell}, one warm train step", top=8)
+              if i == profiled else contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            params, opt, m = plan.fn(params, opt, batch, i)
+            torch.cuda.synchronize()
+        if i != profiled:
+            walls.append(time.perf_counter() - t0)
+        launches = K.launch_counts()["spmm_ell"]
+        if launches != want:
+            fail(f"{name} {cell}: step {i} launched spmm_ell {launches} times, not {want}")
+        for shape, k in K.launch_shapes()["spmm_ell"].items():
+            by_shape[shape] = by_shape.get(shape, 0) + k
+        if not (finite_tree(m) and finite_tree(params)):
+            fail(f"{name} {cell}: step {i} gave a non-finite loss, grad norm or param")
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    gap = abs(losses[0] - ref) / abs(ref)
+    nodes = batch["x"].shape[0] * (batch["x"].shape[1] if cell == "molecule" else 1)
+    log(f"{name} {cell} (full width: {L} {'blocks' if name == 'dimenet' else 'layers'}, "
+        f"d {cfg.d_hidden}{', bf16 messages' if bf16 else ''}; {nodes} nodes): "
+        f"{len(losses)} steps through the plan, {want} spmm_ell launches each, cold "
+        f"{walls[0] * 1e3:.2f} ms, warm {', '.join(f'{w * 1e3:.2f}' for w in walls[1:])} ms "
+        f"({nodes / min(walls[1:] or walls):.4g} nodes/s); peak memory {peak:.3f} GiB; losses "
+        f"{', '.join(f'{v:.6g}' for v in losses)}, the first against the segment-sum "
+        f"route's {ref:.6g}: {gap:.3g} of it (tol {CELL_LOSS_TOL}){grad_note}; {card_line}")
+    if not gap <= CELL_LOSS_TOL:
+        fail(f"{name} {cell}: the kernel route's loss differs from the segment-sum route's by "
+             f"{gap:.3g} of it (tolerance {CELL_LOSS_TOL})")
+    return by_shape
+
+
+def gnn_zoo(dev, blk, card_line) -> list[dict]:
+    """Phase 10c: (a) every cell of ZOO_CELLS for egnn, mace and dimenet
+    at full width (zoo_cell; gradients on the molecule cells and
+    ZOO_FLAT_GRADS); (b) each new vertex-sum shape of the minibatch_lg
+    steps, forward and its W = 1 transpose, bit for bit against its
+    plain version and timed (vertex_check) beside ``index_add_`` (the
+    transpose beside ``F.embedding_bag`` with per-sample weights, one
+    call for ``g[index] * mask``), with the launches the steps made at
+    that shape.  The ogb_products cells plan in phase 16a and wait for
+    sharding across cards.  Returns the new rows of the kernels line."""
+    import gc
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_arch
+    from repro_torch.models.gnn import segment_ell, segment_transpose
+
+    batches = zoo_batches(dev, blk)
+    mb_counts = {}
+    for name in ZOO_MODELS:
+        for cell in ZOO_CELLS:
+            counts = zoo_cell(name, cell, dev, batches[cell], card_line,
+                              grads=cell == "molecule" or (name, cell) == ZOO_FLAT_GRADS)
+            if cell == "minibatch_lg":
+                mb_counts[name] = counts
+            gc.collect()
+            torch.cuda.empty_cache()
+    mb = batches["minibatch_lg"]
+    n, E = mb["x"].shape[0], mb["edge_src"].shape[0]
+    T = mb["tri_kj"].shape[0]
+    edges = (mb["edge_dst"], mb["edge_mask"])
+    tris = (mb["tri_ji"], mb["tri_mask"])
+    d_egnn, d_mace, d_dime = (get_arch(a).make_config(False, "minibatch_lg").d_hidden
+                              for a in ("egnn", "mace", "dimenet"))
+    shapes = (  # label, model, ELL (index, mask, n), values' rows, d
+        ("EGNN messages, edges -> nodes", "egnn", (*edges, n), E, d_egnn),
+        ("EGNN coordinate update, edges -> nodes", "egnn", (*edges, n), E, 3),
+        ("MACE density A, edges -> nodes", "mace", (*edges, n), E, 9 * d_mace),
+        ("DimeNet triplets -> edges", "dimenet", (*tris, E), T, d_dime),
+        ("DimeNet edges -> nodes", "dimenet", (*edges, n), E, d_dime),
+    )
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    rows = []
+
+    def counted(row, label, model, shape):
+        row |= {"launches": mb_counts[model].get(shape, 0), "shape": label}
+        if not row["launches"]:
+            fail(f"{label}: the minibatch_lg steps never launched the vertex sum at this shape")
+        rows.append(row)
+
+    for label, model, (index, mask, n_out), t, d in shapes:
+        ell = segment_ell(index, mask, n_out)
+        values = torch.randn((t, d), generator=gen, device=dev) * mask[:, None]
+
+        def index_add(index=index, values=values, n_out=n_out, d=d):
+            return torch.zeros((n_out, d), device=dev).index_add_(0, index, values)
+
+        row = vertex_check(f"{label}, ({t}, {d}) -> ({n_out}, {d}), minibatch_lg", values, ell,
+                           ell_graph(ell, t), flush, library=("index_add_", index_add))
+        counted(row, label, model, (t, n_out, d))
+        del values
+        # its backward: the W = 1 transpose, a masked gather
+        tell = segment_transpose(index, mask, n_out)
+        g = torch.randn((n_out, d), generator=gen, device=dev)
+        weights = mask.to(torch.float32)[:, None]
+
+        def bag(index=index, g=g, weights=weights):
+            return F.embedding_bag(index[:, None], g, per_sample_weights=weights, mode="sum")
+
+        gathered = K.spmm_ell_vertex_cuda(g, tell.col, tell.wgt, tell.row_ptr, tell.deg)
+        # + 0.0: the kernel's sum starts at +0, so a -0 product comes out +0
+        if not bits_equal(gathered, g.index_select(0, index) * weights + 0.0):
+            fail(f"{label}: the W = 1 transpose's vertex sum is not index_select(g) * mask "
+                 "bit for bit")
+        del gathered
+        row = vertex_check(f"{label}, backward: the W = 1 transpose, ({n_out}, {d}) -> ({t}, "
+                           f"{d}), minibatch_lg", g, tell, ell_graph(tell, n_out), flush,
+                           library=("F.embedding_bag (per-sample weights)", bag))
+        counted(row, f"{label}, backward (W = 1 transpose)", model, (n_out, t, d))
+        del g
+    del batches, mb, flush
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
 
 
 def dijkstra_rows(g, sources) -> "np.ndarray":
@@ -3563,9 +3830,15 @@ def main() -> None:
 
     # ---- 10b. GIN training on phase 10's graph; gin-tu's other cells ---
     t0 = time.perf_counter()
-    rows.append(gin_training(dev, gin_graph, gin_batch, card_line))
-    del gin_graph, gin_batch
+    gin_row, zoo_block = gin_training(dev, gin_graph, gin_batch, card_line)
+    rows.append(gin_row)
     log(f"phase 10b took {time.perf_counter() - t0:.1f} s")
+
+    # ---- 10c. EGNN, MACE and DimeNet: their train cells, new kernel rows --
+    t0 = time.perf_counter()
+    rows += gnn_zoo(dev, zoo_block, card_line)
+    del gin_graph, gin_batch, zoo_block
+    log(f"phase 10c took {time.perf_counter() - t0:.1f} s")
 
     # ---- 11. the SSSP query service on a copy of phase 2's graph -------
     t0 = time.perf_counter()

@@ -1,7 +1,7 @@
 """Architecture registry of the port: ``--arch <id>`` resolves here.
 
 Each ported module exposes ARCH_ID, FAMILY, SHAPES, make_config(reduced)
-(gin-tu's also takes the cell) and make_cell(cell, ranks, reduced),
+(the GNN archs' also take the cell) and make_cell(cell, ranks, reduced),
 which returns a :class:`~repro_torch.configs.cells.CellPlan`.
 
 The JAX package's registry holds ten assigned architectures and the
@@ -11,7 +11,16 @@ returns those the port can plan, in the same order: the 47 less
 item that brings it.
 """
 
-from repro_torch.configs import gin_tu, mind_cfg, minitron, phi3_mini, sssp_cfg
+from repro_torch.configs import (
+    dimenet_cfg,
+    egnn_cfg,
+    gin_tu,
+    mace_cfg,
+    mind_cfg,
+    minitron,
+    phi3_mini,
+    sssp_cfg,
+)
 from repro_torch.configs.cells import (
     GNN_SHAPES,
     LM_SHAPES,
@@ -20,7 +29,8 @@ from repro_torch.configs.cells import (
     TRAINED_FAMILIES,
 )
 
-_MODULES = [phi3_mini, minitron, mind_cfg, gin_tu, sssp_cfg]
+_MODULES = [phi3_mini, minitron, mace_cfg, gin_tu, egnn_cfg, dimenet_cfg, mind_cfg,
+            sssp_cfg]
 
 REGISTRY = {m.ARCH_ID: m for m in _MODULES}
 
@@ -40,9 +50,6 @@ UNPORTED = {
     "phi3.5-moe-42b-a6.6b": "5.3 (MLA and MoE serving)",
     "dbrx-132b": "5.3 (MLA and MoE serving)",
     "minicpm3-4b": "5.3 (MLA and MoE serving)",
-    "mace": "5.2 (the rest of the GNN zoo)",
-    "egnn": "5.2 (the rest of the GNN zoo)",
-    "dimenet": "5.2 (the rest of the GNN zoo)",
 }
 
 _SHAPES = {"lm": LM_SHAPES, "gnn": GNN_SHAPES, "recsys": RECSYS_SHAPES,

@@ -76,10 +76,8 @@ def train_unported(arch: str, cell: str, item: str):
 # ------------------------------------------------------------------ #
 # LM cells
 
-#: the ROADMAP.md item that brings each family's train cells (a GNN
-#: family's: those of the GNN archs not ported yet)
+#: the ROADMAP.md item that brings each untrained family's train cells
 TRAIN_ITEMS = {"lm": "5.4 (lm_loss and LM training)",
-               "gnn": "5.2 (the rest of the GNN zoo)",
                "recsys": "5.5 (MIND training)"}
 #: the families whose train cells the port plans
 TRAINED_FAMILIES = ("gnn",)

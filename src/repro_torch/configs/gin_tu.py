@@ -10,6 +10,7 @@ import torch
 from repro_torch.configs.cells import GNN_SHAPES, gnn_train_cell
 from repro_torch.models.gnn import gin
 from repro_torch.models.gnn.gin import GINConfig
+from repro_torch.models.gnn.layers import block_diagonal
 
 ARCH_ID = "gin-tu"
 FAMILY = "gnn"
@@ -38,16 +39,13 @@ def _molecule_loss(params, batch, cfg):
     each graph's node logits, then the squared error against ``y``,
     averaged over the B graphs.  The JAX package maps the forward over
     the graphs (``vmap``); here they are one block-diagonal graph of B·n
-    nodes (graph b's edges shifted by b·n), so each layer is one
+    nodes (``layers.block_diagonal``: graph b's edges shifted by b·n, kept
+    for the batch, so its ELLs are built once), so each layer is one
     neighbour sum: one kernel launch, not B."""
-    x = batch["x"]
-    B, n, d = x.shape
-    off = (torch.arange(B, device=x.device) * n)[:, None].to(batch["edge_src"].dtype)
-    logits = gin.forward(params, x.reshape(B * n, d),
-                         (batch["edge_src"] + off).reshape(-1),
-                         (batch["edge_dst"] + off).reshape(-1),
-                         batch["edge_mask"].reshape(-1), cfg)
-    pred = torch.mean(logits.reshape(B, -1), dim=1)
+    flat = block_diagonal(batch)
+    logits = gin.forward(params, flat["x"], flat["edge_src"], flat["edge_dst"],
+                         flat["edge_mask"], cfg)
+    pred = torch.mean(logits.reshape(batch["x"].shape[0], -1), dim=1)
     return torch.mean((pred - batch["y"]) ** 2)
 
 

@@ -46,29 +46,35 @@ def mind_batch(step: int, batch: int, cfg, seed: int = 0) -> dict:
 
 def gnn_flat_batch(graph, d_feat: int, n_classes: int, *,
                    coords: bool = False, triplets: bool = False,
-                   seed: int = 0) -> dict:
+                   triplet_cap=4, seed: int = 0) -> dict:
     """Synthetic features and labels on ``graph``'s topology, as the
-    dict the GNN forward takes (numpy).  Triplets raise
-    ``NotImplementedError`` until DimeNet is ported."""
+    dict the GNN forward takes (numpy); with ``triplets``, DimeNet's
+    lists capped at ``triplet_cap`` a edge."""
     fb = flat_batch_from_graph(graph, d_feat, n_classes, with_coords=coords,
-                               with_triplets=triplets, seed=seed)
+                               with_triplets=triplets, triplet_cap=triplet_cap, seed=seed)
     out = {
         "x": fb.x, "edge_src": fb.edge_src, "edge_dst": fb.edge_dst,
         "edge_mask": fb.edge_mask, "labels": fb.labels,
     }
     if coords:
         out["coords"] = fb.coords
+    if triplets:
+        out |= {"tri_kj": fb.tri_kj, "tri_ji": fb.tri_ji, "tri_mask": fb.tri_mask}
     return out
 
 
 def molecule_batch(step: int, batch: int, n_atoms: int, n_edges: int,
-                   *, triplets: bool = False, seed: int = 0) -> dict:
+                   *, triplets: bool = False, triplet_pad: int = 512,
+                   seed: int = 0) -> dict:
     """The packed molecule batch of ``step`` as the dict the molecule
-    loss takes (numpy).  Triplets raise ``NotImplementedError`` until
-    DimeNet is ported."""
+    loss takes (numpy); with ``triplets``, each graph's list in
+    ``triplet_pad`` slots."""
     mb = random_molecule_batch(batch, n_atoms, n_edges, seed=seed + 7919 * step,
-                               with_triplets=triplets)
-    return {
+                               with_triplets=triplets, triplet_pad=triplet_pad)
+    out = {
         "x": mb.x, "coords": mb.coords, "edge_src": mb.edge_src,
         "edge_dst": mb.edge_dst, "edge_mask": mb.edge_mask, "y": mb.y,
     }
+    if triplets:
+        out |= {"tri_kj": mb.tri_kj, "tri_ji": mb.tri_ji, "tri_mask": mb.tri_mask}
+    return out

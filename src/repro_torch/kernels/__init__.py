@@ -18,6 +18,7 @@ from repro_torch.kernels._lib import (
     build,
     call_counts,
     launch_counts,
+    launch_shapes,
     library,
     reset_launch_counts,
 )
@@ -59,7 +60,8 @@ from repro_torch.kernels.superstep_fused import (
 )
 
 __all__ = [
-    "KERNELS", "build", "call_counts", "launch_counts", "library", "reset_launch_counts",
+    "KERNELS", "build", "call_counts", "launch_counts", "launch_shapes", "library",
+    "reset_launch_counts",
     "relax_ell_cuda", "relax_ell_ref", "relax_rows",
     "relax_push_gather", "relax_push_gather_cuda", "relax_push_gather_ref",
     "relax_push_rows", "relax_push_gather_batch", "relax_push_gather_batch_cuda",

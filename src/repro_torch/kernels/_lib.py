@@ -50,6 +50,7 @@ KERNELS = ("fused_superstep", "relax_push_gather", "relax_ell",
 ROUTES = ("cuda", "ref")
 
 _launches = dict.fromkeys(KERNELS, 0)
+_shapes: dict = {k: {} for k in KERNELS}
 _calls = {k: dict.fromkeys(ROUTES, 0) for k in KERNELS}
 _listeners: list = []
 _lib: "ctypes.CDLL | None" = None
@@ -256,8 +257,11 @@ def vector_strips(W: int, *tensors: torch.Tensor) -> bool:
     return W % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
-def count_launch(kernel: str) -> None:
+def count_launch(kernel: str, shape: tuple | None = None) -> None:
+    """Count one launch of ``kernel``, and one at ``shape`` if given."""
     _launches[kernel] += 1
+    if shape is not None:
+        _shapes[kernel][shape] = _shapes[kernel].get(shape, 0) + 1
 
 
 def count_call(kernel: str, route: str) -> None:
@@ -299,8 +303,16 @@ def launch_counts() -> dict:
     return dict(_launches)
 
 
+def launch_shapes() -> dict:
+    """Launches per kernel and shape since the last
+    :func:`reset_launch_counts`, for the wrappers that count a shape:
+    ``{kernel: {shape: n}}``."""
+    return {k: dict(v) for k, v in _shapes.items()}
+
+
 def reset_launch_counts() -> None:
     """Set every launch count and call count to 0."""
     for k in _launches:
         _launches[k] = 0
+        _shapes[k] = {}
         _calls[k] = dict.fromkeys(ROUTES, 0)

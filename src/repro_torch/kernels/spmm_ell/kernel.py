@@ -23,9 +23,11 @@ NAME = "spmm_ell"
 SPLIT_ROWS = 2
 #: the last col whose range was read: (weak reference, version, min, max)
 _checked = None
-#: vertex plans kept, newest first: a train step sums over two ELLs in
-#: turn (a graph's neighbour ELL forward, its transpose backward)
-PLANS_KEPT = 2
+#: vertex plans kept, newest first: a train step sums over up to four
+#: ELLs in turn (a DimeNet block's triplet and edge segment ELLs
+#: forward, their transposes backward; GIN's neighbour ELL and its
+#: transpose); ``models/gnn/ell.py`` keeps as many segment ELLs
+PLANS_KEPT = 4
 #: the last PLANS_KEPT vertex plans: (weak references, key, VertexPlan)
 _planned: list = []
 
@@ -124,8 +126,8 @@ def vertex_plan(x, col, row_ptr, deg, split_rows: int) -> VertexPlan:
     """Check a neighbour ELL and plan the vertex sum over it, splitting
     the vertices of more than ``split_rows`` (>= 1) rows; remembered for
     the last PLANS_KEPT (col, row_ptr, deg) until one of them is written
-    or freed, since the GIN forward sums over one ELL every layer and its
-    backward over the transpose ELL.  Raises unless
+    or freed, since a GNN forward sums over the same ELLs every layer and
+    its backward over their transposes.  Raises unless
     row_ptr runs from 0 to R without falling, every deg[v] fits v's
     rows, and every live slot's col lies in [0, n_x).  A few host reads;
     n >= 1."""
@@ -184,7 +186,7 @@ def spmm_ell_vertex_cuda(x, col, wgt, row_ptr, deg) -> torch.Tensor:
     """Launch the vertex sum; returns the (n, d) f32 sums of each vertex's
     live slots, row by row in order (``ref.spmm_ell_vertex_ref``).
     Checks and plans the ELL once (vertex_plan, at SPLIT_ROWS); counts
-    one ``spmm_ell`` launch a call."""
+    one ``spmm_ell`` launch a call, at the shape (rows of x, n, d)."""
     check_vertex_args(x, col, wgt, row_ptr, deg)
     _lib.check_cuda_tensors(NAME, x=x, col=col, wgt=wgt, row_ptr=row_ptr, deg=deg)
     n, d = deg.shape[0], x.shape[1]
@@ -195,5 +197,5 @@ def spmm_ell_vertex_cuda(x, col, wgt, row_ptr, deg) -> torch.Tensor:
     scratch = torch.empty((plan.fat_row.shape[0], d), dtype=torch.float32, device=x.device)
     rc = _vertex_launch()(*vertex_launch_args(x, col, wgt, row_ptr, deg, plan, scratch, out))
     _lib.check(rc, NAME)
-    _lib.count_launch(NAME)
+    _lib.count_launch(NAME, (x.shape[0], n, d))
     return out

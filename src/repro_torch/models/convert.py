@@ -10,7 +10,10 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models.gnn.dimenet import DimeNetConfig
+from repro_torch.models.gnn.egnn import EGNNConfig
 from repro_torch.models.gnn.gin import GINConfig
+from repro_torch.models.gnn.mace import _BIS_COMBOS, MACEConfig
 from repro_torch.models.lm import LM, LMConfig, layer_shapes
 from repro_torch.models.mind import MIND, MINDConfig
 
@@ -51,29 +54,98 @@ def mind_params_from_numpy(tree: dict, cfg: MINDConfig, device=None) -> MIND:
     )
 
 
+def _mlp_shapes(dims) -> dict:
+    want = {f"w{i}": (dims[i], dims[i + 1]) for i in range(len(dims) - 1)}
+    return want | {f"b{i}": (dims[i + 1],) for i in range(len(dims) - 1)}
+
+
+def _checked(tree, want, where: str, device):
+    """``tree`` (nested dicts and lists of arrays) as f32 tensors on
+    ``device``, after checking that it has exactly ``want``'s keys,
+    lengths and shapes (``want`` mirrors it, shape tuples at the
+    leaves)."""
+    if isinstance(want, tuple):
+        if tuple(np.shape(tree)) != want:
+            raise ValueError(f"{where}: shape {tuple(np.shape(tree))} does not match {want}")
+        return _tensor(tree, torch.float32, device)
+    if isinstance(want, list):
+        if len(tree) != len(want):
+            raise ValueError(f"{where}: {len(tree)} entries, config has {len(want)}")
+        return [_checked(t, w, f"{where}[{i}]", device)
+                for i, (t, w) in enumerate(zip(tree, want))]
+    if set(tree) != set(want):
+        raise ValueError(f"{where}: keys {sorted(tree)} do not match {sorted(want)}")
+    return {k: _checked(tree[k], w, f"{where}.{k}".lstrip("."), device)
+            for k, w in want.items()}
+
+
 def gin_params_from_numpy(tree: dict, cfg: GINConfig, device=None) -> dict:
     """``tree`` as the JAX package's ``models/gnn/gin.py::init_params``
     lays it out: ``layers[i].mlp.{w0,b0,w1,b1}``, ``layers[i].eps`` and
     ``readout.{w0,b0}``; f32 throughout.  Shapes are checked against
     ``cfg``."""
     dev, f32 = resolve_device(device), torch.float32
-
-    def mlp(p, dims, where):
-        want = {f"w{i}": (dims[i], dims[i + 1]) for i in range(len(dims) - 1)}
-        want |= {f"b{i}": (dims[i + 1],) for i in range(len(dims) - 1)}
-        got = {k: tuple(np.shape(v)) for k, v in p.items()}
-        if got != want:
-            raise ValueError(f"{where}: shapes {got} do not match {want}")
-        return {k: _tensor(v, f32, dev) for k, v in p.items()}
-
     if len(tree["layers"]) != cfg.n_layers:
         raise ValueError(f"{len(tree['layers'])} layers, config has {cfg.n_layers}")
     layers = []
     for i, lp in enumerate(tree["layers"]):
         d_in = cfg.d_in if i == 0 else cfg.d_hidden
         layers.append({
-            "mlp": mlp(lp["mlp"], [d_in, cfg.d_hidden, cfg.d_hidden], f"layers[{i}].mlp"),
+            "mlp": _checked(lp["mlp"], _mlp_shapes([d_in, cfg.d_hidden, cfg.d_hidden]),
+                            f"layers[{i}].mlp", dev),
             "eps": _tensor(lp["eps"], f32, dev).reshape(()),
         })
     return {"layers": layers,
-            "readout": mlp(tree["readout"], [cfg.d_hidden, cfg.n_classes], "readout")}
+            "readout": _checked(tree["readout"], _mlp_shapes([cfg.d_hidden, cfg.n_classes]),
+                                "readout", dev)}
+
+
+def _readout(d: int, n_classes: int) -> dict:
+    return _mlp_shapes([d, d, n_classes if n_classes > 0 else 1])
+
+
+def egnn_params_from_numpy(tree: dict, cfg: EGNNConfig, device=None) -> dict:
+    """``tree`` as the JAX package's ``models/gnn/egnn.py::init_params``
+    lays it out: ``layers[i].{phi_e, phi_x, phi_h}`` and ``readout``
+    (MLPs of ``w{i}``, ``b{i}``); f32, shapes checked against ``cfg``."""
+    d = cfg.d_hidden
+    layers = []
+    for i in range(cfg.n_layers):
+        d_in = cfg.d_in if i == 0 else d
+        layers.append({"phi_e": _mlp_shapes([2 * d_in + 1, d, d]),
+                       "phi_x": _mlp_shapes([d, d, 1]),
+                       "phi_h": _mlp_shapes([d_in + d, d, d])})
+    want = {"layers": layers, "readout": _readout(d, cfg.n_classes)}
+    return _checked(tree, want, "", resolve_device(device))
+
+
+def mace_params_from_numpy(tree: dict, cfg: MACEConfig, device=None) -> dict:
+    """``tree`` as the JAX package's ``models/gnn/mace.py::init_params``
+    lays it out: ``layers[i].{w_h, radial, update}`` and ``readout``;
+    f32, shapes checked against ``cfg``."""
+    C, n_l = cfg.d_hidden, cfg.l_max + 1
+    n_inv = 1 + n_l + len(_BIS_COMBOS)
+    layers = []
+    for i in range(cfg.n_layers):
+        d_in = cfg.d_in if i == 0 else C
+        layers.append({"w_h": (d_in, C), "radial": _mlp_shapes([cfg.n_rbf, 32, C * n_l]),
+                       "update": _mlp_shapes([C * n_inv + d_in, C, C])})
+    want = {"layers": layers, "readout": _readout(C, cfg.n_classes)}
+    return _checked(tree, want, "", resolve_device(device))
+
+
+def dimenet_params_from_numpy(tree: dict, cfg: DimeNetConfig, device=None) -> dict:
+    """``tree`` as the JAX package's ``models/gnn/dimenet.py::init_params``
+    lays it out: ``blocks[i].{w_rbf, w_sbf, w_kj, bilinear, mlp_update,
+    out_atom}`` (``bilinear`` (nb, d, d); ``w_kj`` and ``out_atom`` MLPs
+    of one layer, ``mlp_update`` of two), ``embed_atom``, ``embed_edge``
+    and ``readout``; f32, shapes checked against ``cfg``."""
+    d, nb = cfg.d_hidden, cfg.n_bilinear
+    block = {"w_rbf": (cfg.n_radial, d), "w_sbf": (cfg.n_radial * cfg.n_spherical, nb),
+             "w_kj": _mlp_shapes([d, d]), "bilinear": (nb, d, d),
+             "mlp_update": _mlp_shapes([d, d, d]), "out_atom": _mlp_shapes([d, d])}
+    want = {"blocks": [block] * cfg.n_blocks,
+            "embed_atom": _mlp_shapes([cfg.d_in, d]),
+            "embed_edge": _mlp_shapes([2 * d + cfg.n_radial, d]),
+            "readout": _readout(d, cfg.n_classes)}
+    return _checked(tree, want, "", resolve_device(device))

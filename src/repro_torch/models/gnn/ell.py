@@ -20,6 +20,18 @@ The transpose ELL is the neighbour ELL of the reversed edges
 (``build_neighbor_ell(edge_dst, edge_src, edge_mask, n)``): the vertex
 sum over it is the gradient of the vertex sum over the neighbour ELL,
 so training builds it (once a graph) for the backward.
+
+A segment ELL (:func:`build_segment_ell`) lays out the reference's
+``scatter_sum(values, index, n)`` for the same kernel: its "edges" are
+``t -> index[t]`` for the T rows of a value table, so its col entries
+are value-row ids in [0, T), grouped by segment in stable order, and
+its vertex sum over the (T, d) values is the (n, d) segment sum, each
+row weighted by ``mask[t]``.  Its transpose is the W = 1 ELL of T rows
+whose one slot is ``index[t]`` at weight ``mask[t]``
+(:func:`build_segment_transpose`): the vertex sum over it is the gather
+``g[index] * mask``, the segment sum's gradient.
+EGNN, MACE and DimeNet sum edge rows into nodes and triplet rows into
+edges this way (``layers.py::segment_sum``).
 """
 
 from __future__ import annotations
@@ -29,14 +41,38 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import VertexSum
+from repro_torch.kernels.spmm_ell.kernel import PLANS_KEPT
 
-# memo of the last graph only, so a graph the caller drops pins no more
-# than its two ELLs on the card: (key, edge tensors, {"forward": ELL,
-# "transpose": ELL}, each built at first need), keyed by the edge
-# tensors' identity and version counters (an in-place torch update
-# invalidates) + n; it holds its edge tensors, so their ids are not
-# reused while it lives
-_LAST: tuple | None = None
+
+class Recent:
+    """The last ``size`` values built, newest first, each keyed by the
+    identity and version counters of its tensors (an in-place torch
+    update invalidates) and a tuple of other keys; an entry holds its
+    tensors, so their ids are not reused while it lives."""
+
+    def __init__(self, size: int):
+        self.size, self.entries = size, []
+
+    def get(self, tensors: tuple, extra: tuple, build):
+        """The value kept for (``tensors``, ``extra``), else ``build()``'s."""
+        key = (*(id(t) for t in tensors), *(t._version for t in tensors), *extra)
+        for i, (old, _, value) in enumerate(self.entries):
+            if old == key:
+                self.entries.insert(0, self.entries.pop(i))
+                return value
+        self.entries.insert(0, (key, tensors, build()))
+        del self.entries[self.size:]
+        return self.entries[0][2]
+
+
+# the last graph only, so a graph the caller drops pins no more than its
+# two ELLs on the card: {"forward": ELL, "transpose": ELL}, each built at
+# first need
+_GRAPHS = Recent(1)
+# segment ELLs, one an entry (forward or transpose), as many as the
+# kernel keeps plans: a DimeNet step sums over two index tensors, each
+# forward and transposed
+_SEGMENTS = Recent(PLANS_KEPT)
 
 
 class NeighborELL(NamedTuple):
@@ -48,16 +84,19 @@ class NeighborELL(NamedTuple):
 
 
 def build_neighbor_ell(edge_src, edge_dst, edge_mask, n: int,
-                       width: int | None = None) -> NeighborELL:
+                       width: int | None = None, n_src: int | None = None) -> NeighborELL:
     """The neighbour ELL of ``n`` vertices and the edges
     ``edge_src -> edge_dst`` (int tensors), weighted by ``edge_mask``;
-    W = ``width`` or min(64, max in-degree)."""
+    W = ``width`` or min(64, max in-degree).  Sources lie in [0,
+    ``n_src``) (default n): the rows of the table the sum reads."""
     dev, m = edge_dst.device, edge_dst.shape[0]
+    n_src = n if n_src is None else n_src
     if m:
-        lo = int(torch.minimum(edge_src.min(), edge_dst.min()))
-        hi = int(torch.maximum(edge_src.max(), edge_dst.max()))
-        if lo < 0 or hi >= n:
-            raise ValueError(f"edge endpoints must lie in [0, {n}), got [{lo}, {hi}]")
+        lo_s, hi_s, lo_d, hi_d = torch.stack([edge_src.min(), edge_src.max(),
+                                              edge_dst.min(), edge_dst.max()]).tolist()
+        if min(lo_s, lo_d) < 0 or hi_s >= n_src or hi_d >= n:
+            raise ValueError(f"edge sources must lie in [0, {n_src}) and destinations in "
+                             f"[0, {n}), got [{lo_s}, {hi_s}] and [{lo_d}, {hi_d}]")
     dst = edge_dst.long()
     order = torch.argsort(dst, stable=True)
     dst_sorted = dst[order]
@@ -77,18 +116,9 @@ def build_neighbor_ell(edge_src, edge_dst, edge_mask, n: int,
     return NeighborELL(row_ptr, deg.to(torch.int32), col.view(R, W), wgt.view(R, W), n)
 
 
-def _last_graph(edge_src, edge_dst, edge_mask, n: int) -> dict:
-    global _LAST
-    edges = (edge_src, edge_dst, edge_mask)
-    key = (*(id(t) for t in edges), *(t._version for t in edges), n)
-    if _LAST is None or _LAST[0] != key:
-        _LAST = (key, edges, {})
-    return _LAST[2]
-
-
 def neighbor_ell(edge_src, edge_dst, edge_mask, n: int) -> NeighborELL:
     """:func:`build_neighbor_ell`, memoised for the last graph asked."""
-    ells = _last_graph(edge_src, edge_dst, edge_mask, n)
+    ells = _GRAPHS.get((edge_src, edge_dst, edge_mask), (n,), dict)
     if "forward" not in ells:
         ells["forward"] = build_neighbor_ell(edge_src, edge_dst, edge_mask, n)
     return ells["forward"]
@@ -97,10 +127,45 @@ def neighbor_ell(edge_src, edge_dst, edge_mask, n: int) -> NeighborELL:
 def transpose_ell(edge_src, edge_dst, edge_mask, n: int) -> NeighborELL:
     """The transpose ELL (the reversed edges' neighbour ELL), memoised
     with :func:`neighbor_ell`'s for the last graph asked."""
-    ells = _last_graph(edge_src, edge_dst, edge_mask, n)
+    ells = _GRAPHS.get((edge_src, edge_dst, edge_mask), (n,), dict)
     if "transpose" not in ells:
         ells["transpose"] = build_neighbor_ell(edge_dst, edge_src, edge_mask, n)
     return ells["transpose"]
+
+
+def build_segment_ell(index, mask, n: int) -> NeighborELL:
+    """The segment ELL of ``index`` (T segment ids in [0, n)) weighted by
+    ``mask``: n rows of value-row ids (the rows ``t -> index[t]``)."""
+    rows = torch.arange(index.shape[0], dtype=index.dtype, device=index.device)
+    return build_neighbor_ell(rows, index, mask, n, n_src=index.shape[0])
+
+
+def build_segment_transpose(index, mask, n: int) -> NeighborELL:
+    """The W = 1 transpose of :func:`build_segment_ell`'s ELL: T rows,
+    row t's one slot ``index[t]`` at weight ``mask[t]``."""
+    T, dev = index.shape[0], index.device
+    if T:
+        lo, hi = torch.stack([index.min(), index.max()]).tolist()
+        if lo < 0 or hi >= n:
+            raise ValueError(f"segment ids must lie in [0, {n}), got [{lo}, {hi}]")
+    return NeighborELL(torch.arange(T + 1, device=dev),
+                       torch.ones((T,), dtype=torch.int32, device=dev),
+                       index.to(torch.int32).reshape(T, 1).contiguous(),
+                       mask.to(torch.float32).reshape(T, 1).contiguous(), T)
+
+
+def segment_ell(index, mask, n: int) -> NeighborELL:
+    """:func:`build_segment_ell`, memoised with the last PLANS_KEPT
+    segment ELLs asked."""
+    return _SEGMENTS.get((index, mask), (n, "forward"),
+                         lambda: build_segment_ell(index, mask, n))
+
+
+def segment_transpose(index, mask, n: int) -> NeighborELL:
+    """:func:`build_segment_transpose`, memoised with
+    :func:`segment_ell`'s."""
+    return _SEGMENTS.get((index, mask), (n, "transpose"),
+                         lambda: build_segment_transpose(index, mask, n))
 
 
 def _layout(ell: NeighborELL) -> tuple:

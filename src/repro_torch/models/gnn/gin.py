@@ -24,9 +24,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.gnn.ell import neighbor_ell, neighbor_sum, transpose_ell
-from repro_torch.models.gnn.layers import gather_src, init_mlp, mlp_apply
+from repro_torch.models.gnn.layers import AGG_IMPLS, gather_src, init_mlp, mlp_apply, node_nll
 
-AGG_IMPLS = ("spmm_ell", "segment_sum")
 EDGE_CHUNK = 1 << 22  # edges a step of the segment-sum route gathers
 
 
@@ -94,13 +93,8 @@ def forward(params, x, edge_src, edge_dst, edge_mask, cfg: GINConfig):
 
 
 def node_classification_loss(params, batch, cfg: GINConfig) -> torch.Tensor:
-    """Mean cross-entropy of the node logits against ``batch["labels"]``.
-    The label's logit is picked by a mask, not a gather, so the backward
-    scatters nothing."""
+    """Mean cross-entropy of the node logits against ``batch["labels"]``
+    (``layers.node_nll``: the backward scatters nothing)."""
     logits = forward(params, batch["x"], batch["edge_src"], batch["edge_dst"],
-                     batch["edge_mask"], cfg).float()
-    logz = torch.logsumexp(logits, dim=-1)
-    pick = batch["labels"].long()[:, None] == torch.arange(logits.shape[1],
-                                                           device=logits.device)
-    ll = torch.where(pick, logits, 0.0).sum(-1)
-    return torch.mean(logz - ll)
+                     batch["edge_mask"], cfg)
+    return node_nll(logits, batch["labels"])

@@ -5,7 +5,8 @@ edge-index list, as in the JAX package (``index_select`` and
 ``index_add_``/``scatter_reduce_`` here, ``jnp.take`` and
 ``jax.ops.segment_*`` there).  The ``spmm_ell`` kernel computes the
 same neighbour sum over an ELL layout of the graph (``gnn/ell.py``);
-GIN's forward runs through it.
+GIN's forward runs through it, and :func:`segment_sum` runs every
+segment sum of EGNN, MACE and DimeNet through it over a segment ELL.
 
 Single device only: the JAX package's ``segment_output_sharding``,
 ``aligned_scatter`` and ``scatter_sum_owner_aligned`` wait for the
@@ -14,10 +15,17 @@ Topology/TP port (ROADMAP.md).  Segment ids must lie in [0, n).
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import fan_in_init
+from repro_torch.models.gnn.ell import Recent, neighbor_sum, segment_ell, segment_transpose
+
+#: the segment sum's routes: the kernel over a segment ELL, or the plain
+#: ``index_add_`` (the JAX package's ``jax.ops.segment_sum``)
+AGG_IMPLS = ("spmm_ell", "segment_sum")
 
 
 def scatter_sum(values, index, n) -> torch.Tensor:
@@ -25,6 +33,79 @@ def scatter_sum(values, index, n) -> torch.Tensor:
     out = torch.zeros((n, *values.shape[1:]), dtype=values.dtype,
                       device=values.device)
     return out.index_add_(0, index, values)
+
+
+def segment_sum(values, index, mask, n, agg_impl: str = "spmm_ell") -> torch.Tensor:
+    """(n, ...) sums of the ``values`` rows by segment ``index``, each
+    row weighted by ``mask`` (every caller's values carry the mask
+    already, so the weight changes no sum).
+    ``agg_impl="spmm_ell"`` sums over the memoised segment ELL through
+    the kernel's vertex sum (``VertexSum``: its backward is the gather
+    over the transpose, on the card the same kernel), in f32: a bf16
+    table is upcast exactly and the sums cast back; ``"segment_sum"``
+    is :func:`scatter_sum`."""
+    if agg_impl == "segment_sum":
+        return scatter_sum(values, index, n)
+    if agg_impl != "spmm_ell":
+        raise ValueError(f"agg_impl must be one of {AGG_IMPLS}, got {agg_impl!r}")
+    ell = segment_ell(index, mask, n)
+    width = math.prod(values.shape[1:])
+    flat = values.reshape(values.shape[0], width).to(torch.float32).contiguous()
+    out = neighbor_sum(ell, flat, lambda: segment_transpose(index, mask, n))
+    return out.reshape((n, *values.shape[1:])).to(values.dtype)
+
+
+def segment_mean(values, index, mask, n, agg_impl: str = "spmm_ell",
+                 eps: float = 1e-9) -> torch.Tensor:
+    """:func:`segment_sum` over each segment's row count, masked rows
+    counted as the JAX package's ``scatter_mean`` counts them: the
+    segment ELL's ``deg`` on the kernel route (no launch), the plain
+    :func:`scatter_mean` on the other."""
+    if agg_impl == "segment_sum":
+        return scatter_mean(values, index, n, eps)
+    s = segment_sum(values, index, mask, n, agg_impl)
+    cnt = segment_ell(index, mask, n).deg.to(values.dtype)
+    return s / torch.clamp(cnt, min=eps)[:, None]
+
+
+#: the packed batch's keys, and what each is shifted by in the flat one
+_PACKED = {"x": None, "coords": None, "edge_mask": None, "tri_mask": None,
+           "edge_src": "n", "edge_dst": "n", "tri_kj": "e", "tri_ji": "e"}
+#: the last packed batch flattened
+_BLOCK = Recent(1)
+
+
+def block_diagonal(batch: dict) -> dict:
+    """A packed molecule batch (B graphs of n nodes, e edge slots and T
+    triplet slots; ``y`` is left out) as one block-diagonal graph: nodes
+    (B n, ...), graph b's edges shifted by b n and its triplets' edge ids
+    by b e, so each segment sum of a layer is one launch, not B.  Remembered for the
+    last batch asked (its tensors' identity and versions), so a train
+    step's ELLs are built once for the batch, not once a step."""
+    keys = tuple(k for k in _PACKED if k in batch)
+    return _BLOCK.get(tuple(batch[k] for k in keys), keys, lambda: _flatten(batch, keys))
+
+
+def _flatten(batch: dict, keys: tuple) -> dict:
+    B, n = batch["x"].shape[:2]
+    step = {"n": n, "e": batch["edge_src"].shape[1]}
+    flat = {}
+    for k in keys:
+        v = batch[k]
+        if _PACKED[k] is not None:
+            v = v + (torch.arange(B, device=v.device) * step[_PACKED[k]])[:, None].to(v.dtype)
+        flat[k] = v.reshape(B * v.shape[1], *v.shape[2:])
+    return flat
+
+
+def node_nll(logits, labels) -> torch.Tensor:
+    """Mean cross-entropy of (N, C) logits against int labels (N,).
+    The label's logit is picked by a mask, not a gather, so the backward
+    scatters nothing."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    pick = labels.long()[:, None] == torch.arange(logits.shape[1], device=logits.device)
+    return torch.mean(logz - torch.where(pick, logits, 0.0).sum(-1))
 
 
 def scatter_mean(values, index, n, eps: float = 1e-9) -> torch.Tensor:

@@ -90,13 +90,17 @@ def spmm_ell_traffic(rows: int, width: int, rows_read: int, d: int,
     return nbytes, (2 if op == "sum" else 1) * nnz * d
 
 
-def spmm_ell_vertex_traffic(m: int, rows_read: int, n: int,
-                            d: int) -> tuple[int, int]:
-    """``spmm_ell``'s vertex sum: the ``m`` live col+wgt slots, the rows
-    of x they name once each, row_ptr (int64) and deg, the (n, d)
-    output; a multiply-add a live slot and feature."""
-    nbytes = 8 * m + 4 * rows_read * d + 8 * (n + 1) + 4 * n + 4 * n * d
-    return nbytes, 2 * m * d
+def spmm_ell_vertex_traffic(m: int, rows_read: int, n: int, d: int,
+                            nnz: int | None = None) -> tuple[int, int]:
+    """``spmm_ell``'s vertex sum: the wgt of the ``m`` live slots, the
+    col of the ``nnz`` (default m) of nonzero weight and the
+    ``rows_read`` rows of x these name, once each, row_ptr (int64) and
+    deg, the (n, d) output; a multiply-add a slot of nonzero weight and
+    feature (a slot of weight 0 adds nothing, so the function needs
+    neither its col nor its row)."""
+    nnz = m if nnz is None else nnz
+    nbytes = 4 * m + 4 * nnz + 4 * rows_read * d + 8 * (n + 1) + 4 * n + 4 * n * d
+    return nbytes, 2 * nnz * d
 
 
 def fused_kernel_bytes(row_cap: int, width: int, n_local: int,

@@ -47,19 +47,20 @@ def test_shape_tables_equal_the_reference():
     assert configs.ASSIGNED == ref_configs.ASSIGNED
 
 
-def test_all_cells_are_the_reference_less_the_named_31():
-    """31 before gin-tu's four train cells planned; 27 since."""
+def test_all_cells_are_the_reference_less_the_named_15():
+    """31 before gin-tu's four train cells planned, 27 before the twelve
+    of egnn, mace and dimenet; 15 since."""
     ref = ref_configs.all_cells()
     assert configs.reference_cells() == ref and len(ref) == 47
-    assert len(configs.EXCLUDED) == 27
+    assert len(configs.EXCLUDED) == 15
     assert set(configs.EXCLUDED) <= set(ref)
     assert configs.all_cells() == [p for p in ref if p not in configs.EXCLUDED]
-    assert len(configs.all_cells()) == 20
+    assert len(configs.all_cells()) == 32
     kinds = {}
     for arch, _ in configs.all_cells():
         kinds[arch] = kinds.get(arch, 0) + 1
-    assert kinds == {"phi3-mini-3.8b": 3, "minitron-8b": 3, "gin-tu": 4, "mind": 3,
-                     "sssp": 7}
+    assert kinds == {"phi3-mini-3.8b": 3, "minitron-8b": 3, "mace": 4, "gin-tu": 4,
+                     "egnn": 4, "dimenet": 4, "mind": 3, "sssp": 7}
     assert configs.all_cells(include_sssp=False) == [
         p for p in ref_configs.all_cells(include_sssp=False)
         if p not in configs.EXCLUDED]
@@ -68,9 +69,8 @@ def test_all_cells_are_the_reference_less_the_named_31():
         assert why.startswith("5."), (arch, cell, why)
         assert arch in configs.UNPORTED or arch in configs.REGISTRY
     unported = {a for a, _ in configs.EXCLUDED if a in configs.UNPORTED}
-    assert unported == {"phi3.5-moe-42b-a6.6b", "dbrx-132b", "minicpm3-4b",
-                        "mace", "egnn", "dimenet"}
-    assert sum(a in configs.UNPORTED for a, _ in configs.EXCLUDED) == 24
+    assert unported == {"phi3.5-moe-42b-a6.6b", "dbrx-132b", "minicpm3-4b"}
+    assert sum(a in configs.UNPORTED for a, _ in configs.EXCLUDED) == 12
 
 
 @pytest.mark.parametrize("arch,cell", ref_configs.all_cells())
@@ -113,13 +113,14 @@ def test_sssp_reduced_and_ranked_plans(cell, topo):
     assert p4.ranks == 4 and p4.config == plan.config
 
 
-@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "minitron-8b", "mind", "gin-tu"])
+@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "minitron-8b", "mind", "gin-tu",
+                                  "egnn", "dimenet", "mace"])
 def test_train_cells_raise(arch):
-    """The LM and MIND train cells raise, naming their item; gin-tu's
-    four plan as train cells that carry their step."""
+    """The LM and MIND train cells raise, naming their item; the four
+    cells of each GNN arch plan as train cells that carry their step."""
     mod = configs.get_arch(arch)
     train = [c for c in mod.SHAPES if (arch, c) in configs.EXCLUDED]
-    if arch == "gin-tu":
+    if arch in ("gin-tu", "egnn", "dimenet", "mace"):
         assert not train
         for cell in mod.SHAPES:
             plan = mod.make_cell(cell)

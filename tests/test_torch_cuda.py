@@ -1163,3 +1163,101 @@ def test_cell_plan_bytes_equal_the_resident_partition_on_card(dev, n_parts):
     assert size(list(ell) + state) == n_parts * superstep_peak(plan)["resident"]
     sol = Solver(cfg, n_parts=n_parts, device="cuda").solve(Problem(pg, SingleSource(0)))
     assert sol.metrics.converged
+
+
+# ---------------------------------------------------------------- #
+# EGNN, MACE and DimeNet: the vertex sum over segment ELLs
+
+
+def segment_ells(dev, T, n, seed):
+    """A segment index of T rows into n segments, a third masked, one
+    segment of T // 4 rows (several ELL rows: the split path), some
+    segments empty: its segment ELL and W = 1 transpose on the card."""
+    from repro_torch.models.gnn import build_segment_ell, build_segment_transpose
+
+    r = np.random.default_rng(seed)
+    index = r.integers(0, n, T)
+    index[: T // 4] = n // 3
+    index, mask = on(dev, index.astype(np.int32), r.random(T) > 0.33)
+    return (index, mask, build_segment_ell(index, mask, n),
+            build_segment_transpose(index, mask, n))
+
+
+# the d of each new shape (EGNN messages 64, coordinates 3, MACE's 9 x 128
+# density, DimeNet's 128), over edges into nodes (T < n) and triplets
+# into edges (T = 2n)
+@pytest.mark.parametrize("d", [64, 3, 1152, 128])
+@pytest.mark.parametrize("T,n", [(6000, 7000), (8000, 4000)])
+@pytest.mark.parametrize("split_rows", [None, 1])
+def test_segment_vertex_sum_bit_identical(dev, d, T, n, split_rows, monkeypatch):
+    from repro_torch.kernels.spmm_ell import kernel
+
+    if split_rows is not None:
+        monkeypatch.setattr(kernel, "SPLIT_ROWS", split_rows)
+    index, mask, fwd, tr = segment_ells(dev, T, n, seed=d + T)
+    r = np.random.default_rng(d)
+    (x,) = on(dev, r.normal(size=(T, d)).astype(np.float32))
+    x = x * mask[:, None]
+    K.reset_launch_counts()
+    out = K.spmm_ell_vertex_cuda(x, fwd.col, fwd.wgt, fwd.row_ptr, fwd.deg)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["spmm_ell"] == 1 and out.shape == (n, d)
+    assert K.launch_shapes()["spmm_ell"] == {(T, n, d): 1}
+    assert bits_equal(out, K.spmm_ell_vertex_ref(x, fwd.col, fwd.wgt, fwd.row_ptr, fwd.deg))
+    torch.testing.assert_close(out, torch.zeros_like(out).index_add_(0, index, x),
+                               rtol=0, atol=1e-5 * float(out.abs().max()))
+    # the W = 1 transpose: the masked gather, +0 where the product is -0
+    (g,) = on(dev, r.normal(size=(n, d)).astype(np.float32))
+    back = K.spmm_ell_vertex_cuda(g, tr.col, tr.wgt, tr.row_ptr, tr.deg)
+    assert bits_equal(back, g.index_select(0, index) * mask[:, None].float() + 0.0)
+
+
+@pytest.mark.parametrize("name", ["egnn", "mace", "dimenet"])
+def test_zoo_molecule_step_on_card_matches_cpu(dev, name):
+    """One step of the full-width molecule cell's plan (128 graphs as one
+    block-diagonal graph) on the card through the kernel route against
+    the same step on the CPU: spmm_ell launches 4L - 1 (EGNN), 2L (MACE)
+    or 4B (DimeNet); loss within 1e-5 of |loss|, params within 1e-5 (an
+    update is about lr = 3e-4; both sum in another order)."""
+    from repro_torch.data import molecule_batch
+    from repro_torch.models import gnn
+    from repro_torch.train import TrainConfig, init_train_state
+
+    arch, model = get_arch(name), getattr(gnn, name)
+    plan, cfg = arch.make_cell("molecule"), arch.make_config(False, "molecule")
+    batch = molecule_batch(0, 128, 30, 64, triplets=name == "dimenet", seed=1)
+    params = model.init_params(generator(0, "cpu"), cfg)
+    L = cfg.n_blocks if name == "dimenet" else cfg.n_layers
+    want = {"egnn": 4 * L - 1, "mace": 2 * L, "dimenet": 4 * L}[name]
+    tmap = torch.utils._pytree.tree_map
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        p = tmap(lambda t: t.to(device), params)
+        b = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+        K.reset_launch_counts()
+        p, _, m = plan.fn(p, init_train_state(p, TrainConfig()), b, 0)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            assert K.launch_counts()["spmm_ell"] == want
+        out[device.type] = (float(m["loss"]), tmap(lambda t: t.cpu(), p))
+    (lc, pc), (lh, ph) = out["cuda"], out["cpu"]
+    assert np.isfinite(lc) and abs(lc - lh) <= 1e-5 * abs(lh)
+    for a, b in zip(torch.utils._pytree.tree_leaves(pc), torch.utils._pytree.tree_leaves(ph)):
+        assert float((a - b).abs().max()) <= 1e-5
+
+
+def test_segment_sum_refuses_the_raw_kernel_under_autograd(dev):
+    """Outside VertexSum a grad-requiring input still raises on the card;
+    through segment_sum it differentiates (the backward launches the
+    kernel over the transpose)."""
+    from repro_torch.models.gnn import segment_sum
+
+    index, mask, fwd, _ = segment_ells(dev, 500, 200, seed=3)
+    x = torch.randn((500, 8), device=dev, requires_grad=True)
+    with pytest.raises(RuntimeError, match="VertexSum"):
+        K.vertex_sum(x, fwd.col, fwd.wgt, fwd.row_ptr, fwd.deg)
+    K.reset_launch_counts()
+    (grad,) = torch.autograd.grad(segment_sum(x, index, mask, 200).sum(), x)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["spmm_ell"] == 2
+    assert bits_equal(grad, mask[:, None].float().expand(500, 8) + 0.0)

@@ -97,8 +97,12 @@ def test_gnn_flat_batch_byte_identical(d_feat, classes, coords, seed):
     for k in a:
         assert a[k].dtype == b[k].dtype and a[k].shape == b[k].shape, k
         assert a[k].tobytes() == b[k].tobytes(), k
-    with pytest.raises(NotImplementedError, match="DimeNet"):
-        gnn_flat_batch(g, d_feat, classes, triplets=True)
+    # with DimeNet's triplets (capped at 4 a edge, the default), the same bytes
+    a = gnn_flat_batch(g, d_feat, classes, coords=coords, triplets=True, seed=seed)
+    b = ref_data.gnn_flat_batch(g, d_feat, classes, coords=coords, triplets=True, seed=seed)
+    assert sorted(a) == sorted(b)
+    for k in a:
+        assert a[k].dtype == b[k].dtype and a[k].tobytes() == b[k].tobytes(), k
     fb = flat_batch_from_graph(g, d_feat, classes, seed=seed)
     assert (fb.n, fb.e) == (g.n, g.m)
 

@@ -308,7 +308,7 @@ def test_train_step_sums_nine_times_and_keeps_its_ells(monkeypatch):
     """A full-width step sums 5 times forward and 4 times backward (layer
     1's input is data); the neighbour and transpose ELLs are built once
     for the graph and kept across steps, and the vertex plan memo holds
-    both ELLs' plans in turn."""
+    both ELLs' plans in turn, until PLANS_KEPT others push them out."""
     g = rmat1(8, seed=3)
     _, cfg, batch, tree = setup(g, "ogb_products")
     builds = []
@@ -334,8 +334,10 @@ def test_train_step_sums_nine_times_and_keeps_its_ells(monkeypatch):
     for _ in range(2):  # alternating: each ELL keeps its plan
         for e, plan in zip((fwd, bwd), plans):
             assert spmm_kernel.vertex_plan(x, e.col, e.row_ptr, e.deg, 2) is plan
-    third = build_neighbor_ell(edges[0][:100], edges[1][:100], edges[2][:100], g.n)
-    spmm_kernel.vertex_plan(x, third.col, third.row_ptr, third.deg, 2)
+    others = [build_neighbor_ell(edges[0][:k], edges[1][:k], edges[2][:k], g.n)
+              for k in range(100, 100 + spmm_kernel.PLANS_KEPT - 1)]
+    for e in others:  # with bwd's plan, PLANS_KEPT newer than fwd's
+        spmm_kernel.vertex_plan(x, e.col, e.row_ptr, e.deg, 2)
     assert spmm_kernel.vertex_plan(x, fwd.col, fwd.row_ptr, fwd.deg, 2) is not plans[0]
     assert len(spmm_kernel._planned) == spmm_kernel.PLANS_KEPT
 
@@ -417,8 +419,15 @@ def test_random_molecule_batch_byte_identical(batch, n_atoms, n_edges, seed):
     for k in ("x", "edge_src", "edge_dst", "edge_mask", "coords", "y"):
         x, y = getattr(a, k), getattr(b, k)
         assert x.dtype == y.dtype and x.shape == y.shape and x.tobytes() == y.tobytes(), k
-    with pytest.raises(NotImplementedError, match="DimeNet"):
-        random_molecule_batch(batch, n_atoms, n_edges, with_triplets=True)
+    # with triplets (each graph's list cut or padded to triplet_pad slots)
+    for pad in (512, 16):
+        a = random_molecule_batch(batch, n_atoms, n_edges, seed=seed, with_triplets=True,
+                                  triplet_pad=pad)
+        b = ref_batch.random_molecule_batch(batch, n_atoms, n_edges, seed=seed,
+                                            with_triplets=True, triplet_pad=pad)
+        for k in ("tri_kj", "tri_ji", "tri_mask"):
+            x, y = getattr(a, k), getattr(b, k)
+            assert x.dtype == y.dtype and x.shape == y.shape and x.tobytes() == y.tobytes(), k
 
 
 @pytest.mark.parametrize("step", [0, 1, 5])
@@ -428,8 +437,11 @@ def test_molecule_batch_byte_identical(step):
     assert sorted(a) == sorted(b)
     for k in a:
         assert a[k].dtype == b[k].dtype and a[k].tobytes() == b[k].tobytes(), k
-    with pytest.raises(NotImplementedError, match="DimeNet"):
-        molecule_batch(step, 16, 30, 64, triplets=True)
+    a = molecule_batch(step, 16, 30, 64, triplets=True, triplet_pad=200, seed=2)
+    b = ref_data.molecule_batch(step, 16, 30, 64, triplets=True, triplet_pad=200, seed=2)
+    assert sorted(a) == sorted(b)
+    for k in a:
+        assert a[k].dtype == b[k].dtype and a[k].tobytes() == b[k].tobytes(), k
 
 
 @pytest.mark.parametrize("fanouts,seeds,seed", [((15, 10), 64, 0), ((3,), 10, 2),

@@ -57,7 +57,11 @@ def test_port_imports_no_jax_and_no_reference():
                 "repro_torch.bench.run", "repro_torch.train",
                 "repro_torch.train.schedule", "repro_torch.train.optimizer",
                 "repro_torch.train.compression", "repro_torch.train.train_step",
-                "repro_torch.train.checkpoint", "repro_torch.graph.sampler"):
+                "repro_torch.train.checkpoint", "repro_torch.graph.sampler",
+                "repro_torch.models.gnn.geometry", "repro_torch.models.gnn.egnn",
+                "repro_torch.models.gnn.mace", "repro_torch.models.gnn.dimenet",
+                "repro_torch.configs.egnn_cfg", "repro_torch.configs.mace_cfg",
+                "repro_torch.configs.dimenet_cfg"):
         assert sub in mods, sub
     code = PROBE.format(src=str(ROOT / "src"), root=str(ROOT),
                         modules=mods + ["chip_smoke"])
