@@ -69,14 +69,21 @@ Phases (any failure exits non-zero):
  10c. EGNN, MACE and DimeNet at full width on phase 10b's molecule,
      full_graph_sm and minibatch_lg inputs (DimeNet's triplets capped at
      2 and padded to the plan's T): 2 train steps of each cell's plan,
-     every segment sum through the spmm_ell vertex sum over a segment ELL
-     (15, 4 and 24 launches a step), the first loss against the
-     segment-sum route's (1e-5; 2e-2 for DimeNet's bf16 cells), gradients
-     on the molecule cells (1e-3 of a leaf's max |grad|), ms, nodes/s,
-     peak memory, one profiled minibatch_lg step each; then each new
-     vertex-sum shape of those steps (edges into nodes at d 64, 3, 1152
-     and 128, triplets into edges at d 128, and the W = 1 transpose) bit
-     for bit against its plain version, timed beside index_add_
+     every segment sum and every gather's backward through the spmm_ell
+     vertex sum over a segment ELL of the live rows (27, 6 and 32
+     launches a step), no segment ELL built and no vertex plan made after
+     the first step, the first loss against the segment-sum route's
+     (1e-5), gradients on the molecule cells (1e-3 of a leaf's max
+     |grad|) and on DimeNet's minibatch_lg cell (bf16 messages: two
+     backward passes bit for bit, then against the segment-sum route
+     under deterministic algorithms), ms, nodes/s, peak memory, one
+     profiled minibatch_lg step each (EGNN's and DimeNet's without
+     index_add_); then each vertex-sum shape of the
+     minibatch_lg steps (edges into nodes at d 64, 3, 1152 and 128,
+     triplets into edges at d 128, their W = 1 transposes, and the
+     gathers' backward over edge_src at d 64, 3 and 128 and over tri_kj
+     at d 128) bit for bit against its plain version, timed beside
+     index_add_
  11. the SSSP query service on a copy of phase 2's graph
      (``delta:5/sparse/fused``): a landmark tier of 8 hubs (one
      solve_batch, each lane against Dijkstra), 200 Zipf-skewed queries
@@ -248,20 +255,31 @@ CELL_LOSS_TOL = 1e-5
 # live bf16 messages, which round alike in f32 and in bf16); gradients
 # leaf by leaf on every molecule cell (f32, GIN_GRAD_TOL) and on
 # ZOO_FLAT_GRADS, whose bf16 messages take segment_sum's upcast and
-# cast-back, within ZOO_BF16_GRAD_TOL: there the bf16 atomics of the
-# gathers' backward (shared by both routes) make each route differ from
-# itself run to run by up to 0.0068 of a leaf's max |grad| on the H100,
-# and with deterministic algorithms the routes differ by 0.0044 (an f32
-# sum's order flips a bf16 rounding downstream; scripts/zoo_bf16_grads.py);
-# 2e-2 is 5 bf16 steps of 2^-8, the CPU tests' bf16 tolerance
+# cast-back.  There the kernel route's gradients must repeat bit for bit
+# (its gathers' backward is the vertex sum, not atomics), and they are
+# held within ZOO_BF16_GRAD_TOL of the plain route's run under
+# deterministic algorithms: the routes differ where an f32 sum's order,
+# or the plain gathers' bf16 sums against the kernel route's f32 ones,
+# flips a bf16 rounding downstream.  On an H100 (scripts/zoo_bf16_grads.py
+# at scale 21, both routes repeating bit for bit) the gap was 0.00444 of
+# a leaf's max |grad| on minibatch_lg and 0.00676 on full_graph_sm's
+# graph; 1e-2 is 2.25x the first and 1.48x the second
 ZOO_MODELS = ("egnn", "mace", "dimenet")
 ZOO_CELLS = ("molecule", "full_graph_sm", "minibatch_lg")
 ZOO_FLAT_GRADS = ("dimenet", "minibatch_lg")
-ZOO_BF16_GRAD_TOL = 2e-2
-# spmm_ell launches a train step at L layers (blocks), forward + backward:
-# EGNN's last coordinate update reaches no loss
-ZOO_LAUNCHES = {"egnn": lambda L: 4 * L - 1, "mace": lambda L: 2 * L,
-                "dimenet": lambda L: 4 * L}
+ZOO_BF16_GRAD_TOL = 1e-2
+# the models whose every row gather takes its backward through the
+# vertex sum: their profiled minibatch_lg step runs no index_add_ (MACE's
+# gather along the l axis of its radial weights keeps index_select's)
+ZOO_NO_INDEX_ADD = ("egnn", "dimenet")
+# spmm_ell launches a train step at L layers (blocks), forward +
+# backward: the segment sums, their transposes, and the backward of each
+# gather whose input needs a gradient (EGNN: h and the coordinates at
+# both ends of the edges from its second layer on; MACE: W h at edge_src
+# a layer; DimeNet: h at both ends once, the messages at tri_kj a
+# block); EGNN's last coordinate update reaches no loss
+ZOO_LAUNCHES = {"egnn": lambda L: 2 * L + (2 * L - 1) + 4 * (L - 1),
+                "mace": lambda L: 2 * L + L, "dimenet": lambda L: 4 * L + 2 + L}
 # the query service (phase 11): the reference service CLI's defaults
 SERVE_QUERIES, SERVE_ZIPF, SERVE_LANDMARKS = 200, 1.3, 8
 SERVE_MAX_BATCH, SERVE_MAX_WAIT_S, SERVE_CACHE_MB = 8, 0.010, 256
@@ -1572,16 +1590,70 @@ def zoo_batches(dev, blk) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """``torch.use_deterministic_algorithms(True, warn_only=True)`` over
+    the block, then the setting as it was."""
+    import torch
+
+    was, warn = (torch.are_deterministic_algorithms_enabled(),
+                 torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=warn)
+
+
+@contextlib.contextmanager
+def zoo_work():
+    """Count, over the block, the segment ELLs built and the vertex plans
+    the wrapper takes (each object, in order), through the functions the
+    kernel route calls; yields the dict of them."""
+    from repro_torch.kernels.spmm_ell import kernel
+    from repro_torch.models.gnn import ell
+
+    work = {"builds": 0, "plans": []}
+    real = {(m, f): getattr(m, f) for m, f in (
+        (ell, "build_segment_ell"), (ell, "build_segment_transpose"), (kernel, "vertex_plan"))}
+
+    def built(f):
+        def build(*args):
+            work["builds"] += 1
+            return f(*args)
+        return build
+
+    def planned(*args):
+        plan = real[(kernel, "vertex_plan")](*args)
+        work["plans"].append(plan)
+        return plan
+
+    ell.build_segment_ell = built(ell.build_segment_ell)
+    ell.build_segment_transpose = built(ell.build_segment_transpose)
+    kernel.vertex_plan = planned
+    try:
+        yield work
+    finally:
+        for (m, f), fn in real.items():
+            setattr(m, f, fn)
+
+
 def zoo_cell(name, cell, dev, batch, card_line, grads: bool) -> dict:
     """Phase 10c(a): CELL_STEPS train steps of ``name``'s ``cell`` through
     its plan's step (the kernel route), each with ZOO_LAUNCHES spmm_ell
-    launches and finite (on minibatch_lg one more under the profiler);
-    the first loss against the segment-sum route's from the same params,
-    within CELL_LOSS_TOL; with ``grads``, one loss and backward on both
-    routes, leaf by leaf within GIN_GRAD_TOL (ZOO_BF16_GRAD_TOL for bf16
-    messages).  Returns the vertex-sum launches of the steps by shape
-    (rows of x, n, d: K.launch_shapes)."""
+    launches and finite, each after the first building no segment ELL and
+    taking no new vertex plan (on minibatch_lg one more under the
+    profiler); the first loss against the segment-sum route's from the
+    same params, within CELL_LOSS_TOL; with ``grads``, one loss and
+    backward on both routes, leaf by leaf within GIN_GRAD_TOL, or, for
+    bf16 messages, the kernel route's twice, bit for bit, then within
+    ZOO_BF16_GRAD_TOL of the segment-sum route's under deterministic
+    algorithms; on minibatch_lg, the profiled step of a model of
+    ZOO_NO_INDEX_ADD runs no index_add_.  Returns the vertex-sum launches
+    of the steps by the shape the wrapper counts them at (rows of x, n,
+    W, d)."""
     import torch
+    from torch.utils._pytree import tree_leaves
 
     from repro_torch import kernels as K
     from repro_torch.configs import get_arch
@@ -1601,47 +1673,72 @@ def zoo_cell(name, cell, dev, batch, card_line, grads: bool) -> dict:
     grad_note = ""
     if grads:
         _, gk = value_and_grad(lambda p, b: loss(p, b, cfg))(params, batch)
-        _, gs = value_and_grad(lambda p, b: loss(p, b, seg))(params, batch)
+        if bf16:
+            _, again = value_and_grad(lambda p, b: loss(p, b, cfg))(params, batch)
+            if not all(bits_equal(a.float(), b.float())
+                       for a, b in zip(tree_leaves(gk), tree_leaves(again))):
+                fail(f"{name} {cell}: two backward passes of the kernel route from the same "
+                     "params gave other gradients")
+            del again
+            grad_note = "; the kernel route's gradients bit for bit over two backward passes"
+        with deterministic_algorithms() if bf16 else contextlib.nullcontext():
+            _, gs = value_and_grad(lambda p, b: loss(p, b, seg))(params, batch)
         gaps = sorted(leaf_gaps(gk, gs), reverse=True)
         grad_tol = ZOO_BF16_GRAD_TOL if bf16 else GIN_GRAD_TOL
         if not (finite_tree(gk) and gaps[0][0] <= grad_tol):
             fail(f"{name} {cell}: gradients of the kernel route differ from the segment-sum "
                  f"route's by {gaps[0][0]:.3g} of {gaps[0][1]}'s max |grad| (tolerance "
                  f"{grad_tol}), or are not finite")
-        grad_note = (f"; gradients against the segment-sum route's at most {gaps[0][0]:.3g} "
-                     f"of a leaf's max |grad| ({gaps[0][1]}; tol {grad_tol})")
+        grad_note += (f"; gradients against the segment-sum route's"
+                      f"{' (deterministic algorithms)' if bf16 else ''} at most "
+                      f"{gaps[0][0]:.3g} of a leaf's max |grad| ({gaps[0][1]}; tol {grad_tol}; "
+                      f"next {', '.join(f'{v:.3g} {k}' for v, k in gaps[1:3])})")
         del gk, gs
     opt = init_train_state(params, TrainConfig())
     want = ZOO_LAUNCHES[name](L)
-    walls, losses = [], []
+    walls, losses, by_shape = [], [], {}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     # on minibatch_lg one more step under the profiler, its wall not kept
     profiled = CELL_STEPS if cell == "minibatch_lg" else None
-    by_shape: dict = {}
-    for i in range(CELL_STEPS + (profiled is not None)):
-        K.reset_launch_counts()
-        with (device_profile(f"{name} {cell}, one warm train step", top=8)
-              if i == profiled else contextlib.nullcontext()):
-            t0 = time.perf_counter()
-            params, opt, m = plan.fn(params, opt, batch, i)
-            torch.cuda.synchronize()
-        if i != profiled:
-            walls.append(time.perf_counter() - t0)
-        launches = K.launch_counts()["spmm_ell"]
-        if launches != want:
-            fail(f"{name} {cell}: step {i} launched spmm_ell {launches} times, not {want}")
-        for shape, k in K.launch_shapes()["spmm_ell"].items():
-            by_shape[shape] = by_shape.get(shape, 0) + k
-        if not (finite_tree(m) and finite_tree(params)):
-            fail(f"{name} {cell}: step {i} gave a non-finite loss, grad norm or param")
-        losses.append(float(m["loss"]))
+    with zoo_work() as work:
+        for i in range(CELL_STEPS + (profiled is not None)):
+            K.reset_launch_counts()
+            builds, plans = work["builds"], len(work["plans"])
+            with (device_profile(f"{name} {cell}, one warm train step", top=8,
+                                 kernel="vertex_") if i == profiled
+                  else contextlib.nullcontext()) as seen:
+                t0 = time.perf_counter()
+                params, opt, m = plan.fn(params, opt, batch, i)
+                torch.cuda.synchronize()
+            if i != profiled:
+                walls.append(time.perf_counter() - t0)
+            elif name in ZOO_NO_INDEX_ADD:
+                atomics = sorted({k for k in seen if "index_add" in k or "indexFunc" in k})
+                if atomics:
+                    fail(f"{name} {cell}: the profiled step ran {atomics}; every gather's "
+                         "backward should be the vertex sum")
+            launches = K.launch_counts()["spmm_ell"]
+            if launches != want:
+                fail(f"{name} {cell}: step {i} launched spmm_ell {launches} times, not {want}")
+            for shape, count in K.launch_shapes()["spmm_ell"].items():
+                by_shape[shape] = by_shape.get(shape, 0) + count
+            new_plans = [q for q in work["plans"][plans:]
+                         if not any(q is o for o in work["plans"][:plans])]
+            if i and (work["builds"] != builds or new_plans):
+                fail(f"{name} {cell}: step {i} built {work['builds'] - builds} segment ELLs "
+                     f"and made {len(new_plans)} vertex plans; after the first, a step "
+                     "builds and plans nothing")
+            if not (finite_tree(m) and finite_tree(params)):
+                fail(f"{name} {cell}: step {i} gave a non-finite loss, grad norm or param")
+            losses.append(float(m["loss"]))
     peak = torch.cuda.max_memory_allocated() / 2**30
     gap = abs(losses[0] - ref) / abs(ref)
     nodes = batch["x"].shape[0] * (batch["x"].shape[1] if cell == "molecule" else 1)
     log(f"{name} {cell} (full width: {L} {'blocks' if name == 'dimenet' else 'layers'}, "
         f"d {cfg.d_hidden}{', bf16 messages' if bf16 else ''}; {nodes} nodes): "
-        f"{len(losses)} steps through the plan, {want} spmm_ell launches each, cold "
+        f"{len(losses)} steps through the plan, {want} spmm_ell launches each, no ELL built "
+        f"and no plan made after the first, cold "
         f"{walls[0] * 1e3:.2f} ms, warm {', '.join(f'{w * 1e3:.2f}' for w in walls[1:])} ms "
         f"({nodes / min(walls[1:] or walls):.4g} nodes/s); peak memory {peak:.3f} GiB; losses "
         f"{', '.join(f'{v:.6g}' for v in losses)}, the first against the segment-sum "
@@ -1655,13 +1752,18 @@ def zoo_cell(name, cell, dev, batch, card_line, grads: bool) -> dict:
 def gnn_zoo(dev, blk, card_line) -> list[dict]:
     """Phase 10c: (a) every cell of ZOO_CELLS for egnn, mace and dimenet
     at full width (zoo_cell; gradients on the molecule cells and
-    ZOO_FLAT_GRADS); (b) each new vertex-sum shape of the minibatch_lg
-    steps, forward and its W = 1 transpose, bit for bit against its
-    plain version and timed (vertex_check) beside ``index_add_`` (the
-    transpose beside ``F.embedding_bag`` with per-sample weights, one
-    call for ``g[index] * mask``), with the launches the steps made at
-    that shape.  The ogb_products cells plan in phase 16a and wait for
-    sharding across cards.  Returns the new rows of the kernels line."""
+    ZOO_FLAT_GRADS); (b) each vertex-sum shape of the minibatch_lg steps
+    bit for bit against its plain version and timed (vertex_check): the
+    segment sums, each with its W = 1 transpose (the sum's backward,
+    beside ``F.embedding_bag`` with per-sample weights, one call for
+    ``g[index] * mask``), and the gathers' backward over the other ELLs,
+    the sums and the gathers beside ``index_add_`` of every row by the
+    index, masked or not (what the segment-sum route runs: its sums, and
+    ``index_select``'s backward); each with the launches the steps made
+    at its shape as the wrapper counts them (rows of x, n, W, d), every
+    launch of the steps at some row.  The ogb_products cells plan in
+    phase 16a and wait for sharding across cards.  Returns the new rows
+    of the kernels line."""
     import gc
 
     import torch
@@ -1683,30 +1785,79 @@ def gnn_zoo(dev, blk, card_line) -> list[dict]:
             torch.cuda.empty_cache()
     mb = batches["minibatch_lg"]
     n, E = mb["x"].shape[0], mb["edge_src"].shape[0]
-    T = mb["tri_kj"].shape[0]
-    edges = (mb["edge_dst"], mb["edge_mask"])
-    tris = (mb["tri_ji"], mb["tri_mask"])
+
+    def mask_of(key):
+        return mb["edge_mask" if key.startswith("edge") else "tri_mask"]
+
+    def rows_of(key):  # the rows of the table the index names
+        return n if key.startswith("edge") else E
+
     d_egnn, d_mace, d_dime = (get_arch(a).make_config(False, "minibatch_lg").d_hidden
                               for a in ("egnn", "mace", "dimenet"))
-    shapes = (  # label, model, ELL (index, mask, n), values' rows, d
-        ("EGNN messages, edges -> nodes", "egnn", (*edges, n), E, d_egnn),
-        ("EGNN coordinate update, edges -> nodes", "egnn", (*edges, n), E, 3),
-        ("MACE density A, edges -> nodes", "mace", (*edges, n), E, 9 * d_mace),
-        ("DimeNet triplets -> edges", "dimenet", (*tris, E), T, d_dime),
-        ("DimeNet edges -> nodes", "dimenet", (*edges, n), E, d_dime),
+    sums = (  # label, model, index key, d: a segment sum and, over the same ELL, gathers
+        ("EGNN messages, edges -> nodes", "egnn", "edge_dst", d_egnn),
+        ("EGNN coordinate update, edges -> nodes", "egnn", "edge_dst", 3),
+        ("MACE density A, edges -> nodes", "mace", "edge_dst", 9 * d_mace),
+        ("DimeNet triplets -> edges", "dimenet", "tri_ji", d_dime),
+        ("DimeNet edges -> nodes", "dimenet", "edge_dst", d_dime),
     )
+    # the segment ELLs a step can launch over, by the wrapper's launch
+    # shape less d (rows of x, n, W): each index's forward (its sums and
+    # its gathers' backward) and each summed index's transpose (the sums'
+    # backward), from the memo the steps filled
+    where = {}  # (index key, way) -> (rows of x, n, W)
+    for key in ("edge_src", "edge_dst", "tri_kj", "tri_ji"):
+        t, n_out = mb[key].shape[0], rows_of(key)
+        where[(key, "forward")] = (t, n_out, segment_ell(mb[key], mask_of(key), n_out).col.shape[1])
+        if any(key == k for _, _, k, _ in sums):
+            tell = segment_transpose(mb[key], mask_of(key), n_out)
+            where[(key, "transpose")] = (n_out, t, tell.col.shape[1])
+    ell_at = {shape: ways for ways, shape in where.items()}
+    if len(ell_at) != len(where):
+        fail(f"minibatch_lg: two segment ELLs share a launch shape, so the counts cannot tell "
+             f"them apart: {where}")
+    for m, counts in mb_counts.items():
+        stray = [shape for shape in counts if shape[:3] not in ell_at]
+        if stray:
+            fail(f"{m} minibatch_lg launched the vertex sum at (rows of x, n, W, d) {stray}, "
+                 f"the shape of no segment ELL of the block ({where})")
+
+    def at(key, way, d):
+        return (*where[(key, way)], d)
+
+    shapes = []  # label, models, index key, d, with its transpose
+    for label, model, key, d in sums:  # the launches of gathers at the same (ELL, d) too
+        also = [m for m in ZOO_MODELS if m != model and at(key, "forward", d) in mb_counts[m]]
+        shapes.append((label, (model, *also), key, d, True))
+    done = {(key, d) for _, _, key, d, _ in shapes}
+    gathers = {(ell_at[shape[:3]][0], shape[3]) for c in mb_counts.values() for shape in c
+               if ell_at[shape[:3]][1] == "forward"}
+    for key, d in sorted(gathers - done):
+        models = tuple(m for m in ZOO_MODELS if at(key, "forward", d) in mb_counts[m])
+        shapes.append((f"gathers' backward over {key} ({', '.join(models)})", models, key, d,
+                       False))
+    checked = {(m, at(key, way, d)) for _, models, key, d, tr in shapes for m in models
+               for way in ("forward", "transpose")[:1 + tr]}
+    for m, counts in mb_counts.items():
+        missed = [shape for shape in counts if (m, shape) not in checked]
+        if missed:
+            fail(f"{m} minibatch_lg launched the vertex sum at (rows of x, n, W, d) {missed}, "
+                 "which no row checks")
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     rows = []
 
-    def counted(row, label, model, shape):
-        row |= {"launches": mb_counts[model].get(shape, 0), "shape": label}
+    def counted(row, label, models, shape):
+        row |= {"launches": sum(mb_counts[m].get(shape, 0) for m in models), "shape": label}
         if not row["launches"]:
             fail(f"{label}: the minibatch_lg steps never launched the vertex sum at this shape")
         rows.append(row)
 
-    for label, model, (index, mask, n_out), t, d in shapes:
+    for label, models, key, d, with_transpose in shapes:
+        index, mask = mb[key], mask_of(key)
+        n_out, t = rows_of(key), index.shape[0]
         ell = segment_ell(index, mask, n_out)
+        # a gradient is 0 at a masked row, as the values of a sum are
         values = torch.randn((t, d), generator=gen, device=dev) * mask[:, None]
 
         def index_add(index=index, values=values, n_out=n_out, d=d):
@@ -1714,9 +1865,11 @@ def gnn_zoo(dev, blk, card_line) -> list[dict]:
 
         row = vertex_check(f"{label}, ({t}, {d}) -> ({n_out}, {d}), minibatch_lg", values, ell,
                            ell_graph(ell, t), flush, library=("index_add_", index_add))
-        counted(row, label, model, (t, n_out, d))
+        counted(row, label, models, at(key, "forward", d))
         del values
-        # its backward: the W = 1 transpose, a masked gather
+        if not with_transpose:
+            continue
+        # the sum's backward: the W = 1 transpose, a masked gather
         tell = segment_transpose(index, mask, n_out)
         g = torch.randn((n_out, d), generator=gen, device=dev)
         weights = mask.to(torch.float32)[:, None]
@@ -1733,7 +1886,7 @@ def gnn_zoo(dev, blk, card_line) -> list[dict]:
         row = vertex_check(f"{label}, backward: the W = 1 transpose, ({n_out}, {d}) -> ({t}, "
                            f"{d}), minibatch_lg", g, tell, ell_graph(tell, n_out), flush,
                            library=("F.embedding_bag (per-sample weights)", bag))
-        counted(row, f"{label}, backward (W = 1 transpose)", model, (n_out, t, d))
+        counted(row, f"{label}, backward (W = 1 transpose)", models, at(key, "transpose", d))
         del g
     del batches, mb, flush
     gc.collect()

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""DimeNet's gradients with bf16 messages on one NVIDIA GPU: each
-route of the segment sum (the ``spmm_ell`` kernel, ``index_add_``)
-against itself and against the other, leaf by leaf as a share of the
-leaf's max |grad|, without and then with
-``torch.use_deterministic_algorithms``.  This separates what the route
-changes from what the bf16 atomics of the gathers' backward, which
-both routes share, change from one run to the next; it is the source of
-``chip_smoke.py``'s ZOO_BF16_GRAD_TOL.
+"""DimeNet's gradients with bf16 messages on one NVIDIA GPU: each route
+(the ``spmm_ell`` kernel for the segment sums and the gathers'
+backward; ``index_add_`` for the sums and ``index_select``'s own
+backward, bf16 atomics, for the gathers) against itself and against the
+other, leaf by leaf as a share of the leaf's max |grad|, without and
+then with ``torch.use_deterministic_algorithms``.  The kernel route
+takes no atomics, so it should repeat bit for bit either way; the plain
+route's atomics move it run to run unless deterministic algorithms are
+on.  The kernel route against the plain route under deterministic
+algorithms is the source of ``chip_smoke.py``'s ZOO_BF16_GRAD_TOL.
 
     CUBLAS_WORKSPACE_CONFIG=:4096:8 PYTHONPATH=src python3 scripts/zoo_bf16_grads.py [SCALE]
 

@@ -23,11 +23,13 @@ NAME = "spmm_ell"
 SPLIT_ROWS = 2
 #: the last col whose range was read: (weak reference, version, min, max)
 _checked = None
-#: vertex plans kept, newest first: a train step sums over up to four
-#: ELLs in turn (a DimeNet block's triplet and edge segment ELLs
-#: forward, their transposes backward; GIN's neighbour ELL and its
-#: transpose); ``models/gnn/ell.py`` keeps as many segment ELLs
-PLANS_KEPT = 4
+#: vertex plans kept, newest first: a DimeNet train step sums over six
+#: ELLs in turn (the segment ELLs of edge_src, edge_dst, tri_kj and
+#: tri_ji forward, for its sums and its gathers' backward, and those of
+#: tri_ji and edge_dst transposed, for its sums' backward); GIN's over
+#: its neighbour ELL and the transpose.  ``models/gnn/ell.py`` keeps the
+#: segment ELLs of half as many indices, each forward and transposed
+PLANS_KEPT = 8
 #: the last PLANS_KEPT vertex plans: (weak references, key, VertexPlan)
 _planned: list = []
 
@@ -186,7 +188,7 @@ def spmm_ell_vertex_cuda(x, col, wgt, row_ptr, deg) -> torch.Tensor:
     """Launch the vertex sum; returns the (n, d) f32 sums of each vertex's
     live slots, row by row in order (``ref.spmm_ell_vertex_ref``).
     Checks and plans the ELL once (vertex_plan, at SPLIT_ROWS); counts
-    one ``spmm_ell`` launch a call, at the shape (rows of x, n, d)."""
+    one ``spmm_ell`` launch a call, at the shape (rows of x, n, W, d)."""
     check_vertex_args(x, col, wgt, row_ptr, deg)
     _lib.check_cuda_tensors(NAME, x=x, col=col, wgt=wgt, row_ptr=row_ptr, deg=deg)
     n, d = deg.shape[0], x.shape[1]
@@ -197,5 +199,5 @@ def spmm_ell_vertex_cuda(x, col, wgt, row_ptr, deg) -> torch.Tensor:
     scratch = torch.empty((plan.fat_row.shape[0], d), dtype=torch.float32, device=x.device)
     rc = _vertex_launch()(*vertex_launch_args(x, col, wgt, row_ptr, deg, plan, scratch, out))
     _lib.check(rc, NAME)
-    _lib.count_launch(NAME, (x.shape[0], n, d))
+    _lib.count_launch(NAME, (x.shape[0], n, col.shape[1], d))
     return out

@@ -22,6 +22,7 @@ from repro_torch.models.gnn.ell import (
 from repro_torch.models.gnn.gin import GINConfig
 from repro_torch.models.gnn.layers import (
     block_diagonal,
+    gather_rows,
     gather_src,
     init_mlp,
     mlp_apply,
@@ -40,6 +41,6 @@ __all__ = [
     "random_molecule_batch",
     "NeighborELL", "build_neighbor_ell", "build_segment_ell", "build_segment_transpose",
     "neighbor_ell", "neighbor_sum", "segment_ell", "segment_transpose", "transpose_ell",
-    "block_diagonal", "gather_src", "init_mlp", "mlp_apply",
+    "block_diagonal", "gather_rows", "gather_src", "init_mlp", "mlp_apply",
     "scatter_max", "scatter_mean", "scatter_sum", "segment_mean", "segment_sum",
 ]

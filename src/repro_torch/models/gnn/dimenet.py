@@ -15,7 +15,16 @@ Each block has two segment sums (``layers.py::segment_sum``, on
 into their edges over ``tri_ji``, and the edges' (E, d) outputs into
 their nodes over ``edge_dst``.  With ``msg_dtype="bfloat16"`` the
 kernel route upcasts the messages exactly, sums in f32 and casts back:
-more precise than the reference's bf16 ``segment_sum``.  The JAX
+more precise than the reference's bf16 ``segment_sum``.  The gathers of
+h at the edges' ends, of the edge vectors, distances and messages at
+the triplets' edges take their backward on the same route
+(``layers.py::gather_rows``): the embedding carries the edge mask, the
+angular basis and the triplets' contributions the triplet mask, so
+their gradient is 0 at a masked row.  The coordinates' gathers keep
+``index_select`` on both routes: a live triplet may name a masked edge
+(a padded batch's masked edges 0 -> 0 are in-edges of node 0, and
+``build_triplets`` pairs them as the reference's does), so the edge
+vectors' gradient need not be 0 at a masked edge.  The JAX
 package's owner-aligned sharded sum (``scatter_sum_owner_aligned``) is
 the plain segment sum on one device.
 """
@@ -31,6 +40,7 @@ from repro_torch.models.gnn.geometry import at_least, at_most, bessel_basis, cos
 from repro_torch.models.gnn.layers import (
     AGG_IMPLS,
     block_diagonal,
+    gather_rows,
     init_mlp,
     mlp_apply,
     node_nll,
@@ -116,12 +126,15 @@ def forward(params, x, coords, edge_src, edge_dst, edge_mask,
     dist = torch.linalg.vector_norm(vec + 1e-12, dim=-1)
     rbf = bessel_basis(dist, cfg.n_radial, cfg.cutoff) * cosine_cutoff(dist, cfg.cutoff)[:, None]
 
+    def kj(t):
+        return gather_rows(t, tri_kj, tri_mask, cfg.agg_impl)
+
     # ---- triplet geometry + angular basis ----
-    v_kj, v_ji = vec.index_select(0, tri_kj), vec.index_select(0, tri_ji)
+    v_kj, v_ji = kj(vec), gather_rows(vec, tri_ji, tri_mask, cfg.agg_impl)
     cos_a = torch.sum(-v_kj * v_ji, dim=-1) / (
         torch.linalg.vector_norm(v_kj + 1e-12, dim=-1)
         * torch.linalg.vector_norm(v_ji + 1e-12, dim=-1))
-    d_kj = dist.index_select(0, tri_kj)
+    d_kj = kj(dist)
     sbf = (bessel_basis(d_kj, cfg.n_radial, cfg.cutoff)[:, :, None]
            * _legendre(at_most(at_least(cos_a, -1.0), 1.0), cfg.n_spherical)[:, None, :]
            ).reshape(tri_kj.shape[0], -1) * tw  # (T, n_radial * n_spherical)
@@ -130,15 +143,16 @@ def forward(params, x, coords, edge_src, edge_dst, edge_mask,
     mdt = MSG_DTYPES[cfg.msg_dtype]
     h = mlp_apply(params["embed_atom"], x, final_act=True)
     m = (mlp_apply(params["embed_edge"],
-                   torch.cat([h.index_select(0, edge_src), h.index_select(0, edge_dst), rbf],
-                             -1), final_act=True) * ew).to(mdt)  # (E, d) messages
+                   torch.cat([gather_rows(h, edge_src, edge_mask, cfg.agg_impl),
+                              gather_rows(h, edge_dst, edge_mask, cfg.agg_impl), rbf], -1),
+                   final_act=True) * ew).to(mdt)  # (E, d) messages
     sbf, tw, ew = sbf.to(mdt), tw.to(mdt), ew.to(mdt)
 
     # ---- interaction blocks (triplet gather + bilinear) ----
     node_out = torch.zeros((n, cfg.d_hidden), dtype=torch.float32, device=x.device)
     E, T, nb, d = m.shape[0], tri_kj.shape[0], cfg.n_bilinear, cfg.d_hidden
     for bp in params["blocks"]:
-        m_kj = _f32_mlp(bp["w_kj"], m, final_act=True).to(mdt).index_select(0, tri_kj)
+        m_kj = kj(_f32_mlp(bp["w_kj"], m, final_act=True).to(mdt))
         s = sbf @ bp["w_sbf"].to(mdt)               # (T, nb)
         # einsum("tb,td,bdf->tf") accumulated in f32: the (T, nb d) outer
         # product times the bilinear tensor as (nb d, d)

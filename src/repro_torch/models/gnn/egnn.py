@@ -13,7 +13,12 @@ and the coordinate update (E, 3), whose mean divides by the segment's
 row count, masked edges counted (the JAX package's ``scatter_mean``).
 Both take ``EGNNConfig.agg_impl``'s route (``layers.py::segment_sum``):
 on ``"spmm_ell"`` one segment ELL of ``edge_dst`` serves both sums of
-every layer, and its ``deg`` is the count.
+every layer, and the count is kept beside it (``ell.segment_count``).
+The gathers of h and the coordinates at both ends of every edge take
+their backward on the same route (``layers.py::gather_rows``): the
+segment ELLs of ``edge_src`` and ``edge_dst``.  Their gradient is 0 at a
+masked edge, since the messages and the coordinate update carry the
+edge mask.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import torch
 from repro_torch.models.gnn.layers import (
     AGG_IMPLS,
     block_diagonal,
+    gather_rows,
     init_mlp,
     mlp_apply,
     node_nll,
@@ -68,9 +74,16 @@ def forward(params, x, coords, edge_src, edge_dst, edge_mask, cfg: EGNNConfig):
     n = x.shape[0]
     w = edge_mask.to(x.dtype)[:, None]
     h = x
+
+    def src(t):
+        return gather_rows(t, edge_src, edge_mask, cfg.agg_impl)
+
+    def dst(t):
+        return gather_rows(t, edge_dst, edge_mask, cfg.agg_impl)
+
     for lp in params["layers"]:
-        hs, hd = h.index_select(0, edge_src), h.index_select(0, edge_dst)
-        diff = coords.index_select(0, edge_dst) - coords.index_select(0, edge_src)
+        hs, hd = src(h), dst(h)
+        diff = dst(coords) - src(coords)
         d2 = torch.sum(diff * diff, dim=-1, keepdim=True)
         m = mlp_apply(lp["phi_e"], torch.cat([hd, hs, d2], -1), final_act=True) * w
         xw = mlp_apply(lp["phi_x"], m)  # (E, 1)

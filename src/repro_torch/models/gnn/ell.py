@@ -22,16 +22,24 @@ sum over it is the gradient of the vertex sum over the neighbour ELL,
 so training builds it (once a graph) for the backward.
 
 A segment ELL (:func:`build_segment_ell`) lays out the reference's
-``scatter_sum(values, index, n)`` for the same kernel: its "edges" are
-``t -> index[t]`` for the T rows of a value table, so its col entries
-are value-row ids in [0, T), grouped by segment in stable order, and
-its vertex sum over the (T, d) values is the (n, d) segment sum, each
-row weighted by ``mask[t]``.  Its transpose is the W = 1 ELL of T rows
-whose one slot is ``index[t]`` at weight ``mask[t]``
-(:func:`build_segment_transpose`): the vertex sum over it is the gather
-``g[index] * mask``, the segment sum's gradient.
+``scatter_sum(values, index, n)`` for the same kernel over the live
+rows of a (T, d) value table, those of nonzero ``mask``: its "edges"
+are ``t -> index[t]`` at weight ``mask[t]`` for those rows t, so its col
+entries are value-row ids in [0, T), grouped by segment in stable
+order, ``deg[v]`` counts v's live rows and W is set by the live
+segments.  A masked row has no slot.  Every caller's values carry the
+mask already, so on finite values such a row only ever added x * 0 =
++-0; and the padding of a sampled block (masked edges 0 -> 0, masked
+triplets (0, 0)) makes no fat segment of vertex 0 or edge 0.  Its
+transpose is the W = 1 ELL of T rows whose one slot is ``index[t]`` at
+weight ``mask[t]``, live where the row is (:func:`build_segment_transpose`):
+the vertex sum over it is the gather ``g[index] * mask``, +0 at a masked
+row, which reads nothing of g.  The segment mean's count, which counts
+masked rows as the reference's ``scatter_mean`` does, is a tensor of its
+own beside them (:func:`segment_count`).
 EGNN, MACE and DimeNet sum edge rows into nodes and triplet rows into
-edges this way (``layers.py::segment_sum``).
+edges this way (``layers.py::segment_sum``), and take the gradient of
+their gathers over the same ELL (``layers.py::gather_rows``).
 """
 
 from __future__ import annotations
@@ -69,10 +77,12 @@ class Recent:
 # two ELLs on the card: {"forward": ELL, "transpose": ELL}, each built at
 # first need
 _GRAPHS = Recent(1)
-# segment ELLs, one an entry (forward or transpose), as many as the
-# kernel keeps plans: a DimeNet step sums over two index tensors, each
-# forward and transposed
-_SEGMENTS = Recent(PLANS_KEPT)
+# the layouts of a segment index, one entry an (index, mask, n):
+# {"forward": ELL, "transpose": ELL, "count": tensor}, each built at
+# first need; half as many indices as the kernel keeps plans, since each
+# is summed over forward and transposed (a DimeNet step gathers and sums
+# over four: edge_src, edge_dst, tri_kj, tri_ji)
+_SEGMENTS = Recent(PLANS_KEPT // 2)
 
 
 class NeighborELL(NamedTuple):
@@ -133,39 +143,57 @@ def transpose_ell(edge_src, edge_dst, edge_mask, n: int) -> NeighborELL:
     return ells["transpose"]
 
 
+def _check_segment_ids(index, n: int) -> None:
+    if index.shape[0]:
+        lo, hi = torch.stack([index.min(), index.max()]).tolist()
+        if lo < 0 or hi >= n:
+            raise ValueError(f"segment ids must lie in [0, {n}), got [{lo}, {hi}]")
+
+
 def build_segment_ell(index, mask, n: int) -> NeighborELL:
-    """The segment ELL of ``index`` (T segment ids in [0, n)) weighted by
-    ``mask``: n rows of value-row ids (the rows ``t -> index[t]``)."""
-    rows = torch.arange(index.shape[0], dtype=index.dtype, device=index.device)
-    return build_neighbor_ell(rows, index, mask, n, n_src=index.shape[0])
+    """The segment ELL of ``index`` (T segment ids in [0, n)) over the
+    rows of nonzero ``mask``: n rows of value-row ids (the rows ``t ->
+    index[t]``), each weighted by ``mask[t]``."""
+    _check_segment_ids(index, n)
+    live = torch.nonzero(mask).flatten()
+    return build_neighbor_ell(live, index[live], mask[live], n, n_src=index.shape[0])
 
 
 def build_segment_transpose(index, mask, n: int) -> NeighborELL:
     """The W = 1 transpose of :func:`build_segment_ell`'s ELL: T rows,
-    row t's one slot ``index[t]`` at weight ``mask[t]``."""
+    row t's one slot ``index[t]`` at weight ``mask[t]``, live (``deg`` 1)
+    where the mask is nonzero and empty (``deg`` 0) where it is not."""
+    _check_segment_ids(index, n)
     T, dev = index.shape[0], index.device
-    if T:
-        lo, hi = torch.stack([index.min(), index.max()]).tolist()
-        if lo < 0 or hi >= n:
-            raise ValueError(f"segment ids must lie in [0, {n}), got [{lo}, {hi}]")
-    return NeighborELL(torch.arange(T + 1, device=dev),
-                       torch.ones((T,), dtype=torch.int32, device=dev),
+    return NeighborELL(torch.arange(T + 1, device=dev), (mask != 0).to(torch.int32),
                        index.to(torch.int32).reshape(T, 1).contiguous(),
                        mask.to(torch.float32).reshape(T, 1).contiguous(), T)
 
 
+def _kept(index, mask, n: int, way: str, build):
+    layouts = _SEGMENTS.get((index, mask), (n,), dict)
+    if way not in layouts:
+        layouts[way] = build(index, mask, n)
+    return layouts[way]
+
+
 def segment_ell(index, mask, n: int) -> NeighborELL:
-    """:func:`build_segment_ell`, memoised with the last PLANS_KEPT
-    segment ELLs asked."""
-    return _SEGMENTS.get((index, mask), (n, "forward"),
-                         lambda: build_segment_ell(index, mask, n))
+    """:func:`build_segment_ell`, memoised for the last PLANS_KEPT / 2
+    (index, mask, n) asked."""
+    return _kept(index, mask, n, "forward", build_segment_ell)
 
 
 def segment_transpose(index, mask, n: int) -> NeighborELL:
     """:func:`build_segment_transpose`, memoised with
     :func:`segment_ell`'s."""
-    return _SEGMENTS.get((index, mask), (n, "transpose"),
-                         lambda: build_segment_transpose(index, mask, n))
+    return _kept(index, mask, n, "transpose", build_segment_transpose)
+
+
+def segment_count(index, mask, n: int) -> torch.Tensor:
+    """(n,) int64 rows of each segment, masked or not (the reference's
+    ``scatter_mean`` count), memoised with :func:`segment_ell`'s."""
+    return _kept(index, mask, n, "count",
+                 lambda index, mask, n: torch.bincount(index.long(), minlength=n))
 
 
 def _layout(ell: NeighborELL) -> tuple:

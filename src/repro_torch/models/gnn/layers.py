@@ -5,8 +5,9 @@ edge-index list, as in the JAX package (``index_select`` and
 ``index_add_``/``scatter_reduce_`` here, ``jnp.take`` and
 ``jax.ops.segment_*`` there).  The ``spmm_ell`` kernel computes the
 same neighbour sum over an ELL layout of the graph (``gnn/ell.py``);
-GIN's forward runs through it, and :func:`segment_sum` runs every
-segment sum of EGNN, MACE and DimeNet through it over a segment ELL.
+GIN's forward runs through it, :func:`segment_sum` runs every segment
+sum of EGNN, MACE and DimeNet through it over a segment ELL, and
+:func:`gather_rows` their gathers' backward.
 
 Single device only: the JAX package's ``segment_output_sharding``,
 ``aligned_scatter`` and ``scatter_sum_owner_aligned`` wait for the
@@ -21,7 +22,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import fan_in_init
-from repro_torch.models.gnn.ell import Recent, neighbor_sum, segment_ell, segment_transpose
+from repro_torch.models.gnn.ell import (
+    Recent,
+    neighbor_sum,
+    segment_count,
+    segment_ell,
+    segment_transpose,
+)
 
 #: the segment sum's routes: the kernel over a segment ELL, or the plain
 #: ``index_add_`` (the JAX package's ``jax.ops.segment_sum``)
@@ -39,18 +46,24 @@ def segment_sum(values, index, mask, n, agg_impl: str = "spmm_ell") -> torch.Ten
     """(n, ...) sums of the ``values`` rows by segment ``index``, each
     row weighted by ``mask`` (every caller's values carry the mask
     already, so the weight changes no sum).
-    ``agg_impl="spmm_ell"`` sums over the memoised segment ELL through
-    the kernel's vertex sum (``VertexSum``: its backward is the gather
-    over the transpose, on the card the same kernel), in f32: a bf16
-    table is upcast exactly and the sums cast back; ``"segment_sum"``
-    is :func:`scatter_sum`."""
+    ``agg_impl="spmm_ell"`` sums the live rows (nonzero mask) over the
+    memoised segment ELL through the kernel's vertex sum (``VertexSum``:
+    its backward is the gather over the transpose, on the card the same
+    kernel), in f32: a bf16 table is upcast exactly and the sums cast
+    back; ``"segment_sum"`` is :func:`scatter_sum`."""
     if agg_impl == "segment_sum":
         return scatter_sum(values, index, n)
     if agg_impl != "spmm_ell":
         raise ValueError(f"agg_impl must be one of {AGG_IMPLS}, got {agg_impl!r}")
+    return _kernel_segment_sum(values, index, mask, n)
+
+
+def _kernel_segment_sum(values, index, mask, n) -> torch.Tensor:
     ell = segment_ell(index, mask, n)
     width = math.prod(values.shape[1:])
-    flat = values.reshape(values.shape[0], width).to(torch.float32).contiguous()
+    # at least f32, the kernel's type (float64 stays, for gradcheck on the CPU)
+    dtype = torch.promote_types(values.dtype, torch.float32)
+    flat = values.reshape(values.shape[0], width).to(dtype).contiguous()
     out = neighbor_sum(ell, flat, lambda: segment_transpose(index, mask, n))
     return out.reshape((n, *values.shape[1:])).to(values.dtype)
 
@@ -59,12 +72,12 @@ def segment_mean(values, index, mask, n, agg_impl: str = "spmm_ell",
                  eps: float = 1e-9) -> torch.Tensor:
     """:func:`segment_sum` over each segment's row count, masked rows
     counted as the JAX package's ``scatter_mean`` counts them: the
-    segment ELL's ``deg`` on the kernel route (no launch), the plain
-    :func:`scatter_mean` on the other."""
+    memoised :func:`ell.segment_count` on the kernel route (no launch),
+    the plain :func:`scatter_mean` on the other."""
     if agg_impl == "segment_sum":
         return scatter_mean(values, index, n, eps)
     s = segment_sum(values, index, mask, n, agg_impl)
-    cnt = segment_ell(index, mask, n).deg.to(values.dtype)
+    cnt = segment_count(index, mask, n).to(values.dtype)
     return s / torch.clamp(cnt, min=eps)[:, None]
 
 
@@ -126,6 +139,44 @@ def scatter_max(values, index, n) -> torch.Tensor:
 
 def gather_src(x, edge_src) -> torch.Tensor:
     return x.index_select(0, edge_src)
+
+
+class _GatherRows(torch.autograd.Function):
+    """``x.index_select(0, index)``, whose gradient is the kernel route's
+    segment sum of g over ``segment_ell(index, mask, rows of x)``."""
+
+    @staticmethod
+    def forward(ctx, x, index, mask):
+        # saved, so that autograd raises if either is written before the
+        # backward (the segment memo would rebuild from the new index)
+        ctx.save_for_backward(index, mask)
+        ctx.rows = x.shape[0]
+        return x.index_select(0, index)
+
+    @staticmethod
+    def backward(ctx, g):
+        index, mask = ctx.saved_tensors
+        return _kernel_segment_sum(g, index, mask, ctx.rows), None, None
+
+
+def gather_rows(x, index, mask, agg_impl: str = "spmm_ell") -> torch.Tensor:
+    """``x.index_select(0, index)``: every row, masked or not, as the JAX
+    package's ``jnp.take`` gathers.  Its gradient, the segment sum of g
+    by ``index``, takes ``agg_impl``'s route: ``"segment_sum"`` keeps
+    ``index_select``'s own backward (atomic adds, in bf16 for a bf16
+    table); ``"spmm_ell"`` sums g's live rows (nonzero ``mask``) over the
+    memoised segment ELL through the kernel, as :func:`segment_sum` does
+    (in f32, a bf16 table upcast and cast back), the same bits every run.
+
+    That backward leaves out g's masked rows, so it is exact only where g
+    is 0 at every masked row: where each path from a gathered row to the
+    loss is multiplied by the row's mask.  Every call site in EGNN, MACE
+    and DimeNet meets this (``tests/test_torch_gnn_zoo.py`` hooks each)."""
+    if agg_impl == "segment_sum":
+        return x.index_select(0, index)
+    if agg_impl != "spmm_ell":
+        raise ValueError(f"agg_impl must be one of {AGG_IMPLS}, got {agg_impl!r}")
+    return _GatherRows.apply(x, index, mask)
 
 
 def init_mlp(gen: torch.Generator, dims, dtype=torch.float32) -> dict:

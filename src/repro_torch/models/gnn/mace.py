@@ -21,7 +21,10 @@ Node features carry invariant (L = 0) channels between layers (the
 "invariant readout" MACE variant of the JAX package).
 
 ``A`` is one segment sum a layer over ``edge_dst`` of the (E, C, 9)
-messages, an (E, 9 C) table on the kernel route.  The bispectrum is
+messages, an (E, 9 C) table on the kernel route.  The gathers of the
+coordinates and of ``W h`` at the edges' ends take their backward on
+the same route (``layers.py::gather_rows``): the messages carry the
+edge mask, so their gradient is 0 at a masked edge.  The bispectrum is
 the product ``A_a A_b`` (N, C, 81) times the (81, 45) reshaped table,
 then a product with ``A_c``: no intermediate beyond (N, C, 81), 7.05 GB
 a layer at minibatch_lg.  The JAX package's ``einsum("kabc,nxa,nxb,nxc
@@ -49,6 +52,7 @@ from repro_torch.models.gnn.geometry import (
 from repro_torch.models.gnn.layers import (
     AGG_IMPLS,
     block_diagonal,
+    gather_rows,
     init_mlp,
     mlp_apply,
     node_nll,
@@ -130,7 +134,8 @@ def forward(params, x, coords, edge_src, edge_dst, edge_mask, cfg: MACEConfig):
     """Returns invariant node features (N, C)."""
     n, C, n_l = x.shape[0], cfg.d_hidden, cfg.l_max + 1
     ew = edge_mask.to(torch.float32)
-    vec = coords.index_select(0, edge_dst) - coords.index_select(0, edge_src)
+    vec = (gather_rows(coords, edge_dst, edge_mask, cfg.agg_impl)
+           - gather_rows(coords, edge_src, edge_mask, cfg.agg_impl))
     dist = torch.linalg.vector_norm(vec + 1e-12, dim=-1)
     unit = vec / at_least(dist, 1e-9)[:, None]
     Y = real_sph_harm_l2(unit)                      # (E, 9)
@@ -145,8 +150,8 @@ def forward(params, x, coords, edge_src, edge_dst, edge_mask, cfg: MACEConfig):
         hm = h @ lp["w_h"]                           # (N, C)
         R = mlp_apply(lp["radial"], rbf).reshape(-1, C, n_l)  # (E, C, n_l)
         R_lm = R.index_select(2, ls)                 # (E, C, 9)
-        msg = (hm.index_select(0, edge_src)[:, :, None] * R_lm * Y[:, None, :]
-               * ew[:, None, None])                  # (E, C, 9)
+        msg = (gather_rows(hm, edge_src, edge_mask, cfg.agg_impl)[:, :, None] * R_lm
+               * Y[:, None, :] * ew[:, None, None])  # (E, C, 9)
         A = segment_sum(msg, edge_dst, edge_mask, n, cfg.agg_impl)  # (N, C, 9)
 
         # --- symmetric contractions (ACE product basis) ---

@@ -1169,16 +1169,21 @@ def test_cell_plan_bytes_equal_the_resident_partition_on_card(dev, n_parts):
 # EGNN, MACE and DimeNet: the vertex sum over segment ELLs
 
 
-def segment_ells(dev, T, n, seed):
+def segment_ells(dev, T, n, seed, padding=False):
     """A segment index of T rows into n segments, a third masked, one
     segment of T // 4 rows (several ELL rows: the split path), some
-    segments empty: its segment ELL and W = 1 transpose on the card."""
+    segments empty; with ``padding`` the masked rows all in segment 0,
+    as a sampled block's padding: its segment ELL (live rows only) and
+    W = 1 transpose on the card."""
     from repro_torch.models.gnn import build_segment_ell, build_segment_transpose
 
     r = np.random.default_rng(seed)
     index = r.integers(0, n, T)
     index[: T // 4] = n // 3
-    index, mask = on(dev, index.astype(np.int32), r.random(T) > 0.33)
+    mask = r.random(T) > 0.33
+    if padding:
+        index[~mask] = 0
+    index, mask = on(dev, index.astype(np.int32), mask)
     return (index, mask, build_segment_ell(index, mask, n),
             build_segment_transpose(index, mask, n))
 
@@ -1189,12 +1194,14 @@ def segment_ells(dev, T, n, seed):
 @pytest.mark.parametrize("d", [64, 3, 1152, 128])
 @pytest.mark.parametrize("T,n", [(6000, 7000), (8000, 4000)])
 @pytest.mark.parametrize("split_rows", [None, 1])
-def test_segment_vertex_sum_bit_identical(dev, d, T, n, split_rows, monkeypatch):
+@pytest.mark.parametrize("padding", [False, True])
+def test_segment_vertex_sum_bit_identical(dev, d, T, n, split_rows, padding, monkeypatch):
     from repro_torch.kernels.spmm_ell import kernel
 
     if split_rows is not None:
         monkeypatch.setattr(kernel, "SPLIT_ROWS", split_rows)
-    index, mask, fwd, tr = segment_ells(dev, T, n, seed=d + T)
+    index, mask, fwd, tr = segment_ells(dev, T, n, seed=d + T, padding=padding)
+    assert int(fwd.deg.sum()) == int(mask.sum())  # no slot for a masked row
     r = np.random.default_rng(d)
     (x,) = on(dev, r.normal(size=(T, d)).astype(np.float32))
     x = x * mask[:, None]
@@ -1202,7 +1209,7 @@ def test_segment_vertex_sum_bit_identical(dev, d, T, n, split_rows, monkeypatch)
     out = K.spmm_ell_vertex_cuda(x, fwd.col, fwd.wgt, fwd.row_ptr, fwd.deg)
     torch.cuda.synchronize()
     assert K.launch_counts()["spmm_ell"] == 1 and out.shape == (n, d)
-    assert K.launch_shapes()["spmm_ell"] == {(T, n, d): 1}
+    assert K.launch_shapes()["spmm_ell"] == {(T, n, fwd.col.shape[1], d): 1}
     assert bits_equal(out, K.spmm_ell_vertex_ref(x, fwd.col, fwd.wgt, fwd.row_ptr, fwd.deg))
     torch.testing.assert_close(out, torch.zeros_like(out).index_add_(0, index, x),
                                rtol=0, atol=1e-5 * float(out.abs().max()))
@@ -1212,13 +1219,80 @@ def test_segment_vertex_sum_bit_identical(dev, d, T, n, split_rows, monkeypatch)
     assert bits_equal(back, g.index_select(0, index) * mask[:, None].float() + 0.0)
 
 
+@pytest.mark.parametrize("d", [64, 3, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("padding", [False, True])
+def test_gather_rows_backward_on_card(dev, d, dtype, padding):
+    """``gather_rows`` on the kernel route: the forward is index_select
+    and launches nothing; the backward, for a gradient that is 0 at the
+    masked rows, is one vertex-sum launch over the segment ELL, bit for
+    bit the plain version's on the CPU, the same bits twice, and within
+    1e-5 of ``index_select``'s own (f32) gradient."""
+    from repro_torch.models.gnn import gather_rows
+
+    index, mask, fwd, _ = segment_ells(dev, 8000, 4000, seed=d, padding=padding)
+    r = np.random.default_rng(d + 1)
+    x0, g0 = on(dev, r.normal(size=(4000, d)).astype(np.float32),
+                r.normal(size=(8000, d)).astype(np.float32))
+    x0, g0 = x0.to(dtype), (g0 * mask[:, None]).to(dtype)
+    grads = []
+    for device in (dev, dev, torch.device("cpu")):
+        x = x0.to(device).requires_grad_(True)
+        ix, mk = index.to(device), mask.to(device)
+        K.reset_launch_counts()
+        out = gather_rows(x, ix, mk)
+        assert torch.equal(out, x.detach().index_select(0, ix))
+        (grad,) = torch.autograd.grad(out, x, g0.to(device))
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            assert K.launch_counts()["spmm_ell"] == 1
+        assert grad.dtype == dtype
+        grads.append(grad.float().cpu())
+    assert bits_equal(grads[0], grads[1]) and bits_equal(grads[0], grads[2])
+    if dtype == torch.float32:
+        x = x0.clone().requires_grad_(True)
+        (want,) = torch.autograd.grad(x.index_select(0, index), x, g0)
+        torch.testing.assert_close(grads[0], want.cpu(), rtol=0,
+                                   atol=1e-5 * float(want.abs().max()))
+
+
+def test_dimenet_bf16_backward_repeats_on_card(dev):
+    """DimeNet at full width with bf16 messages (the minibatch_lg
+    config) on a padded graph (masked edges 0 -> 0 and triplets of them,
+    masked triplet slots): the kernel route's gradients bit for bit over
+    two backward passes from the same params (its gathers' backward is
+    the vertex sum, no atomics)."""
+    from repro_torch.graph import Graph
+    from repro_torch.models.gnn import dimenet
+    from repro_torch.train.train_step import value_and_grad
+
+    cfg = get_arch("dimenet").make_config(False, "minibatch_lg")
+    g = rmat1(11, seed=3)
+    pad = np.zeros(4096, np.int32)
+    padded = Graph(g.n, np.concatenate([g.src, pad]), np.concatenate([g.dst, pad]),
+                   np.ones(g.m + pad.size, np.float32))
+    batch = gnn_flat_batch(padded, cfg.d_in, cfg.n_classes, coords=True, triplets=True,
+                           triplet_cap=2, seed=4)
+    batch["edge_mask"][g.m:] = False
+    for k in ("tri_kj", "tri_ji", "tri_mask"):
+        batch[k] = np.concatenate([batch[k], np.zeros(4096, batch[k].dtype)])
+    b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    params = dimenet.init_params(generator(0, dev), cfg)
+    grad = value_and_grad(lambda p, bb: dimenet.node_classification_loss(p, bb, cfg))
+    (l1, g1), (l2, g2) = grad(params, b), grad(params, b)
+    assert float(l1) == float(l2) and np.isfinite(float(l1))
+    for a, c in zip(torch.utils._pytree.tree_leaves(g1), torch.utils._pytree.tree_leaves(g2)):
+        assert bits_equal(a.float(), c.float())
+
+
 @pytest.mark.parametrize("name", ["egnn", "mace", "dimenet"])
 def test_zoo_molecule_step_on_card_matches_cpu(dev, name):
     """One step of the full-width molecule cell's plan (128 graphs as one
     block-diagonal graph) on the card through the kernel route against
-    the same step on the CPU: spmm_ell launches 4L - 1 (EGNN), 2L (MACE)
-    or 4B (DimeNet); loss within 1e-5 of |loss|, params within 1e-5 (an
-    update is about lr = 3e-4; both sum in another order)."""
+    the same step on the CPU: spmm_ell launches 8L - 5 (EGNN), 3L (MACE)
+    or 5B + 2 (DimeNet), the sums forward and backward and the gathers'
+    backward; loss within 1e-5 of |loss|, params within 1e-5 (an update
+    is about lr = 3e-4; both sum in another order)."""
     from repro_torch.data import molecule_batch
     from repro_torch.models import gnn
     from repro_torch.train import TrainConfig, init_train_state
@@ -1228,7 +1302,7 @@ def test_zoo_molecule_step_on_card_matches_cpu(dev, name):
     batch = molecule_batch(0, 128, 30, 64, triplets=name == "dimenet", seed=1)
     params = model.init_params(generator(0, "cpu"), cfg)
     L = cfg.n_blocks if name == "dimenet" else cfg.n_layers
-    want = {"egnn": 4 * L - 1, "mace": 2 * L, "dimenet": 4 * L}[name]
+    want = {"egnn": 8 * L - 5, "mace": 3 * L, "dimenet": 5 * L + 2}[name]
     tmap = torch.utils._pytree.tree_map
     out = {}
     for device in (dev, torch.device("cpu")):

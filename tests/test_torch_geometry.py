@@ -11,7 +11,12 @@ Tolerances:
 - the segment ELL's vertex sum against ``index_add_``: 1e-6 of the
   largest |sum| (a segment of more than W rows is summed row by row,
   then the rows, where ``index_add_`` adds in one run); its backward,
-  the W = 1 transpose, equals ``g[index] * mask`` bit for bit.
+  the W = 1 transpose, equals ``g[index] * mask`` bit for bit;
+- ``gather_rows``: its forward equals ``index_select`` bit for bit, its
+  backward the plain vertex sum over the segment ELL bit for bit and
+  ``index_select``'s own backward within 1e-6 of the largest |grad|
+  (one f32 sum a segment in another order); the segment mean against
+  the reference's ``scatter_mean``: 1e-6 of the largest |mean|.
 """
 
 import jax
@@ -23,6 +28,7 @@ import torch
 import repro.data.synthetic as ref_data
 from repro.models.gnn import batch as ref_batch
 from repro.models.gnn import geometry as ref_geo
+from repro.models.gnn import layers as ref_layers
 from repro.models.gnn import mace as ref_mace
 from repro_torch.data import gnn_flat_batch, molecule_batch
 from repro_torch.graph import rmat1
@@ -31,6 +37,7 @@ from repro_torch.models.gnn import (
     build_segment_ell,
     build_segment_transpose,
     build_triplets,
+    gather_rows,
     geometry,
     random_molecule_batch,
     scatter_sum,
@@ -158,31 +165,49 @@ def test_molecule_triplets_byte_identical():
 # the segment ELL
 
 
-def segment_case(T, n, seed, fat=0):
+def segment_case(T, n, seed, fat=0, pad=0):
+    """T rows of values, segment ids in [0, n) and a mask; ``fat`` rows
+    in one segment; the last ``pad`` rows a block's padding, all masked
+    and all in segment 0."""
     rng = np.random.default_rng(seed)
     index = rng.integers(0, n, T)
     if fat:
         index[:fat] = n // 2  # a segment of several rows
+    mask = rng.random(T) > 0.3
+    if pad:
+        index[T - pad:], mask[T - pad:] = 0, False
     index = torch.tensor(index, dtype=torch.int32)
-    mask = torch.tensor(rng.random(T) > 0.3)
+    mask = torch.tensor(mask)
     values = torch.tensor(rng.normal(size=(T, 5)), dtype=torch.float32)
     return values * mask[:, None], index, mask
 
 
 CASES = {"T<n": (6, 20, 0, 0), "T>n": (300, 7, 1, 0), "fat": (400, 50, 2, 150),
-         "empty": (0, 4, 3, 0), "T=n": (33, 33, 4, 0)}
+         "empty": (0, 4, 3, 0), "T=n": (33, 33, 4, 0), "padding": (600, 90, 5, 0, 400)}
+
+
+def live_cols(ell) -> torch.Tensor:
+    """The col entries of an ELL's live slots, vertex by vertex in order."""
+    from repro_torch.kernels.spmm_ell.ref import live_slots
+
+    W = ell.col.shape[1]
+    return ell.col[torch.arange(W) < live_slots(ell.row_ptr, ell.deg, W)[:, None]]
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_segment_sum_equals_index_add(case):
-    """Empty segments (T < n), segments of many rows, no rows at all."""
+    """Empty segments (T < n), segments of many rows, no rows at all, a
+    block's padding; the ELL holds the live rows only, each once."""
     values, index, mask = segment_case(*CASES[case])
     n = CASES[case][1]
     ell = build_segment_ell(index, mask, n)
-    assert ell.n == n and int(ell.deg.sum()) == index.shape[0]
+    live = torch.nonzero(mask).flatten()
+    assert ell.n == n and int(ell.deg.sum()) == live.shape[0]
+    assert torch.equal(torch.sort(live_cols(ell).long()).values, live)
+    assert torch.equal(ell.deg.long(), torch.bincount(index[live].long(), minlength=n))
     out = vertex_sum(values, ell.col, ell.wgt, ell.row_ptr, ell.deg)
     want = scatter_sum(values, index.long(), n)
-    atol = TOL * float(want.abs().max())
+    atol = TOL * float(want.abs().max()) if want.numel() else 0.0
     torch.testing.assert_close(out, want, rtol=0, atol=atol)
     assert torch.equal(segment_sum(values, index, mask, n, "segment_sum"), want)
     torch.testing.assert_close(segment_sum(values, index, mask, n), want, rtol=0, atol=atol)
@@ -190,6 +215,25 @@ def test_segment_sum_equals_index_add(case):
     torch.testing.assert_close(segment_mean(values, index, mask, n),
                                segment_mean(values, index, mask, n, "segment_sum"),
                                rtol=1e-6, atol=1e-6)
+
+
+def test_padding_leaves_the_segment_ell():
+    """The padding's shape (every masked row in segment 0, as a sampled
+    block's masked 0 -> 0 edges): no slot for a masked row, W set by the
+    live segments, and the mean still divides by the reference's count."""
+    values, index, mask = segment_case(*CASES["padding"])
+    n = CASES["padding"][1]
+    ell = build_segment_ell(index, mask, n)
+    assert not bool(torch.isin(live_cols(ell), torch.nonzero(~mask).flatten()).any())
+    live_deg = torch.bincount(index[mask].long(), minlength=n)
+    all_deg = torch.bincount(index.long())
+    assert ell.col.shape[1] == min(64, int(live_deg.max())) < int(all_deg.max())
+    assert int(ell.deg[0]) == int(live_deg[0])
+    want = np.asarray(ref_layers.scatter_mean(jnp.asarray(values.numpy()),
+                                              jnp.asarray(index.numpy()), n))
+    close(segment_mean(values, index, mask, n).numpy(), want)
+    tr = build_segment_transpose(index, mask, n)
+    assert torch.equal(tr.deg, mask.to(torch.int32))
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -249,10 +293,73 @@ def test_segment_sum_gradcheck_and_bf16():
     assert torch.equal(out, segment_sum(vb.float(), index, mask, 9).to(torch.bfloat16))
 
 
+def bits(t) -> torch.Tensor:
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("case", ["fat", "T>n", "padding"])
+def test_gather_rows_forward_and_backward(case):
+    """Forward: ``index_select`` bit for bit, masked rows too.  Backward,
+    for a gradient that is 0 at the masked rows as every caller's is:
+    the plain vertex sum over the segment ELL bit for bit, and
+    ``index_select``'s own backward within TOL; the plain route is
+    ``index_select`` itself."""
+    _, index, mask = segment_case(*CASES[case])
+    n = CASES[case][1]
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn((n, 5), generator=gen)
+    assert torch.equal(bits(gather_rows(x, index, mask)), bits(x.index_select(0, index)))
+    g = torch.randn((index.shape[0], 5), generator=gen) * mask[:, None]
+    xg = x.clone().requires_grad_(True)
+    (grad,) = torch.autograd.grad(gather_rows(xg, index, mask), xg, g)
+    ell = segment_ell(index, mask, n)
+    assert torch.equal(bits(grad), bits(vertex_sum(g, ell.col, ell.wgt, ell.row_ptr, ell.deg)))
+    (want,) = torch.autograd.grad(xg.index_select(0, index), xg, g)
+    torch.testing.assert_close(grad, want, rtol=0, atol=TOL * float(want.abs().max()))
+    (plain,) = torch.autograd.grad(gather_rows(xg, index, mask, "segment_sum"), xg, g)
+    assert torch.equal(bits(plain), bits(want))
+
+
+def test_gather_rows_gradcheck_and_bf16():
+    """Finite differences in float64 (a 2-D and a 1-D table) of the
+    gather times its mask, the composition every caller makes; a bf16
+    table's gradient is summed in f32 and comes back bf16."""
+    _, index, mask = segment_case(40, 9, 5, fat=20)
+    gen = torch.Generator().manual_seed(2)
+    w = mask.double()
+    for shape in ((9, 3), (9,)):
+        x = torch.randn(shape, dtype=torch.float64, generator=gen).requires_grad_(True)
+        assert torch.autograd.gradcheck(
+            lambda t: gather_rows(t, index, mask) * w.reshape(-1, *([1] * (t.dim() - 1))), (x,))
+    xb = torch.randn((9, 5), generator=gen).to(torch.bfloat16).requires_grad_(True)
+    g = (torch.randn((40, 5), generator=gen) * mask[:, None]).to(torch.bfloat16)
+    (grad,) = torch.autograd.grad(gather_rows(xb, index, mask), xb, g)
+    assert grad.dtype == torch.bfloat16
+    assert torch.equal(bits(grad.float()),
+                       bits(segment_sum(g.float(), index, mask, 9).to(torch.bfloat16).float()))
+    with pytest.raises(ValueError, match="agg_impl"):
+        gather_rows(xb, index, mask, "atomics")
+
+
+@pytest.mark.parametrize("written", ["index", "mask"])
+def test_gather_rows_backward_refuses_a_written_index(written):
+    """The index and mask are saved for the backward: writing either in
+    place after the forward makes the backward raise, where the segment
+    memo would otherwise rebuild from the new index."""
+    _, index, mask = segment_case(40, 9, 5, fat=20)
+    index, mask = index.clone(), mask.clone()
+    x = torch.randn((9, 3), generator=torch.Generator().manual_seed(3)).requires_grad_(True)
+    out = gather_rows(x, index, mask)
+    {"index": index, "mask": mask}[written].zero_()
+    with pytest.raises(RuntimeError, match="modified by an inplace operation"):
+        out.sum().backward()
+
+
 def test_segment_ells_are_kept_per_index(monkeypatch):
-    """Built once a (index, mask, n) and way, the last PLANS_KEPT kept (a
-    DimeNet step's two index tensors, each forward and transposed); an
-    in-place write to the index rebuilds."""
+    """Built once a (index, mask, n) and way, those of the last
+    PLANS_KEPT / 2 (index, mask, n) kept, forward and transposed (a
+    DimeNet step's four index tensors); an in-place write to the index
+    rebuilds."""
     builds = []
     for f in ("build_segment_ell", "build_segment_transpose"):
         monkeypatch.setattr(ell_mod, f,

@@ -1,9 +1,12 @@
 """EGNN, MACE and DimeNet on the port against the JAX package's, on
 the CPU: forward, losses and gradients of both aggregation routes
 (``agg_impl`` "spmm_ell", the kernel op's plain version here, and
-"segment_sum"), the block-diagonal molecule losses against the
-reference's ``vmap``, one AdamW step of each reduced molecule cell,
-E(3) invariance, and the launch and ELL-build counts of a train step.
+"segment_sum"), on batches with and without a block's padding (masked
+edges 0 -> 0, masked triplets (0, 0)), the block-diagonal molecule
+losses against the reference's ``vmap``, one AdamW step of each reduced
+molecule cell, E(3) invariance, the launch and ELL-build counts of a
+train step, and, call site by call site, the precondition of
+``gather_rows``'s backward: no gradient at a masked row.
 
 The reference's weights go through ``*_params_from_numpy`` and every
 batch is byte-identical on both sides; the reference runs jitted
@@ -23,6 +26,7 @@ Tolerances:
 """
 
 import dataclasses
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -47,6 +51,7 @@ from repro_torch.kernels.spmm_ell import kernel as spmm_kernel
 from repro_torch.models import convert
 from repro_torch.models.gnn import dimenet, egnn, mace, segment_ell, segment_transpose
 from repro_torch.models.gnn import ell as ell_mod
+from repro_torch.models.gnn import layers
 from repro_torch.models.gnn.layers import AGG_IMPLS, block_diagonal
 from repro_torch.train.checkpoint import _flatten_with_paths as by_path
 from repro_torch.train.train_step import value_and_grad
@@ -177,6 +182,38 @@ def full_width_cases():
     return out
 
 
+def padded_flat_batch(name, cfg, pad=64, seed=6):
+    """A flat batch with a sampled block's padding: rmat1 scale 7 and
+    ``pad`` masked edges 0 -> 0; DimeNet's triplets of the padded edge
+    list (capped at 2, so live triplets name masked edges, as on the
+    card's minibatch_lg block), then ``pad`` masked (0, 0) slots."""
+    g = rmat1(7, seed=seed)
+    zeros = np.zeros(pad, np.int32)
+    padded = Graph(g.n, np.concatenate([g.src, zeros]), np.concatenate([g.dst, zeros]),
+                   np.ones(g.m + pad, np.float32))
+    batch = flat_batch(name, cfg, padded, seed=seed)
+    batch["edge_mask"][g.m:] = False
+    if name == "dimenet":
+        for k, v in (("tri_kj", zeros), ("tri_ji", zeros), ("tri_mask", zeros.astype(bool))):
+            batch[k] = np.concatenate([batch[k], v])
+    return batch
+
+
+def padded_molecule_batch():
+    """4 graphs of 10 atoms in 25 edge slots: 20 live edges and 5 masked
+    0 -> 0 a graph, triplets of every slot, padded to 128 and masked."""
+    return molecule_batch(0, 4, 10, 25, triplets=True, triplet_pad=128, seed=5)
+
+
+@pytest.fixture(scope="module")
+def padded_cases():
+    out = {}
+    for name in MODELS:
+        _, cfg = configs(name, True, FLAT_CELL)
+        out[name] = make_case(name, True, FLAT_CELL, padded_flat_batch(name, cfg), seed=7)
+    return out
+
+
 # ---------------------------------------------------------------- #
 # forward, losses and gradients against the reference
 
@@ -198,6 +235,14 @@ def test_node_classification_loss_and_grads(flat_cases, name, agg_impl):
 @pytest.mark.parametrize("name", list(MODELS))
 def test_full_width_loss_and_grads(full_width_cases, name, agg_impl):
     check(full_width_cases[name], agg_impl)
+
+
+@pytest.mark.parametrize("agg_impl", AGG_IMPLS)
+@pytest.mark.parametrize("name", list(MODELS))
+def test_padded_loss_and_grads(padded_cases, name, agg_impl):
+    """A block's padding: the kernel route's segment ELLs hold no masked
+    row and its gathers drop g's masked rows, within the same tolerances."""
+    check(padded_cases[name], agg_impl)
 
 
 @pytest.mark.parametrize("agg_impl", AGG_IMPLS)
@@ -324,21 +369,24 @@ def test_energy_is_e3_invariant(molecule_cases, name):
 # launches and ELL builds a step
 
 
-LAUNCHES = {  # spmm_ell vertex sums a step at L layers (blocks): forward + backward
-    "egnn": lambda L: 2 * L + (2 * L - 1),  # the last layer's coordinates reach no loss
-    "mace": lambda L: 2 * L,
-    "dimenet": lambda L: 4 * L,
+LAUNCHES = {  # spmm_ell vertex sums a step at L layers (blocks): the sums forward, their
+    # backward, and the gathers' backward (of inputs that need a gradient)
+    "egnn": lambda L: 2 * L + (2 * L - 1) + 4 * (L - 1),  # the last layer's coordinates
+    # reach no loss; the first layer's h and coordinates are the batch's
+    "mace": lambda L: 2 * L + L,  # W h at edge_src a layer; the coordinates are the batch's
+    "dimenet": lambda L: 4 * L + 2 + L,  # h at both ends of the edges, m at tri_kj a block
 }
-BUILDS = {"egnn": 2, "mace": 2, "dimenet": 4}  # segment ELLs: forward and transpose each
+BUILDS = {"egnn": 3, "mace": 3, "dimenet": 6}  # segment ELLs: forward and transpose each
 
 
 @pytest.mark.parametrize("name", list(MODELS))
 def test_train_step_launches_and_ell_builds(monkeypatch, name):
     """Three steps of the reduced molecule cell's plan: every step sums
     LAUNCHES times through the spmm_ell op; the segment ELLs (DimeNet's
-    of tri_ji and edge_dst, the others' of edge_dst), forward and
-    transposed, are built in the first step only; the vertex plans of a
-    DimeNet step's four ELLs stay in the plan memo in the step's order."""
+    of tri_ji, edge_dst, tri_kj and edge_src, the others' of edge_dst and
+    edge_src), forward and, for the sums, transposed, are built in the
+    first step only; the vertex plans of a DimeNet step's six ELLs stay
+    in the plan memo."""
     builds = []
     for f in ("build_segment_ell", "build_segment_transpose"):
         monkeypatch.setattr(ell_mod, f,
@@ -360,16 +408,79 @@ def test_train_step_launches_and_ell_builds(monkeypatch, name):
         flat = block_diagonal(batch)
         E, N = flat["edge_src"].shape[0], flat["x"].shape[0]
         tri = (flat["tri_ji"], flat["tri_mask"], E)
+        kj = (flat["tri_kj"], flat["tri_mask"], E)
         edge = (flat["edge_dst"], flat["edge_mask"], N)
+        src = (flat["edge_src"], flat["edge_mask"], N)
         order = [(tri, segment_ell, 128 * 4), (edge, segment_ell, E),
-                 (edge, segment_transpose, N), (tri, segment_transpose, E)]
+                 (edge, segment_transpose, N), (tri, segment_transpose, E),
+                 (kj, segment_ell, 128 * 4), (src, segment_ell, E)]
         ells = [way(*args) for args, way, _ in order]
+        assert len(builds) == BUILDS[name]
         plans = [spmm_kernel.vertex_plan(torch.empty(n_x, 1), e.col, e.row_ptr, e.deg, 2)
                  for e, (_, _, n_x) in zip(ells, order)]
         for _ in range(2):
             for e, (_, _, n_x), p in zip(ells, order, plans):
                 assert spmm_kernel.vertex_plan(torch.empty(n_x, 1), e.col, e.row_ptr,
                                                e.deg, 2) is p
+
+
+GATHER_SITES = {"egnn": 4, "mace": 3, "dimenet": 6}  # gather_rows calls in a forward
+
+
+def gather_site(module) -> tuple:
+    """The lines of the frames from gather_rows's caller up to
+    ``module``'s forward: one call site of the forward."""
+    frame, lines = sys._getframe(2), []
+    while frame is not None:
+        lines.append(frame.f_lineno)
+        if frame.f_code.co_name == "forward" and frame.f_globals is vars(module):
+            return tuple(lines)
+        frame = frame.f_back
+    raise AssertionError("gather_rows called outside the model's forward")
+
+
+@pytest.mark.parametrize("cell", ["molecule", "flat"])
+@pytest.mark.parametrize("name", list(MODELS))
+def test_gathers_get_no_gradient_at_masked_rows(monkeypatch, name, cell):
+    """The precondition of ``gather_rows``'s backward on the kernel
+    route, call site by call site: on a batch with a block's padding,
+    the features and coordinates needing a gradient too, the gradient
+    that reaches each gathered tensor is exactly 0 at every masked row.
+    The params are moved off their init (zero biases would make DimeNet's
+    messages at a masked edge 0 and hide a live triplet naming it).
+    Every site is reached; the inputs' gradients equal the segment-sum
+    route's within GRAD_TOL."""
+    mod = MODELS[name][0]
+    seen = {}
+    real = layers.gather_rows
+
+    def hooked(x, index, mask, agg_impl="spmm_ell"):
+        out = real(x, index, mask, agg_impl)
+        if out.requires_grad:
+            grads = seen.setdefault(gather_site(mod), [])
+            out.register_hook(lambda g: grads.append((g, mask)))
+        return out
+
+    monkeypatch.setattr(mod, "gather_rows", hooked)
+    _, cfg = configs(name, True, "molecule" if cell == "molecule" else FLAT_CELL)
+    gen = torch.Generator().manual_seed(3)
+    params = torch.utils._pytree.tree_map(
+        lambda t: t + 0.1 * torch.randn(t.shape, generator=gen), mod.init_params(gen, cfg))
+    raw = padded_molecule_batch() if cell == "molecule" else padded_flat_batch(name, cfg)
+    loss = mod.regression_loss if cell == "molecule" else mod.node_classification_loss
+    grads = {}
+    for agg_impl in AGG_IMPLS:
+        batch = torch_batch(raw)
+        inputs = [batch["x"].requires_grad_(True), batch["coords"].requires_grad_(True)]
+        c = dataclasses.replace(cfg, agg_impl=agg_impl)
+        grads[agg_impl] = torch.autograd.grad(loss(params, batch, c), inputs)
+    assert len(seen) == GATHER_SITES[name], sorted(seen)
+    for site, got in seen.items():
+        for g, mask in got:
+            assert not bool(mask.all()), site  # the site has masked rows
+            assert bool((g[~mask] == 0).all()), (site, float(g[~mask].abs().max()))
+    for a, b in zip(grads["spmm_ell"], grads["segment_sum"]):
+        assert_close(a.numpy(), b.numpy(), GRAD_TOL)
 
 
 # ---------------------------------------------------------------- #
