@@ -3,7 +3,9 @@
 NVIDIA GPU, at the sizes its users run on one card: SSSP on rmat1
 (Graph500 R-MAT, weights 1..100) at scale 20, seed 0, one rank; LM
 serving of minitron-8b at full width (32 layers, 7.73 B parameters,
-random weights from the seed); MIND serving at full width (2^20 items,
+random weights from the seed), of minicpm3-4b (MLA, 62 layers, 4.07 B)
+and of phi3.5-moe and dbrx at published widths and the depth one card
+holds (8 and 4 layers); MIND serving at full width (2^20 items,
 2^17 profile ids); GIN inference and training (gin-tu at full width)
 on rmat1 at scale 21, the size of ogb-products; EGNN, MACE and DimeNet
 training at full width on a fanout block of that graph.
@@ -32,13 +34,25 @@ Phases (any failure exits non-zero):
      beside one PyTorch call computing the same function; attention
      also as achieved TFLOP/s and share of its bound, and the kernels
      that sdpa ran (its backend), at the bf16 prefill shapes, the f32
-     case c (the f32 kernel's key split) and case d (the fp32 twin's
-     prefill of phase 8); the bag also as a bare launch, alone under
-     torch.profiler and its index check apart
+     case c (the f32 kernel's key split), case d (the fp32 twin's
+     prefill of phase 8) and case e (dbrx's prefill of phase 8b: Hq 48,
+     Hkv 8, 6 q heads a kv head); the bag also as a bare launch, alone
+     under torch.profiler and its index check apart
   8. LM serving, minitron-8b in bf16: prefill of 4 x 1920 tokens
-     through the attention kernel (32 launches), 128 greedy decode
+     through the attention kernel (32 launches), 32 greedy decode
      steps; logits against the plain attention; then in fp32, the last
      decode step against a teacher-forced prefill of the grown sequence
+ 8b. MLA and MoE serving on phase 8's prompt, 32 greedy decode steps, in
+     bf16 (prefill s, ms/token, peak memory, busy share of a profiled
+     prefill and 2 decode steps): minicpm3-4b whole (its prefill by the
+     plain path: MLA's q/k and v head dims differ), then its fp32 twin's
+     absorbed decode against a teacher-forced prefill; phi3.5-moe at 8
+     and dbrx at 4 of their layers at published widths (their whole
+     weights, 83.7 and 263 GB, do not fit one card), each prefill through
+     the attention kernel (one launch a layer), the dropped (token,
+     choice) pairs a layer; then fp32 twins of 2 layers: the kernel route
+     against plain attention, and decode against a teacher-forced prefill
+     (plain attention) at a capacity that drops nothing
   9. MIND serving: serve_interests at B=512 and B=262,144 and
      retrieval_scores over all 2^20 items, through the embedding-bag
      kernel, against the plain bag; each call's bag of profiles bit for
@@ -191,7 +205,10 @@ SPEC = "delta:5/sparse/fused"
 TIMING_REPS = 20
 # LM serving (phase 8): minitron-8b, prompts from lm_batch
 LM_ARCH = "minitron-8b"
-LM_BATCH, LM_PROMPT, LM_MAX_LEN, LM_DECODE = 4, 1920, 2048, 128
+LM_BATCH, LM_PROMPT, LM_MAX_LEN, LM_DECODE = 4, 1920, 2048, 32
+# the fp32 twin's steps: its teacher-forced prefill of 1920 + 128 tokens
+# attends through the kernel, which takes multiples of 128
+LM_F32_DECODE = 128
 LM_F32_BATCH = 2
 LM_PROFILED_STEPS = 8
 # kernel path vs plain attention in bf16, as a share of max |logit|:
@@ -201,6 +218,15 @@ LM_PROFILED_STEPS = 8
 # model on the CPU); the bound leaves room for 32 layers
 LM_BF16_TOL = 5e-2
 LM_F32_RTOL, LM_F32_ATOL = 2e-3, 5e-4   # the JAX package's decode test
+# MLA and MoE serving (phase 8b): phase 8's prompt and decode steps.  minicpm3-4b runs whole; the MoE archs at published widths and
+# the depth one card holds (phi3.5-moe's 32 layers of bf16 weights take
+# 83.7 GB, dbrx's 40 take 263 GB), their fp32 twins at 2 layers
+MLA_ARCH = "minicpm3-4b"
+MOE_ARCHS = (("phi3.5-moe-42b-a6.6b", 8), ("dbrx-132b", 4))
+MOE_F32_LAYERS = 2
+# decode steps profiled a model: minicpm3's 62 layers launch some 6,000
+# ops a step, and the profiler's post-processing grows with them
+MLA_MOE_PROFILED_STEPS = 2
 # flash_attention vs its plain version: the JAX package's kernel-test
 # tolerances, and in bf16 also one bf16 ulp (<= 2**-7 of the value):
 # both compute in f32 and round once
@@ -437,6 +463,8 @@ ATTN_CASES = (
     # the fp32 twin's prefill of phase 8 at S 2048; (c) engages the f32
     # kernel's key split
     ("d fp32 twin prefill", 2, 32, 8, 2048, 2048, 128, "float32", True),
+    # dbrx's prefill in phase 8b: 6 q heads a kv head
+    ("e dbrx prefill", 4, 48, 8, 1920, 1920, 128, "bfloat16", True),
 )
 # the cases whose numbers stand in the kernels line, with the row's name
 # and source: the path's shapes, minitron's prefill at max_len (bf16)
@@ -444,6 +472,7 @@ ATTN_CASES = (
 ATTN_ROWS = {
     "a minitron prefill": ("flash_attention", "src/repro_torch/csrc/flash_attention_sm90.cu"),
     "d fp32 twin prefill": ("flash_attention f32", "src/repro_torch/csrc/flash_attention.cu"),
+    "e dbrx prefill": ("flash_attention dbrx", "src/repro_torch/csrc/flash_attention_sm90.cu"),
 }
 
 
@@ -513,8 +542,9 @@ def library_kernels(fn) -> str:
 def serving_kernels(dev, flush) -> tuple[dict, dict, dict]:
     """Phase 7: flash_attention and embedding_bag against their plain
     versions at the serving paths' shapes.  Returns their rows of the
-    kernels line, attention's bf16 kernel at case (a) and its f32 kernel
-    at case (d) (launches filled in by phases 8 and 9)."""
+    kernels line, attention's bf16 kernel at case (a), its f32 kernel at
+    case (d) and its bf16 kernel at dbrx's case (e) (launches filled in
+    by phases 8, 8b and 9)."""
     import torch
     import torch.nn.functional as F
 
@@ -764,7 +794,7 @@ def lm_serving(dev) -> tuple[int, int]:
     t0 = time.perf_counter()
     K.reset_launch_counts()
     cache, logits = lm.prefill_step(model, seq, cfg32, LM_MAX_LEN)
-    for step in range(LM_DECODE):
+    for step in range(LM_F32_DECODE):
         nxt = logits.argmax(-1).to(torch.int32)
         seq = torch.cat([seq, nxt[:, None]], dim=1)
         logits, cache = lm.decode_step(model, cache, nxt, LM_PROMPT + step, cfg32)
@@ -776,7 +806,7 @@ def lm_serving(dev) -> tuple[int, int]:
         fail("the teacher-forced prefill did not attend through the kernel")
     diff = float((logits - forced).abs().max())
     ok = torch.allclose(logits, forced, rtol=LM_F32_RTOL, atol=LM_F32_ATOL)
-    log(f"check (ii) fp32, {LM_F32_BATCH} x {LM_PROMPT} prompt + {LM_DECODE} decode "
+    log(f"check (ii) fp32, {LM_F32_BATCH} x {LM_PROMPT} prompt + {LM_F32_DECODE} decode "
         f"steps vs teacher-forced prefill of {seq.shape[1]} tokens: max abs diff "
         f"{diff:.4g} (max |logit| {float(forced.abs().max()):.4g}; rtol "
         f"{LM_F32_RTOL}, atol {LM_F32_ATOL}); {time.perf_counter() - t0:.2f} s; "
@@ -787,6 +817,224 @@ def lm_serving(dev) -> tuple[int, int]:
     gc.collect()
     torch.cuda.empty_cache()
     return launches, f32_launches
+
+
+@contextlib.contextmanager
+def counted_drops():
+    """Yields a list that gets, for each MoE layer run in the block, its
+    (tokens, capacity, dropped (token, choice) pairs), read from the
+    route ``moe_ffn`` computes (one host read a layer)."""
+    from repro_torch.models import moe
+
+    real = moe.route
+    seen: list = []
+
+    def route(x, router_w, cfg, C):
+        r = real(x, router_w, cfg, C)
+        seen.append((x.shape[0], C, r.dropped))
+        return r
+
+    moe.route = route
+    try:
+        yield seen
+    finally:
+        moe.route = real
+
+
+def free_card() -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_bf16(cfg, toks, dev, label: str) -> int:
+    """Phase 8b's bf16 run of one model: prefill of phase 8's prompt and
+    LM_DECODE greedy steps, timed; a warm prefill (its MoE drops
+    counted a layer), then a profiled prefill and MLA_MOE_PROFILED_STEPS
+    profiled decode steps.  Returns the flash_attention launches of the
+    first prefill."""
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.models import lm
+    from repro_torch.models.common import param_count
+
+    t_run = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = lm.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg)
+    torch.cuda.synchronize()
+    log(f"{label}: {cfg.n_layers} layers, d={cfg.d_model}, {param_count(model)} "
+        f"parameters ({cfg.param_dtype}, attn_type={cfg.attn_type}, attn_impl="
+        f"{cfg.attn_impl}, moe={cfg.moe}) initialised on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    B, S = toks.shape
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    cache, logits = lm.prefill_step(model, toks, cfg, LM_MAX_LEN)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    launches = K.launch_counts()["flash_attention"]
+    t0 = time.perf_counter()
+    for step in range(LM_DECODE):
+        nxt = logits.argmax(-1).to(torch.int32)
+        logits, cache = lm.decode_step(model, cache, nxt, S + step, cfg)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    if not bool(torch.isfinite(logits).all()) or logits.shape != (B, cfg.vocab):
+        fail(f"{label}: decode logits are not finite of shape {(B, cfg.vocab)}")
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    with counted_drops() as drops:
+        lm.prefill_step(model, toks, cfg, LM_MAX_LEN)
+        torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with device_profile(f"{label} prefill"):
+        warm_cache, warm_logits = lm.prefill_step(model, toks, cfg, LM_MAX_LEN)
+        torch.cuda.synchronize()
+    with device_profile(f"{label} {MLA_MOE_PROFILED_STEPS} decode steps"):
+        for step in range(MLA_MOE_PROFILED_STEPS):
+            nxt = warm_logits.argmax(-1).to(torch.int32)
+            warm_logits, warm_cache = lm.decode_step(model, warm_cache, nxt, S + step, cfg)
+        torch.cuda.synchronize()
+    log(f"{label}: the two profiled windows took {time.perf_counter() - t0:.1f} s")
+    log(f"{label}: prefill {B} x {S} tokens {prefill_s:.3f} s (warm {warm_s:.3f} s "
+        f"with the drops counted, {B * S / warm_s:.0f} tokens/s); {LM_DECODE} "
+        f"greedy decode steps {decode_s:.3f} s = {decode_s / LM_DECODE * 1e3:.2f} "
+        f"ms/token, {B * LM_DECODE / decode_s:.1f} tokens/s at batch {B}; peak "
+        f"memory {peak / 2**30:.2f} GiB; flash_attention launches in the prefill: "
+        f"{launches}")
+    if cfg.moe:
+        log(f"{label}: dropped (token, choice) pairs a layer of the prefill, of "
+            f"{B * S * cfg.moe.top_k} at capacity {drops[0][1]} an expert: "
+            f"{[d for _, _, d in drops]}")
+    del model, cache, logits, warm_cache, warm_logits
+    free_card()
+    log(f"{label}: the bf16 run took {time.perf_counter() - t_run:.1f} s")
+    return launches
+
+
+def mla_moe_serving(dev) -> tuple[int, int]:
+    """Phase 8b: minicpm3-4b whole, phi3.5-moe and dbrx at published
+    widths and the depth one card holds, each in bf16 and then as an
+    fp32 twin held against a teacher-forced prefill.  Returns the
+    flash_attention launches of phi3.5-moe's bf16 prefill (phase 8's
+    shape) and of dbrx's."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_arch
+    from repro_torch.data import lm_batch
+    from repro_torch.models import lm
+
+    def decode_vs_forced(model, cfg, seq, label):
+        """fp32: LM_DECODE greedy steps from the prompt's prefill,
+        the last one's logits against a teacher-forced prefill of the
+        grown sequence."""
+        S = seq.shape[1]
+        cache, logits = lm.prefill_step(model, seq, cfg, LM_MAX_LEN)
+        for step in range(LM_DECODE):
+            nxt = logits.argmax(-1).to(torch.int32)
+            seq = torch.cat([seq, nxt[:, None]], dim=1)
+            logits, cache = lm.decode_step(model, cache, nxt, S + step, cfg)
+        _, forced = lm.prefill_step(model, seq, cfg, LM_MAX_LEN)
+        torch.cuda.synchronize()
+        diff = float((logits - forced).abs().max())
+        log(f"{label}: fp32, {seq.shape[0]} x {S} prompt + {LM_DECODE} decode steps "
+            f"vs a teacher-forced prefill of {seq.shape[1]} tokens: max abs diff "
+            f"{diff:.4g} (max |logit| {float(forced.abs().max()):.4g}; rtol "
+            f"{LM_F32_RTOL}, atol {LM_F32_ATOL})")
+        if not torch.allclose(logits, forced, rtol=LM_F32_RTOL, atol=LM_F32_ATOL):
+            fail(f"{label}: fp32 decode differs from the teacher-forced prefill "
+                 f"(max abs diff {diff})")
+
+    toks = torch.as_tensor(
+        lm_batch(0, LM_BATCH, LM_PROMPT, get_arch(MLA_ARCH).make_config().vocab,
+                 seed=SEED)["tokens"], device=dev)
+
+    # (a) minicpm3-4b, 62 layers: its prefill attends by the plain
+    # blockwise path (MLA's q/k and v head dims differ)
+    cfg = get_arch(MLA_ARCH).make_config()
+    if serve_bf16(cfg, toks, dev, MLA_ARCH):
+        fail(f"{MLA_ARCH}: the MLA prefill launched flash_attention")
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = lm.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg32)
+    decode_vs_forced(model, cfg32, toks[:LM_F32_BATCH],
+                     f"{MLA_ARCH} (absorbed decode vs materialised prefill)")
+    log(f"{MLA_ARCH} fp32 twin: {time.perf_counter() - t0:.2f} s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del model
+    free_card()
+
+    launches = []
+    for arch, layers in MOE_ARCHS:
+        full = get_arch(arch).make_config()
+        log(f"{arch}: depth cut to {layers} of {full.n_layers} layers (published "
+            f"widths): its {full.n_layers} layers of bf16 weights, "
+            f"{full.n_params() * 2 / 1e9:.1f} GB, do not fit one 80 GB card")
+        toks_a = torch.as_tensor(
+            lm_batch(0, LM_BATCH, LM_PROMPT, full.vocab, seed=SEED)["tokens"], device=dev)
+        cfg = dataclasses.replace(full, n_layers=layers)
+        n = serve_bf16(cfg, toks_a, dev, f"{arch} ({layers} layers)")
+        if n != layers:
+            fail(f"{arch}: the prefill launched flash_attention {n} times, not "
+                 f"once a layer ({layers})")
+        launches.append(n)
+
+        # fp32 twin at MOE_F32_LAYERS layers
+        cfg32 = dataclasses.replace(full, n_layers=MOE_F32_LAYERS, param_dtype="float32")
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        model = lm.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg32)
+        seq = toks_a[:LM_F32_BATCH]
+        # (i) the kernel route against plain attention, the same prompt
+        K.reset_launch_counts()
+        with counted_drops() as drops:
+            _, kernel_logits = lm.prefill_step(model, seq, cfg32, LM_MAX_LEN)
+            torch.cuda.synchronize()
+        if K.launch_counts()["flash_attention"] != MOE_F32_LAYERS:
+            fail(f"{arch}: the fp32 prefill did not attend through the kernel")
+        _, plain_logits = lm.prefill_step(
+            model, seq, dataclasses.replace(cfg32, attn_impl="xla"), LM_MAX_LEN)
+        diff = float((kernel_logits - plain_logits).abs().max())
+        log(f"{arch} fp32 ({MOE_F32_LAYERS} layers): prefill logits, kernel vs plain "
+            f"attention: max abs diff {diff:.4g} (max |logit| "
+            f"{float(plain_logits.abs().max()):.4g}; rtol {LM_F32_RTOL}, atol "
+            f"{LM_F32_ATOL}); dropped pairs a layer at capacity {drops[0][1]}: "
+            f"{[d for _, _, d in drops]}")
+        if not torch.allclose(kernel_logits, plain_logits, rtol=LM_F32_RTOL,
+                              atol=LM_F32_ATOL):
+            fail(f"{arch}: fp32 prefill through the kernel differs from plain "
+                 f"attention (max abs diff {diff})")
+        # (ii) decode against teacher-forced prefill, at a capacity that
+        # drops nothing (C = N): a prefill of N tokens drops what a
+        # decode step of 2 never does, so the published capacity would
+        # route the two differently.  Plain attention: the grown
+        # sequence (1952 tokens) is no multiple of the kernel's 128, and
+        # (i) held the kernel route against it
+        moe = full.moe
+        nodrop = dataclasses.replace(
+            cfg32, attn_impl="xla",
+            moe=dataclasses.replace(moe, capacity_factor=moe.n_experts / moe.top_k))
+        with counted_drops() as drops:
+            decode_vs_forced(model, nodrop, seq,
+                             f"{arch} (capacity factor {moe.n_experts / moe.top_k:g}, "
+                             f"no drop)")
+        if any(d for _, _, d in drops):
+            fail(f"{arch}: the no-drop twin dropped pairs: {drops}")
+        log(f"{arch} fp32 twin: {time.perf_counter() - t0:.2f} s; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del model, kernel_logits, plain_logits
+        free_card()
+    return launches[0], launches[1]
 
 
 def mind_serving(dev) -> int:
@@ -3960,15 +4208,21 @@ def main() -> None:
         "checks compute in full f32")
     t0 = time.perf_counter()
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    attn_row, attn32_row, bag_row = serving_kernels(dev, flush)
+    attn_row, attn32_row, attn_dbrx_row, bag_row = serving_kernels(dev, flush)
     del flush
-    rows += [attn_row, attn32_row, bag_row]
+    rows += [attn_row, attn32_row, attn_dbrx_row, bag_row]
     log(f"phase 7 took {time.perf_counter() - t0:.1f} s")
 
     # ---- 8. LM serving, minitron-8b at full width ---------------------
     t0 = time.perf_counter()
     attn_row["launches"], attn32_row["launches"] = lm_serving(dev)
     log(f"phase 8 took {time.perf_counter() - t0:.1f} s")
+
+    # ---- 8b. MLA and MoE serving: minicpm3, phi3.5-moe, dbrx -----------
+    t0 = time.perf_counter()
+    phi_launches, attn_dbrx_row["launches"] = mla_moe_serving(dev)
+    attn_row["launches"] += phi_launches
+    log(f"phase 8b took {time.perf_counter() - t0:.1f} s")
 
     # ---- 9. MIND serving at full width --------------------------------
     t0 = time.perf_counter()

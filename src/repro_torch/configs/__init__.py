@@ -12,13 +12,16 @@ item that brings it.
 """
 
 from repro_torch.configs import (
+    dbrx,
     dimenet_cfg,
     egnn_cfg,
     gin_tu,
     mace_cfg,
     mind_cfg,
+    minicpm3,
     minitron,
     phi3_mini,
+    phi35_moe,
     sssp_cfg,
 )
 from repro_torch.configs.cells import (
@@ -29,8 +32,8 @@ from repro_torch.configs.cells import (
     TRAINED_FAMILIES,
 )
 
-_MODULES = [phi3_mini, minitron, mace_cfg, gin_tu, egnn_cfg, dimenet_cfg, mind_cfg,
-            sssp_cfg]
+_MODULES = [phi35_moe, dbrx, phi3_mini, minitron, minicpm3, mace_cfg, gin_tu, egnn_cfg,
+            dimenet_cfg, mind_cfg, sssp_cfg]
 
 REGISTRY = {m.ARCH_ID: m for m in _MODULES}
 
@@ -45,12 +48,8 @@ REFERENCE_ARCHS = (
 ASSIGNED = [a for a, _ in REFERENCE_ARCHS if a != "sssp"]
 
 #: the architectures not ported yet, with the ROADMAP.md item that
-#: ports them
-UNPORTED = {
-    "phi3.5-moe-42b-a6.6b": "5.3 (MLA and MoE serving)",
-    "dbrx-132b": "5.3 (MLA and MoE serving)",
-    "minicpm3-4b": "5.3 (MLA and MoE serving)",
-}
+#: ports them (none since MLA and MoE serving)
+UNPORTED: dict = {}
 
 _SHAPES = {"lm": LM_SHAPES, "gnn": GNN_SHAPES, "recsys": RECSYS_SHAPES,
            "graph": sssp_cfg.SSSP_CELLS}

@@ -87,6 +87,10 @@ def lm_flops_train(cfg: lm_mod.LMConfig, B: int, S: int) -> float:
     """6·N_active·tokens + attention score/value terms (fwd+bwd)."""
     n = cfg.n_active_params()
     attn = 12 * cfg.n_layers * B * S * S * cfg.n_heads * cfg.head_dim
+    if cfg.attn_type == "mla":
+        attn = 12 * cfg.n_layers * B * S * S * cfg.n_heads * (
+            cfg.qk_nope_dim + cfg.qk_rope_dim + cfg.v_head_dim
+        ) / 2
     return 6.0 * n * B * S + attn
 
 
@@ -98,22 +102,31 @@ def lm_flops_prefill(cfg: lm_mod.LMConfig, B: int, S: int) -> float:
 
 def lm_flops_decode(cfg: lm_mod.LMConfig, B: int, S_ctx: int) -> float:
     n = cfg.n_active_params()
-    attn = 4 * cfg.n_layers * B * S_ctx * cfg.n_heads * cfg.head_dim
+    if cfg.attn_type == "mla":
+        # absorbed decode: scores and context against the latent cache
+        attn = 4 * cfg.n_layers * B * S_ctx * cfg.n_heads * (
+            cfg.kv_lora_rank + cfg.qk_rope_dim
+        )
+    else:
+        attn = 4 * cfg.n_layers * B * S_ctx * cfg.n_heads * cfg.head_dim
     return 2.0 * n * B + attn
 
 
 def lm_param_shapes(cfg: lm_mod.LMConfig) -> dict:
     """The parameters as meta tensors in the JAX package's layout
-    (``layers`` stacked over a leading layer axis); the port's ``LM``
-    holds the same tensors a layer at a time."""
+    (``layers`` stacked over a leading layer axis; no ``lm_head`` where
+    the embedding is tied); the port's ``LM`` holds the same tensors a
+    layer at a time."""
     L, dt = cfg.n_layers, cfg.dtype
-    return {
+    params = {
         "embed": meta((cfg.vocab, cfg.d_model), dt),
         "layers": {name: meta((L,) + shape, dt)
                    for name, (shape, _) in lm_mod.layer_shapes(cfg).items()},
         "final_norm": meta((cfg.d_model,), dt),
-        "lm_head": meta((cfg.d_model, cfg.vocab), dt),
     }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = meta((cfg.d_model, cfg.vocab), dt)
+    return params
 
 
 def lm_prefill_cell(arch: str, cell: str, cfg: lm_mod.LMConfig, ranks: int,

@@ -15,7 +15,8 @@ writes one record to ``<out>/<arch>__<cell>__P<ranks>.json``:
     arg_bytes, arg_bytes_per_card   exact from the plan's meta tensors
     peak_bytes_per_card             SSSP only: :func:`superstep_peak`
     fits_one_card                   within one H100's 80 GB (a model
-                                    cell: its arguments alone)
+                                    cell: its arguments alone; planned,
+                                    never measured)
     model_flops, notes, ok | error
 
 A card runs one rank: an SSSP plan at P ranks holds 1/P of the stacked
@@ -169,7 +170,8 @@ def plan_record(plan, family: str) -> dict:
         rec.update(arg_bytes_per_card=plan.arg_bytes,
                    peak_bytes_per_card=None,
                    fits_one_card=plan.arg_bytes <= CARD_BYTES,
-                   fits_basis="arguments alone (no activation plan)")
+                   fits_basis="planned from the arguments alone (no activation "
+                              "plan), not measured")
     return rec
 
 
@@ -207,6 +209,7 @@ def summary_line(rec: dict) -> str:
     peak = rec["peak_bytes_per_card"]
     peak_s = "-" if peak is None else f"{peak / 1e9:.3f} GB"
     fits = "fits one card" if rec["fits_one_card"] else "does not fit one card"
+    fits += " (planned, not measured)"
     return (f"[dryrun] {rec['arch']:16s} {rec['cell']:28s} P{rec['ranks']} ok: "
             f"args {rec['arg_bytes_per_card'] / 1e9:.3f} GB a card, "
             f"peak {peak_s} a card, {fits}")

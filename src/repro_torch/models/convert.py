@@ -27,7 +27,9 @@ def _tensor(a, dtype, device) -> torch.Tensor:
 def lm_params_from_numpy(tree: dict, cfg: LMConfig, device=None) -> LM:
     """``tree`` as the JAX package's ``models/lm.py::init_params``
     lays it out: ``embed``, ``layers`` (each array stacked over a
-    leading layer axis), ``final_norm`` and ``lm_head``."""
+    leading layer axis; GQA's or MLA's attention weights, the dense
+    MLP's or the MoE's), ``final_norm`` and ``lm_head``, which a tree
+    with tied embeddings lacks."""
     dev, dt = resolve_device(device), cfg.dtype
     stacked = tree["layers"]
     if set(stacked) != set(layer_shapes(cfg)):
@@ -35,9 +37,12 @@ def lm_params_from_numpy(tree: dict, cfg: LMConfig, device=None) -> LM:
                          f"{sorted(layer_shapes(cfg))}")
     layers = [{name: _tensor(a[li], dt, dev) for name, a in stacked.items()}
               for li in range(cfg.n_layers)]
+    if ("lm_head" in tree) == cfg.tie_embeddings:
+        raise ValueError(f"tie_embeddings={cfg.tie_embeddings}, but the tree "
+                         f"{'has' if 'lm_head' in tree else 'lacks'} an lm_head")
+    head = None if cfg.tie_embeddings else _tensor(tree["lm_head"], dt, dev)
     return LM(cfg, _tensor(tree["embed"], dt, dev), layers,
-              _tensor(tree["final_norm"], dt, dev),
-              _tensor(tree["lm_head"], dt, dev))
+              _tensor(tree["final_norm"], dt, dev), head)
 
 
 def mind_params_from_numpy(tree: dict, cfg: MINDConfig, device=None) -> MIND:

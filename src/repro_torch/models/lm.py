@@ -1,20 +1,24 @@
-"""Decoder-only transformer LM, dense GQA (phi3-mini, minitron):
-prefill and greedy decode for serving.
+"""Decoder-only transformer LM: dense GQA (phi3-mini, minitron), MLA
+(minicpm3) and GQA with MoE FFNs (phi3.5-moe, dbrx); prefill and greedy
+decode for serving.
 
 The port of the JAX package's ``models/lm.py`` for one card.  A model
 is an :class:`LM` module: the embedding, an ``nn.ModuleList`` of
 :class:`Block` (one per layer, each weight in the JAX package's
 ``(in, out)`` layout so ``x @ w`` reads the same) and the final norm
-and head.  The public functions keep the JAX package's names and its
-``(B, S, H, dh)`` activation layout; they take the module where the
-JAX package takes its parameter tree, and drop the sharding topology.
+and head (none when the embedding is tied).  The public functions keep
+the JAX package's names and its ``(B, S, H, dh)`` activation layout;
+they take the module where the JAX package takes its parameter tree,
+and drop the sharding topology.
 
   prefill_step  build the KV cache from a prompt, last-position logits
   decode_step   one token against the cache (updated in place)
   forward       teacher-forced final hidden states
 
-MLA (minicpm3), MoE (phi3.5-moe, dbrx) and ``lm_loss`` (training) are
-not ported yet: see ROADMAP.md, Queue 1.
+MLA keeps a latent cache, ``c`` (kv_lora) and ``kr`` (qk_rope) a token;
+its prefill materialises K and V, its decode attends in latent space
+(absorbed).  MoE layers run :func:`repro_torch.models.moe.moe_ffn`.
+``lm_loss`` (training) is not ported yet: see ROADMAP.md, Queue 1.
 """
 
 from __future__ import annotations
@@ -36,11 +40,13 @@ from repro_torch.models.common import (
     rope_angles,
     swiglu,
 )
+from repro_torch.models.moe import MoEConfig, moe_ffn
 
 #: ``attn_impl`` values: plain full-score attention, plain blockwise
 #: attention, and the kernel op (the JAX package's Pallas names; both
 #: take the port's kernel, which a CPU tensor runs as its plain version)
 ATTN_IMPLS = ("xla", "xla_flash", "pallas", "pallas_interpret")
+ATTN_TYPES = ("gqa", "mla")
 NEG_INF = -1e30
 # the JAX package's defaults, which none of the ported configs changes
 ROPE_THETA = 10000.0
@@ -57,39 +63,65 @@ class LMConfig:
     d_ff: int
     vocab: int
     mlp_type: str = "swiglu"          # 'swiglu' | 'relu2'
-    attn_type: str = "gqa"            # only 'gqa' is ported
-    moe: Optional[object] = None      # not ported: must stay None
+    attn_type: str = "gqa"            # 'gqa' | 'mla'
+    moe: Optional[MoEConfig] = None
+    # --- MLA (minicpm3) ---
+    q_lora_rank: int = 768
+    kv_lora_rank: int = 256
+    qk_nope_dim: int = 64
+    qk_rope_dim: int = 32
+    v_head_dim: int = 64
+    tie_embeddings: bool = False
     param_dtype: str = "bfloat16"
     attn_impl: str = "xla"            # one of ATTN_IMPLS
     attn_chunk: int = 1024            # kv chunk for xla_flash
 
     def __post_init__(self):
-        if self.attn_type != "gqa":
-            raise NotImplementedError(
-                f"attn_type={self.attn_type!r} is not ported yet (ROADMAP.md "
-                "Queue 1: MLA and MoE serving)")
-        if self.moe is not None:
-            raise NotImplementedError(
-                "MoE layers are not ported yet (ROADMAP.md Queue 1: MLA and "
-                "MoE serving)")
+        if self.attn_type not in ATTN_TYPES:
+            raise ValueError(f"attn_type must be one of {ATTN_TYPES}, got {self.attn_type!r}")
+        if self.moe is not None and self.moe.d_model != self.d_model:
+            raise ValueError(f"moe.d_model {self.moe.d_model} differs from the model's "
+                             f"d_model {self.d_model}")
         if self.mlp_type not in ("swiglu", "relu2"):
             raise ValueError(f"mlp_type must be 'swiglu' or 'relu2', got {self.mlp_type!r}")
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {self.attn_impl!r}")
 
     def n_params(self) -> int:
-        """Weights less the norm scales, embedding and head untied (the
-        JAX package's count)."""
+        """Weights less the norm scales, the embedding counted once when
+        tied (the JAX package's count)."""
         d, f, L, V = self.d_model, self.d_ff, self.n_layers, self.vocab
-        dh = self.head_dim
-        attn = d * self.n_heads * dh + 2 * d * self.n_kv_heads * dh \
-            + self.n_heads * dh * d
-        mlp = (3 if self.mlp_type == "swiglu" else 2) * d * f
-        return L * (attn + mlp) + 2 * V * d
+        if self.attn_type == "mla":
+            qk = self.qk_nope_dim + self.qk_rope_dim
+            attn = (
+                d * self.q_lora_rank
+                + self.q_lora_rank * self.n_heads * qk
+                + d * (self.kv_lora_rank + self.qk_rope_dim)
+                + self.kv_lora_rank * self.n_heads
+                * (self.qk_nope_dim + self.v_head_dim)
+                + self.n_heads * self.v_head_dim * d
+            )
+        else:
+            dh = self.head_dim
+            attn = d * self.n_heads * dh + 2 * d * self.n_kv_heads * dh \
+                + self.n_heads * dh * d
+        if self.moe:
+            mlp = self.moe.n_experts * 3 * d * self.moe.d_ff + \
+                d * self.moe.n_experts
+        else:
+            mlp = (3 if self.mlp_type == "swiglu" else 2) * d * f
+        emb = V * d * (1 if self.tie_embeddings else 2)
+        return L * (attn + mlp) + emb
 
     def n_active_params(self) -> int:
-        """Per-token active parameters: all of them (no MoE is ported)."""
-        return self.n_params()
+        """Per-token active parameters (MoE counts top_k experts)."""
+        if not self.moe:
+            return self.n_params()
+        d = self.d_model
+        dense = self.n_params() - self.n_layers * (
+            self.moe.n_experts * 3 * d * self.moe.d_ff
+        )
+        return dense + self.n_layers * self.moe.top_k * 3 * d * self.moe.d_ff
 
     @property
     def head_dim(self) -> int:
@@ -109,14 +141,31 @@ def layer_shapes(cfg: LMConfig) -> dict:
     norm scale (initialised to ones)."""
     d, f = cfg.d_model, cfg.d_ff
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    shapes = {
-        "ln1": ((d,), None), "ln2": ((d,), None),
-        "wq": ((d, H * dh), d), "wk": ((d, KV * dh), d),
-        "wv": ((d, KV * dh), d), "wo": ((H * dh, d), H * dh),
-        "wg": ((d, f), d), "wd": ((f, d), f),
-    }
-    if cfg.mlp_type == "swiglu":
-        shapes["wu"] = ((d, f), d)
+    shapes = {"ln1": ((d,), None), "ln2": ((d,), None)}
+    if cfg.attn_type == "gqa":
+        shapes.update(
+            wq=((d, H * dh), d), wk=((d, KV * dh), d),
+            wv=((d, KV * dh), d), wo=((H * dh, d), H * dh),
+        )
+    else:
+        ql, kvr, rope = cfg.q_lora_rank, cfg.kv_lora_rank, cfg.qk_rope_dim
+        qk, vd = cfg.qk_nope_dim + rope, cfg.v_head_dim
+        shapes.update(
+            wq_a=((d, ql), d), q_norm=((ql,), None), wq_b=((ql, H * qk), ql),
+            wkv_a=((d, kvr + rope), d), kv_norm=((kvr,), None),
+            wk_b=((kvr, H * cfg.qk_nope_dim), kvr), wv_b=((kvr, H * vd), kvr),
+            wo=((H * vd, d), H * vd),
+        )
+    if cfg.moe:
+        E, fe = cfg.moe.n_experts, cfg.moe.d_ff
+        shapes.update(
+            router=((d, E), d), wg_e=((E, d, fe), d), wu_e=((E, d, fe), d),
+            wd_e=((E, fe, d), fe),
+        )
+    else:
+        shapes.update(wg=((d, f), d), wd=((f, d), f))
+        if cfg.mlp_type == "swiglu":
+            shapes["wu"] = ((d, f), d)
     return shapes
 
 
@@ -135,13 +184,17 @@ class Block(nn.Module):
 
 
 class LM(nn.Module):
-    """Embedding, decoder layers, final norm and (untied) head."""
+    """Embedding, decoder layers, final norm and head; ``lm_head`` is
+    None where the config ties the head to the embedding."""
 
     def __init__(self, cfg: LMConfig, embed, layers: list, final_norm,
-                 lm_head):
+                 lm_head=None):
         super().__init__()
         if len(layers) != cfg.n_layers:
             raise ValueError(f"{cfg.name}: {len(layers)} layers, config says {cfg.n_layers}")
+        if (lm_head is None) != cfg.tie_embeddings:
+            raise ValueError(f"{cfg.name}: tie_embeddings={cfg.tie_embeddings} but "
+                             f"lm_head is {'absent' if lm_head is None else 'given'}")
         want = layer_shapes(cfg)
         for li, tensors in enumerate(layers):
             got = {k: tuple(t.shape) for k, t in tensors.items()}
@@ -151,7 +204,7 @@ class LM(nn.Module):
         self.embed = _param(embed)
         self.layers = nn.ModuleList(Block(t) for t in layers)
         self.final_norm = _param(final_norm)
-        self.lm_head = _param(lm_head)
+        self.lm_head = None if lm_head is None else _param(lm_head)
 
 
 def init_params(gen: torch.Generator, cfg: LMConfig) -> LM:
@@ -170,7 +223,7 @@ def init_params(gen: torch.Generator, cfg: LMConfig) -> LM:
     d, V = cfg.d_model, cfg.vocab
     embed = normal_init(gen, (V, d), 0.02, dt)
     layers = [layer() for _ in range(cfg.n_layers)]
-    head = fan_in_init(gen, (d, V), d, dt)
+    head = None if cfg.tie_embeddings else fan_in_init(gen, (d, V), d, dt)
     return LM(cfg, embed, layers, torch.ones((d,), dtype=dt, device=dev), head)
 
 
@@ -247,6 +300,11 @@ def attention_xla_flash(q, k, v, *, causal: bool, scale: float,
 def run_attention(q, k, v, cfg: LMConfig, *, causal=True):
     """q (B,S,H,dh), k/v (B,T,KV,dh) -> (B,S,H*dh)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
+    if cfg.attn_impl.startswith("pallas") and q.shape[-1] != v.shape[-1]:
+        # the kernel takes one head dim; MLA (qk 96 / v 64) takes the
+        # blockwise path instead, as in the JAX package
+        return run_attention(q, k, v, dataclasses.replace(cfg, attn_impl="xla_flash"),
+                             causal=causal)
     if cfg.attn_impl.startswith("pallas"):
         out = mha_kernel(
             q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
@@ -287,6 +345,14 @@ def _mlp(lp: Block, x, cfg: LMConfig):
     return h @ lp.wd
 
 
+def _ffn(lp: Block, x, cfg: LMConfig):
+    """The layer's FFN: MoE where the config has it (its aux loss is a
+    training term, dropped here), else the dense MLP."""
+    if cfg.moe:
+        return moe_ffn(x, lp.router, lp.wg_e, lp.wu_e, lp.wd_e, cfg.moe)[0]
+    return _mlp(lp, x, cfg)
+
+
 def _gqa_qkv(lp: Block, x, cfg: LMConfig, positions):
     B, S, d = x.shape
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -297,18 +363,79 @@ def _gqa_qkv(lp: Block, x, cfg: LMConfig, positions):
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
+def _mla_q(lp: Block, x, cfg: LMConfig, positions):
+    B, S, d = x.shape
+    nope, rope = cfg.qk_nope_dim, cfg.qk_rope_dim
+    qa = rms_norm(x @ lp.wq_a, lp.q_norm, NORM_EPS)
+    q = (qa @ lp.wq_b).reshape(B, S, cfg.n_heads, nope + rope)
+    cos, sin = rope_angles(positions, rope, ROPE_THETA)
+    return q[..., :nope], apply_rope(q[..., nope:], cos, sin)
+
+
+def _mla_latent(lp: Block, x, cfg: LMConfig, positions):
+    """Compressed KV: (c (B,S,kvr) post-norm, k_rope (B,S,rope))."""
+    kvr, rope = cfg.kv_lora_rank, cfg.qk_rope_dim
+    kv = x @ lp.wkv_a
+    c = rms_norm(kv[..., :kvr], lp.kv_norm, NORM_EPS)
+    cos, sin = rope_angles(positions, rope, ROPE_THETA)
+    k_rope = apply_rope(kv[..., kvr:][:, :, None, :], cos, sin)[:, :, 0, :]
+    return c, k_rope
+
+
+def _mla_attention_train(lp: Block, x, cfg: LMConfig, positions):
+    """Materialised MLA attention (the prefill path): returns the
+    attention output and the latent cache entries (c, k_rope)."""
+    B, S, d = x.shape
+    H, nope, rope = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    q_nope, q_rope = _mla_q(lp, x, cfg, positions)
+    c, k_rope = _mla_latent(lp, x, cfg, positions)
+    k_nope = (c @ lp.wk_b).reshape(B, S, H, nope)
+    v = (c @ lp.wv_b).reshape(B, S, H, cfg.v_head_dim)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, rope)], dim=-1)
+    out = run_attention(q, k, v, cfg, causal=True)
+    return out @ lp.wo, (c, k_rope)
+
+
+def _mla_attention_decode(lp: Block, x, cfg: LMConfig, c_cache, kr_cache, pos: int):
+    """Absorbed MLA decode: scores and context in latent space, in f32;
+    the cache stays (kv_lora + rope) a token, never expanded to H heads."""
+    B = x.shape[0]
+    H, nope, vd = cfg.n_heads, cfg.qk_nope_dim, cfg.v_head_dim
+    kvr = cfg.kv_lora_rank
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q_nope, q_rope = _mla_q(lp, x, cfg, positions)  # (B,1,H,·)
+    q_abs = torch.einsum("bqhn,rhn->bqhr", q_nope, lp.wk_b.reshape(kvr, H, nope))
+    s = (torch.einsum("bqhr,bkr->bhqk", q_abs.float(), c_cache.float())
+         + torch.einsum("bqhp,bkp->bhqk", q_rope.float(), kr_cache.float())
+         ) / math.sqrt(nope + cfg.qk_rope_dim)
+    valid = torch.arange(c_cache.shape[1], device=x.device) <= pos
+    p = torch.softmax(torch.where(valid, s, NEG_INF), dim=-1)
+    ctx = torch.einsum("bhqk,bkr->bqhr", p, c_cache.float())
+    out = torch.einsum("bqhr,rhv->bqhv", ctx.to(x.dtype), lp.wv_b.reshape(kvr, H, vd))
+    return out.reshape(B, 1, H * vd) @ lp.wo
+
+
 def _layer(lp: Block, x, cfg: LMConfig, positions):
-    """One prefill/teacher-forced layer; returns (x, k, v)."""
+    """One prefill/teacher-forced layer; returns (x, its cache entries:
+    {"k", "v"} or MLA's {"c", "kr"})."""
     h = rms_norm(x, lp.ln1, NORM_EPS)
-    q, k, v = _gqa_qkv(lp, h, cfg, positions)
-    x = x + run_attention(q, k, v, cfg, causal=True) @ lp.wo
+    if cfg.attn_type == "gqa":
+        q, k, v = _gqa_qkv(lp, h, cfg, positions)
+        attn = run_attention(q, k, v, cfg, causal=True) @ lp.wo
+        kv = {"k": k, "v": v}
+    else:
+        attn, (c, kr) = _mla_attention_train(lp, h, cfg, positions)
+        kv = {"c": c, "kr": kr}
+    x = x + attn
     h = rms_norm(x, lp.ln2, NORM_EPS)
-    return x + _mlp(lp, h, cfg), k, v
+    return x + _ffn(lp, h, cfg), kv
 
 
 def lm_head_weight(params: LM, cfg: LMConfig):
-    """The (d, V) head (the ported configs do not tie it to the
-    embedding)."""
+    """The (d, V) head: the embedding's transpose where it is tied."""
+    if cfg.tie_embeddings:
+        return params.embed.T
     return params.lm_head
 
 
@@ -323,7 +450,7 @@ def forward(params: LM, tokens, cfg: LMConfig):
     x = _embed(params, tokens)
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     for lp in params.layers:
-        x, _, _ = _layer(lp, x, cfg, positions)
+        x, _ = _layer(lp, x, cfg, positions)
     return rms_norm(x, params.final_norm, NORM_EPS)
 
 
@@ -332,10 +459,17 @@ def forward(params: LM, tokens, cfg: LMConfig):
 
 
 def cache_shapes(cfg: LMConfig, batch: int, max_len: int) -> dict:
-    """The cache's tensors as meta tensors (shape and dtype, no data)."""
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return {name: torch.empty(shape, dtype=cfg.dtype, device="meta")
-            for name in ("k", "v")}
+    """The cache's tensors as meta tensors (shape and dtype, no data):
+    GQA's k and v, or MLA's latent c and rope key kr."""
+    L = cfg.n_layers
+    if cfg.attn_type == "mla":
+        shapes = {"c": (L, batch, max_len, cfg.kv_lora_rank),
+                  "kr": (L, batch, max_len, cfg.qk_rope_dim)}
+    else:
+        shape = (L, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+        shapes = {"k": shape, "v": shape}
+    return {name: torch.empty(s, dtype=cfg.dtype, device="meta")
+            for name, s in shapes.items()}
 
 
 @torch.inference_mode()
@@ -350,9 +484,9 @@ def prefill_step(params: LM, tokens, cfg: LMConfig, max_len: int):
     cache = {name: torch.zeros(m.shape, dtype=m.dtype, device=x.device)
              for name, m in cache_shapes(cfg, B, max_len).items()}
     for li, lp in enumerate(params.layers):
-        x, k, v = _layer(lp, x, cfg, positions)
-        cache["k"][li, :, :S] = k
-        cache["v"][li, :, :S] = v
+        x, kv = _layer(lp, x, cfg, positions)
+        for name, t in kv.items():
+            cache[name][li, :, :S] = t
     x = rms_norm(x, params.final_norm, NORM_EPS)
     logits = (x[:, -1] @ lm_head_weight(params, cfg)).float()
     return cache, logits
@@ -365,7 +499,7 @@ def decode_step(params: LM, cache: dict, tokens, pos: int, cfg: LMConfig):
     in place (the JAX package returns a new one); the returned dict is
     the one given."""
     B = tokens.shape[0]
-    T = cache["k"].shape[2]
+    T = next(iter(cache.values())).shape[2]
     if not 0 <= pos < T:
         raise ValueError(f"position {pos} outside the cache's {T} slots")
     x = _embed(params, tokens)[:, None, :]  # (B,1,d)
@@ -373,13 +507,19 @@ def decode_step(params: LM, cache: dict, tokens, pos: int, cfg: LMConfig):
     scale = 1.0 / math.sqrt(cfg.head_dim)
     for li, lp in enumerate(params.layers):
         h = rms_norm(x, lp.ln1, NORM_EPS)
-        q, k, v = _gqa_qkv(lp, h, cfg, positions)
-        cache["k"][li, :, pos] = k[:, 0]
-        cache["v"][li, :, pos] = v[:, 0]
-        attn = decode_attention(q, cache["k"][li], cache["v"][li], pos, scale)
-        x = x + attn @ lp.wo
+        if cfg.attn_type == "gqa":
+            q, k, v = _gqa_qkv(lp, h, cfg, positions)
+            cache["k"][li, :, pos] = k[:, 0]
+            cache["v"][li, :, pos] = v[:, 0]
+            attn = decode_attention(q, cache["k"][li], cache["v"][li], pos, scale) @ lp.wo
+        else:
+            c, kr = _mla_latent(lp, h, cfg, positions)
+            cache["c"][li, :, pos] = c[:, 0]
+            cache["kr"][li, :, pos] = kr[:, 0]
+            attn = _mla_attention_decode(lp, h, cfg, cache["c"][li], cache["kr"][li], pos)
+        x = x + attn
         h = rms_norm(x, lp.ln2, NORM_EPS)
-        x = x + _mlp(lp, h, cfg)
+        x = x + _ffn(lp, h, cfg)
     x = rms_norm(x, params.final_norm, NORM_EPS)
     logits = (x[:, 0] @ lm_head_weight(params, cfg)).float()
     return logits, cache

@@ -49,17 +49,20 @@ def test_shape_tables_equal_the_reference():
 
 def test_all_cells_are_the_reference_less_the_named_15():
     """31 before gin-tu's four train cells planned, 27 before the twelve
-    of egnn, mace and dimenet; 15 since."""
+    of egnn, mace and dimenet, 15 before the nine serving cells of
+    minicpm3, phi3.5-moe and dbrx; 6 since: the five LMs' and MIND's
+    train cells."""
     ref = ref_configs.all_cells()
     assert configs.reference_cells() == ref and len(ref) == 47
-    assert len(configs.EXCLUDED) == 15
+    assert len(configs.EXCLUDED) == 6
     assert set(configs.EXCLUDED) <= set(ref)
     assert configs.all_cells() == [p for p in ref if p not in configs.EXCLUDED]
-    assert len(configs.all_cells()) == 32
+    assert len(configs.all_cells()) == 41
     kinds = {}
     for arch, _ in configs.all_cells():
         kinds[arch] = kinds.get(arch, 0) + 1
-    assert kinds == {"phi3-mini-3.8b": 3, "minitron-8b": 3, "mace": 4, "gin-tu": 4,
+    assert kinds == {"phi3.5-moe-42b-a6.6b": 3, "dbrx-132b": 3, "phi3-mini-3.8b": 3,
+                     "minitron-8b": 3, "minicpm3-4b": 3, "mace": 4, "gin-tu": 4,
                      "egnn": 4, "dimenet": 4, "mind": 3, "sssp": 7}
     assert configs.all_cells(include_sssp=False) == [
         p for p in ref_configs.all_cells(include_sssp=False)
@@ -68,9 +71,10 @@ def test_all_cells_are_the_reference_less_the_named_15():
     for (arch, cell), why in configs.EXCLUDED.items():
         assert why.startswith("5."), (arch, cell, why)
         assert arch in configs.UNPORTED or arch in configs.REGISTRY
-    unported = {a for a, _ in configs.EXCLUDED if a in configs.UNPORTED}
-    assert unported == {"phi3.5-moe-42b-a6.6b", "dbrx-132b", "minicpm3-4b"}
-    assert sum(a in configs.UNPORTED for a, _ in configs.EXCLUDED) == 12
+    assert not configs.UNPORTED
+    assert sorted(configs.REGISTRY) == sorted(a for a, _ in configs.REFERENCE_ARCHS)
+    assert sum(a in configs.UNPORTED for a, _ in configs.EXCLUDED) == 0
+    assert sorted(c for _, c in configs.EXCLUDED) == ["train_4k"] * 5 + ["train_batch"]
 
 
 @pytest.mark.parametrize("arch,cell", ref_configs.all_cells())
@@ -114,7 +118,8 @@ def test_sssp_reduced_and_ranked_plans(cell, topo):
 
 
 @pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "minitron-8b", "mind", "gin-tu",
-                                  "egnn", "dimenet", "mace"])
+                                  "egnn", "dimenet", "mace", "minicpm3-4b",
+                                  "phi3.5-moe-42b-a6.6b", "dbrx-132b"])
 def test_train_cells_raise(arch):
     """The LM and MIND train cells raise, naming their item; the four
     cells of each GNN arch plan as train cells that carry their step."""
@@ -136,8 +141,9 @@ def test_train_cells_raise(arch):
 
 def test_flop_formulas_equal_the_reference():
     """The LM train and MIND train formulas, which no planned cell
-    reaches, still equal the reference's."""
-    for arch in ("phi3-mini-3.8b", "minitron-8b"):
+    reaches, still equal the reference's (MLA's and MoE's too)."""
+    for arch in ("phi3-mini-3.8b", "minitron-8b", "minicpm3-4b", "phi3.5-moe-42b-a6.6b",
+                 "dbrx-132b"):
         cfg = configs.get_arch(arch).make_config()
         rcfg = ref_configs.get_arch(arch).make_config()
         assert cfg.n_params() == rcfg.n_params()

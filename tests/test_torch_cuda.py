@@ -23,7 +23,7 @@ from repro_torch.configs import get_arch
 from repro_torch.core.selfstab import synchronous_sweep
 from repro_torch.data import gnn_flat_batch, lm_batch, mind_batch
 from repro_torch.graph import rmat1, small_world_graph
-from repro_torch.models import lm, mind
+from repro_torch.models import lm, mind, moe
 from repro_torch.models.gnn import gin
 from repro_torch.models.common import generator
 
@@ -211,6 +211,8 @@ ATTN_CASES = [
     (1, 8, 2, 1024, 1024, 64, torch.bfloat16),
     (1, 8, 2, 128, 1024, 128, torch.bfloat16),
     (2, 32, 8, 1024, 1024, 128, torch.bfloat16),
+    # dbrx's GQA: 6 q heads a kv head, at its prefill's S 1920
+    (2, 48, 8, 1920, 1920, 128, torch.bfloat16),
 ]
 
 
@@ -359,6 +361,70 @@ def test_lm_serving_on_card_matches_cpu(dev, mlp_type, kv):
         logits, cache = lm.decode_step(card_model, cache, nxt.to(dev), 128 + step, cfg)
         c_logits, c_cache = lm.decode_step(cpu_model, c_cache, nxt, 128 + step, cfg)
         torch.testing.assert_close(logits.cpu(), c_logits, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["mla", "moe"])
+def test_mla_moe_serving_on_card_matches_cpu(dev, kind):
+    """MLA (absorbed decode) and MoE layers on the card against the CPU
+    in f32; the MoE prefill attends through the kernel, one launch a
+    layer, at a capacity that drops nothing (decode steps of 2 tokens
+    never drop, and routes must agree)."""
+    base = dict(name="t", n_layers=2, d_model=256, n_heads=4, d_ff=512, vocab=512,
+                param_dtype="float32", attn_impl="pallas")
+    if kind == "mla":
+        cfg = lm.LMConfig(**base, n_kv_heads=4, attn_type="mla", q_lora_rank=96,
+                          kv_lora_rank=64, qk_nope_dim=32, qk_rope_dim=16, v_head_dim=32,
+                          tie_embeddings=True)
+    else:
+        cfg = lm.LMConfig(**base, n_kv_heads=2, moe=moe.MoEConfig(
+            n_experts=8, top_k=2, d_model=256, d_ff=384, capacity_factor=4.0))
+    cpu_model = lm.init_params(generator(0, "cpu"), cfg)
+    card_model = lm.init_params(generator(0, "cpu"), cfg).to(dev)
+    toks = torch.as_tensor(lm_batch(0, 2, 128, cfg.vocab)["tokens"])
+    K.reset_launch_counts()
+    cache, logits = lm.prefill_step(card_model, toks.to(dev), cfg, 136)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["flash_attention"] == (0 if kind == "mla" else cfg.n_layers)
+    c_cache, c_logits = lm.prefill_step(cpu_model, toks, cfg, 136)
+    torch.testing.assert_close(logits.cpu(), c_logits, rtol=1e-4, atol=1e-5)
+    for step in range(4):
+        nxt = c_logits.argmax(-1).to(torch.int32)
+        assert torch.equal(logits.argmax(-1).cpu().to(torch.int32), nxt)
+        logits, cache = lm.decode_step(card_model, cache, nxt.to(dev), 128 + step, cfg)
+        c_logits, c_cache = lm.decode_step(cpu_model, c_cache, nxt, 128 + step, cfg)
+        torch.testing.assert_close(logits.cpu(), c_logits, rtol=1e-4, atol=1e-5)
+    for name in cache:
+        torch.testing.assert_close(cache[name].cpu(), c_cache[name], rtol=1e-4, atol=1e-5)
+
+
+def test_moe_ffn_on_card_matches_cpu_and_repeats(dev):
+    """bf16 ``moe_ffn`` at a capacity that drops pairs: the same routes
+    (experts, kept pairs) as on the CPU, the output within 2e-2 of its
+    scale, and the card's bits equal over two runs (a sorted dispatch
+    and a gathered combine, no atomics)."""
+    cfg = moe.MoEConfig(n_experts=8, top_k=2, d_model=256, d_ff=384,
+                        capacity_factor=1.0, min_capacity=4)
+    r = np.random.default_rng(5)
+    E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    arrays = [r.normal(size=(2, 128, d)), r.normal(size=(d, E)) / np.sqrt(d),
+              r.normal(size=(E, d, f)) / np.sqrt(d), r.normal(size=(E, d, f)) / np.sqrt(d),
+              r.normal(size=(E, f, d)) / np.sqrt(f)]
+    cpu = [torch.as_tensor(a.astype(np.float32)).to(torch.bfloat16) for a in arrays]
+    card = [t.to(dev) for t in cpu]
+    out, aux = moe.moe_ffn(*card, cfg)
+    out2, aux2 = moe.moe_ffn(*card, cfg)
+    assert torch.equal(out, out2) and torch.equal(aux, aux2)
+    c_out, c_aux = moe.moe_ffn(*cpu, cfg)
+    N = 2 * 128
+    C = moe.capacity(cfg, N)
+    route = moe.route(card[0].reshape(N, d), card[1], cfg, C)
+    c_route = moe.route(cpu[0].reshape(N, d), cpu[1], cfg, C)
+    assert route.dropped > 0
+    assert torch.equal(route.idx.cpu(), c_route.idx)
+    assert torch.equal(route.keep.cpu(), c_route.keep)
+    err = float((out.float().cpu() - c_out.float()).abs().max())
+    assert err <= 2e-2 * float(c_out.float().abs().max()), err
+    torch.testing.assert_close(aux.cpu(), c_aux, rtol=1e-5, atol=0)
 
 
 def test_mind_serving_on_card_matches_cpu(dev):

@@ -34,11 +34,11 @@ def test_cli_all_writes_ok_records_without_a_graph_or_an_engine(tmp_path, monkey
     monkeypatch.setattr(engine, "_run", refuse)
     dryrun.main(["--all", "--ranks", "1", "4", "--out", str(tmp_path)])
     recs = [json.loads(p.read_text()) for p in sorted(tmp_path.glob("*.json"))]
-    assert len(recs) == 64 and all(r["ok"] for r in recs)
+    assert len(recs) == 82 and all(r["ok"] for r in recs)
     assert {(r["arch"], r["cell"]) for r in recs} == set(all_cells())
-    assert sorted(r["ranks"] for r in recs) == [1] * 32 + [4] * 32
+    assert sorted(r["ranks"] for r in recs) == [1] * 41 + [4] * 41
     out = capsys.readouterr().out
-    assert out.count("[dryrun]") == 64 and "dry-run complete: 32 cells" in out
+    assert out.count("[dryrun]") == 82 and "dry-run complete: 41 cells" in out
     for r in recs:
         assert r["arg_bytes"] > 0 and r["model_flops"] > 0
         if r["arch"] == "sssp":
@@ -99,6 +99,32 @@ def test_graph500_cells_report_the_formula_bytes():
     assert fits[("road27_delta_nodeq_a2a", 1)]
     assert not fits[("rmat26_delta_buffer_a2a", 1)]
     assert all(fits[(c, 4)] for c in sssp_cfg.SHAPES)
+
+
+def test_mla_and_moe_cells_record_what_fits_one_card():
+    """phi3.5-moe's bf16 weights (83.7 GB) and dbrx's (263.2 GB) fit no
+    cell on one card; minicpm3's 8.15 GB do, and so does its long_500k
+    latent cache (62 × 524,288 × 288 × 2 B = 18.7 GB), while decode_32k's
+    (62 × 128 × 32,768 × 288 × 2 B = 149.8 GB) does not.  Planned from
+    the arguments, not measured."""
+    from repro_torch.configs import get_arch
+
+    recs = {(a, c): dryrun.plan_record(get_arch(a).make_cell(c), "lm")
+            for a in ("minicpm3-4b", "phi3.5-moe-42b-a6.6b", "dbrx-132b")
+            for c in ("prefill_32k", "decode_32k", "long_500k")}
+    weights = {a: recs[(a, "prefill_32k")]["arg_bytes"] - 32 * 32768 * 4
+               for a in ("minicpm3-4b", "phi3.5-moe-42b-a6.6b", "dbrx-132b")}
+    assert round(weights["phi3.5-moe-42b-a6.6b"] / 1e9, 1) == 83.7
+    assert round(weights["dbrx-132b"] / 1e9, 1) == 263.2
+    assert round(weights["minicpm3-4b"] / 1e9, 2) == 8.15
+    cache = recs[("minicpm3-4b", "decode_32k")]["arg_bytes"] - weights["minicpm3-4b"] \
+        - 128 * 4 - 4
+    assert cache == 62 * 128 * 32768 * 288 * 2
+    assert round(cache / 1e9, 1) == 149.8
+    fits = {k: r["fits_one_card"] for k, r in recs.items()}
+    assert {k for k, f in fits.items() if f} == {("minicpm3-4b", "prefill_32k"),
+                                                 ("minicpm3-4b", "long_500k")}
+    assert all("not measured" in r["fits_basis"] for r in recs.values())
 
 
 def allocator_peak(fn) -> int:

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import minicpm3 as ref_minicpm3
 from repro.configs import minitron as ref_minitron
 from repro.configs import phi3_mini as ref_phi3
 from repro.models import lm as ref_lm
@@ -29,6 +30,7 @@ from repro_torch.data import lm_batch
 from repro_torch.models import lm
 from repro_torch.models.common import param_count
 from repro_torch.models.convert import lm_params_from_numpy
+from repro_torch.models.moe import MoEConfig
 
 ARCHS = {"minitron-8b": ref_minitron, "phi3-mini-3.8b": ref_phi3}
 PROMPT, MAX_LEN, STEPS = 128, 136, 6
@@ -154,12 +156,15 @@ def test_attention_xla_flash_raises_on_a_partial_chunk():
 
 
 @pytest.mark.parametrize("over,error", [
-    (dict(attn_type="mla"), NotImplementedError),
-    (dict(moe=object()), NotImplementedError),
+    (dict(attn_type="linear"), ValueError),
+    # a MoE whose width is not the model's
+    (dict(moe=MoEConfig(n_experts=4, top_k=2, d_model=32, d_ff=96)), ValueError),
     (dict(attn_impl="cudnn"), ValueError),
     (dict(mlp_type="gelu"), ValueError),
 ])
 def test_config_rejects_what_is_not_ported(over, error):
+    """An attention type, MoE width, attention route or MLP the JAX
+    package does not have."""
     with pytest.raises(error):
         dataclasses.replace(get_arch("minitron-8b").make_config(True), **over)
 
@@ -177,5 +182,9 @@ def test_registry_and_full_configs():
     assert param_count(meta) - norms == ref_minitron.make_config().n_params()
     assert get_arch("phi3-mini-3.8b").make_config().head_dim == 96
     assert get_arch("mind").make_config().bag_impl == "pallas"
+    mla = get_arch("minicpm3-4b").make_config()
+    assert (mla.attn_type, mla.tie_embeddings, mla.attn_impl, mla.attn_chunk) == \
+        ("mla", True, "xla_flash", 8192)
+    assert mla.n_params() == ref_minicpm3.make_config().n_params()
     with pytest.raises(KeyError, match="not yet ported"):
-        get_arch("minicpm3-4b")
+        get_arch("no-such-arch")
