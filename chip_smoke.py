@@ -8,7 +8,9 @@ and of phi3.5-moe and dbrx at published widths and the depth one card
 holds (8 and 4 layers); MIND serving at full width (2^20 items,
 2^17 profile ids); GIN inference and training (gin-tu at full width)
 on rmat1 at scale 21, the size of ogb-products; EGNN, MACE and DimeNet
-training at full width on a fanout block of that graph.
+training at full width on a fanout block of that graph; and LM
+training of phi3-mini-3.8b at full width (32 layers, 3.82 B parameters,
+B 1 x S 4096), its attention through the forward and backward kernels.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --trace-spread 3   # phase 12(a)'s timing alone
@@ -37,7 +39,12 @@ Phases (any failure exits non-zero):
      case c (the f32 kernel's key split), case d (the fp32 twin's
      prefill of phase 8) and case e (dbrx's prefill of phase 8b: Hq 48,
      Hkv 8, 6 q heads a kv head); the bag also as a bare launch, alone
-     under torch.profiler and its index check apart
+     under torch.profiler and its index check apart; the attention
+     backward (flash_attention_bwd) against its plain version at phi3-
+     mini's train shape (bf16, B 1, H 32, S 4096, D 96), at G 4 and G 6
+     with D 128 (bf16, B 2, S 2048) and at the fp32 twin's (f32, S 2048,
+     D 96), timed through the wrapper, alone under the profiler, beside
+     the plain version and beside the backward of sdpa
   8. LM serving, minitron-8b in bf16: prefill of 4 x 1920 tokens
      through the attention kernel (32 launches), 32 greedy decode
      steps; logits against the plain attention; then in fp32, the last
@@ -53,6 +60,17 @@ Phases (any failure exits non-zero):
      choice) pairs a layer; then fp32 twins of 2 layers: the kernel route
      against plain attention, and decode against a teacher-forced prefill
      (plain attention) at a capacity that drops nothing
+ 8c. LM training, phi3-mini-3.8b in bf16 at full width, all 32 layers
+     (the step's peak must leave 8 GiB of the card free), B 1 x S 4096
+     from lm_batch: (c) the first loss through the kernels at 2 layers of
+     the run's weights against the plain route (1e-2); (a) a cold and 3
+     warm steps of build_train_step(lm_loss) with the params and AdamW
+     state updated in place (ms, tokens/s, peak memory, losses finite),
+     64 forward and 32 backward attention launches a step (remat runs
+     each layer's forward again), then one step under the profiler
+     (busy share); (b) the fp32 twin at 2 layers, S 2048: loss and every
+     gradient leaf through the kernels against the plain route (1e-5,
+     1e-4 of a leaf's max |grad|)
   9. MIND serving: serve_interests at B=512 and B=262,144 and
      retrieval_scores over all 2^20 items, through the embedding-bag
      kernel, against the plain bag; each call's bag of profiles bit for
@@ -232,6 +250,39 @@ MLA_MOE_PROFILED_STEPS = 2
 # both compute in f32 and round once
 ATTN_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 ATTN_BF16_RTOL, ATTN_BF16_ATOL = 1e-2, 2e-3
+# the attention backward against its plain version (phase 7): the f32
+# sums of up to Sk terms in another order, as a share of a gradient's
+# max |value|; bf16 also within one bf16 ulp (both compute in f32 and
+# round once)
+ATTN_BWD_TOL, ATTN_BWD_BF16_RTOL = 1e-4, 2 ** -7
+# the forward's lse against the plain one's, absolute (lse ~ ln Sk): f32
+# sums in another order; bf16 also the scores' wgmma sums and the
+# kernel's exp2 and log2 (the card test's tolerances)
+ATTN_LSE_TOL = {"bfloat16": 2e-4, "float32": 2e-5}
+# LM training (phase 8c): phi3-mini-3.8b at full width in bf16, B 1 x S
+# 4096 from lm_batch, at the depth that leaves TRAIN_FREE_GIB of the card
+# free at the step's peak; a cold step, then TRAIN_WARM warm ones
+TRAIN_ARCH = "phi3-mini-3.8b"
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_WARM = 32, 1, 4096, 3
+TRAIN_FREE_GIB = 8.0
+# (b) its fp32 twin at full width and 2 layers, B 1 x S 2048: the kernel
+# route's loss and gradients against the plain route's (attn_impl
+# "xla"), each leaf as a share of its max |grad|.  On the CPU the two
+# routes (the plain backward through lse against autograd of the plain
+# attention) differ by 1.5e-6 at D 96, S 512; the card sums 2048 keys
+# in the kernels' order: 1e-4 leaves 65x
+TRAIN_F32_LAYERS, TRAIN_F32_SEQ = 2, 2048
+TRAIN_F32_LOSS_RTOL, TRAIN_F32_GRAD_TOL = 1e-5, 1e-4
+# (c) the bf16 run's weights at 2 layers, S 4096: the loss and each
+# gradient leaf through the kernels against the plain route's, the leaf
+# as a share of its max |grad|.  Set from readings (scripts/
+# train_bf16_gaps.py on an H100, 4 batches): the sound routes differ by
+# 1.2e-6 to 1.4e-5 of the loss and by up to 0.0253 in a leaf (bf16
+# rounding); a mask one key late moves the loss by 2.3e-5, inside the
+# sound spread, but a leaf by 0.83, and lse in base 2 a leaf by 0.97.
+# An lse off by 1e-2 (0.021) stays inside the sound spread: phase 7
+# holds lse within ATTN_LSE_TOL at this shape
+TRAIN_BF16_LOSS_RTOL, TRAIN_BF16_GRAD_TOL = 1e-4, 5e-2
 # MIND serving (phase 9)
 MIND_SERVE = (("serve_p99", 512), ("serve_bulk", 262_144))
 # kernel-path vs plain-bag outputs, as a share of the plain one's max
@@ -466,6 +517,17 @@ ATTN_CASES = (
     # dbrx's prefill in phase 8b: 6 q heads a kv head
     ("e dbrx prefill", 4, 48, 8, 1920, 1920, 128, "bfloat16", True),
 )
+ATTN_BWD_CASES = (
+    # label, B, Hq, Hkv, S, D, dtype name, causal
+    ("f phi3-mini train", 1, 32, 32, 4096, 96, "bfloat16", True),
+    ("g G 4 (minitron, phi3.5-moe)", 2, 32, 8, 2048, 128, "bfloat16", True),
+    ("h G 6 (dbrx)", 2, 48, 8, 2048, 128, "bfloat16", True),
+    ("i fp32 twin train", 1, 32, 32, 2048, 96, "float32", True),
+)
+ATTN_BWD_ROWS = {
+    "f phi3-mini train": "flash_attention_bwd",
+    "i fp32 twin train": "flash_attention_bwd f32",
+}
 # the cases whose numbers stand in the kernels line, with the row's name
 # and source: the path's shapes, minitron's prefill at max_len (bf16)
 # and its fp32 twin's (f32)
@@ -688,6 +750,103 @@ def serving_kernels(dev, flush) -> tuple[dict, dict, dict]:
                    launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                    bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
     return *(attn_rows[label] for label in ATTN_ROWS), bag_row
+
+
+def attention_bwd_kernels(dev, flush) -> list[dict]:
+    """Phase 7's backward cases: flash_attention_bwd against its plain
+    version on the card, timed through the wrapper beside the plain
+    version and beside torch.autograd.grad of scaled_dot_product_attention
+    (its backward alone, the forward's graph kept).  Returns the rows of
+    the kernels line (launches filled in by phase 8c)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch import kernels as K
+    from repro_torch.roofline import BF16_OPS_PER_S, F32_OPS_PER_S, bound
+    from repro_torch.roofline.kernels import flash_attention_bwd_traffic
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    rows = []
+    for label, B, Hq, Hkv, S, D, dtype_name, causal in ATTN_BWD_CASES:
+        dtype = getattr(torch, dtype_name)
+        q, dout = (torch.randn((B, Hq, S, D), generator=gen, device=dev).to(dtype)
+                   for _ in range(2))
+        k, v = (torch.randn((B, Hkv, S, D), generator=gen, device=dev).to(dtype)
+                for _ in range(2))
+        lse = torch.empty((B, Hq, S), device=dev)
+        out = K.flash_attention_cuda(q, k, v, causal=causal, lse=lse)
+        # the forward's out and lse against the plain forward's, so that
+        # the reference below shares no number the kernels made but the
+        # out that the backward takes by its contract (delta), held here
+        out_ref, lse_ref = K.attention_lse_ref(q, k, v, causal=causal)
+        lse_err = float((lse - lse_ref).abs().max())
+        out_err = float((out.float() - out_ref.float()).abs().max())
+        tol = ATTN_TOL[dtype_name]
+        rtol, atol = ((ATTN_BF16_RTOL, ATTN_BF16_ATOL) if dtype == torch.bfloat16
+                      else (tol, tol))
+        if not lse_err <= ATTN_LSE_TOL[dtype_name] or not torch.allclose(
+                out.float(), out_ref.float(), rtol=rtol, atol=atol):
+            fail(f"flash_attention ({label}, the backward's forward): lse differs from the "
+                 f"plain one's by {lse_err} (tol {ATTN_LSE_TOL[dtype_name]}), out by "
+                 f"{out_err} (rtol {rtol}, atol {atol})")
+        del out_ref
+        K.reset_launch_counts()
+        got = K.flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal=causal)
+        torch.cuda.synchronize()
+        if K.launch_counts()["flash_attention_bwd"] != 1:
+            fail(f"flash_attention_bwd ({label}): the wrapper did not launch its kernel")
+        want = K.attention_bwd_ref(q, k, v, out, lse_ref, dout, causal=causal)
+        err = 0.0
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            scale = float(w.float().abs().max())
+            gap = (g.float() - w.float()).abs()
+            err = max(err, float(gap.max()))
+            rtol = ATTN_BWD_BF16_RTOL if dtype == torch.bfloat16 else 0.0
+            if g.dtype != dtype or bool((gap > ATTN_BWD_TOL * scale
+                                         + rtol * w.float().abs()).any()):
+                fail(f"flash_attention_bwd ({label}): {name} differs from the plain "
+                     f"version (max abs err {float(gap.max())}, max |{name}| {scale})")
+        del got, want
+        ins = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*ins, is_causal=causal, enable_gqa=True)
+
+        def library():
+            return torch.autograd.grad(lib_out, ins, dout, retain_graph=True)
+
+        backend = library_kernels(library)
+        ms = time_ms(lambda: K.flash_attention_bwd_cuda(q, k, v, out, lse, dout,
+                                                        causal=causal), flush)
+        alone_ms = kernel_alone_ms(
+            lambda: K.flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal=causal),
+            flush, ("attention_dkdv", "attention_dq", "attention_delta"))
+        plain_ms = time_ms(lambda: K.attention_bwd_ref(q, k, v, out, lse, dout,
+                                                       causal=causal), flush, reps=5)
+        library_ms = time_ms(library, flush)
+        nbytes, flops = flash_attention_bwd_traffic(B, Hq, Hkv, S, S, D, causal,
+                                                    q.element_size())
+        peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+        bound_ms, bound_by = bound(nbytes, flops, peak)
+        log(f"flash_attention_bwd ({label}: B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} "
+            f"{dtype_name} causal={causal}): the forward's lse within {lse_err:.3g} of the "
+            f"plain lse (tol {ATTN_LSE_TOL[dtype_name]}), out within {out_err:.3g}; "
+            f"gradients against the plain backward from the plain lse: "
+            f"max abs err {err:.3g} (tol {ATTN_BWD_TOL} "
+            f"of max |grad|{', rtol 2^-7' if dtype == torch.bfloat16 else ''}); "
+            f"wrapper {ms:.4f} ms, kernels alone {alone_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"sdpa backward {library_ms:.4f} ms ({ms / library_ms:.2f}x it); {flops} flop, "
+            f"{nbytes} bytes, bound {bound_ms:.4f} ms ({bound_by}, {peak / 1e12:g} "
+            f"TFLOP/s); kernel at {flops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.3f} "
+            f"of its bound; sdpa's backward kernels: {backend}")
+        if label in ATTN_BWD_ROWS:
+            rows.append(dict(
+                name=ATTN_BWD_ROWS[label], route="cuda",
+                source="src/repro_torch/csrc/flash_attention_bwd.cu",
+                replaces="src/repro/kernels/flash_attention/kernel.py:84",
+                launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms))
+        del q, k, v, dout, out, lse, lse_ref, ins, lib_out
+        free_card()
+    return rows
 
 
 def lm_serving(dev) -> tuple[int, int]:
@@ -1035,6 +1194,165 @@ def mla_moe_serving(dev) -> tuple[int, int]:
         del model, kernel_logits, plain_logits
         free_card()
     return launches[0], launches[1]
+
+
+def route_gaps(params, batch, cfg, check: str) -> tuple[float, dict]:
+    """Phase 8c's (b) and (c): lm_loss and its gradient on ``params``
+    through the kernels (cfg's attn_impl) and on the plain route
+    (attn_impl "xla").  Fails unless the kernel route launched the
+    forward kernel twice a layer (once more under remat) and the
+    backward once.  Returns the loss difference as a share of the plain
+    loss, and each leaf's max gap as a share of its plain max |grad|."""
+    from repro_torch import kernels as K
+    from repro_torch.models import lm
+    from repro_torch.train.train_step import value_and_grad
+    from torch.utils._pytree import keystr, tree_flatten_with_path, tree_leaves
+
+    def run(c):
+        return value_and_grad(lambda p, b: lm.lm_loss(p, b, c))(params, batch)
+
+    before = K.launch_counts()
+    loss_k, grads_k = run(cfg)
+    counts = K.launch_counts()
+    got = tuple(counts[n] - before.get(n, 0) for n in ("flash_attention", "flash_attention_bwd"))
+    want = ((2 if cfg.remat == "full" else 1) * cfg.n_layers, cfg.n_layers)
+    if got != want:
+        fail(f"phase 8c {check}: the kernel route launched (flash_attention, "
+             f"flash_attention_bwd) {got} times, want {want}")
+    loss_p, grads_p = run(dataclasses.replace(cfg, attn_impl="xla"))
+    rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    gaps = {keystr(path).strip("[]'").replace("']['", "."):
+            float((a.float() - c.float()).abs().max() / c.float().abs().max().clamp_min(1e-30))
+            for (path, a), c in zip(tree_flatten_with_path(grads_k)[0],
+                                    tree_leaves(grads_p))}
+    return rel, gaps
+
+
+def lm_training(dev, card_line) -> tuple[int, int]:
+    """Phase 8c: phi3-mini-3.8b trains at full width in bf16 on the card,
+    its attention through the forward kernel and the backward kernel, at
+    TRAIN_LAYERS layers (all 32: the step's peak leaves TRAIN_FREE_GIB of
+    the card free, which is checked).  (c) first, on the run's weights at
+    2 layers: the loss and every gradient leaf through the kernels against
+    the plain route (route_gaps).  (a) a cold step and TRAIN_WARM warm ones of build_train_step(lm_loss)
+    with the params and AdamW state updated in place, one more under the
+    profiler.  (b) the fp32 twin at 2 layers: loss and gradients, kernel
+    route against the plain route.  Returns the backward kernel's
+    launches in (a) and in (b)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_arch
+    from repro_torch.data import lm_batch
+    from repro_torch.models import lm
+    from repro_torch.train import TrainConfig, build_train_step, init_train_state
+    from torch.utils._pytree import tree_leaves
+
+    full = get_arch(TRAIN_ARCH).make_config()
+    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
+
+    def batch(step, seq, vocab):
+        return {k: torch.as_tensor(v, device=dev)
+                for k, v in lm_batch(step, TRAIN_BATCH, seq, vocab, seed=SEED).items()}
+
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_tree(torch.Generator(device=dev).manual_seed(SEED), cfg)
+    tc = TrainConfig()
+    opt = init_train_state(params, tc)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"{cfg.name}: {cfg.n_layers} of {full.n_layers} layers, d={cfg.d_model}, "
+        f"{n_params} parameters ({cfg.param_dtype}, attn_impl={cfg.attn_impl}, remat="
+        f"{cfg.remat}, loss_chunk={cfg.loss_chunk}) and AdamW state (f32 master, m, v) "
+        f"made on the card in {time.perf_counter() - t0:.2f} s: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+
+    # (c) the loss and the gradients at 2 layers of these weights,
+    # kernels vs plain
+    two = {**params, "layers": {k: v[:TRAIN_F32_LAYERS] for k, v in params["layers"].items()}}
+    cfg2 = dataclasses.replace(cfg, n_layers=TRAIN_F32_LAYERS)
+    rel, gaps = route_gaps(two, batch(0, TRAIN_SEQ, cfg.vocab), cfg2, "(c)")
+    worst = max(gaps, key=gaps.get)
+    log(f"check (c) bf16, {TRAIN_F32_LAYERS} layers, S {TRAIN_SEQ}, through the kernels vs "
+        f"the plain route: loss {rel:.3g} of it (tol {TRAIN_BF16_LOSS_RTOL}); gradients, "
+        f"worst leaf {worst} {gaps[worst]:.3g} of its max |grad| (tol "
+        f"{TRAIN_BF16_GRAD_TOL}); {', '.join(f'{k} {g:.3g}' for k, g in gaps.items())}")
+    if not (rel <= TRAIN_BF16_LOSS_RTOL and gaps[worst] <= TRAIN_BF16_GRAD_TOL):
+        fail(f"phase 8c (c): the bf16 kernel route differs from the plain route "
+             f"(loss {rel:.3g}, leaf {worst} {gaps[worst]:.3g})")
+    del two
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+
+    # (a) the steps
+    step_fn = build_train_step(lambda p, b: lm.lm_loss(p, b, cfg), tc, donate=True)
+    losses, walls, per_step = [], [], []
+    for step in range(1 + TRAIN_WARM):
+        b = batch(step, TRAIN_SEQ, cfg.vocab)
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, b, torch.tensor(step, dtype=torch.int32,
+                                                               device=dev))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        counts = K.launch_counts()
+        per_step.append((counts["flash_attention"], counts["flash_attention_bwd"]))
+        losses.append(float(m["loss"]))
+        log(f"train step {step} ({'cold' if step == 0 else 'warm'}): {walls[-1] * 1e3:.1f} ms, "
+            f"loss {losses[-1]:.5f}, grad norm {float(m['grad_norm']):.4f}, lr "
+            f"{float(m['lr']):.3g}; flash_attention launches {per_step[-1][0]}, "
+            f"flash_attention_bwd launches {per_step[-1][1]}")
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    with device_profile("one warm train step", top=8, kernel="attention_"):
+        params, opt, m = step_fn(params, opt, batch(1 + TRAIN_WARM, TRAIN_SEQ, cfg.vocab),
+                                 torch.tensor(1 + TRAIN_WARM, dtype=torch.int32, device=dev))
+        torch.cuda.synchronize()
+    losses.append(float(m["loss"]))
+    warm = walls[1:]
+    med = sorted(warm)[len(warm) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"LM training, {cfg.name} at {cfg.n_layers} layers, B {TRAIN_BATCH} x S {TRAIN_SEQ}: "
+        f"cold step {walls[0] * 1e3:.1f} ms, warm steps "
+        f"{', '.join(f'{w * 1e3:.1f}' for w in warm)} ms (median {med * 1e3:.1f} ms, "
+        f"{tokens / med:.0f} tokens/s); peak {peak / 2**30:.2f} GiB of the card's "
+        f"{total / 2**30:.2f} GiB ({(total - peak) / 2**30:.2f} GiB free); losses "
+        f"{[round(x, 5) for x in losses]}; on {card_line}")
+    if not all(map(lambda x: x == x and abs(x) != float("inf"), losses)):
+        fail(f"phase 8c: a loss is not finite: {losses}")
+    want = (2 * cfg.n_layers if cfg.remat == "full" else cfg.n_layers, cfg.n_layers)
+    if any(c != want for c in per_step):
+        fail(f"phase 8c: (flash_attention, flash_attention_bwd) launches a step {per_step}, "
+             f"want {want}: one backward a layer, the forward again under remat")
+    if (total - peak) / 2**30 < TRAIN_FREE_GIB:
+        fail(f"phase 8c: the step's peak {peak / 2**30:.2f} GiB leaves less than "
+             f"{TRAIN_FREE_GIB} GiB of the card free: cut TRAIN_LAYERS")
+    bf16_launches = sum(c[1] for c in per_step)
+    del params, opt, m, step_fn
+    free_card()
+
+    # (b) the fp32 twin: kernel route vs plain route, loss and gradients
+    cfg32 = dataclasses.replace(full, n_layers=TRAIN_F32_LAYERS, param_dtype="float32")
+    params = lm.init_tree(torch.Generator(device=dev).manual_seed(SEED), cfg32)
+    K.reset_launch_counts()
+    rel, gaps = route_gaps(params, batch(0, TRAIN_F32_SEQ, cfg32.vocab), cfg32, "(b)")
+    f32_launches = K.launch_counts()["flash_attention_bwd"]
+    worst = max(gaps, key=gaps.get)
+    log(f"check (b) fp32 twin, {TRAIN_F32_LAYERS} layers, S {TRAIN_F32_SEQ}, through the "
+        f"kernels vs the plain route: loss {rel:.3g} of it (tol {TRAIN_F32_LOSS_RTOL}); "
+        f"gradients, worst leaf {worst} {gaps[worst]:.3g} of its max |grad| (tol "
+        f"{TRAIN_F32_GRAD_TOL}) over {len(gaps)} leaves")
+    if not (rel <= TRAIN_F32_LOSS_RTOL and gaps[worst] <= TRAIN_F32_GRAD_TOL):
+        fail(f"phase 8c (b): the fp32 twin's kernel route differs from the plain route "
+             f"(loss {rel:.3g}, leaf {worst} {gaps[worst]:.3g})")
+    del params
+    free_card()
+    return bf16_launches, f32_launches
 
 
 def mind_serving(dev) -> int:
@@ -4209,8 +4527,9 @@ def main() -> None:
     t0 = time.perf_counter()
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     attn_row, attn32_row, attn_dbrx_row, bag_row = serving_kernels(dev, flush)
+    bwd_row, bwd32_row = attention_bwd_kernels(dev, flush)
     del flush
-    rows += [attn_row, attn32_row, attn_dbrx_row, bag_row]
+    rows += [attn_row, attn32_row, attn_dbrx_row, bwd_row, bwd32_row, bag_row]
     log(f"phase 7 took {time.perf_counter() - t0:.1f} s")
 
     # ---- 8. LM serving, minitron-8b at full width ---------------------
@@ -4223,6 +4542,11 @@ def main() -> None:
     phi_launches, attn_dbrx_row["launches"] = mla_moe_serving(dev)
     attn_row["launches"] += phi_launches
     log(f"phase 8b took {time.perf_counter() - t0:.1f} s")
+
+    # ---- 8c. LM training, phi3-mini-3.8b at full width ------------------
+    t0 = time.perf_counter()
+    bwd_row["launches"], bwd32_row["launches"] = lm_training(dev, card_line)
+    log(f"phase 8c took {time.perf_counter() - t0:.1f} s")
 
     # ---- 9. MIND serving at full width --------------------------------
     t0 = time.perf_counter()

@@ -53,8 +53,9 @@ CASES = (
 
 def attention_entry(name: str, source: Path, sm90: Path):
     """``flash_attention_launch`` of ``source`` built alone beside
-    ``sm90`` (the bf16 kernel it calls), and whether it takes
-    (n_split, scratch); ptxas's register report printed."""
+    ``sm90`` (the bf16 kernel it calls), whether it takes (n_split,
+    scratch) and whether it takes the nullable lse output; ptxas's
+    register report printed."""
     from repro_torch.kernels import _lib
 
     CACHE.mkdir(parents=True, exist_ok=True)
@@ -67,12 +68,13 @@ def attention_entry(name: str, source: Path, sm90: Path):
     for line in (done.stdout + done.stderr).splitlines():
         if ("registers" in line or "spill" in line) and "sm90" not in line:
             print(f"[{name}] {line.strip()}", flush=True)
-    split = "n_split" in source.read_text()
+    text = source.read_text()
+    split, lse = "n_split" in text, "float* lse" in text
     fn = ctypes.CDLL(str(out)).flash_attention_launch
-    fn.argtypes = ([_lib.ptr] * 4 + [_lib.c_int] * 8 + [_lib.c_float]
+    fn.argtypes = ([_lib.ptr] * (5 if lse else 4) + [_lib.c_int] * 8 + [_lib.c_float]
                    + ([_lib.c_int, _lib.ptr] if split else []) + [_lib.ptr])
     fn.restype = _lib.c_int
-    return fn, split
+    return fn, split, lse
 
 
 def main() -> None:
@@ -112,7 +114,7 @@ def main() -> None:
         CACHE.mkdir(parents=True, exist_ok=True)
         copy.write_text(text)
         entries[name] = attention_entry(name, copy, own.parent / "flash_attention_sm90.cu")
-    entries["change"] = (attn._launch(), True)
+    entries["change"] = (attn._launch(), True, True)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     stream = torch.cuda.current_stream().cuda_stream
     gen = torch.Generator(device=dev).manual_seed(chip_smoke.SEED)
@@ -127,10 +129,10 @@ def main() -> None:
         head = (B, Hq, Hkv, Sq, Sk, D, 0, int(causal), 1.0 / D ** 0.5)
 
         def bare(name):
-            fn, split = entries[name]
+            fn, split, lse = entries[name]
             extra = (n_split, part.data_ptr()) if split else ()
             args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), outs[name].data_ptr(),
-                    *head, *extra, stream)
+                    *((None,) if lse else ()), *head, *extra, stream)
             return lambda: K._lib.check(fn(*args), name)
 
         calls = {name: bare(name) for name in outs}

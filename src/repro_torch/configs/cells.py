@@ -20,10 +20,10 @@ counterpart.
 The port shards no model over cards (``ROADMAP.md`` Queue 1 item 5.6):
 an LM, MIND or GNN plan's arguments are the whole model and batch,
 whatever its rank count.  An SSSP plan's arguments are stacked over its
-ranks, one row of each a rank.  A GNN train plan (:func:`gnn_train_cell`)
-also carries its train step as ``fn``, which runs on real tensors of the
-arguments' shapes; the LM and MIND train cells wait for their training
-(Queue 1 items 5.4, 5.5) and raise.
+ranks, one row of each a rank.  A GNN or LM train plan
+(:func:`gnn_train_cell`, :func:`lm_train_cell`) also carries its train
+step as ``fn``, which runs on real tensors of the arguments' shapes;
+MIND's train cell waits for its training (Queue 1 item 5.5) and raises.
 """
 
 from __future__ import annotations
@@ -77,10 +77,9 @@ def train_unported(arch: str, cell: str, item: str):
 # LM cells
 
 #: the ROADMAP.md item that brings each untrained family's train cells
-TRAIN_ITEMS = {"lm": "5.4 (lm_loss and LM training)",
-               "recsys": "5.5 (MIND training)"}
+TRAIN_ITEMS = {"recsys": "5.5 (MIND training)"}
 #: the families whose train cells the port plans
-TRAINED_FAMILIES = ("gnn",)
+TRAINED_FAMILIES = ("gnn", "lm")
 
 
 def lm_flops_train(cfg: lm_mod.LMConfig, B: int, S: int) -> float:
@@ -115,7 +114,8 @@ def lm_flops_decode(cfg: lm_mod.LMConfig, B: int, S_ctx: int) -> float:
 def lm_param_shapes(cfg: lm_mod.LMConfig) -> dict:
     """The parameters as meta tensors in the JAX package's layout
     (``layers`` stacked over a leading layer axis; no ``lm_head`` where
-    the embedding is tied); the port's ``LM`` holds the same tensors a
+    the embedding is tied): the training tree (``models/lm.py::
+    params_tree``); the port's serving ``LM`` holds the same tensors a
     layer at a time."""
     L, dt = cfg.n_layers, cfg.dtype
     params = {
@@ -127,6 +127,24 @@ def lm_param_shapes(cfg: lm_mod.LMConfig) -> dict:
     if not cfg.tie_embeddings:
         params["lm_head"] = meta((cfg.d_model, cfg.vocab), dt)
     return params
+
+
+def lm_train_cell(arch: str, cell: str, cfg: lm_mod.LMConfig, ranks: int,
+                  B: int, S: int) -> CellPlan:
+    """The JAX package's ``lm_train_cell``: (params, AdamW state, batch
+    {'tokens', 'labels'}, step) as meta tensors, and its step,
+    ``build_train_step(lm_loss)`` at ``TrainConfig()``, which updates the
+    params and state in place (the reference donates them)."""
+    tc = TrainConfig()
+    params = lm_param_shapes(cfg)
+    batch = {"tokens": meta((B, S), torch.int32), "labels": meta((B, S), torch.int32)}
+    return CellPlan(
+        arch=arch, cell=cell, kind="train",
+        args=(params, init_state(params, tc.adamw), batch, meta((), torch.int32)),
+        model_flops=lm_flops_train(cfg, B, S),
+        notes=f"B={B} S={S} params={cfg.n_params() / 1e9:.1f}B", ranks=ranks,
+        fn=build_train_step(lambda p, b: lm_mod.lm_loss(p, b, cfg), tc, donate=True),
+    )
 
 
 def lm_prefill_cell(arch: str, cell: str, cfg: lm_mod.LMConfig, ranks: int,
@@ -164,7 +182,7 @@ def lm_cell(arch: str, cfg: lm_mod.LMConfig, cell: str,
             ranks: int = 1) -> CellPlan:
     sh = LM_SHAPES[cell]
     if sh["kind"] == "train":
-        train_unported(arch, cell, TRAIN_ITEMS["lm"])
+        return lm_train_cell(arch, cell, cfg, ranks, sh["B"], sh["S"])
     if sh["kind"] == "prefill":
         return lm_prefill_cell(arch, cell, cfg, ranks, sh["B"], sh["S"])
     return lm_decode_cell(arch, cell, cfg, ranks, sh["B"], sh["S"],

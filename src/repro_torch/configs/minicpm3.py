@@ -22,7 +22,7 @@ def make_config(reduced: bool = False) -> LMConfig:
         return LMConfig(
             name=ARCH_ID + "-reduced", n_layers=2, d_model=64,
             n_heads=4, n_kv_heads=4, d_ff=128, vocab=181,
-            param_dtype="float32", attn_type="mla",
+            param_dtype="float32", loss_chunk=8, attn_type="mla",
             q_lora_rank=48, kv_lora_rank=32, qk_nope_dim=16,
             qk_rope_dim=8, v_head_dim=16, tie_embeddings=True,
         )

@@ -18,7 +18,7 @@ def make_config(reduced: bool = False) -> LMConfig:
         return LMConfig(
             name=ARCH_ID + "-reduced", n_layers=2, d_model=64,
             n_heads=4, n_kv_heads=2, d_ff=128, vocab=241,
-            param_dtype="float32", mlp_type="relu2",
+            param_dtype="float32", loss_chunk=8, mlp_type="relu2",
         )
     return LMConfig(
         name=ARCH_ID, n_layers=32, d_model=4096, n_heads=32,

@@ -21,7 +21,7 @@ def make_config(reduced: bool = False) -> LMConfig:
         return LMConfig(
             name=ARCH_ID + "-reduced", n_layers=2, d_model=64,
             n_heads=4, n_kv_heads=2, d_ff=96, vocab=199,
-            param_dtype="float32",
+            param_dtype="float32", loss_chunk=8,
             moe=MoEConfig(n_experts=4, top_k=2, d_model=64, d_ff=96,
                           capacity_factor=2.0, min_capacity=16),
         )

@@ -18,7 +18,7 @@ def make_config(reduced: bool = False) -> LMConfig:
         return LMConfig(
             name=ARCH_ID + "-reduced", n_layers=2, d_model=64,
             n_heads=4, n_kv_heads=4, d_ff=128, vocab=193,
-            param_dtype="float32",
+            param_dtype="float32", loss_chunk=8,
         )
     return LMConfig(
         name=ARCH_ID, n_layers=32, d_model=3072, n_heads=32,

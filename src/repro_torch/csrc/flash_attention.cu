@@ -54,6 +54,10 @@
 //   unnormalized acc to the caller's scratch, and flash_merge_kernel
 //   folds the chunks in order: m* = max m_i, l = sum l_i e^(m_i - m*),
 //   o = sum acc_i e^(m_i - m*) / max(l, 1e-30).
+// * Row log-sum-exp.  Given a non-null lse, the kernel (or, split, the
+//   merge) also writes each row's lse = m + log(l) in natural log, f32
+//   (B, Hq, Sq), which the backward (flash_attention_bwd.cu) reads to
+//   recompute p; a null lse leaves the rest unchanged.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -140,8 +144,8 @@ __device__ __forceinline__ void copy_tile(float* s, const float* __restrict__ g,
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1) flash_attention_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, float* __restrict__ o, float* __restrict__ part,
-    int BH, int Hq, int group, int Sq, int Sk, float scale, int causal,
+    const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+    float* __restrict__ part, int BH, int Hq, int group, int Sq, int Sk, float scale, int causal,
     int n_split) {
   typedef Cols<D> C;
   typedef typename Vec<C::kVW>::T V;
@@ -302,6 +306,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_kernel(
     float* og = o + (static_cast<long long>(bh) * Sq + q0 + r0) * D;
 #pragma unroll
     for (int i = 0; i < kTM; ++i) {
+      if (lse != nullptr && g == 0) {
+        lse[static_cast<long long>(bh) * Sq + q0 + r0 + i] = m[i] + logf(l[i]);
+      }
       const float li = fmaxf(l[i], 1e-30f);
 #pragma unroll
       for (int c = 0; c < C::kNV; ++c) {
@@ -337,8 +344,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_kernel(
 // chunk order; a warp a row, a lane a float4 of its D columns.
 template <int D>
 __global__ void __launch_bounds__(32 * kMergeRows) flash_merge_kernel(
-    const float* __restrict__ part, float* __restrict__ o, long long rows,
-    int n_split) {
+    const float* __restrict__ part, float* __restrict__ o, float* __restrict__ lse,
+    long long rows, int n_split) {
   const long long row =
       static_cast<long long>(blockIdx.x) * kMergeRows + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
@@ -361,13 +368,14 @@ __global__ void __launch_bounds__(32 * kMergeRows) flash_merge_kernel(
     acc.z += a.z * w;
     acc.w += a.w * w;
   }
+  if (lse != nullptr && lane == 0) lse[row] = m_star + logf(l);
   const float li = fmaxf(l, 1e-30f);
   *reinterpret_cast<float4*>(o + row * D + 4 * lane) =
       make_float4(acc.x / li, acc.y / li, acc.z / li, acc.w / li);
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
            int Hq, int Hkv, int Sq, int Sk, int causal, float scale, int n_split,
            void* part, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
@@ -380,7 +388,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   const long long blocks = BH * (Sq / kBQ) * n_split;
   kernel<<<static_cast<unsigned int>(blocks), kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<const float*>(v), static_cast<float*>(o), lse,
       static_cast<float*>(part), static_cast<int>(BH), Hq, Hq / Hkv, Sq, Sk,
       scale, causal, n_split);
   err = cudaGetLastError();
@@ -388,7 +396,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   const long long rows = BH * Sq;
   flash_merge_kernel<D><<<static_cast<unsigned int>((rows + kMergeRows - 1) / kMergeRows),
                           32 * kMergeRows, 0, stream>>>(
-      static_cast<const float*>(part), static_cast<float*>(o), rows, n_split);
+      static_cast<const float*>(part), static_cast<float*>(o), lse, rows, n_split);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -396,37 +404,38 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 
 // flash_attention_sm90.cu
 int flash_attention_bf16_sm90(const void* q, const void* k, const void* v,
-                              void* o, int B, int Hq, int Hkv, int Sq, int Sk,
+                              void* o, float* lse, int B, int Hq, int Hkv, int Sq, int Sk,
                               int D, int causal, float scale,
                               cudaStream_t stream);
 
 // q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D), o like q; all contiguous, on
-// 16 bytes, of one type (bf16 when is_bf16, else f32).  The caller
+// 16 bytes, of one type (bf16 when is_bf16, else f32); lse null, or
+// (B, Hq, Sq) f32 for each row's natural-log log-sum-exp.  The caller
 // guarantees D in {64, 96, 128}, Sq and Sk multiples of 128,
 // Hq % Hkv == 0 and, when causal, Sq <= Sk.  f32 only: n_split >= 1
 // key chunks a (head, q tile); above 1, part holds
 // n_split * B*Hq*Sq * (D + 2) floats of scratch.  bf16 takes n_split 1.
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* o, int B, int Hq,
-    int Hkv, int Sq, int Sk, int D, int is_bf16, int causal, float scale,
+    const void* q, const void* k, const void* v, void* o, float* lse, int B,
+    int Hq, int Hkv, int Sq, int Sk, int D, int is_bf16, int causal, float scale,
     int n_split, void* part, cudaStream_t stream) {
   if (static_cast<long long>(B) * Hq * Sq == 0) return 0;
   if (n_split < 1 || (n_split > 1 && (is_bf16 || part == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (is_bf16) {
-    return flash_attention_bf16_sm90(q, k, v, o, B, Hq, Hkv, Sq, Sk, D, causal,
+    return flash_attention_bf16_sm90(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, D, causal,
                                      scale, stream);
   }
   switch (D) {
     case 64:
-      return launch<64>(q, k, v, o, B, Hq, Hkv, Sq, Sk, causal, scale, n_split,
+      return launch<64>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal, scale, n_split,
                         part, stream);
     case 96:
-      return launch<96>(q, k, v, o, B, Hq, Hkv, Sq, Sk, causal, scale, n_split,
+      return launch<96>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal, scale, n_split,
                         part, stream);
     case 128:
-      return launch<128>(q, k, v, o, B, Hq, Hkv, Sq, Sk, causal, scale, n_split,
+      return launch<128>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal, scale, n_split,
                          part, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -50,6 +50,10 @@
 //   single bf16 P V.
 // * The output is acc / max(l, 1e-30), rounded once to bf16 (D 96:
 //   the padded columns are dropped).
+// * Given a non-null lse, each row's log-sum-exp goes there too, f32
+//   (B, Hq, Sq), in natural log as the backward reads it: m is kept in
+//   the base-2 domain (scale * log2 e folded in), so lse = (m + log2 l)
+//   * ln 2.  A null lse leaves the rest unchanged.
 //
 // The tensor maps are built on the host for every call and passed as
 // __grid_constant__ parameters; cuTensorMapEncodeTiled is a driver
@@ -225,7 +229,7 @@ template <int D>
 __global__ void __launch_bounds__(kThreads, 1) flash_attention_sm90_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
-    int n_bh, int Hq, int group, int Sq, int Sk, float scale_log2, int causal) {
+    float* __restrict__ lse, int n_bh, int Hq, int group, int Sq, int Sk, float scale_log2, int causal) {
   using T = Tiles<D>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base =
@@ -402,6 +406,10 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_sm90_kernel(
     for (int r = 0; r < 2; ++r) {
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      if (lse != nullptr && lane % 4 == 0) {
+        lse[static_cast<long long>(bh) * Sq + q0 + 64 * wg + r0 + 8 * r] =
+            (m[r] + log2f(l[r])) * 0.6931471805599453f;
+      }
       l[r] = fmaxf(l[r], 1e-30f);
     }
     __nv_bfloat16* out = o + (static_cast<long long>(bh) * Sq + q0 + 64 * wg + r0) * D + c0;
@@ -458,8 +466,8 @@ bool tile_map(CUtensorMap* map, const void* ptr, long long rows, int D) {
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int Hq,
-           int Hkv, int Sq, int Sk, int causal, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+           int Hq, int Hkv, int Sq, int Sk, int causal, float scale, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   if (!tile_map(&tq, q, static_cast<long long>(B) * Hq * Sq, D) ||
       !tile_map(&tk, k, static_cast<long long>(B) * Hkv * Sk, D) ||
@@ -475,7 +483,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Hq,
   const long long blocks = static_cast<long long>(n_bh) * (Sq / kBQ);
   const float log2e = 1.4426950408889634f;
   kernel<<<static_cast<unsigned int>(blocks), kThreads, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), n_bh, Hq, Hq / Hkv, Sq, Sk,
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, n_bh, Hq, Hq / Hkv, Sq, Sk,
       scale * log2e, causal);
   return static_cast<int>(cudaGetLastError());
 }
@@ -487,17 +495,17 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Hq,
 // the contract: D in {64, 96, 128}, Sq and Sk multiples of 128,
 // Hq % Hkv == 0 and, when causal, Sq <= Sk.
 int flash_attention_bf16_sm90(const void* q, const void* k, const void* v,
-                              void* o, int B, int Hq, int Hkv, int Sq, int Sk,
-                              int D, int causal, float scale,
+                              void* o, float* lse, int B, int Hq, int Hkv, int Sq,
+                              int Sk, int D, int causal, float scale,
                               cudaStream_t stream) {
   if (Sq % kBQ != 0 || Sk % kBK != 0) return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
     case 64:
-      return launch<64>(q, k, v, o, B, Hq, Hkv, Sq, Sk, causal, scale, stream);
+      return launch<64>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal, scale, stream);
     case 96:
-      return launch<96>(q, k, v, o, B, Hq, Hkv, Sq, Sk, causal, scale, stream);
+      return launch<96>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal, scale, stream);
     case 128:
-      return launch<128>(q, k, v, o, B, Hq, Hkv, Sq, Sk, causal, scale, stream);
+      return launch<128>(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal, scale, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -6,7 +6,8 @@ with a plain torch version that CPU tensors take.
   relax_push        push-mode frontier gather (scatter-min in torch;
                     one lane, or a batch of lanes in one launch)
   relax_ell         pull-mode min-plus ELL row minima (rule R1)
-  flash_attention   streaming-softmax GQA attention (LM prefill)
+  flash_attention   streaming-softmax GQA attention (LM prefill), and
+                    its gradient (LM training)
   embedding_bag     gather + weighted sum per bag (MIND profile pooling)
   spmm_ell          ELL SpMM, sum or max over slots, or straight into
                     vertex sums (GNN neighbour sums, forward and, over
@@ -28,7 +29,15 @@ from repro_torch.kernels.embedding_bag import (
     embedding_bag_cuda,
     embedding_bag_ref,
 )
-from repro_torch.kernels.flash_attention import attention_ref, flash_attention_cuda, mha
+from repro_torch.kernels.flash_attention import (
+    FlashAttention,
+    attention_bwd_ref,
+    attention_lse_ref,
+    attention_ref,
+    flash_attention_bwd_cuda,
+    flash_attention_cuda,
+    mha,
+)
 from repro_torch.kernels.relax_ell import relax_ell_cuda, relax_ell_ref, relax_rows
 from repro_torch.kernels.relax_push import (
     relax_push_gather,
@@ -69,7 +78,8 @@ __all__ = [
     "fused_superstep", "fused_superstep_cuda", "fused_superstep_ref",
     "fused_superstep_batch", "fused_superstep_batch_cuda",
     "fused_superstep_batch_ref",
-    "attention_ref", "flash_attention_cuda", "mha",
+    "attention_ref", "attention_lse_ref", "attention_bwd_ref", "flash_attention_cuda",
+    "flash_attention_bwd_cuda", "FlashAttention", "mha",
     "bag_pool", "bag_sum", "embedding_bag_cuda", "embedding_bag_ref",
     "aggregate_neighbors", "spmm_rows", "spmm_ell_cuda", "spmm_ell_ref",
     "vertex_sum", "VertexSum", "spmm_ell_vertex_cuda", "spmm_ell_vertex_ref",

@@ -43,7 +43,7 @@ LIB_NAME = "libminplus.so"
 
 #: the kernels of the library, by the name their wrappers count under
 KERNELS = ("fused_superstep", "relax_push_gather", "relax_ell",
-           "flash_attention", "embedding_bag", "spmm_ell",
+           "flash_attention", "flash_attention_bwd", "embedding_bag", "spmm_ell",
            "fused_superstep_batch", "relax_push_gather_batch")
 
 #: the routes a public op takes

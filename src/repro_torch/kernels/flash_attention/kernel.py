@@ -13,7 +13,15 @@ The f32 kernel takes a 128-row q tile a block and 64-key tiles.  Where
 those blocks leave the card's SMs short, :func:`split_plan` cuts the
 key tiles a (head, q tile) visits into chunks, a block each, and a
 second kernel folds their partials; ``ref.py`` has the same split in
-plain torch."""
+plain torch.
+
+Given ``lse``, either forward also writes each row's natural-log
+log-sum-exp, which :func:`flash_attention_bwd_cuda` reads: the gradient
+(``csrc/flash_attention_bwd.cu``: bf16 on the tensor cores through
+``mma.sync``, P and dS as two bf16 terms each; f32 on the CUDA cores),
+which the JAX package leaves to XLA.  Neither launch is seen by
+autograd, so both refuse, with grad mode on, an input that needs a
+gradient: ``ops.FlashAttention`` is the way to train through them."""
 
 from __future__ import annotations
 
@@ -24,6 +32,7 @@ import torch
 from repro_torch.kernels import _lib
 
 NAME = "flash_attention"
+NAME_BWD = "flash_attention_bwd"
 HEAD_DIMS = (64, 96, 128)
 SEQ_MULTIPLE = 128  # the TPU kernel's block size; the CUDA tiles divide it
 BLOCK_Q, BLOCK_K = 128, 64  # the f32 kernel's q rows a block and keys a tile
@@ -33,8 +42,16 @@ BLOCK_Q, BLOCK_K = 128, 64  # the f32 kernel's q rows a block and keys a tile
 def _launch():
     return _lib.entry(
         "flash_attention_launch",
-        [_lib.ptr] * 4 + [_lib.c_int] * 8 + [_lib.c_float, _lib.c_int]
+        [_lib.ptr] * 5 + [_lib.c_int] * 8 + [_lib.c_float, _lib.c_int]
         + [_lib.ptr] * 2,
+    )
+
+
+@functools.cache
+def _launch_bwd():
+    return _lib.entry(
+        "flash_attention_bwd_launch",
+        [_lib.ptr] * 10 + [_lib.c_int] * 8 + [_lib.c_float, _lib.ptr],
     )
 
 
@@ -99,14 +116,34 @@ def check_attention_args(q, k, v, causal: bool) -> None:
                  "sizes exceed int32")
 
 
-def flash_attention_cuda(q, k, v, *, causal: bool = True) -> torch.Tensor:
-    """Launch the kernel; returns (B, Hq, Sq, D) in q's dtype."""
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise where grad mode is on and an input needs a gradient: the
+    launch is not recorded by autograd, so its output would drop it."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{kernel}: an input needs a gradient, and the kernel's launch "
+                           f"is not recorded by autograd; train through "
+                           f"kernels.flash_attention.ops.FlashAttention")
+
+
+def _check_rows(kernel: str, name: str, t, shape) -> None:
+    """``t`` is f32 of ``shape`` (a row statistic: lse)."""
+    _lib.require(t.dtype == torch.float32 and tuple(t.shape) == shape, kernel,
+                 f"{name} must be float32 {shape}, got {t.dtype} {tuple(t.shape)}")
+
+
+def flash_attention_cuda(q, k, v, *, causal: bool = True, lse=None) -> torch.Tensor:
+    """Launch the kernel; returns (B, Hq, Sq, D) in q's dtype, and fills
+    ``lse`` (f32 (B, Hq, Sq)) with each row's log-sum-exp if given."""
+    refuse_grad(NAME, q, k, v)
     check_attention_args(q, k, v, causal)
     _lib.check_cuda_tensors(NAME, q=q, k=k, v=v)
     _lib.require(all(t.data_ptr() % 16 == 0 for t in (q, k, v)), NAME,
                  "q, k and v must start on 16 bytes (the kernels copy 16-byte chunks)")
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
+    if lse is not None:
+        _check_rows(NAME, "lse", lse, (B, Hq, Sq))
+        _lib.check_cuda_tensors(NAME, lse=lse)
     out = torch.empty_like(q)
     if out.numel():
         bf16 = q.dtype == torch.bfloat16
@@ -118,9 +155,41 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True) -> torch.Tensor:
                                device=q.device)
         rc = _launch()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             B, Hq, Hkv, Sq, Sk, D, int(bf16), int(causal), 1.0 / D ** 0.5,
             n_split, None if part is None else part.data_ptr(), _lib.stream_of(q),
         )
         _lib.check(rc, NAME)
         _lib.count_launch(NAME)
     return out
+
+
+def flash_attention_bwd_cuda(q, k, v, out, lse, dout, *, causal: bool = True):
+    """Launch the backward: (dq, dk, dv) of the attention whose output
+    ``out`` and row log-sum-exp ``lse`` the forward gave for q, k, v,
+    from the output's gradient ``dout``, each in its input's dtype."""
+    refuse_grad(NAME_BWD, q, k, v, out, dout)
+    check_attention_args(q, k, v, causal)
+    _lib.require(out.shape == q.shape and dout.shape == q.shape
+                 and out.dtype == q.dtype and dout.dtype == q.dtype, NAME_BWD,
+                 f"out and dout must be q's {tuple(q.shape)} {q.dtype}, got "
+                 f"{tuple(out.shape)} {out.dtype} and {tuple(dout.shape)} {dout.dtype}")
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    _check_rows(NAME_BWD, "lse", lse, (B, Hq, Sq))
+    _lib.check_cuda_tensors(NAME_BWD, q=q, k=k, v=v, out=out, lse=lse, dout=dout)
+    _lib.require(all(t.data_ptr() % 16 == 0 for t in (q, k, v, out, dout)), NAME_BWD,
+                 "q, k, v, out and dout must start on 16 bytes (the kernels copy "
+                 "16-byte chunks)")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel():
+        delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+        rc = _launch_bwd()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+            B, Hq, Hkv, Sq, Sk, D, int(q.dtype == torch.bfloat16), int(causal),
+            1.0 / D ** 0.5, _lib.stream_of(q),
+        )
+        _lib.check(rc, NAME_BWD)
+        _lib.count_launch(NAME_BWD)
+    return dq, dk, dv

@@ -1,26 +1,91 @@
-"""Plain torch version of flash attention: materializes the score
-matrix, all in f32, output cast to q's dtype."""
+"""Plain torch versions of flash attention and of its gradient:
+they materialize the score matrix, all in f32 (f64 for f64 inputs, so
+that ``torch.autograd.gradcheck`` can hold the gradient), and cast each
+result to its input's dtype.
+
+``lse`` is the natural-log log-sum-exp of each row's scaled, masked
+scores, f32 (B, Hq, Sq): ``p = exp(s * scale - lse)``.  The forward
+kernels write it on request, and the backward reads it to recompute p
+without the row max and sum."""
 
 from __future__ import annotations
 
 import torch
+
+NEG_INF = -1e30  # the TPU kernel's mask value
+
+
+def _acc(t) -> torch.dtype:
+    return torch.promote_types(t.dtype, torch.float32)
+
+
+def _scores(q, k, causal: bool):
+    """f32 scaled, masked scores (B, Hq, Sq, Sk), and k's heads
+    repeated to q's as f32."""
+    B, Hq, Sq, D = q.shape
+    _, Hkv, Sk, _ = k.shape
+    kf = k.repeat_interleave(Hq // Hkv, dim=1).to(_acc(q))
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(_acc(q)), kf) / (D ** 0.5)
+    if causal:
+        mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device).tril(Sk - Sq)
+        s = torch.where(mask, s, NEG_INF)
+    return s, kf
+
+
+def _attend(q, k, v, causal: bool):
+    """The output in q's dtype, and the f32 scores it came from."""
+    s, _ = _scores(q, k, causal)
+    vf = v.repeat_interleave(q.shape[1] // k.shape[1], dim=1).to(_acc(q))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype), s
 
 
 def attention_ref(q, k, v, *, causal: bool = True) -> torch.Tensor:
     """q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D) -> (B, Hq, Sq, D).  Query
     head h reads kv head h // (Hq/Hkv); a causal query row i sees keys
     up to i + Sk - Sq."""
-    B, Hq, Sq, D = q.shape
-    _, Hkv, Sk, _ = k.shape
-    group = Hq // Hkv
-    kf = k.repeat_interleave(group, dim=1).float()
-    vf = v.repeat_interleave(group, dim=1).float()
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) / (D ** 0.5)
-    if causal:
-        mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device).tril(Sk - Sq)
-        s = torch.where(mask, s, -1e30)
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
+    return _attend(q, k, v, causal)[0]
+
+
+def attention_lse_ref(q, k, v, *, causal: bool = True):
+    """:func:`attention_ref`'s output (the same bits) and each row's
+    f32 ``lse`` (B, Hq, Sq)."""
+    out, s = _attend(q, k, v, causal)
+    return out, torch.logsumexp(s, dim=-1)
+
+
+def _group_sum(x, Hkv: int):
+    """(B, Hq, S, D) -> (B, Hkv, S, D): the sum over each kv head's
+    G = Hq / Hkv q heads."""
+    B, Hq, S, D = x.shape
+    return x.reshape(B, Hkv, Hq // Hkv, S, D).sum(dim=2)
+
+
+def attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True):
+    """The gradient of :func:`attention_ref` from its output and ``lse``,
+    in f32 from the inputs' values:
+
+        P = exp(S * scale - lse)     dV = sum_g P^T dO
+        dP = dO V^T                  delta = rowsum(dO * O)
+        dS = P * (dP - delta)        dQ = dS K * scale
+                                     dK = sum_g dS^T Q * scale
+
+    where sum_g runs over the G q heads of each kv head.  Returns (dq,
+    dk, dv), each in its input's dtype."""
+    Hkv, D = k.shape[1], q.shape[-1]
+    scale = 1.0 / D ** 0.5
+    s, kf = _scores(q, k, causal)
+    vf = v.repeat_interleave(q.shape[1] // Hkv, dim=1).to(_acc(q))
+    p = torch.exp(s - lse[..., None])
+    do = dout.to(_acc(q))
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, do)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do, vf)
+    delta = (do * out.to(_acc(q))).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.to(_acc(q))) * scale
+    return (dq.to(q.dtype), _group_sum(dk, Hkv).to(k.dtype),
+            _group_sum(dv, Hkv).to(v.dtype))
 
 
 def attention_partials_ref(q, k, v, *, causal: bool, n_split: int):

@@ -45,6 +45,33 @@ def lm_params_from_numpy(tree: dict, cfg: LMConfig, device=None) -> LM:
               _tensor(tree["final_norm"], dt, dev), head)
 
 
+def lm_tree_from_numpy(tree: dict, cfg: LMConfig, device=None) -> dict:
+    """``tree`` as the JAX package's ``models/lm.py::init_params`` lays
+    it out, as the port's training tree (``models/lm.py::params_tree``):
+    the same keys and the same stacked shapes, each leaf in the config's
+    dtype on ``device``; shapes are checked against ``cfg``."""
+    dev, dt = resolve_device(device), cfg.dtype
+    want = {"embed": (cfg.vocab, cfg.d_model),
+            "layers": {name: (cfg.n_layers,) + shape
+                       for name, (shape, _) in layer_shapes(cfg).items()},
+            "final_norm": (cfg.d_model,)}
+    if not cfg.tie_embeddings:
+        want["lm_head"] = (cfg.d_model, cfg.vocab)
+    return _checked(tree, want, "", dev, dt)
+
+
+def tree_to_numpy(tree):
+    """A tree of tensors (nested dicts and lists) as numpy arrays, each
+    as f32 (bf16 included, exactly) or its own dtype for the others: what
+    the JAX package's functions take back."""
+    if isinstance(tree, dict):
+        return {k: tree_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_to_numpy(v) for v in tree]
+    t = tree.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
 def mind_params_from_numpy(tree: dict, cfg: MINDConfig, device=None) -> MIND:
     """``tree`` as the JAX package's ``models/mind.py::init_params``
     lays it out (f32 throughout)."""
@@ -64,23 +91,23 @@ def _mlp_shapes(dims) -> dict:
     return want | {f"b{i}": (dims[i + 1],) for i in range(len(dims) - 1)}
 
 
-def _checked(tree, want, where: str, device):
-    """``tree`` (nested dicts and lists of arrays) as f32 tensors on
-    ``device``, after checking that it has exactly ``want``'s keys,
+def _checked(tree, want, where: str, device, dtype=torch.float32):
+    """``tree`` (nested dicts and lists of arrays) as ``dtype`` tensors
+    on ``device``, after checking that it has exactly ``want``'s keys,
     lengths and shapes (``want`` mirrors it, shape tuples at the
     leaves)."""
     if isinstance(want, tuple):
         if tuple(np.shape(tree)) != want:
             raise ValueError(f"{where}: shape {tuple(np.shape(tree))} does not match {want}")
-        return _tensor(tree, torch.float32, device)
+        return _tensor(tree, dtype, device)
     if isinstance(want, list):
         if len(tree) != len(want):
             raise ValueError(f"{where}: {len(tree)} entries, config has {len(want)}")
-        return [_checked(t, w, f"{where}[{i}]", device)
+        return [_checked(t, w, f"{where}[{i}]", device, dtype)
                 for i, (t, w) in enumerate(zip(tree, want))]
     if set(tree) != set(want):
         raise ValueError(f"{where}: keys {sorted(tree)} do not match {sorted(want)}")
-    return {k: _checked(tree[k], w, f"{where}.{k}".lstrip("."), device)
+    return {k: _checked(tree[k], w, f"{where}.{k}".lstrip("."), device, dtype)
             for k, w in want.items()}
 
 

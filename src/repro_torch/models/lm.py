@@ -1,6 +1,6 @@
 """Decoder-only transformer LM: dense GQA (phi3-mini, minitron), MLA
 (minicpm3) and GQA with MoE FFNs (phi3.5-moe, dbrx); prefill and greedy
-decode for serving.
+decode for serving, and the training loss.
 
 The port of the JAX package's ``models/lm.py`` for one card.  A model
 is an :class:`LM` module: the embedding, an ``nn.ModuleList`` of
@@ -13,22 +13,33 @@ and drop the sharding topology.
 
   prefill_step  build the KV cache from a prompt, last-position logits
   decode_step   one token against the cache (updated in place)
-  forward       teacher-forced final hidden states
+  forward       teacher-forced final hidden states, for serving (no
+                gradient)
+  lm_loss       the training loss: chunked-vocab next-token CE plus the
+                MoE aux loss, over :func:`forward_train` (the JAX
+                package's ``forward``), which autograd runs through
+
+Training takes the parameters as a tree of tensors in the JAX package's
+layout (:func:`params_tree`): ``embed``, ``layers`` (each weight
+stacked over a leading layer axis), ``final_norm`` and ``lm_head``
+unless tied, so that the generic train step, the checkpoints and
+``models/convert.py`` read it as the JAX package's tree.
 
 MLA keeps a latent cache, ``c`` (kv_lora) and ``kr`` (qk_rope) a token;
 its prefill materialises K and V, its decode attends in latent space
 (absorbed).  MoE layers run :func:`repro_torch.models.moe.moe_ffn`.
-``lm_loss`` (training) is not ported yet: see ROADMAP.md, Queue 1.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from types import SimpleNamespace
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention import mha as mha_kernel
 from repro_torch.models.common import (
@@ -47,6 +58,7 @@ from repro_torch.models.moe import MoEConfig, moe_ffn
 #: take the port's kernel, which a CPU tensor runs as its plain version)
 ATTN_IMPLS = ("xla", "xla_flash", "pallas", "pallas_interpret")
 ATTN_TYPES = ("gqa", "mla")
+REMATS = ("none", "full")
 NEG_INF = -1e30
 # the JAX package's defaults, which none of the ported configs changes
 ROPE_THETA = 10000.0
@@ -73,8 +85,10 @@ class LMConfig:
     v_head_dim: int = 64
     tie_embeddings: bool = False
     param_dtype: str = "bfloat16"
+    remat: str = "full"               # 'none' | 'full': recompute each layer in backward
     attn_impl: str = "xla"            # one of ATTN_IMPLS
     attn_chunk: int = 1024            # kv chunk for xla_flash
+    loss_chunk: int = 512             # seq chunk for the vocab CE
 
     def __post_init__(self):
         if self.attn_type not in ATTN_TYPES:
@@ -86,6 +100,8 @@ class LMConfig:
             raise ValueError(f"mlp_type must be 'swiglu' or 'relu2', got {self.mlp_type!r}")
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {self.attn_impl!r}")
+        if self.remat not in REMATS:
+            raise ValueError(f"remat must be one of {REMATS}, got {self.remat!r}")
 
     def n_params(self) -> int:
         """Weights less the norm scales, the embedding counted once when
@@ -346,11 +362,11 @@ def _mlp(lp: Block, x, cfg: LMConfig):
 
 
 def _ffn(lp: Block, x, cfg: LMConfig):
-    """The layer's FFN: MoE where the config has it (its aux loss is a
-    training term, dropped here), else the dense MLP."""
+    """The layer's FFN and its f32 aux loss: MoE's load-balance term
+    where the config has it, else the dense MLP and 0."""
     if cfg.moe:
-        return moe_ffn(x, lp.router, lp.wg_e, lp.wu_e, lp.wd_e, cfg.moe)[0]
-    return _mlp(lp, x, cfg)
+        return moe_ffn(x, lp.router, lp.wg_e, lp.wu_e, lp.wd_e, cfg.moe)
+    return _mlp(lp, x, cfg), torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def _gqa_qkv(lp: Block, x, cfg: LMConfig, positions):
@@ -418,7 +434,7 @@ def _mla_attention_decode(lp: Block, x, cfg: LMConfig, c_cache, kr_cache, pos: i
 
 def _layer(lp: Block, x, cfg: LMConfig, positions):
     """One prefill/teacher-forced layer; returns (x, its cache entries:
-    {"k", "v"} or MLA's {"c", "kr"})."""
+    {"k", "v"} or MLA's {"c", "kr"}, its f32 aux loss)."""
     h = rms_norm(x, lp.ln1, NORM_EPS)
     if cfg.attn_type == "gqa":
         q, k, v = _gqa_qkv(lp, h, cfg, positions)
@@ -429,7 +445,8 @@ def _layer(lp: Block, x, cfg: LMConfig, positions):
         kv = {"c": c, "kr": kr}
     x = x + attn
     h = rms_norm(x, lp.ln2, NORM_EPS)
-    return x + _ffn(lp, h, cfg), kv
+    out, aux = _ffn(lp, h, cfg)
+    return x + out, kv, aux
 
 
 def lm_head_weight(params: LM, cfg: LMConfig):
@@ -450,8 +467,95 @@ def forward(params: LM, tokens, cfg: LMConfig):
     x = _embed(params, tokens)
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     for lp in params.layers:
-        x, _ = _layer(lp, x, cfg, positions)
+        x, _, _ = _layer(lp, x, cfg, positions)
     return rms_norm(x, params.final_norm, NORM_EPS)
+
+
+# ----------------------------------------------------------------- #
+# training: the parameter tree, the differentiable forward, the loss
+
+
+def params_tree(params: LM) -> dict:
+    """The model's weights as the JAX package's tree: ``embed``,
+    ``layers`` (each weight stacked over a leading layer axis),
+    ``final_norm`` and, unless tied, ``lm_head``.  New tensors: the
+    stacks are copies."""
+    tree = {
+        "embed": params.embed.detach().clone(),
+        "layers": {name: torch.stack([getattr(lp, name).detach() for lp in params.layers])
+                   for name in layer_shapes(params.cfg)},
+        "final_norm": params.final_norm.detach().clone(),
+    }
+    if params.lm_head is not None:
+        tree["lm_head"] = params.lm_head.detach().clone()
+    return tree
+
+
+def init_tree(gen: torch.Generator, cfg: LMConfig) -> dict:
+    """:func:`init_params`'s weights (the same draws) as a training
+    tree."""
+    return params_tree(init_params(gen, cfg))
+
+
+def forward_train(tree: dict, tokens, cfg: LMConfig):
+    """The JAX package's ``forward``: token ids (B, S) -> (final hidden
+    states (B, S, d), the layers' summed f32 aux loss), differentiable in
+    the tree.  Each layer reads its views of the stacked weights from one
+    ``unbind`` a weight (whose backward is one ``stack``); under
+    ``remat="full"`` a layer keeps only its input and runs again in the
+    backward (``torch.utils.checkpoint``)."""
+    B, S = tokens.shape
+    x = tree["embed"][tokens.long()]
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    names = list(tree["layers"])
+    views = [t.unbind(0) for t in tree["layers"].values()]
+
+    def layer(x, *weights):
+        x, _, aux = _layer(SimpleNamespace(**dict(zip(names, weights))), x, cfg, positions)
+        return x, aux
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for li in range(cfg.n_layers):
+        weights = [v[li] for v in views]
+        if cfg.remat == "full":
+            x, a = checkpoint(layer, x, *weights, use_reentrant=False)
+        else:
+            x, a = layer(x, *weights)
+        aux = aux + a
+    return rms_norm(x, tree["final_norm"], NORM_EPS), aux
+
+
+def lm_loss(tree: dict, batch: dict, cfg: LMConfig):
+    """Next-token CE with the vocab projection taken ``loss_chunk``
+    positions at a time, in f32 logits, plus ``aux_loss_weight * aux /
+    n_layers`` for MoE (the JAX package's ``lm_loss``).  batch:
+    {'tokens': (B, S), 'labels': (B, S)}, labels < 0 masked; the mean
+    is over the unmasked labels (at least 1).  S must be a multiple of
+    the chunk: the JAX package visits only ``S // chunk`` chunks and so
+    drops the labels past the last whole one; this one raises instead."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    S = tokens.shape[1]
+    x, aux = forward_train(tree, tokens, cfg)
+    head = tree["embed"].T if cfg.tie_embeddings else tree["lm_head"]
+    chunk = min(cfg.loss_chunk or S, S)
+    if S % chunk:
+        raise ValueError(f"lm_loss: sequence length {S} is not a multiple of the loss "
+                         f"chunk {chunk}; the labels past the last whole chunk would be "
+                         f"dropped")
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for ci in range(S // chunk):
+        lc = labels[:, ci * chunk:(ci + 1) * chunk].long()
+        logits = (x[:, ci * chunk:(ci + 1) * chunk] @ head).float()  # (B, c, V)
+        logz = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, lc.clamp(min=0)[..., None])[..., 0]
+        mask = (lc >= 0).float()
+        tot = tot + torch.sum((logz - ll) * mask)
+        cnt = cnt + torch.sum(mask)
+    loss = tot / torch.clamp(cnt, min=1.0)
+    if cfg.moe:
+        loss = loss + cfg.moe.aux_loss_weight * aux / cfg.n_layers
+    return loss
 
 
 # ----------------------------------------------------------------- #
@@ -484,7 +588,7 @@ def prefill_step(params: LM, tokens, cfg: LMConfig, max_len: int):
     cache = {name: torch.zeros(m.shape, dtype=m.dtype, device=x.device)
              for name, m in cache_shapes(cfg, B, max_len).items()}
     for li, lp in enumerate(params.layers):
-        x, kv = _layer(lp, x, cfg, positions)
+        x, kv, _ = _layer(lp, x, cfg, positions)
         for name, t in kv.items():
             cache[name][li, :, :S] = t
     x = rms_norm(x, params.final_norm, NORM_EPS)
@@ -519,7 +623,7 @@ def decode_step(params: LM, cache: dict, tokens, pos: int, cfg: LMConfig):
             attn = _mla_attention_decode(lp, h, cfg, cache["c"][li], cache["kr"][li], pos)
         x = x + attn
         h = rms_norm(x, lp.ln2, NORM_EPS)
-        x = x + _ffn(lp, h, cfg)
+        x = x + _ffn(lp, h, cfg)[0]
     x = rms_norm(x, params.final_norm, NORM_EPS)
     logits = (x[:, 0] @ lm_head_weight(params, cfg)).float()
     return logits, cache

@@ -73,6 +73,16 @@ def flash_attention_traffic(B: int, Hq: int, Hkv: int, Sq: int, Sk: int,
     return nbytes, 4 * B * Hq * D * attention_pairs(Sq, Sk, causal)
 
 
+def flash_attention_bwd_traffic(B: int, Hq: int, Hkv: int, Sq: int, Sk: int,
+                                D: int, causal: bool,
+                                itemsize: int) -> tuple[int, int]:
+    """``flash_attention_bwd``: q, out, dout and dq (B, Hq, Sq, D), k, v,
+    dk and dv (B, Hkv, Sk, D), lse (B, Hq, Sq) f32; 10·D operations a
+    visited pair (S and dP recomputed, dV, dK and dQ: five products)."""
+    nbytes = itemsize * 4 * (B * Hq * Sq * D + B * Hkv * Sk * D) + 4 * B * Hq * Sq
+    return nbytes, 10 * B * Hq * D * attention_pairs(Sq, Sk, causal)
+
+
 def embedding_bag_traffic(rows_touched: int, B: int, L: int,
                           d: int) -> tuple[int, int]:
     """``embedding_bag``: the table rows a nonzero weight touches, the

@@ -3,7 +3,17 @@ master weights for low-precision params and global-norm clipping.
 
 The state mirrors the JAX package's layout, ``{"m", "v", "step",
 "master"}``, and every update takes its operations in the same order,
-so in f32 the two agree to the last ulp or near it.  The reference's
+so in f32 the two agree to the last ulp or near it.
+
+``apply_updates(inplace=True)`` writes the new params, moments and
+master weights into the tensors it is given, ``CHUNK`` elements at a
+time, as the JAX package's train cells donate their params and state:
+a full-width LM's state (f32 master, m and v) is 45.8 GB for phi3-mini,
+and a functional update would hold the old and the new at once.  The
+functional update (the default) runs the same body on copies.  The
+global norm's f32 sum runs over the chunks of a leaf larger than
+``CHUNK``, so there it may differ from :func:`global_norm` in the last
+ulps.  The reference's
 ``state_specs`` (PartitionSpecs that shard the state as the params
 are) has no counterpart until the port shards models (ROADMAP.md
 Queue 1 item 5.6).
@@ -14,7 +24,10 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-from torch.utils._pytree import tree_flatten, tree_leaves, tree_map, tree_unflatten
+from torch.utils._pytree import tree_flatten, tree_leaves, tree_map
+
+#: elements of a chunk of the in-place update: 256 MB of f32
+CHUNK = 1 << 26
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,40 +71,45 @@ def clip_by_global_norm(grads, max_norm: float):
     return tree_map(lambda g: (g.to(torch.float32) * scale).to(g.dtype), grads), norm
 
 
-def apply_updates(params, grads, state, cfg: AdamWConfig, lr_scale):
-    """One AdamW step.  Returns (params, state, metrics)."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+def apply_updates(params, grads, state, cfg: AdamWConfig, lr_scale, *,
+                  inplace: bool = False):
+    """One AdamW step.  Returns (params, state, metrics); with
+    ``inplace`` the params and the state's tensors are overwritten, and
+    the trees returned are the ones given, else the update writes into
+    copies of them."""
+    if not inplace:
+        params, state = tree_map(
+            lambda t: t.clone(memory_format=torch.contiguous_format), (params, state))
+    flat_p, spec = tree_flatten(params)
+    flat_g, flat_m, flat_v = (_leaves_like(tree, spec) for tree in
+                              (grads, state["m"], state["v"]))
+    flat_w = _leaves_like(state["master"], spec) if cfg.master_fp32 else flat_p
+    gnorm = torch.sqrt(sum(sum(torch.sum(torch.square(c.to(torch.float32)))
+                               for c in _chunks(g, written=False)) for g in flat_g))
+    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     step = state["step"] + 1
     t = step.to(torch.float32)
     bc1 = 1.0 - cfg.b1 ** t
     bc2 = 1.0 - cfg.b2 ** t
     lr = cfg.lr * lr_scale
-
-    masters = state.get("master", params)
-
-    def upd(p_master, g, m, v):
-        g32 = g.to(torch.float32)
-        m = cfg.b1 * m + (1 - cfg.b1) * g32
-        v = cfg.b2 * v + (1 - cfg.b2) * g32 * g32
-        mhat = m / bc1
-        vhat = v / bc2
-        p32 = p_master.to(torch.float32)
-        p32 = p32 - lr * (mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p32)
-        return p32, m, v
-
-    flat_p, spec = tree_flatten(masters)
-    flat_g, flat_m, flat_v = (_leaves_like(tree, spec) for tree in
-                              (grads, state["m"], state["v"]))
-    out = [upd(*args) for args in zip(flat_p, flat_g, flat_m, flat_v)]
-    new_master = tree_unflatten([o[0] for o in out], spec)
-    new_m = tree_unflatten([o[1] for o in out], spec)
-    new_v = tree_unflatten([o[2] for o in out], spec)
-
-    new_params = tree_map(lambda p32, p: p32.to(p.dtype), new_master, params)
-    new_state = {"m": new_m, "v": new_v, "step": step}
+    for p, w, g, m, v in zip(flat_p, flat_w, flat_g, flat_m, flat_v):
+        master = w is not p
+        for pc, wc, gc, mc, vc in zip(_chunks(p), _chunks(w), _chunks(g, written=False),
+                                      _chunks(m), _chunks(v)):
+            # clipped, and rounded to the grad's dtype, as clip_by_global_norm
+            g32 = (gc.to(torch.float32) * scale).to(gc.dtype).to(torch.float32)
+            mc.mul_(cfg.b1).add_((1 - cfg.b1) * g32)
+            vc.mul_(cfg.b2).add_((1 - cfg.b2) * g32 * g32)
+            p32 = wc.to(torch.float32)
+            p32 = p32 - lr * (mc / bc1 / (torch.sqrt(vc / bc2) + cfg.eps)
+                              + cfg.weight_decay * p32)
+            wc.copy_(p32)
+            if master:
+                pc.copy_(p32)
+    new_state = {"m": state["m"], "v": state["v"], "step": step}
     if cfg.master_fp32:
-        new_state["master"] = new_master
-    return new_params, new_state, {"grad_norm": gnorm, "lr": lr}
+        new_state["master"] = state["master"]
+    return params, new_state, {"grad_norm": gnorm, "lr": lr}
 
 
 def _leaves_like(tree, spec) -> list:
@@ -99,3 +117,10 @@ def _leaves_like(tree, spec) -> list:
     if got != spec:
         raise ValueError(f"tree structure {got} differs from the params' {spec}")
     return leaves
+
+
+def _chunks(t: torch.Tensor, written: bool = True) -> tuple:
+    """CHUNK elements of t at a time: views of a tensor written in place
+    (``view`` raises unless it is contiguous); of a copy where a tensor
+    that is only read (a gradient) is laid out otherwise."""
+    return (t.view(-1) if written else t.reshape(-1)).split(CHUNK)

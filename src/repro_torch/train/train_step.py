@@ -5,7 +5,11 @@ LR schedule.
 ``build_train_step(loss_fn, cfg)`` returns a function
     (params, opt_state, batch, step) -> (params, opt_state, metrics)
 over trees of tensors, as the JAX package's does; gradients come from
-``torch.autograd.grad``, and nothing is updated in place.
+``torch.autograd.grad``.  Nothing is updated in place unless the step
+is built with ``donate=True``, the counterpart of the JAX package's
+``donate_argnums=(0, 1)`` on its train cells: then the params and the
+optimizer state are overwritten (``optimizer.apply_updates(inplace=
+True)``), which a model whose state fills the card needs.
 ``loss_fn(params, batch)`` must return a scalar loss (the model
 closures carry their configs).
 """
@@ -62,7 +66,8 @@ def value_and_grad(loss_fn: Callable) -> Callable:
     return grad_fn
 
 
-def build_train_step(loss_fn: Callable, cfg: TrainConfig) -> Callable:
+def build_train_step(loss_fn: Callable, cfg: TrainConfig, *,
+                     donate: bool = False) -> Callable:
     grad_fn = value_and_grad(loss_fn)
 
     def train_step(params, opt_state, batch, step):
@@ -97,7 +102,8 @@ def build_train_step(loss_fn: Callable, cfg: TrainConfig) -> Callable:
 
         lr_scale = warmup_cosine(step, warmup_steps=cfg.warmup_steps,
                                  total_steps=cfg.total_steps).to(loss.device)
-        params, opt_state, om = apply_updates(params, grads, opt_state, cfg.adamw, lr_scale)
+        params, opt_state, om = apply_updates(params, grads, opt_state, cfg.adamw, lr_scale,
+                                              inplace=donate)
         return params, opt_state, {"loss": loss, **om}
 
     return train_step

@@ -1,0 +1,160 @@
+"""The gradient of the port's attention against the JAX package's: the
+plain backward (``attention_bwd_ref``, which the CPU route of
+``FlashAttention`` runs and the backward kernel is held to on the card)
+against ``jax.vjp`` of the reference's ``attention_ref``, at every head
+dim the kernels take and groups of 1, 4 and 6 q heads a kv head, causal
+and not; ``attention_lse_ref``'s row log-sum-exp against
+``jax.nn.logsumexp`` of the reference's scores; the Function against
+torch autograd of the plain forward, and ``gradcheck`` in f64.
+
+Tolerances, as a share of each gradient's max |value|: 2e-5 in f32
+(both sides sum in f32, in another order: the reference through
+softmax's vjp, the port through lse and delta).  With bf16 inputs the
+JAX package's own bf16 kernel-test tolerance, 2e-2: the port computes
+in f32 and rounds each result once, the reference rounds in other places
+too (its vjp rounds each q head's share of dk and dv to bf16 before the
+group's sum, as it repeats k and v to the q heads in bf16); the worst
+gaps over these cases are 0.0012 (out), 0.0052 (dq), 0.0067 (dk) and
+0.0093 (dv).  The kernels themselves are held against the plain
+backward in test_torch_cuda.py."""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.ref import attention_ref as ref_attention
+from repro_torch import kernels as K
+from repro_torch.kernels.flash_attention import (
+    FlashAttention,
+    attention_bwd_ref,
+    attention_lse_ref,
+    attention_ref,
+    flash_attention_bwd_cuda,
+    flash_attention_cuda,
+    mha,
+)
+
+F32_TOL = 2e-5
+BF16_TOL = 2e-2
+
+
+def inputs(seed, B, Hq, Hkv, Sq, Sk, D):
+    r = np.random.default_rng(seed)
+    return tuple(r.normal(size=s).astype(np.float32) for s in
+                 ((B, Hq, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, D), (B, Hq, Sq, D)))
+
+
+def assert_grad_close(got, want, dtype):
+    got = got.float().numpy()
+    want = np.asarray(want, np.float32)
+    tol = BF16_TOL if dtype == "bfloat16" else F32_TOL
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol * np.abs(want).max())
+
+
+@functools.partial(jax.jit, static_argnums=4)
+def ref_vjp(q, k, v, do, causal):
+    """The reference's output and its vjp at do, in one compiled call."""
+    out, vjp = jax.vjp(lambda a, b, c: ref_attention(a, b, c, causal=causal), q, k, v)
+    return out, vjp(do)
+
+
+# (D, G, Sq, Sk): Sq <= Sk, so every case runs causal too
+SHAPES = [(64, 1, 128, 128), (64, 4, 128, 256), (64, 6, 256, 256),
+          (96, 1, 256, 256), (96, 4, 128, 128), (96, 6, 128, 256),
+          (128, 1, 128, 256), (128, 4, 256, 256), (128, 6, 128, 128)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D,G,Sq,Sk", SHAPES)
+def test_bwd_ref_matches_jax_vjp(D, G, Sq, Sk, causal, dtype):
+    Hkv = 2 if G == 1 else 1
+    q, k, v, do = inputs(D + G + Sq + Sk, 1, G * Hkv, Hkv, Sq, Sk, D)
+    jq, jk, jv, jdo = (jnp.asarray(a, dtype) for a in (q, k, v, do))
+    out, want = ref_vjp(jq, jk, jv, jdo, causal)
+    tdt = getattr(torch, dtype)
+    tq, tk, tv, tdo = (torch.from_numpy(np.array(a.astype(jnp.float32))).to(tdt)
+                       for a in (jq, jk, jv, jdo))
+    tout, lse = attention_lse_ref(tq, tk, tv, causal=causal)
+    assert_grad_close(tout, out, dtype)  # the forward, at the same tolerance
+    got = attention_bwd_ref(tq, tk, tv, tout, lse, tdo, causal=causal)
+    for g, w, t in zip(got, want, (tq, tk, tv)):
+        assert g.dtype == tdt and g.shape == t.shape
+        assert_grad_close(g, w, dtype)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_lse_matches_logsumexp_of_the_reference_scores(causal):
+    B, Hq, Hkv, Sq, Sk, D = 2, 4, 2, 128, 256, 96
+    q, k, _, _ = inputs(3, B, Hq, Hkv, Sq, Sk, D)
+    kf = jnp.repeat(jnp.asarray(k), Hq // Hkv, axis=1)
+    s = jnp.einsum("bhqd,bhkd->bhqk", jnp.asarray(q), kf) / (D ** 0.5)
+    if causal:
+        s = jnp.where(jnp.tril(jnp.ones((Sq, Sk), bool), k=Sk - Sq), s, -1e30)
+    want = jax.nn.logsumexp(s, axis=-1)
+    tq, tk = torch.from_numpy(q), torch.from_numpy(k)
+    _, lse = attention_lse_ref(tq, tk, tk, causal=causal)
+    assert lse.dtype == torch.float32 and lse.shape == (B, Hq, Sq)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("Hq,Hkv", [(4, 4), (8, 2), (6, 1)])
+def test_function_cpu_route_matches_autograd_of_the_plain_forward(Hq, Hkv, causal):
+    q, k, v, do = (torch.from_numpy(a) for a in inputs(Hq + Hkv, 2, Hq, Hkv, 128, 256, 64))
+    ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    K.reset_launch_counts()
+    out = mha(*ins, causal=causal)
+    got = torch.autograd.grad(out, ins, do)
+    assert K.call_counts()["flash_attention_bwd"]["ref"] == 1
+    assert not any(K.launch_counts().values())
+    ins2 = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out2 = attention_ref(*ins2, causal=causal)
+    assert torch.equal(out.detach(), out2.detach())
+    want = torch.autograd.grad(out2, ins2, do)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=F32_TOL * float(w.abs().max()))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_function_gradcheck_f64(causal):
+    r = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(r.normal(size=s)).requires_grad_(True)
+               for s in ((1, 4, 4, 8), (1, 2, 6, 8), (1, 2, 6, 8)))
+    assert torch.autograd.gradcheck(lambda a, b, c: FlashAttention.apply(a, b, c, causal),
+                                     (q, k, v))
+
+
+def test_raw_wrappers_refuse_grad_requiring_inputs():
+    """Outside FlashAttention the launches would drop the gradient: with
+    grad mode on, an input that needs one is refused before anything
+    else is checked; without it, a CPU tensor is refused as such."""
+    q = torch.zeros((1, 2, 128, 64), requires_grad=True)
+    k = torch.zeros((1, 2, 128, 64))
+    lse = torch.zeros((1, 2, 128))
+    with pytest.raises(RuntimeError, match="FlashAttention"):
+        flash_attention_cuda(q, k, k, causal=True)
+    with pytest.raises(RuntimeError, match="FlashAttention"):
+        flash_attention_bwd_cuda(q, k, k, k, lse, k, causal=True)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            flash_attention_cuda(q, k, k, causal=True)
+    with pytest.raises(ValueError, match="float32"):
+        flash_attention_bwd_cuda(k, k, k, k, lse.double(), k, causal=True)
+
+
+def test_backward_traffic_at_the_train_shape():
+    """The backward's bound at chip_smoke.py's case f (phi3-mini's train
+    step: B 1, H 32, S 4096, D 96, bf16, causal): 10 D operations a
+    visible pair, 257.8 GFLOP, 0.2606 ms at 989 TFLOP/s."""
+    from repro_torch.roofline import BF16_OPS_PER_S, bound
+    from repro_torch.roofline.kernels import flash_attention_bwd_traffic
+
+    nbytes, flops = flash_attention_bwd_traffic(1, 32, 32, 4096, 4096, 96, True, 2)
+    assert (nbytes, flops) == (201850880, 257760952320)
+    ms, by = bound(nbytes, flops, BF16_OPS_PER_S)
+    assert by == "operations" and round(ms, 4) == 0.2606

@@ -16,6 +16,7 @@ import pickle
 import numpy as np
 import pytest
 import torch
+from torch.utils._pytree import tree_leaves
 
 from repro_torch import kernels as K
 from repro_torch.api import Problem, SingleSource, Solver, SolverConfig
@@ -277,6 +278,104 @@ def test_flash_attention_rejects_unaligned_inputs(dev):
         K.flash_attention_cuda(q, k, k, causal=True)
 
 
+def test_flash_attention_lse_keeps_the_output_bits(dev):
+    """A forward asked for lse gives the bits of one that is not, and
+    lse within f32 (bf16: its scores' wgmma sums) of the plain one's."""
+    for B, Hq, Hkv, Sq, Sk, D, dtype in ATTN_CASES[:8]:
+        r = np.random.default_rng(Sq + D)
+        q, k, v = (torch.as_tensor(r.normal(size=shape).astype(np.float32),
+                                   device=dev).to(dtype)
+                   for shape in ((B, Hq, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, D)))
+        for causal in (True, False):
+            lse = torch.empty((B, Hq, Sq), device=dev)
+            out = K.flash_attention_cuda(q, k, v, causal=causal, lse=lse)
+            assert torch.equal(out, K.flash_attention_cuda(q, k, v, causal=causal))
+            _, ref = K.attention_lse_ref(q, k, v, causal=causal)
+            tol = 2e-4 if dtype == torch.bfloat16 else 2e-5
+            torch.testing.assert_close(lse, ref, rtol=0, atol=tol)
+
+
+# the backward at every head dim and group the forward takes, odd and
+# even tile counts of 64 (the backward's) and 128 (the forward's), Sq <
+# Sk, and phi3-mini's and dbrx's heads
+BWD_CASES = [
+    # B, Hq, Hkv, Sq, Sk, D, dtype
+    (1, 2, 2, 128, 128, 64, torch.float32),
+    (1, 4, 1, 128, 384, 96, torch.float32),
+    (2, 4, 2, 256, 256, 128, torch.float32),
+    (1, 8, 2, 128, 1024, 128, torch.float32),
+    (2, 4, 4, 384, 384, 64, torch.bfloat16),
+    (1, 4, 4, 640, 640, 96, torch.bfloat16),
+    (2, 12, 2, 256, 640, 128, torch.bfloat16),
+    (1, 8, 2, 1024, 1024, 128, torch.bfloat16),
+]
+
+
+def attention_grads_case(dev, case, seed):
+    B, Hq, Hkv, Sq, Sk, D, dtype = case
+    r = np.random.default_rng(seed)
+    q, k, v, dout = (torch.as_tensor(r.normal(size=shape).astype(np.float32),
+                                     device=dev).to(dtype)
+                     for shape in ((B, Hq, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, D),
+                                   (B, Hq, Sq, D)))
+    return q, k, v, dout
+
+
+def assert_grads_close(got, want, dtype):
+    """Each gradient within f32 sums of up to Sk terms in another order
+    (1e-4 of its max |value|); bf16 also within one bf16 ulp (both
+    compute in f32 and round once)."""
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        scale = float(w.float().abs().max())
+        rtol = 2 ** -7 if dtype == torch.bfloat16 else 0.0
+        torch.testing.assert_close(g.float(), w.float(), rtol=rtol, atol=1e-4 * scale)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_flash_attention_bwd_matches_plain(dev, case, causal):
+    q, k, v, dout = attention_grads_case(dev, case, sum(case[:6]))
+    B, Hq, Sq = q.shape[:3]
+    lse = torch.empty((B, Hq, Sq), device=dev)
+    out = K.flash_attention_cuda(q, k, v, causal=causal, lse=lse)
+    K.reset_launch_counts()
+    got = K.flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal=causal)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["flash_attention_bwd"] == 1
+    want = K.attention_bwd_ref(q, k, v, out, lse, dout, causal=causal)
+    assert_grads_close(got, want, q.dtype)
+
+
+@pytest.mark.parametrize("case", [BWD_CASES[1], BWD_CASES[6]])
+def test_flash_attention_function_on_card_matches_cpu(dev, case):
+    """FlashAttention on the card (forward and backward kernels) against
+    its CPU route on the same inputs."""
+    q, k, v, dout = attention_grads_case(dev, case, 7)
+    grads = []
+    for where in (dev, torch.device("cpu")):
+        ins = [t.to(where).requires_grad_(True) for t in (q, k, v)]
+        K.reset_launch_counts()
+        out = K.mha(*ins, causal=True)
+        grads.append(torch.autograd.grad(out, ins, dout.to(where)))
+        if where == dev:
+            assert K.launch_counts()["flash_attention"] == 1
+            assert K.launch_counts()["flash_attention_bwd"] == 1
+    assert_grads_close([g.cpu() for g in grads[0]], grads[1], q.dtype)
+
+
+def test_flash_attention_wrappers_refuse_grad(dev):
+    q = torch.zeros((1, 2, 128, 64), device=dev, requires_grad=True)
+    k = torch.zeros((1, 2, 128, 64), device=dev)
+    lse = torch.zeros((1, 2, 128), device=dev)
+    with pytest.raises(RuntimeError, match="FlashAttention"):
+        K.flash_attention_cuda(q, k, k, causal=True)
+    with pytest.raises(RuntimeError, match="FlashAttention"):
+        K.flash_attention_bwd_cuda(q, k, k, k[:, :2], lse, k, causal=True)
+    with torch.no_grad():
+        K.flash_attention_cuda(q, k, k, causal=True)
+
+
 def bag_in_order(table, idx, w):
     """The TPU kernel's order: out += row * w for l = 0 .. L-1, each
     product and sum rounded (separate torch ops, so no FMA)."""
@@ -361,6 +460,50 @@ def test_lm_serving_on_card_matches_cpu(dev, mlp_type, kv):
         logits, cache = lm.decode_step(card_model, cache, nxt.to(dev), 128 + step, cfg)
         c_logits, c_cache = lm.decode_step(cpu_model, c_cache, nxt, 128 + step, cfg)
         torch.testing.assert_close(logits.cpu(), c_logits, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["gqa", "mla", "moe"])
+def test_lm_train_step_on_card_matches_cpu(dev, kind):
+    """lm_loss, its gradient and one AdamW step on the card against the
+    CPU in f32: gqa at D 64 through the attention kernels (a forward a
+    layer, again under remat, and a backward a layer), MLA and MoE
+    (reduced configs) through autograd of plain ops.  The loss within
+    1e-5, each gradient within 1e-4 of its max |grad|, the params after
+    the step within 1e-3 (as the CPU parity tests at lr 1e-2)."""
+    from repro_torch import train as T
+    from repro_torch.train.train_step import value_and_grad
+
+    if kind == "gqa":
+        cfg = lm.LMConfig(name="t", n_layers=2, d_model=256, n_heads=4, n_kv_heads=2,
+                          d_ff=512, vocab=512, param_dtype="float32",
+                          attn_impl="pallas", loss_chunk=64)
+    else:
+        cfg = get_arch({"mla": "minicpm3-4b", "moe": "phi3.5-moe-42b-a6.6b"}[kind]
+                       ).make_config(reduced=True)
+    tree = lm.init_tree(generator(0, "cpu"), cfg)
+    batch = {k: torch.as_tensor(v) for k, v in lm_batch(0, 2, 128, cfg.vocab).items()}
+    card_tree = {k: ({n: w.to(dev) for n, w in v.items()} if isinstance(v, dict) else
+                     v.to(dev)) for k, v in tree.items()}
+    card_batch = {k: v.to(dev) for k, v in batch.items()}
+    loss_fn = value_and_grad(lambda p, b: lm.lm_loss(p, b, cfg))
+    K.reset_launch_counts()
+    loss, grads = loss_fn(card_tree, card_batch)
+    torch.cuda.synchronize()
+    if kind == "gqa":
+        assert K.launch_counts()["flash_attention"] == 2 * cfg.n_layers
+        assert K.launch_counts()["flash_attention_bwd"] == cfg.n_layers
+    c_loss, c_grads = loss_fn(tree, batch)
+    assert abs(float(loss) - float(c_loss)) <= 1e-5 * abs(float(c_loss))
+    for g, c in zip(tree_leaves(grads), tree_leaves(c_grads)):
+        torch.testing.assert_close(g.cpu(), c, rtol=0, atol=1e-4 * float(c.abs().max()))
+    tc = T.TrainConfig(adamw=T.AdamWConfig(lr=1e-2), warmup_steps=2, total_steps=10)
+    step = T.build_train_step(lambda p, b: lm.lm_loss(p, b, cfg), tc, donate=True)
+    card_tree, _, _ = step(card_tree, T.init_train_state(card_tree, tc), card_batch,
+                           torch.tensor(0, dtype=torch.int32, device=dev))
+    tree, _, _ = step(tree, T.init_train_state(tree, tc), batch,
+                      torch.tensor(0, dtype=torch.int32))
+    for a, b in zip(tree_leaves(card_tree), tree_leaves(tree)):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-3)
 
 
 @pytest.mark.parametrize("kind", ["mla", "moe"])
