@@ -366,7 +366,7 @@ SERVE_FRESH = 3     # refreshed cache entries held against cold solves
 # adaptive execution, the flight recorder, quantized exchange and the
 # auto-tuner (phase 12): the reference's `launch/obs.py record` gate
 TRACE_GATE = 1.15
-TRACE_PAIRS = 9     # back-to-back (untraced, traced) pairs; the gate reads their median
+TRACE_PAIRS = 21    # back-to-back pairs, the order alternating; the gate reads their median
 TRACE_REPEATS = 3   # warm solves in turns (min) beside the other adaptive paths
 ADAPT_CAP0 = 1024   # /adapt:rho starts here and grows the cap
 TUNED_QUERIES = 50
@@ -524,6 +524,13 @@ ATTN_BWD_CASES = (
     ("h G 6 (dbrx)", 2, 48, 8, 2048, 128, "bfloat16", True),
     ("i fp32 twin train", 1, 32, 32, 2048, 96, "float32", True),
 )
+# every __global__ of csrc/flash_attention_bwd.cu, the one launched once
+# a call (of either dtype) first: kernel_alone_ms counts calls by it and
+# sums the device time of every kernel named here
+ATTN_BWD_KERNELS = ("attention_delta_kernel", "attention_dkdv_sm90_kernel",
+                    "attention_dq_sm90_kernel", "attention_dkdv_kernel", "attention_dq_kernel")
+# the cases whose gradients two launches must give in the same bits
+ATTN_BWD_REPEAT = ("f phi3-mini train", "h G 6 (dbrx)")
 ATTN_BWD_ROWS = {
     "f phi3-mini train": "flash_attention_bwd",
     "i fp32 twin train": "flash_attention_bwd f32",
@@ -754,10 +761,12 @@ def serving_kernels(dev, flush) -> tuple[dict, dict, dict]:
 
 def attention_bwd_kernels(dev, flush) -> list[dict]:
     """Phase 7's backward cases: flash_attention_bwd against its plain
-    version on the card, timed through the wrapper beside the plain
-    version and beside torch.autograd.grad of scaled_dot_product_attention
-    (its backward alone, the forward's graph kept).  Returns the rows of
-    the kernels line (launches filled in by phase 8c)."""
+    version on the card (and, at ATTN_BWD_REPEAT, against itself: two
+    launches, the same bits), timed through the wrapper and alone (every
+    kernel of ATTN_BWD_KERNELS) beside the plain version and beside
+    torch.autograd.grad of scaled_dot_product_attention (its backward
+    alone, the forward's graph kept).  Returns the rows of the kernels
+    line (launches filled in by phase 8c)."""
     import torch
     import torch.nn.functional as F
 
@@ -806,6 +815,17 @@ def attention_bwd_kernels(dev, flush) -> list[dict]:
                                          + rtol * w.float().abs()).any()):
                 fail(f"flash_attention_bwd ({label}): {name} differs from the plain "
                      f"version (max abs err {float(gap.max())}, max |{name}| {scale})")
+        if label in ATTN_BWD_REPEAT:
+            again = K.flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal=causal)
+            torch.cuda.synchronize()
+            for name, g, h in zip(("dq", "dk", "dv"), got, again):
+                if not torch.equal(g.view(torch.uint8), h.view(torch.uint8)):
+                    fail(f"flash_attention_bwd ({label}): two launches on the same inputs "
+                         f"gave different bits in {name} (max abs err "
+                         f"{max_abs_err(g, h)})")
+            del again
+            log(f"flash_attention_bwd ({label}): two launches gave the same bits in dq, "
+                f"dk and dv")
         del got, want
         ins = [t.detach().requires_grad_(True) for t in (q, k, v)]
         lib_out = F.scaled_dot_product_attention(*ins, is_causal=causal, enable_gqa=True)
@@ -818,7 +838,7 @@ def attention_bwd_kernels(dev, flush) -> list[dict]:
                                                         causal=causal), flush)
         alone_ms = kernel_alone_ms(
             lambda: K.flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal=causal),
-            flush, ("attention_dkdv", "attention_dq", "attention_delta"))
+            flush, ATTN_BWD_KERNELS)
         plain_ms = time_ms(lambda: K.attention_bwd_ref(q, k, v, out, lse, dout,
                                                        causal=causal), flush, reps=5)
         library_ms = time_ms(library, flush)
@@ -3022,17 +3042,21 @@ def warm_walls(solvers, problem) -> list[float]:
 
 
 def paired_walls(base, traced, problem, pairs: int = TRACE_PAIRS) -> tuple[list, list]:
-    """Walls of ``pairs`` back-to-back (untraced, traced) warm solves."""
+    """Walls of ``pairs`` back-to-back warm solves, one untraced and one
+    traced, the untraced first in even pairs and second in odd ones, so
+    that neither side always runs on a host that the other warmed or
+    slowed: (untraced walls, traced walls), pair by pair."""
     import torch
 
     walls = ([], [])
-    for _ in range(pairs):
-        for w, s in zip(walls, (base, traced)):
+    for i in range(pairs):
+        order = (0, 1) if i % 2 == 0 else (1, 0)
+        for side in order:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            s.solve(problem)
+            (base, traced)[side].solve(problem)
             torch.cuda.synchronize()
-            w.append(time.perf_counter() - t0)
+            walls[side].append(time.perf_counter() - t0)
     return walls
 
 

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Time the port's f32 flash_attention kernel against the same kernel
-built from another source tree, in turns, in one process on one NVIDIA
-GPU: the way to hold a change of ``src/repro_torch/csrc/flash_attention.cu``
-against its parent on the same card.
+"""Time the port's f32 flash_attention kernel and its bf16 attention
+backward against the same kernels built from another source tree, in
+turns, in one process on one NVIDIA GPU: the way to hold a change of
+``src/repro_torch/csrc/flash_attention.cu`` or
+``src/repro_torch/csrc/flash_attention_bwd.cu`` against its parent on
+the same card.
 
-    python3 scripts/attn_ab.py PARENT
+    python3 scripts/attn_ab.py PARENT [--only fwd|bwd]
 
 PARENT is a checkout (unpack it with ``git archive``).  Its
 ``csrc/flash_attention.cu`` and ``csrc/flash_attention_sm90.cu`` are built
@@ -20,8 +22,20 @@ by CUDA events after a write that evicts L2 (``chip_smoke.time_ms``)
 and alone under ``torch.profiler``; this tree's wrapper, sdpa and the
 kernels sdpa ran are timed once.  Each of ``VARIANTS`` (an edited copy
 of this tree's ``csrc/flash_attention.cu``, built alone into
-``build/attn_ab/``) is checked and timed bare beside them.  Prints the
-card line, then one JSON line a case.
+``build/attn_ab/``) is checked and timed bare beside them.
+
+The backward (``--only bwd`` alone): PARENT's ``csrc/flash_attention_bwd.cu``
+is built alone into ``build/attn_ab/``, and each of ``BWD_VARIANTS`` (an
+edited copy of this tree's) likewise; this tree's is the library's.  The
+cases are ``chip_smoke.py``'s bf16 backward cases of phase 7 (f:
+phi3-mini's train shape, g: G 4, h: G 6).  Each kernel's dq, dk and dv
+are held against ``attention_bwd_ref`` at phase 7's bounds, then timed
+bare in the order
+parent, change, variants, variants reversed, change, parent, three
+rounds, and alone under ``torch.profiler`` (parent, change, change,
+parent); ``sdpa``'s backward (``torch.autograd.grad`` of
+scaled_dot_product_attention, its forward's graph kept) and this tree's
+wrapper once.  Prints the card line, then one JSON line a case.
 """
 
 from __future__ import annotations
@@ -42,6 +56,18 @@ VARIANTS = {
     "pv unroll 4": {"#pragma unroll 8\n    for (int j = 0; j < kBK; ++j) {":
                     "#pragma unroll 4\n    for (int j = 0; j < kBK; ++j) {"},
 }
+#: name -> edits (text of csrc/flash_attention_bwd.cu -> its replacement)
+BWD_VARIANTS = {
+    "one fence": {"""        to_a(sc, hi, lo);
+        fence_operands(acc_v);""": """        to_a(sc, hi, lo);
+        to_a(dp, dhi, dlo);
+        fence_operands(acc_v);""", """        product_into_d<D>(acc_v, hi, lo, dos, kStepChunk);
+        to_a(dp, dhi, dlo);
+        wgmma_fence();""": """        product_into_d<D>(acc_v, hi, lo, dos, kStepChunk);"""},
+}
+# calls counted by delta's kernel (one a call), time summed over every
+# kernel of the backward's source
+BWD_NAMES = ("attention_delta", "attention_")
 # label, B, Hq, Hkv, Sq, Sk, D, causal
 CASES = (
     ("c causal", 1, 8, 2, 128, 1024, 128, True),
@@ -77,10 +103,165 @@ def attention_entry(name: str, source: Path, sm90: Path):
     return fn, split, lse
 
 
+def bwd_entry(name: str, source: Path):
+    """``flash_attention_bwd_launch`` of ``source`` built alone (its own
+    directory and this tree's ``csrc`` on the include path); ptxas's
+    register and spill report for its bf16 kernels printed."""
+    from repro_torch.kernels import _lib
+
+    CACHE.mkdir(parents=True, exist_ok=True)
+    out = CACHE / f"lib{'_'.join(name.split())}_bwd.so"
+    done = subprocess.run([_lib._nvcc(), *_lib.NVCC_FLAGS, "-I", str(source.parent),
+                           "-I", str(_lib.CSRC), "-shared", str(source), "-o", str(out)],
+                          capture_output=True, text=True)
+    if done.returncode != 0:
+        sys.exit(f"nvcc failed on {source} ({name}):\n{done.stdout}{done.stderr}")
+    lines = (done.stdout + done.stderr).splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry" in line and ("mma" in line or "sm90" in line):
+            kernel = line.split("'")[1][:90]
+            report = " ".join(x.strip() for x in lines[i + 1:i + 4] if "ptxas" in x
+                              or "spill" in x)
+            print(f"[{name}] {kernel}: {report[:200]}", flush=True)
+        if "C7512" in line:
+            print(f"[{name}] {line.strip()[:160]}", flush=True)
+    fn = ctypes.CDLL(str(out)).flash_attention_bwd_launch
+    fn.argtypes = [_lib.ptr] * 10 + [_lib.c_int] * 8 + [_lib.c_float, _lib.ptr]
+    fn.restype = _lib.c_int
+    return fn
+
+
+def kernel_split_ms(fn, flush, names) -> dict:
+    """Device ms a call of ``fn`` spends in each kernel whose name holds
+    one of ``names``, under one profiler window of TIMING_REPS calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke
+
+    fn()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(chip_smoke.TIMING_REPS):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for name in names:
+            if name in e.key:
+                split[name] = round(split.get(name, 0.0) + e.self_device_time_total / 1e3
+                                    / chip_smoke.TIMING_REPS, 4)
+    return split
+
+
+def backward_cases(parent_tree: Path, dev, flush) -> None:
+    """The backward's A/B (see the module's note)."""
+    import torch
+    import torch.nn.functional as F
+
+    import chip_smoke
+    from repro_torch import kernels as K
+    from repro_torch.kernels.flash_attention import kernel as attn
+    from repro_torch.roofline import BF16_OPS_PER_S, bound
+    from repro_torch.roofline.kernels import flash_attention_bwd_traffic
+
+    entries = {"parent": bwd_entry("parent", parent_tree / "src" / "repro_torch" / "csrc"
+                                   / "flash_attention_bwd.cu")}
+    own = ROOT / "src" / "repro_torch" / "csrc" / "flash_attention_bwd.cu"
+    for name, edits in BWD_VARIANTS.items():
+        text = own.read_text()
+        for old, new in edits.items():
+            if text.count(old) != 1:
+                sys.exit(f"{name}: {old!r} is not in {own.name} exactly once")
+            text = text.replace(old, new)
+        copy = CACHE / f"{'_'.join(name.split())}_bwd.cu"
+        CACHE.mkdir(parents=True, exist_ok=True)
+        copy.write_text(text)
+        entries[name] = bwd_entry(name, copy)
+    entries["change"] = attn._launch_bwd()
+    stream = torch.cuda.current_stream().cuda_stream
+    gen = torch.Generator(device=dev).manual_seed(chip_smoke.SEED + 1)
+    for label, B, Hq, Hkv, S, D, dtype_name, causal in chip_smoke.ATTN_BWD_CASES:
+        if dtype_name != "bfloat16":
+            continue
+        q, dout = (torch.randn((B, Hq, S, D), generator=gen, device=dev).bfloat16()
+                   for _ in range(2))
+        k, v = (torch.randn((B, Hkv, S, D), generator=gen, device=dev).bfloat16()
+                for _ in range(2))
+        lse = torch.empty((B, Hq, S), device=dev)
+        out = K.flash_attention_cuda(q, k, v, causal=causal, lse=lse)
+        # room for every scratch layout the trees have used: delta, or
+        # delta, an f32 dQ and a counter a 64-row q tile
+        scratch = torch.empty(B * Hq * S * (D + 2) + 1, device=dev)
+        grads = {name: tuple(torch.empty_like(t) for t in (q, k, v)) for name in entries}
+        head = (B, Hq, Hkv, S, S, D, 1, int(causal), 1.0 / D ** 0.5)
+
+        def bare(name):
+            fn = entries[name]
+            args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+                    lse.data_ptr(), *(g.data_ptr() for g in grads[name]), scratch.data_ptr(),
+                    *head, stream)
+            return lambda: K._lib.check(fn(*args), name)
+
+        calls = {name: bare(name) for name in entries}
+        want = K.attention_bwd_ref(q, k, v, out, lse, dout, causal=causal)
+        result = {"case": label, "shape": [B, Hq, Hkv, S, D], "causal": causal}
+        for name, call in calls.items():
+            call()
+            torch.cuda.synchronize()
+            err = 0.0
+            for gname, g, w in zip(("dq", "dk", "dv"), grads[name], want):
+                gap = (g.float() - w.float()).abs()
+                err = max(err, float(gap.max()))
+                bound_ = (chip_smoke.ATTN_BWD_TOL * float(w.float().abs().max())
+                          + chip_smoke.ATTN_BWD_BF16_RTOL * w.float().abs())
+                if bool((gap > bound_).any()):
+                    sys.exit(f"{label}: the {name} kernel's {gname} differs from the plain "
+                             f"backward (max abs err {float(gap.max())})")
+            result[f"{name} max abs err"] = err
+        turns = ["parent", "change", *BWD_VARIANTS, *reversed(BWD_VARIANTS), "change",
+                 "parent"]
+        for _ in range(ROUNDS):
+            for name in turns:
+                result.setdefault(f"{name} ms", []).append(
+                    round(chip_smoke.time_ms(calls[name], flush), 4))
+        for name in ("parent", "change", "change", "parent"):
+            result.setdefault(f"{name} alone ms", []).append(round(
+                chip_smoke.kernel_alone_ms(calls[name], flush, BWD_NAMES), 4))
+        result["change alone ms by kernel"] = kernel_split_ms(
+            calls["change"], flush, ("attention_delta", "attention_dkdv", "attention_dq"))
+        result["change wrapper ms"] = round(chip_smoke.time_ms(
+            lambda: K.flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal=causal),
+            flush), 4)
+        ins = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*ins, is_causal=causal, enable_gqa=True)
+
+        def library():
+            return torch.autograd.grad(lib_out, ins, dout, retain_graph=True)
+
+        result["sdpa backward ms"] = round(chip_smoke.time_ms(library, flush), 4)
+        nbytes, flops = flash_attention_bwd_traffic(B, Hq, Hkv, S, S, D, causal, 2)
+        bound_ms, bound_by = bound(nbytes, flops, BF16_OPS_PER_S)
+        result.update(flop=flops, bound_ms=round(bound_ms, 4), bound_by=bound_by)
+        for name in ("parent", "change"):
+            best = min(result[f"{name} alone ms"])
+            result[f"{name} TFLOP/s (alone, best)"] = round(flops / best / 1e9, 2)
+            result[f"{name} share of bound (alone, best)"] = round(bound_ms / best, 4)
+        print(json.dumps(result), flush=True)
+        del q, k, v, dout, out, lse, scratch, grads, calls, want, ins, lib_out
+
+
 def main() -> None:
-    if len(sys.argv) != 2:
+    args = sys.argv[1:]
+    only = None
+    if len(args) == 3 and args[1] == "--only" and args[2] in ("fwd", "bwd"):
+        only = args[2]
+        args = args[:1]
+    if len(args) != 1:
         sys.exit(__doc__)
-    parent_tree = Path(sys.argv[1]).resolve()
+    parent_tree = Path(args[0]).resolve()
     sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT))
     import torch
@@ -100,6 +281,10 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     K.build()
+    if only != "fwd":
+        backward_cases(parent_tree, dev, torch.empty(64 << 20, dtype=torch.uint8, device=dev))
+        if only == "bwd":
+            return
     csrc = parent_tree / "src" / "repro_torch" / "csrc"
     entries = {"parent": attention_entry("parent", csrc / "flash_attention.cu",
                                          csrc / "flash_attention_sm90.cu")}

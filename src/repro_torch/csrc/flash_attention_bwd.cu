@@ -23,44 +23,58 @@
 // probabilities, O(S^2) memory again.  kernels/flash_attention/ref.py::
 // attention_bwd_ref is its plain version.
 //
-// Three kernels, deterministic, no atomics:
-//   1. delta: one warp a row, f32.
-//   2. dK and dV: one block a (b, kv head, 64-key tile).  It walks the G
-//      q heads of its group and every 64-row q tile that sees the key
-//      tile (causal: from the diagonal on), recomputes S and P from lse,
-//      and sums dV and dK in registers: the group's sum is taken inside
-//      the block, and each is written once.
-//   3. dQ: one block a (b, q head, 64-row q tile), heaviest first; it
-//      walks the key tiles that q tile sees and sums dQ in registers.
-// So S and dP are computed twice (in 2 and in 3): 14 D flops a visible
-// (query, key) pair against the 10 D the gradient needs.
+// Bound: 10 D flops a visible (query, key) pair, against the 989
+// TFLOP/s bf16 tensor-core rate (67 TFLOP/s f32) of an H100 SXM at 700 W
+// (data sheet); the bytes (q, k, v, o, do read once, dq, dk, dv written
+// once) are far below that.  Deterministic: every sum is taken in one
+// block in a fixed order, no atomics.  First attention_delta_kernel (one
+// warp a row, f32), then two passes a dtype.
 //
-// Bound: 10 D flops a visible pair, against the 989 TFLOP/s bf16
-// tensor-core rate (67 TFLOP/s f32) of an H100 SXM at 700 W (data
-// sheet); the bytes (q, k, v, o, do read once, dq, dk, dv written once)
-// are far below that.
-//
-// * bf16 runs the products on the tensor cores, mma.sync m16n8k16 with
-//   f32 sums, 4 warps a block, each warp 16 rows of the block's tile (16
-//   keys of dK and dV, or 16 q rows of dQ), the other side walked 32 at
-//   a time.  Tiles sit in shared memory as bf16, rows padded by 8 values
-//   so that ldmatrix reads them without bank conflicts; S and dP come
-//   out in the accumulator layout, which is the A layout of the next
-//   product, so P and dS never leave registers.  P and dS are split
-//   into two bf16 terms, hi = bf16(x) and lo = bf16(x - hi), and both
-//   go through the tensor cores (as the forward does with p): about 16
-//   bits of each, so the gradients stay within one bf16 ulp of the f32
-//   plain version.  That is 14 D tensor flops a pair in dK/dV and 10 D in
-//   dQ.
+// * bf16 runs both passes on Hopper's tensor cores, each as the forward
+//   (flash_attention_sm90.cu) runs: 3 warpgroups, one thread of the
+//   third producing TMA loads (the 128-byte swizzle; D 96 as two
+//   64-column chunks whose last 32 columns TMA fills with zeros, never
+//   read), the tiles it holds once, then a ring of kStages stages
+//   guarded by full and empty mbarriers; setmaxnreg moves registers to
+//   the two consumer warpgroups, 64 rows each.  Products are wgmma
+//   m64nNk16 with f32 sums: S and dP from two K-major shared operands
+//   over D/16 steps; their accumulator layout is the register-A layout
+//   of the next product, so P and dS never leave registers and go in as
+//   two bf16 terms each, hi = bf16(x) and lo = bf16(x - hi), as the
+//   forward does with p: about 16 bits, so the gradients stay within one
+//   bf16 ulp of the f32 plain version.  Masks (key > q + Sk - Sq) only
+//   on tiles that cross the diagonal; a warpgroup whose rows and keys
+//   the diagonal wholly separates skips its products.
+//   - attention_dkdv_sm90_kernel: one block a (b, kv head, 128-key
+//     tile), earliest keys first.  It holds K and V, streams the 64-row
+//     Q and dO tiles (with their lse and delta, 1-D bulk copies) of the
+//     q tiles that see the keys, in each the G q heads of the group, and
+//     each consumer takes 64 keys: S^T = K Q^T, dP^T = V dO^T, then
+//     dV += P^T dO and dK += dS^T Q with dO and Q read MN-major through
+//     the transpose bit (n96 at D 96).  The group sum stays in
+//     registers; dK and dV are written once.  12 D tensor flops a pair.
+//   - attention_dq_sm90_kernel: one block a (b, q head, 128-row q tile),
+//     latest rows first.  It holds Q, dO and their rows' lse and delta,
+//     streams the 64-key K and V tiles the rows see, and each consumer
+//     takes 64 rows: S = Q K^T, dP = dO V^T, dQ += dS K with K read
+//     MN-major.  8 D tensor flops a pair.
+//   So S and dP are computed in both passes: 20 D tensor flops a pair
+//   against the 10 D the gradient needs, 4 D of it the lo terms.  A
+//   single pass that computes them once and folds each key tile's share
+//   of dQ into an f32 scratch in key-tile order (a counter a q tile,
+//   no atomics in arrival order) measured 2.5-3x slower on an H100: the
+//   ordered adds and the registers the fold holds cost more than the
+//   recomputation (PERF.md).
 // * f32 stays on the CUDA cores as fp32 FMAs, as the f32 forward does
-//   (TF32 would not hold 1e-4): 256 threads, 4 x 4 register tiles of S
-//   and dP (rows 16 apart, keys 16 apart, float4 along d), 4 x D/16
-//   register tiles of the products into dK, dV and dQ (float4 or float2
-//   along d), rows padded by 4 floats against bank conflicts.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+//   (TF32 would not hold 1e-4): dK and dV a (b, kv head, 64-key tile)
+//   over its G heads, then dQ a (b, q head, 64-row q tile); 256
+//   threads, 4 x 4 register tiles of S and dP (rows 16 apart, keys 16
+//   apart, float4 along d), 4 x D/16 register tiles of the products into
+//   dK, dV and dQ (float4 or float2 along d), rows padded by 4 floats
+//   against bank conflicts.
 #include <math.h>
-#include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -351,305 +365,376 @@ constexpr int dq_smem() {
   return static_cast<int>(sizeof(float)) * (4 * Cols<D>::kTile + kB * kLdP + 2 * kB);
 }
 
-// ---- bf16 on the tensor cores: mma.sync m16n8k16, f32 sums ---------
+
+// ---- bf16 on Hopper: wgmma fed by TMA rings, two passes -------------
 
 typedef __nv_bfloat16 bf16;
-constexpr int kMmaThreads = 128;  // 4 warps, 16 rows of the block's tile each
-constexpr int kSub = 32;          // q rows (dK, dV) or keys (dQ) a step of a warp
+constexpr int kKeys = 128;        // dK/dV: keys a block, 64 a consumer warpgroup
+constexpr int kRows = 128;        // dQ: q rows a block, 64 a consumer warpgroup
+constexpr int kStep = 64;         // q rows (dK/dV) or keys (dQ) a step
+constexpr int kStages = 2;        // ring depth
+constexpr int kConsumers = 2;     // consumer warpgroups
+constexpr int kSm90Threads = 128 * (kConsumers + 1);
+constexpr int kConsumerWarps = 4 * kConsumers;
+constexpr int kBigChunk = 128 * 128;   // a 64-column chunk of a 128-row tile
+constexpr int kStepChunk = kStep * 128;  // a 64-column chunk of a 64-row tile
+constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
-struct MmaTile {
-  static constexpr int kLd = D + 8;       // bf16 row stride: 16-byte rows, 4 banks apart
-  static constexpr int kTile = kB * kLd;  // bf16 of a (64, D) tile
-  static constexpr int kNT = D / 8;       // n-tiles of 8 along d
-  static constexpr int kSmem = static_cast<int>(sizeof(bf16)) * 4 * kTile +
-                               static_cast<int>(sizeof(float)) * 2 * kB;
+struct BwdTiles {
+  static constexpr int kChunks = (D + 63) / 64;  // 64-column chunks
+  static constexpr int kBig = kChunks * kBigChunk;    // a 128-row tile
+  static constexpr int kSmall = kChunks * kStepChunk;  // a 64-row tile
+  // both kernels: two 128-row tiles held, kStages stages of two 64-row
+  // tiles, the rows' lse and delta (dK/dV: a stage's 64 each; dQ: the
+  // held tile's 128 each), barriers (held, full[S], empty[S])
+  static constexpr int kStats = 2 * 4 * (kStages * kStep > kRows ? kStages * kStep : kRows);
+  static constexpr int kBarriers = 1 + 2 * kStages;
+  static constexpr int kSmem = 1024 /* alignment slack */ + 2 * kBig + kStages * 2 * kSmall +
+                               kStats + 8 * kBarriers;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// four 8x8 bf16 matrices from shared memory; lane l gives the address of
-// row l % 8 of matrix l / 8
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// d += A B, A 16x16 (a[0..3]: rows g and g+8 by columns 2t.. and 2t+8..),
-// B 16x8 (b0: rows 2t.. column g; b1: rows 2t+8..), g = lane / 4, t =
-// lane % 4; d: rows g and g+8 by columns 2t, 2t+1
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// x ~ hi + lo for two values, each term bf16, packed as bf16x2 (the
-// first value in the low half)
-__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
-
-// `rows` rows of D bf16 from g (row-major, contiguous) into s with row
-// stride MmaTile<D>::kLd, 16 bytes a copy
-template <int D>
-__device__ __forceinline__ void load_bf16_tile(bf16* s, const bf16* __restrict__ g, int tid) {
-  constexpr int kChunks = D / 8;
-  for (int i = tid; i < kB * kChunks; i += kMmaThreads) {
-    const int r = i / kChunks, c = i - r * kChunks;
-    *reinterpret_cast<uint4*>(s + r * MmaTile<D>::kLd + 8 * c) =
-        *reinterpret_cast<const uint4*>(g + 8 * i);
-  }
-}
-
-// acc[j] = rows a0 .. a0+15 of tile a times rows b0 + 8 j .. b0 + 8 j + 7
-// of tile b, transposed, over D (both (64, D) tiles): a 16 x 32 block of
-// A B^T in the accumulator layout
-template <int D>
-__device__ __forceinline__ void mma_abt(float (&acc)[kSub / 8][4], const bf16* a, int a0,
-                                        const bf16* b, int b0, int lane) {
-  constexpr int kLd = MmaTile<D>::kLd;
+// p = exp2(s scale log2 e - lse log2 e), 0 where masked; ds = p (dp -
+// delta): 32 values in the accumulator layout, in place.  row(j, e)
+// and col(j, e) give a value's q row and key; lse2 and dl its row's lse
+// log2 e and delta.
+template <typename Row, typename Col, typename Lse, typename Dl>
+__device__ __forceinline__ void probabilities(float (&s)[32], float (&dp)[32], float scale_log2,
+                                              bool mask, int q_offset, Row row, Col col,
+                                              Lse lse2, Dl dl) {
 #pragma unroll
-  for (int j = 0; j < kSub / 8; ++j)
+  for (int j = 0; j < 8; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * j + e;
+      float p = exp2f(fmaf(s[i], scale_log2, -lse2(j, e)));
+      if (mask && col(j, e) > row(j, e) + q_offset) p = 0.f;
+      s[i] = p;
+      dp[i] = p * (dp[i] - dl(j, e));
+    }
+}
+
+// 32 accumulator values as the register-A fragments (hi and lo terms)
+// of the four k16 steps of the next product: a[0] rows r0, columns 16kk
+// + c0..; a[1] rows r0+8; a[2]/a[3] columns + 8
+__device__ __forceinline__ void to_a(const float (&x)[32], uint32_t (&hi)[4][4],
+                                     uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      split_bf16(x[8 * kk + 2 * e], x[8 * kk + 2 * e + 1], hi[kk][e], lo[kk][e]);
+}
+
+// d (+)= A B over the D/16 k16 steps of a head dim: A the warpgroup's
+// 64 rows of a 128- or 64-row tile, B a 64-row tile, both K-major in
+// 64-column chunks (a_chunk, b_chunk bytes apart)
+template <int D>
+__device__ __forceinline__ void product_over_d(float (&d)[32], uint32_t a, int a_chunk,
+                                               uint32_t b, int b_chunk) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t af[4];
-    ldsm_x4(af, a + (a0 + (lane & 15)) * kLd + 16 * kk + 8 * (lane >> 4));
+    const uint32_t col = (kk % 4) * 32;
+    wgmma_ss_n64(d, smem_desc(a + (kk / 4) * a_chunk + col, 16, 1024),
+                 smem_desc(b + (kk / 4) * b_chunk + col, 16, 1024), kk > 0);
+  }
+}
+
+// acc (64 rows x D) += A B over 64 (the k16 steps kk): A in registers as
+// hi and lo terms, B a 64-row tile read MN-major (chunks b_chunk apart)
+template <int D>
+__device__ __forceinline__ void product_into_d(float (&acc)[D / 2], const uint32_t (&hi)[4][4],
+                                               const uint32_t (&lo)[4][4], uint32_t b,
+                                               int b_chunk) {
 #pragma unroll
-    for (int j = 0; j < kSub / 8; j += 2) {
-      uint32_t bf[4];  // n-tiles j and j+1, each its k halves
-      ldsm_x4(bf, b + (b0 + 8 * j + 8 * (lane >> 4) + (lane & 7)) * kLd + 16 * kk +
-                      8 * ((lane >> 3) & 1));
-      mma(acc[j], af, bf[0], bf[1]);
-      mma(acc[j + 1], af, bf[2], bf[3]);
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t db = smem_desc(b + kk * 16 * 128, b_chunk, 1024);
+    if constexpr (D == 128) {
+      wgmma_rs_n128(acc, hi[kk], db);
+      wgmma_rs_n128(acc, lo[kk], db);
+    } else if constexpr (D == 96) {
+      wgmma_rs_n96(acc, hi[kk], db);
+      wgmma_rs_n96(acc, lo[kk], db);
+    } else {
+      wgmma_rs_n64(acc, hi[kk], db);
+      wgmma_rs_n64(acc, lo[kk], db);
     }
   }
 }
 
-// acc (16 x D) += A (16 x 32: two k chunks, as hi and lo terms) times
-// rows m0 .. m0+31 of tile m (a (64, D) tile, read transposed)
+// rows r0 and r0 + 8 of a (rows, D) bf16 tensor at out (row r0, column
+// c0) <- acc * scale
 template <int D>
-__device__ __forceinline__ void mma_an(float (&acc)[MmaTile<D>::kNT][4],
-                                       const uint32_t (&hi)[kSub / 16][4],
-                                       const uint32_t (&lo)[kSub / 16][4], const bf16* m,
-                                       int m0, int lane) {
-  constexpr int kLd = MmaTile<D>::kLd;
+__device__ __forceinline__ void write_bf16_rows(bf16* out, const float (&acc)[D / 2], float scale) {
 #pragma unroll
-  for (int kc = 0; kc < kSub / 16; ++kc) {
+  for (int j = 0; j < D / 8; ++j)
 #pragma unroll
-    for (int j = 0; j < MmaTile<D>::kNT; j += 2) {
-      uint32_t bf[4];  // k halves of n-tile j, then of n-tile j+1
-      ldsm_x4_t(bf, m + (m0 + 16 * kc + 8 * ((lane >> 3) & 1) + (lane & 7)) * kLd + 8 * j +
-                        8 * (lane >> 4));
-      mma(acc[j], hi[kc], bf[0], bf[1]);
-      mma(acc[j], lo[kc], bf[0], bf[1]);
-      mma(acc[j + 1], hi[kc], bf[2], bf[3]);
-      mma(acc[j + 1], lo[kc], bf[2], bf[3]);
-    }
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<__nv_bfloat162*>(out + (8 * r) * D + 8 * j) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * r] * scale, acc[4 * j + 2 * r + 1] * scale);
+}
+
+__device__ __forceinline__ void init_barriers(uint32_t bars) {
+  mbar_init(bars, 1);  // the held tiles
+  for (int s = 0; s < kStages; ++s) {
+    mbar_init(bars + 8 * (1 + s), 1);                             // full
+    mbar_init(bars + 8 * (1 + kStages + s), kConsumerWarps);      // empty
   }
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// the accumulator layout of a 16 x 32 block as the A fragments of its
-// two 16 x 16 k chunks, each value split into hi and lo terms
-__device__ __forceinline__ void to_a(const float (&c)[kSub / 8][4],
-                                     uint32_t (&hi)[kSub / 16][4],
-                                     uint32_t (&lo)[kSub / 16][4]) {
-#pragma unroll
-  for (int kc = 0; kc < kSub / 16; ++kc) {
-    split_bf16(c[2 * kc][0], c[2 * kc][1], hi[kc][0], lo[kc][0]);
-    split_bf16(c[2 * kc][2], c[2 * kc][3], hi[kc][1], lo[kc][1]);
-    split_bf16(c[2 * kc + 1][0], c[2 * kc + 1][1], hi[kc][2], lo[kc][2]);
-    split_bf16(c[2 * kc + 1][2], c[2 * kc + 1][3], hi[kc][3], lo[kc][3]);
-  }
-}
-
-// rows r0 + g and r0 + g + 8 of a (rows, D) bf16 tensor <- acc * scale
+// bf16 pass 1: dK and dV of one (b, kv head, 128-key tile).  The block
+// walks the 64-row q tiles that see its keys, last first, and in each
+// the G q heads of its group (step t: q tile nq-1 - t/G of head
+// kvh*G + t%G), so dK and dV sum the group in registers.
 template <int D>
-__device__ __forceinline__ void write_mma_rows(bf16* __restrict__ out,
-                                               const float (&acc)[MmaTile<D>::kNT][4],
-                                               float scale, int r0, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < MmaTile<D>::kNT; ++j)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-      *reinterpret_cast<__nv_bfloat162*>(out + static_cast<long long>(r0 + g + 8 * h) * D +
-                                         8 * j + 2 * t) =
-          __floats2bfloat162_rn(acc[j][2 * h] * scale, acc[j][2 * h + 1] * scale);
-}
-
-// bf16: dK and dV of one (b, kv head, key tile); warp w owns keys 16 w ..
-// 16 w + 15 and walks the q rows 32 at a time: S^T and dP^T (its keys by
-// the q rows), then dV += P^T dO and dK += dS^T Q.
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads) attention_dkdv_mma_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
-    int n_bkv, int Hq, int group, int Sq, int Sk, float scale, int causal) {
-  typedef MmaTile<D> M;
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* vs = ks + M::kTile;
-  bf16* qs = vs + M::kTile;
-  bf16* dos = qs + M::kTile;
-  float* lse_s = reinterpret_cast<float*>(dos + M::kTile);
-  float* delta_s = lse_s + kB;
+__global__ void __launch_bounds__(kSm90Threads, 1) attention_dkdv_sm90_kernel(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+    const float* __restrict__ lse, const float* __restrict__ delta, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, int n_bkv, int Hq, int group, int Sq, int Sk, float scale,
+    int causal) {
+  using T = BwdTiles<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t base = (raw + 1023) & ~1023u;
+  // K and V tiles, the ring's stages of (Q, dO), its (lse, delta), barriers
+  const uint32_t k_s = base, v_s = k_s + T::kBig;
+  const uint32_t ring = v_s + T::kBig;
+  const uint32_t stat0 = ring + kStages * 2 * T::kSmall;
+  const uint32_t bars = stat0 + T::kStats;
+  const auto full = [&](int s) { return bars + 8 * (1 + s); };
+  const auto empty = [&](int s) { return bars + 8 * (1 + kStages + s); };
+  if (threadIdx.x == 0) init_barriers(bars);
+  __syncthreads();
 
   const int kt = static_cast<int>(blockIdx.x) / n_bkv;  // earliest keys (most q tiles) first
-  const int bkv = static_cast<int>(blockIdx.x) % n_bkv;
+  const int bkv = static_cast<int>(blockIdx.x) % n_bkv;  // b * Hkv + kv head
   const int Hkv = Hq / group;
   const int b = bkv / Hkv, kvh = bkv - b * Hkv;
-  const int k0 = kt * kB;
+  const int k0 = kt * kKeys;
   const int q_offset = Sk - Sq;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const long long kv_off = (static_cast<long long>(bkv) * Sk + k0) * D;
+  const int nq = Sq / kStep;
+  // causal: the first q tile with a row that sees key k0
+  const int first = causal ? max(0, k0 - q_offset) / kStep : 0;
+  const int n_steps = (nq - first) * group;
 
-  load_bf16_tile<D>(ks, k + kv_off, tid);
-  load_bf16_tile<D>(vs, v + kv_off, tid);
-
-  float acc_k[M::kNT][4], acc_v[M::kNT][4];
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {
+    // ---- producer: one thread keeps the TMA ring full ---------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == kConsumers * 128) {
+      const int kv_row = bkv * Sk + k0;
+      mbar_expect_tx(bars, 2 * T::kBig);
 #pragma unroll
-  for (int j = 0; j < M::kNT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_k[j][e] = acc_v[j][e] = 0.f;
-
-  const int key0 = k0 + 16 * warp + g;  // this thread's keys: key0 and key0 + 8
-  const int first = causal ? max(0, k0 - q_offset) / kB : 0;
-  for (int gi = 0; gi < group; ++gi) {
-    const long long bh = static_cast<long long>(b) * Hq + kvh * group + gi;
-    for (int qt = first; qt < Sq / kB; ++qt) {
-      const int q0 = qt * kB;
-      const long long q_off = (bh * Sq + q0) * D;
-      __syncthreads();  // the last iteration's reads of qs, dos, lse_s, delta_s done
-      load_bf16_tile<D>(qs, q + q_off, tid);
-      load_bf16_tile<D>(dos, dout + q_off, tid);
-      if (tid < kB) {
-        lse_s[tid] = lse[bh * Sq + q0 + tid];
-        delta_s[tid] = delta[bh * Sq + q0 + tid];
+      for (int c = 0; c < T::kChunks; ++c) {
+        tma_load(k_s + c * kBigChunk, &tk, 64 * c, kv_row, bars);
+        tma_load(v_s + c * kBigChunk, &tv, 64 * c, kv_row, bars);
       }
-      __syncthreads();
-#pragma unroll 1
-      for (int r0 = 0; r0 < kB; r0 += kSub) {
-        // every row of the step sees none of the warp's keys
-        if (causal && k0 + 16 * warp > q0 + r0 + kSub - 1 + q_offset) continue;
-        float s[kSub / 8][4], dp[kSub / 8][4];
-        mma_abt<D>(s, ks, 16 * warp, qs, r0, lane);   // S^T
-        mma_abt<D>(dp, vs, 16 * warp, dos, r0, lane); // dP^T
+      for (int t = 0; t < n_steps; ++t) {
+        const int s = t % kStages, phase = (t / kStages) & 1;
+        const int row = (b * Hq + kvh * group + t % group) * Sq + (nq - 1 - t / group) * kStep;
+        const uint32_t qs = ring + s * 2 * T::kSmall, st = stat0 + s * 2 * kStep * 4;
+        mbar_wait(empty(s), phase ^ 1);
+        mbar_expect_tx(full(s), 2 * T::kSmall + 2 * kStep * 4);
 #pragma unroll
-        for (int j = 0; j < kSub / 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int r = r0 + 8 * j + 2 * t + (e & 1);  // q row within the tile
-            const int key = key0 + 8 * (e >> 1);
-            const bool hidden = causal && key > q0 + r + q_offset;
-            const float p = hidden ? 0.f : expf(fmaf(s[j][e], scale, -lse_s[r]));
-            s[j][e] = p;
-            dp[j][e] = p * (dp[j][e] - delta_s[r]);
-          }
-        uint32_t hi[kSub / 16][4], lo[kSub / 16][4];
-        to_a(s, hi, lo);
-        mma_an<D>(acc_v, hi, lo, dos, r0, lane);  // dV += P^T dO
-        to_a(dp, hi, lo);
-        mma_an<D>(acc_k, hi, lo, qs, r0, lane);   // dK += dS^T Q
+        for (int c = 0; c < T::kChunks; ++c) {
+          tma_load(qs + c * kStepChunk, &tq, 64 * c, row, full(s));
+          tma_load(qs + T::kSmall + c * kStepChunk, &tdo, 64 * c, row, full(s));
+        }
+        bulk_load(st, lse + row, kStep * 4, full(s));
+        bulk_load(st + kStep * 4, delta + row, kStep * 4, full(s));
       }
     }
+  } else {
+    // ---- consumers: 64 keys a warpgroup -----------------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    // accumulator layout of wgmma m64nN: this thread holds rows
+    // r0 = 16*warp + lane/4 and r0 + 8 of the warpgroup's 64, and in
+    // every 8-column block j the columns 8j + c0 + {0, 1}: d[4j + 0..1]
+    // on row r0, d[4j + 2..3] on row r0 + 8.  Here rows are keys and
+    // columns q rows (S^T, dP^T).
+    const int r0 = 16 * warp + lane / 4;
+    const int c0 = 2 * (lane % 4);
+    const int key_lo = k0 + 64 * wg;  // the warpgroup's first key
+    const float scale_log2 = scale * kLog2e;
+    float acc_k[D / 2], acc_v[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+
+    mbar_wait(bars, 0);
+    for (int t = 0; t < n_steps; ++t) {
+      const int s = t % kStages, phase = (t / kStages) & 1;
+      const int q0 = (nq - 1 - t / group) * kStep;
+      const uint32_t qs = ring + s * 2 * T::kSmall, dos = qs + T::kSmall;
+      // every key of the warpgroup past every row of the tile; some past
+      const bool hidden = causal && key_lo > q0 + kStep - 1 + q_offset;
+      const bool mask = causal && key_lo + 63 > q0 + q_offset;
+      mbar_wait(full(s), phase);
+      if (!hidden) {
+        // S^T = K Q^T and dP^T = V dO^T (64 keys x 64 q rows, f32)
+        float sc[32], dp[32];
+        const uint32_t rows = k_s + 64 * wg * 128;
+        wgmma_fence();
+        product_over_d<D>(sc, rows, kBigChunk, qs, kStepChunk);
+        product_over_d<D>(dp, rows + T::kBig, kBigChunk, dos, kStepChunk);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_operands(sc);
+        fence_operands(dp);
+        // P^T and dS^T: lse and delta by column (q row), from the stage
+        const float* st =
+            reinterpret_cast<const float*>(smem_raw + (stat0 + s * 2 * kStep * 4 - raw));
+        probabilities(
+            sc, dp, scale_log2, mask, q_offset,
+            [&](int j, int e) { return q0 + 8 * j + c0 + (e & 1); },
+            [&](int j, int e) { return key_lo + r0 + 8 * (e >> 1); },
+            [&](int j, int e) { return st[8 * j + c0 + (e & 1)] * kLog2e; },
+            [&](int j, int e) { return st[kStep + 8 * j + c0 + (e & 1)]; });
+        // dV += P^T dO, then dK += dS^T Q (dO and Q read MN-major): dS's
+        // fragments are made while dV's products run, behind a second
+        // fence, so one set of fragments is live beside the accumulators
+        uint32_t hi[4][4], lo[4][4], dhi[4][4], dlo[4][4];
+        to_a(sc, hi, lo);
+        fence_operands(acc_v);
+        fence_operands(acc_k);
+        wgmma_fence();
+        product_into_d<D>(acc_v, hi, lo, dos, kStepChunk);
+        to_a(dp, dhi, dlo);
+        wgmma_fence();
+        product_into_d<D>(acc_k, dhi, dlo, qs, kStepChunk);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_operands(acc_v);
+        fence_operands(acc_k);
+      }
+      if (lane == 0) mbar_arrive(empty(s));  // Q, dO, lse and delta read
+    }
+    // dK (times scale) and dV, each written once
+    const long long out = (static_cast<long long>(bkv) * Sk + key_lo + r0) * D + c0;
+    write_bf16_rows<D>(dk + out, acc_k, scale);
+    write_bf16_rows<D>(dv + out, acc_v, 1.f);
   }
-  write_mma_rows<D>(dk + kv_off, acc_k, scale, 16 * warp, lane);
-  write_mma_rows<D>(dv + kv_off, acc_v, 1.f, 16 * warp, lane);
 }
 
-// bf16: dQ of one (b, q head, q tile); warp w owns q rows 16 w .. 16 w +
-// 15 and walks the keys 32 at a time: S and dP, then dQ += dS K.
+// bf16 pass 2: dQ of one (b, q head, 128-row q tile), heaviest (latest
+// rows) first; the block walks the 64-key tiles its rows see.
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads) attention_dq_mma_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, bf16* __restrict__ dq, int n_bh, int Hq, int group,
-    int Sq, int Sk, float scale, int causal) {
-  typedef MmaTile<D> M;
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dos = qs + M::kTile;
-  bf16* ks = dos + M::kTile;
-  bf16* vs = ks + M::kTile;
-  float* lse_s = reinterpret_cast<float*>(vs + M::kTile);
-  float* delta_s = lse_s + kB;
+__global__ void __launch_bounds__(kSm90Threads, 1) attention_dq_sm90_kernel(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+    const float* __restrict__ lse, const float* __restrict__ delta, bf16* __restrict__ dq,
+    int n_bh, int Hq, int group, int Sq, int Sk, float scale, int causal) {
+  using T = BwdTiles<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t base = (raw + 1023) & ~1023u;
+  // Q and dO tiles, the ring's stages of (K, V), the rows' (lse, delta),
+  // barriers
+  const uint32_t q_s = base, do_s = q_s + T::kBig;
+  const uint32_t ring = do_s + T::kBig;
+  const uint32_t stat = ring + kStages * 2 * T::kSmall;
+  const uint32_t bars = stat + T::kStats;
+  const auto full = [&](int s) { return bars + 8 * (1 + s); };
+  const auto empty = [&](int s) { return bars + 8 * (1 + kStages + s); };
+  if (threadIdx.x == 0) init_barriers(bars);
+  __syncthreads();
 
-  const int nq = Sq / kB;
+  const int nq = Sq / kRows;
   const int qt = nq - 1 - static_cast<int>(blockIdx.x) / n_bh;  // heaviest first
-  const int bh = static_cast<int>(blockIdx.x) % n_bh;
+  const int bh = static_cast<int>(blockIdx.x) % n_bh;            // b * Hq + h
   const int b = bh / Hq, h = bh - b * Hq;
-  const long long kv_row = static_cast<long long>(b) * (Hq / group) + h / group;
-  const int q0 = qt * kB;
+  const int kv_row0 = (b * (Hq / group) + h / group) * Sk;
+  const int q0 = qt * kRows;
   const int q_offset = Sk - Sq;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const long long q_off = (static_cast<long long>(bh) * Sq + q0) * D;
+  int n_tiles = Sk / kStep;
+  if (causal) n_tiles = min(n_tiles, (q0 + kRows - 1 + q_offset) / kStep + 1);
 
-  load_bf16_tile<D>(qs, q + q_off, tid);
-  load_bf16_tile<D>(dos, dout + q_off, tid);
-  if (tid < kB) {
-    lse_s[tid] = lse[static_cast<long long>(bh) * Sq + q0 + tid];
-    delta_s[tid] = delta[static_cast<long long>(bh) * Sq + q0 + tid];
-  }
-  float acc[M::kNT][4];
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {
+    // ---- producer --------------------------------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == kConsumers * 128) {
+      const int q_row = bh * Sq + q0;
+      mbar_expect_tx(bars, 2 * T::kBig + 2 * kRows * 4);
 #pragma unroll
-  for (int j = 0; j < M::kNT; ++j)
+      for (int c = 0; c < T::kChunks; ++c) {
+        tma_load(q_s + c * kBigChunk, &tq, 64 * c, q_row, bars);
+        tma_load(do_s + c * kBigChunk, &tdo, 64 * c, q_row, bars);
+      }
+      bulk_load(stat, lse + q_row, kRows * 4, bars);
+      bulk_load(stat + kRows * 4, delta + q_row, kRows * 4, bars);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kStages, phase = (t / kStages) & 1;
+        const uint32_t ks = ring + s * 2 * T::kSmall;
+        mbar_wait(empty(s), phase ^ 1);
+        mbar_expect_tx(full(s), 2 * T::kSmall);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-
-  const int row0 = 16 * warp + g;  // this thread's q rows in the tile: row0 and row0 + 8
-  int n_tiles = Sk / kB;
-  if (causal) n_tiles = min(n_tiles, (q0 + kB - 1 + q_offset) / kB + 1);
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kB;
-    const long long kv_off = (kv_row * Sk + k0) * D;
-    __syncthreads();  // the last iteration's reads of ks, vs done
-    load_bf16_tile<D>(ks, k + kv_off, tid);
-    load_bf16_tile<D>(vs, v + kv_off, tid);
-    __syncthreads();
-#pragma unroll 1
-    for (int c0 = 0; c0 < kB; c0 += kSub) {
-      // every key of the step is past the warp's last row
-      if (causal && k0 + c0 > q0 + 16 * warp + 15 + q_offset) continue;
-      float s[kSub / 8][4], dp[kSub / 8][4];
-      mma_abt<D>(s, qs, 16 * warp, ks, c0, lane);
-      mma_abt<D>(dp, dos, 16 * warp, vs, c0, lane);
-#pragma unroll
-      for (int j = 0; j < kSub / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = row0 + 8 * (e >> 1);
-          const int key = k0 + c0 + 8 * j + 2 * t + (e & 1);
-          const bool hidden = causal && key > q0 + r + q_offset;
-          const float p = hidden ? 0.f : expf(fmaf(s[j][e], scale, -lse_s[r]));
-          dp[j][e] = p * (dp[j][e] - delta_s[r]);
+        for (int c = 0; c < T::kChunks; ++c) {
+          tma_load(ks + c * kStepChunk, &tk, 64 * c, kv_row0 + t * kStep, full(s));
+          tma_load(ks + T::kSmall + c * kStepChunk, &tv, 64 * c, kv_row0 + t * kStep, full(s));
         }
-      uint32_t hi[kSub / 16][4], lo[kSub / 16][4];
-      to_a(dp, hi, lo);
-      mma_an<D>(acc, hi, lo, ks, c0, lane);  // dQ += dS K
+      }
     }
+  } else {
+    // ---- consumers: 64 q rows a warpgroup ---------------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    // the accumulator layout as above, rows q rows and columns keys (S, dP)
+    const int r0 = 16 * warp + lane / 4;
+    const int c0 = 2 * (lane % 4);
+    const int row_lo = q0 + 64 * wg;  // the warpgroup's first q row
+    const float scale_log2 = scale * kLog2e;
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+    mbar_wait(bars, 0);
+    const float* st = reinterpret_cast<const float*>(smem_raw + (stat - raw));
+    const float lse2[2] = {st[64 * wg + r0] * kLog2e, st[64 * wg + r0 + 8] * kLog2e};
+    const float dl[2] = {st[kRows + 64 * wg + r0], st[kRows + 64 * wg + r0 + 8]};
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % kStages, phase = (t / kStages) & 1;
+      const int k0 = t * kStep;
+      const uint32_t ks = ring + s * 2 * T::kSmall, vs = ks + T::kSmall;
+      // every key of the tile past every row of the warpgroup; some past
+      const bool hidden = causal && k0 > row_lo + 63 + q_offset;
+      const bool mask = causal && k0 + kStep - 1 > row_lo + q_offset;
+      mbar_wait(full(s), phase);
+      if (!hidden) {
+        // S = Q K^T and dP = dO V^T (64 q rows x 64 keys, f32)
+        float sc[32], dp[32];
+        const uint32_t rows = q_s + 64 * wg * 128;
+        wgmma_fence();
+        product_over_d<D>(sc, rows, kBigChunk, ks, kStepChunk);
+        product_over_d<D>(dp, rows + T::kBig, kBigChunk, vs, kStepChunk);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_operands(sc);
+        fence_operands(dp);
+        probabilities(
+            sc, dp, scale_log2, mask, q_offset,
+            [&](int j, int e) { return row_lo + r0 + 8 * (e >> 1); },
+            [&](int j, int e) { return k0 + 8 * j + c0 + (e & 1); },
+            [&](int j, int e) { return lse2[e >> 1]; }, [&](int j, int e) { return dl[e >> 1]; });
+        // dQ += dS K, K read MN-major
+        uint32_t hi[4][4], lo[4][4];
+        to_a(dp, hi, lo);
+        fence_operands(acc);
+        wgmma_fence();
+        product_into_d<D>(acc, hi, lo, ks, kStepChunk);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_operands(acc);
+      }
+      if (lane == 0) mbar_arrive(empty(s));  // K and V read
+    }
+    write_bf16_rows<D>(dq + (static_cast<long long>(bh) * Sq + row_lo + r0) * D + c0, acc, scale);
   }
-  write_mma_rows<D>(dq + q_off, acc, scale, 16 * warp, lane);
 }
 
 template <typename T>
@@ -689,39 +774,53 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
                 const float* lse, const float* delta, bf16* dq, bf16* dk, bf16* dv, int B,
                 int Hq, int Hkv, int Sq, int Sk, int causal, float scale,
                 cudaStream_t stream) {
-  constexpr int smem = MmaTile<D>::kSmem;
-  auto dkdv = attention_dkdv_mma_kernel<D>;
-  cudaError_t err =
-      cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (Sq % kRows != 0 || Sk % kKeys != 0 || reinterpret_cast<uintptr_t>(lse) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(delta) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // the dK/dV pass holds 128-key tiles and streams 64-row q tiles; the
+  // dQ pass holds 128-row q tiles and streams 64-key tiles
+  const long long q_rows = static_cast<long long>(B) * Hq * Sq;
+  const long long kv_rows = static_cast<long long>(B) * Hkv * Sk;
+  CUtensorMap q64, do64, k128, v128, q128, do128, k64, v64;
+  if (!tile_map(&q64, q, q_rows, D, kStep) || !tile_map(&do64, dout, q_rows, D, kStep) ||
+      !tile_map(&k128, k, kv_rows, D, kKeys) || !tile_map(&v128, v, kv_rows, D, kKeys) ||
+      !tile_map(&q128, q, q_rows, D, kRows) || !tile_map(&do128, dout, q_rows, D, kRows) ||
+      !tile_map(&k64, k, kv_rows, D, kStep) || !tile_map(&v64, v, kv_rows, D, kStep)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  constexpr int smem = BwdTiles<D>::kSmem;
+  auto dkdv = attention_dkdv_sm90_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_bkv = B * Hkv;
-  dkdv<<<static_cast<unsigned>(n_bkv) * (Sk / kB), kMmaThreads, smem, stream>>>(
-      q, k, v, dout, lse, delta, dk, dv, n_bkv, Hq, Hq / Hkv, Sq, Sk, scale, causal);
+  dkdv<<<static_cast<unsigned>(n_bkv) * (Sk / kKeys), kSm90Threads, smem, stream>>>(
+      q64, k128, v128, do64, lse, delta, dk, dv, n_bkv, Hq, Hq / Hkv, Sq, Sk, scale, causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  auto dqk = attention_dq_mma_kernel<D>;
+  auto dqk = attention_dq_sm90_kernel<D>;
   err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_bh = B * Hq;
-  dqk<<<static_cast<unsigned>(n_bh) * (Sq / kB), kMmaThreads, smem, stream>>>(
-      q, k, v, dout, lse, delta, dq, n_bh, Hq, Hq / Hkv, Sq, Sk, scale, causal);
+  dqk<<<static_cast<unsigned>(n_bh) * (Sq / kRows), kSm90Threads, smem, stream>>>(
+      q128, k64, v64, do128, lse, delta, dq, n_bh, Hq, Hq / Hkv, Sq, Sk, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 // dK/dV and dQ of one type at head dim D
 template <int D>
 int launch(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-           const float* delta, void* dq, void* dk, void* dv, int B, int Hq, int Hkv, int Sq,
+           float* scratch, void* dq, void* dk, void* dv, int B, int Hq, int Hkv, int Sq,
            int Sk, int is_bf16, int causal, float scale, cudaStream_t stream) {
   if (is_bf16) {
     return launch_bf16<D>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                           static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
-                          delta, static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+                          scratch, static_cast<bf16*>(dq), static_cast<bf16*>(dk),
                           static_cast<bf16*>(dv), B, Hq, Hkv, Sq, Sk, causal, scale, stream);
   }
   return launch_f32<D>(static_cast<const float*>(q), static_cast<const float*>(k),
                        static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-                       delta, static_cast<float*>(dq), static_cast<float*>(dk),
+                       scratch, static_cast<float*>(dq), static_cast<float*>(dk),
                        static_cast<float*>(dv), B, Hq, Hkv, Sq, Sk, causal, scale, stream);
 }
 

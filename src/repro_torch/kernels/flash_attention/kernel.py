@@ -17,9 +17,10 @@ plain torch.
 
 Given ``lse``, either forward also writes each row's natural-log
 log-sum-exp, which :func:`flash_attention_bwd_cuda` reads: the gradient
-(``csrc/flash_attention_bwd.cu``: bf16 on the tensor cores through
-``mma.sync``, P and dS as two bf16 terms each; f32 on the CUDA cores),
-which the JAX package leaves to XLA.  Neither launch is seen by
+(``csrc/flash_attention_bwd.cu``: bf16 on Hopper's tensor cores,
+``wgmma`` fed by TMA rings, a dK/dV pass and a dQ pass, P and dS as two
+bf16 terms each; f32 on the CUDA cores), which the JAX package leaves
+to XLA.  Neither launch is seen by
 autograd, so both refuse, with grad mode on, an input that needs a
 gradient: ``ops.FlashAttention`` is the way to train through them."""
 
@@ -178,8 +179,8 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, *, causal: bool = True):
     Hkv, Sk = k.shape[1], k.shape[2]
     _check_rows(NAME_BWD, "lse", lse, (B, Hq, Sq))
     _lib.check_cuda_tensors(NAME_BWD, q=q, k=k, v=v, out=out, lse=lse, dout=dout)
-    _lib.require(all(t.data_ptr() % 16 == 0 for t in (q, k, v, out, dout)), NAME_BWD,
-                 "q, k, v, out and dout must start on 16 bytes (the kernels copy "
+    _lib.require(all(t.data_ptr() % 16 == 0 for t in (q, k, v, out, dout, lse)), NAME_BWD,
+                 "q, k, v, out, dout and lse must start on 16 bytes (the kernels copy "
                  "16-byte chunks)")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel():

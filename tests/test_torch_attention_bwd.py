@@ -158,3 +158,25 @@ def test_backward_traffic_at_the_train_shape():
     assert (nbytes, flops) == (201850880, 257760952320)
     ms, by = bound(nbytes, flops, BF16_OPS_PER_S)
     assert by == "operations" and round(ms, 4) == 0.2606
+
+
+def test_smoke_names_every_backward_kernel():
+    """``chip_smoke.ATTN_BWD_KERNELS``, which phase 7 hands to
+    ``kernel_alone_ms``, names every ``__global__`` of the backward's
+    source, the one each call launches once (delta, for both dtypes)
+    first: a kernel left out would drop from the "alone" time."""
+    import pathlib
+    import re
+    import sys
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(root))
+    import chip_smoke
+
+    src = (root / "src" / "repro_torch" / "csrc" / "flash_attention_bwd.cu").read_text()
+    names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(", src)
+    assert len(names) == len(set(names)) >= 4
+    assert sorted(names) == sorted(chip_smoke.ATTN_BWD_KERNELS)
+    assert chip_smoke.ATTN_BWD_KERNELS[0] == "attention_delta_kernel"
+    assert "mma.sync" not in src
+

@@ -308,6 +308,9 @@ BWD_CASES = [
     (1, 4, 4, 640, 640, 96, torch.bfloat16),
     (2, 12, 2, 256, 640, 128, torch.bfloat16),
     (1, 8, 2, 1024, 1024, 128, torch.bfloat16),
+    # D 96 with Sq < Sk (its causal diagonal 384 keys in), G 4 at D 64
+    (1, 4, 2, 256, 640, 96, torch.bfloat16),
+    (1, 8, 2, 256, 256, 64, torch.bfloat16),
 ]
 
 
@@ -345,6 +348,22 @@ def test_flash_attention_bwd_matches_plain(dev, case, causal):
     assert K.launch_counts()["flash_attention_bwd"] == 1
     want = K.attention_bwd_ref(q, k, v, out, lse, dout, causal=causal)
     assert_grads_close(got, want, q.dtype)
+
+
+@pytest.mark.parametrize("case", [BWD_CASES[7], BWD_CASES[8], BWD_CASES[5]])
+def test_flash_attention_bwd_is_deterministic(dev, case):
+    """The bf16 kernel folds dQ in key-tile order, never by atomics in
+    arrival order: two launches on the same inputs give the same bits
+    (a G 4 causal case, D 96 with Sq < Sk, D 96 at G 1)."""
+    q, k, v, dout = attention_grads_case(dev, case, 11)
+    B, Hq, Sq = q.shape[:3]
+    lse = torch.empty((B, Hq, Sq), device=dev)
+    out = K.flash_attention_cuda(q, k, v, causal=True, lse=lse)
+    first = K.flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal=True)
+    second = K.flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal=True)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
 
 
 @pytest.mark.parametrize("case", [BWD_CASES[1], BWD_CASES[6]])

@@ -76,3 +76,25 @@ def test_route_gaps_reads_an_lse_in_base_2(monkeypatch, fault):
         assert max(gaps.values()) > 10 * chip_smoke.TRAIN_BF16_GRAD_TOL
     else:
         assert max(gaps.values()) <= 1e-5
+
+
+def test_paired_walls_alternate_the_order(monkeypatch):
+    """Phase 12(a)'s pairs run the untraced solve first in even pairs and
+    second in odd ones, and each wall lands on its own side."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    order = []
+
+    class Solver:
+        def __init__(self, name):
+            self.name = name
+
+        def solve(self, problem):
+            order.append(self.name)
+
+    walls_u, walls_t = chip_smoke.paired_walls(Solver("u"), Solver("t"), None, pairs=5)
+    assert order == ["u", "t", "t", "u", "u", "t", "t", "u", "u", "t"]
+    assert len(walls_u) == len(walls_t) == 5
+    assert chip_smoke.TRACE_PAIRS == 21 and chip_smoke.TRACE_PAIRS % 2 == 1
+
