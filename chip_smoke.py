@@ -528,9 +528,10 @@ ATTN_BWD_CASES = (
 # a call (of either dtype) first: kernel_alone_ms counts calls by it and
 # sums the device time of every kernel named here
 ATTN_BWD_KERNELS = ("attention_delta_kernel", "attention_dkdv_sm90_kernel",
-                    "attention_dq_sm90_kernel", "attention_dkdv_kernel", "attention_dq_kernel")
+                    "attention_dq_sm90_kernel", "attention_dkdv_tf32_kernel",
+                    "attention_dq_tf32_kernel")
 # the cases whose gradients two launches must give in the same bits
-ATTN_BWD_REPEAT = ("f phi3-mini train", "h G 6 (dbrx)")
+ATTN_BWD_REPEAT = ("f phi3-mini train", "h G 6 (dbrx)", "i fp32 twin train")
 ATTN_BWD_ROWS = {
     "f phi3-mini train": "flash_attention_bwd",
     "i fp32 twin train": "flash_attention_bwd f32",
@@ -543,6 +544,18 @@ ATTN_ROWS = {
     "d fp32 twin prefill": ("flash_attention f32", "src/repro_torch/csrc/flash_attention.cu"),
     "e dbrx prefill": ("flash_attention dbrx", "src/repro_torch/csrc/flash_attention_sm90.cu"),
 }
+
+
+def tf32x3_share(nbytes: int, flops: int, ms: float, alone_ms: float | None = None) -> str:
+    """An f32 attention case's tensor floor (3 TF32 products a product
+    at 495 TFLOP/s) and a time's share of it, beside the CUDA-core bound
+    the log line gives first."""
+    from repro_torch.roofline import TF32X3_OPS_PER_S, bound
+
+    floor_ms, _ = bound(nbytes, flops, TF32X3_OPS_PER_S)
+    alone = "" if alone_ms is None else f", alone {floor_ms / alone_ms:.3f}"
+    return (f" (67 TFLOP/s); 3xTF32 floor {floor_ms:.4f} ms (165 TFLOP/s), "
+            f"{floor_ms / ms:.3f} of it{alone}")
 
 
 def profiled_solve(solver, problem, kernel: str) -> None:
@@ -677,7 +690,8 @@ def serving_kernels(dev, flush) -> tuple[dict, dict, dict]:
             f"sdpa {library_ms:.4f} ms (max abs err {lib_err:.3g}); "
             f"{flops} flop, {nbytes} bytes, bound {bound_ms:.4f} ms "
             f"({bound_by}, {peak / 1e12:g} TFLOP/s); kernel at "
-            f"{flops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.3f} of its bound "
+            f"{flops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.3f} of its bound"
+            f"{tf32x3_share(nbytes, flops, ms) if dtype == torch.float32 else ''} "
             f"(sdpa {flops / library_ms / 1e9:.1f} TFLOP/s; the kernel "
             f"{'faster' if ms < library_ms else 'slower'} than sdpa; sdpa's "
             f"kernels: {backend})")
@@ -771,7 +785,7 @@ def attention_bwd_kernels(dev, flush) -> list[dict]:
     import torch.nn.functional as F
 
     from repro_torch import kernels as K
-    from repro_torch.roofline import BF16_OPS_PER_S, F32_OPS_PER_S, bound
+    from repro_torch.roofline import BF16_OPS_PER_S, F32_OPS_PER_S, TF32X3_OPS_PER_S, bound
     from repro_torch.roofline.kernels import flash_attention_bwd_traffic
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -856,7 +870,11 @@ def attention_bwd_kernels(dev, flush) -> list[dict]:
             f"sdpa backward {library_ms:.4f} ms ({ms / library_ms:.2f}x it); {flops} flop, "
             f"{nbytes} bytes, bound {bound_ms:.4f} ms ({bound_by}, {peak / 1e12:g} "
             f"TFLOP/s); kernel at {flops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.3f} "
-            f"of its bound; sdpa's backward kernels: {backend}")
+            f"of its bound"
+            f"{tf32x3_share(nbytes, flops, ms, alone_ms) if dtype == torch.float32 else ''}"
+            f"; sdpa's backward kernels: {backend}")
+        if dtype == torch.float32:  # the f32 kernels run on the tensor cores
+            bound_ms, bound_by = bound(nbytes, flops, TF32X3_OPS_PER_S)
         if label in ATTN_BWD_ROWS:
             rows.append(dict(
                 name=ATTN_BWD_ROWS[label], route="cuda",

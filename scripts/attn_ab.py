@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's f32 flash_attention kernel and its bf16 attention
-backward against the same kernels built from another source tree, in
+"""Time the port's f32 flash_attention kernel and its attention backward
+(bf16 and f32) against the same kernels built from another source tree, in
 turns, in one process on one NVIDIA GPU: the way to hold a change of
 ``src/repro_torch/csrc/flash_attention.cu`` or
 ``src/repro_torch/csrc/flash_attention_bwd.cu`` against its parent on
@@ -27,21 +27,26 @@ of this tree's ``csrc/flash_attention.cu``, built alone into
 The backward (``--only bwd`` alone): PARENT's ``csrc/flash_attention_bwd.cu``
 is built alone into ``build/attn_ab/``, and each of ``BWD_VARIANTS`` (an
 edited copy of this tree's) likewise; this tree's is the library's.  The
-cases are ``chip_smoke.py``'s bf16 backward cases of phase 7 (f:
-phi3-mini's train shape, g: G 4, h: G 6).  Each kernel's dq, dk and dv
-are held against ``attention_bwd_ref`` at phase 7's bounds, then timed
-bare in the order
-parent, change, variants, variants reversed, change, parent, three
-rounds, and alone under ``torch.profiler`` (parent, change, change,
-parent); ``sdpa``'s backward (``torch.autograd.grad`` of
-scaled_dot_product_attention, its forward's graph kept) and this tree's
-wrapper once.  Prints the card line, then one JSON line a case.
+cases are ``chip_smoke.py``'s backward cases of phase 7 (bf16 f:
+phi3-mini's train shape, g: G 4, h: G 6; f32 i: the fp32 twin's train
+shape).  Each kernel's dq, dk and dv are held against
+``attention_bwd_ref`` at phase 7's bounds (1e-4 of max |grad|, bf16 also
+one ulp), then timed bare in the order parent, change, variants of the
+case's dtype, the same reversed, change, parent, three rounds, and alone
+under ``torch.profiler`` (parent, change, change, parent); ``sdpa``'s
+backward (``torch.autograd.grad`` of scaled_dot_product_attention, its
+forward's graph kept) and this tree's wrapper once.  An f32 case's
+bound is its 3xTF32 floor (495 / 3 TFLOP/s), its share of the 67
+TFLOP/s CUDA-core bound beside it.  Prints the card line and ptxas's
+register and spill report of each backward kernel, then one JSON line a
+case.
 """
 
 from __future__ import annotations
 
 import ctypes
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -56,15 +61,43 @@ VARIANTS = {
     "pv unroll 4": {"#pragma unroll 8\n    for (int j = 0; j < kBK; ++j) {":
                     "#pragma unroll 4\n    for (int j = 0; j < kBK; ++j) {"},
 }
-#: name -> edits (text of csrc/flash_attention_bwd.cu -> its replacement)
+#: name -> (dtype name of the cases it runs at, edits: text of
+#: csrc/flash_attention_bwd.cu -> its replacement)
 BWD_VARIANTS = {
-    "one fence": {"""        to_a(sc, hi, lo);
-        fence_operands(acc_v);""": """        to_a(sc, hi, lo);
-        to_a(dp, dhi, dlo);
-        fence_operands(acc_v);""", """        product_into_d<D>(acc_v, hi, lo, dos, kStepChunk);
-        to_a(dp, dhi, dlo);
-        wgmma_fence();""": """        product_into_d<D>(acc_v, hi, lo, dos, kStepChunk);"""},
+    # each gradient summed in one tensor-core accumulator over all the
+    # steps, no f32 add of a step's part
+    "f32 one sum a gradient": ("float32", {
+        "mma_tf32(part[i], alo, bhi[i][0], bhi[i][1]);":
+        "mma_tf32(acc[n0 + i], alo, bhi[i][0], bhi[i][1]);",
+        "mma_tf32(part[i], ahi, bl[i][0], bl[i][1]);":
+        "mma_tf32(acc[n0 + i], ahi, bl[i][0], bl[i][1]);",
+        "mma_tf32(part[i], ahi, bhi[i][0], bhi[i][1]);":
+        "mma_tf32(acc[n0 + i], ahi, bhi[i][0], bhi[i][1]);",
+        "acc[n0 + i][c] += part[i][c];": "part[i][c] = 0.f;"}),
+    "f32 scores 4 k8 steps unrolled": ("float32", {
+        "constexpr int kUnroll = D > 96 ? 4 : D / 8;": "constexpr int kUnroll = 4;"}),
+    # the scores' fragments by 32-bit shared loads, four where one
+    # ldmatrix does
+    "f32 scores by plain loads": ("float32", {
+        "      ldsm_x4(raw, ar + 8 * kk);\n": """      {
+        const float* p = a + (lane >> 2) * kLd + 8 * kk + (lane & 3);
+        raw[0] = __float_as_uint(p[0]);
+        raw[1] = __float_as_uint(p[8 * kLd]);
+        raw[2] = __float_as_uint(p[4]);
+        raw[3] = __float_as_uint(p[8 * kLd + 4]);
+      }
+""",
+        """        ldsm_x4(bhi[jj], b + bo + 16 * jj * kLd + 8 * kk);
+        ldsm_x4(bl[jj], blo + bo + 16 * jj * kLd + 8 * kk);
+""": """        const int o = (16 * jj + (lane >> 2)) * kLd + 8 * kk + (lane & 3);
+        for (int m = 0; m < 4; ++m) {
+          const int om = o + (m & 1) * 4 + (m >> 1) * 8 * kLd;
+          bhi[jj][m] = __float_as_uint(b[om]);
+          bl[jj][m] = __float_as_uint(blo[om]);
+        }
+"""}),
 }
+
 # calls counted by delta's kernel (one a call), time summed over every
 # kernel of the backward's source
 BWD_NAMES = ("attention_delta", "attention_")
@@ -118,11 +151,14 @@ def bwd_entry(name: str, source: Path):
         sys.exit(f"nvcc failed on {source} ({name}):\n{done.stdout}{done.stderr}")
     lines = (done.stdout + done.stderr).splitlines()
     for i, line in enumerate(lines):
-        if "Compiling entry" in line and ("mma" in line or "sm90" in line):
-            kernel = line.split("'")[1][:90]
-            report = " ".join(x.strip() for x in lines[i + 1:i + 4] if "ptxas" in x
-                              or "spill" in x)
-            print(f"[{name}] {kernel}: {report[:200]}", flush=True)
+        kernel = re.search(r"\d(attention_\w+?_kernel)I(?:Li(\d+)E|(f)E|(13__nv_bfloat16)E)", line)
+        if "Compiling entry" in line and kernel:
+            tail = " ".join(lines[i + 1:i + 4])
+            regs = re.search(r"Used (\d+) registers", tail)
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", tail)
+            print(f"[{name}] {kernel.group(1)}<{kernel.group(2) or kernel.group(3) or 'bf16'}>: "
+                  f"{regs.group(1) if regs else '?'} registers, spill stores/loads "
+                  f"{'/'.join(spills.groups()) if spills else '?'}", flush=True)
         if "C7512" in line:
             print(f"[{name}] {line.strip()[:160]}", flush=True)
     fn = ctypes.CDLL(str(out)).flash_attention_bwd_launch
@@ -164,13 +200,13 @@ def backward_cases(parent_tree: Path, dev, flush) -> None:
     import chip_smoke
     from repro_torch import kernels as K
     from repro_torch.kernels.flash_attention import kernel as attn
-    from repro_torch.roofline import BF16_OPS_PER_S, bound
+    from repro_torch.roofline import BF16_OPS_PER_S, F32_OPS_PER_S, TF32X3_OPS_PER_S, bound
     from repro_torch.roofline.kernels import flash_attention_bwd_traffic
 
     entries = {"parent": bwd_entry("parent", parent_tree / "src" / "repro_torch" / "csrc"
                                    / "flash_attention_bwd.cu")}
     own = ROOT / "src" / "repro_torch" / "csrc" / "flash_attention_bwd.cu"
-    for name, edits in BWD_VARIANTS.items():
+    for name, (_, edits) in BWD_VARIANTS.items():
         text = own.read_text()
         for old, new in edits.items():
             if text.count(old) != 1:
@@ -184,19 +220,20 @@ def backward_cases(parent_tree: Path, dev, flush) -> None:
     stream = torch.cuda.current_stream().cuda_stream
     gen = torch.Generator(device=dev).manual_seed(chip_smoke.SEED + 1)
     for label, B, Hq, Hkv, S, D, dtype_name, causal in chip_smoke.ATTN_BWD_CASES:
-        if dtype_name != "bfloat16":
-            continue
-        q, dout = (torch.randn((B, Hq, S, D), generator=gen, device=dev).bfloat16()
+        dtype = getattr(torch, dtype_name)
+        q, dout = (torch.randn((B, Hq, S, D), generator=gen, device=dev).to(dtype)
                    for _ in range(2))
-        k, v = (torch.randn((B, Hkv, S, D), generator=gen, device=dev).bfloat16()
+        k, v = (torch.randn((B, Hkv, S, D), generator=gen, device=dev).to(dtype)
                 for _ in range(2))
+        variants = [name for name, (dt, _) in BWD_VARIANTS.items() if dt == dtype_name]
+        names = ["parent", "change", *variants]
         lse = torch.empty((B, Hq, S), device=dev)
         out = K.flash_attention_cuda(q, k, v, causal=causal, lse=lse)
         # room for every scratch layout the trees have used: delta, or
         # delta, an f32 dQ and a counter a 64-row q tile
         scratch = torch.empty(B * Hq * S * (D + 2) + 1, device=dev)
-        grads = {name: tuple(torch.empty_like(t) for t in (q, k, v)) for name in entries}
-        head = (B, Hq, Hkv, S, S, D, 1, int(causal), 1.0 / D ** 0.5)
+        grads = {name: tuple(torch.empty_like(t) for t in (q, k, v)) for name in names}
+        head = (B, Hq, Hkv, S, S, D, int(dtype == torch.bfloat16), int(causal), 1.0 / D ** 0.5)
 
         def bare(name):
             fn = entries[name]
@@ -205,24 +242,26 @@ def backward_cases(parent_tree: Path, dev, flush) -> None:
                     *head, stream)
             return lambda: K._lib.check(fn(*args), name)
 
-        calls = {name: bare(name) for name in entries}
+        calls = {name: bare(name) for name in names}
         want = K.attention_bwd_ref(q, k, v, out, lse, dout, causal=causal)
         result = {"case": label, "shape": [B, Hq, Hkv, S, D], "causal": causal}
         for name, call in calls.items():
             call()
             torch.cuda.synchronize()
-            err = 0.0
+            err = share = 0.0
             for gname, g, w in zip(("dq", "dk", "dv"), grads[name], want):
                 gap = (g.float() - w.float()).abs()
                 err = max(err, float(gap.max()))
-                bound_ = (chip_smoke.ATTN_BWD_TOL * float(w.float().abs().max())
-                          + chip_smoke.ATTN_BWD_BF16_RTOL * w.float().abs())
+                top = float(w.float().abs().max())
+                share = max(share, float(gap.max()) / top)
+                rtol = chip_smoke.ATTN_BWD_BF16_RTOL if dtype == torch.bfloat16 else 0.0
+                bound_ = chip_smoke.ATTN_BWD_TOL * top + rtol * w.float().abs()
                 if bool((gap > bound_).any()):
                     sys.exit(f"{label}: the {name} kernel's {gname} differs from the plain "
                              f"backward (max abs err {float(gap.max())})")
             result[f"{name} max abs err"] = err
-        turns = ["parent", "change", *BWD_VARIANTS, *reversed(BWD_VARIANTS), "change",
-                 "parent"]
+            result[f"{name} max abs err / max |grad|"] = share
+        turns = ["parent", "change", *variants, *reversed(variants), "change", "parent"]
         for _ in range(ROUNDS):
             for name in turns:
                 result.setdefault(f"{name} ms", []).append(
@@ -242,13 +281,21 @@ def backward_cases(parent_tree: Path, dev, flush) -> None:
             return torch.autograd.grad(lib_out, ins, dout, retain_graph=True)
 
         result["sdpa backward ms"] = round(chip_smoke.time_ms(library, flush), 4)
-        nbytes, flops = flash_attention_bwd_traffic(B, Hq, Hkv, S, S, D, causal, 2)
-        bound_ms, bound_by = bound(nbytes, flops, BF16_OPS_PER_S)
+        nbytes, flops = flash_attention_bwd_traffic(B, Hq, Hkv, S, S, D, causal,
+                                                    q.element_size())
+        bf16 = dtype == torch.bfloat16
+        bound_ms, bound_by = bound(nbytes, flops, BF16_OPS_PER_S if bf16 else TF32X3_OPS_PER_S)
         result.update(flop=flops, bound_ms=round(bound_ms, 4), bound_by=bound_by)
+        cores_ms = None if bf16 else bound(nbytes, flops, F32_OPS_PER_S)[0]
+        if cores_ms is not None:
+            result["CUDA-core bound ms"] = round(cores_ms, 4)
         for name in ("parent", "change"):
             best = min(result[f"{name} alone ms"])
             result[f"{name} TFLOP/s (alone, best)"] = round(flops / best / 1e9, 2)
             result[f"{name} share of bound (alone, best)"] = round(bound_ms / best, 4)
+            if cores_ms is not None:
+                result[f"{name} share of the CUDA-core bound (alone, best)"] = round(
+                    cores_ms / best, 4)
         print(json.dumps(result), flush=True)
         del q, k, v, dout, out, lse, scratch, grads, calls, want, ins, lib_out
 

@@ -24,11 +24,13 @@
 // attention_bwd_ref is its plain version.
 //
 // Bound: 10 D flops a visible (query, key) pair, against the 989
-// TFLOP/s bf16 tensor-core rate (67 TFLOP/s f32) of an H100 SXM at 700 W
-// (data sheet); the bytes (q, k, v, o, do read once, dq, dk, dv written
-// once) are far below that.  Deterministic: every sum is taken in one
-// block in a fixed order, no atomics.  First attention_delta_kernel (one
-// warp a row, f32), then two passes a dtype.
+// TFLOP/s bf16 tensor-core rate of an H100 SXM at 700 W (data sheet);
+// f32 against 67 TFLOP/s on the CUDA cores, or the floor of its
+// tensor-core route, 495 / 3 TFLOP/s (three TF32 products a product,
+// below); the bytes (q, k, v, o, do read once, dq, dk, dv written once)
+// are far below that.  Deterministic: every sum is taken in one block in
+// a fixed order, no atomics.  First attention_delta_kernel (one warp a
+// row, f32), then two passes a dtype.
 //
 // * bf16 runs both passes on Hopper's tensor cores, each as the forward
 //   (flash_attention_sm90.cu) runs: 3 warpgroups, one thread of the
@@ -65,141 +67,70 @@
 //   no atomics in arrival order) measured 2.5-3x slower on an H100: the
 //   ordered adds and the registers the fold holds cost more than the
 //   recomputation (PERF.md).
-// * f32 stays on the CUDA cores as fp32 FMAs, as the f32 forward does
-//   (TF32 would not hold 1e-4): dK and dV a (b, kv head, 64-key tile)
-//   over its G heads, then dQ a (b, q head, 64-row q tile); 256
-//   threads, 4 x 4 register tiles of S and dP (rows 16 apart, keys 16
-//   apart, float4 along d), 4 x D/16 register tiles of the products into
-//   dK, dV and dQ (float4 or float2 along d), rows padded by 4 floats
-//   against bank conflicts.
+// * f32 runs on the tensor cores too, in 3xTF32: TF32 keeps 10 mantissa
+//   bits, about 3 decimal digits, which would not hold the plain
+//   version's 1e-4 of max |grad|.  Each operand x is split once, hi =
+//   tf32(x) and lo = tf32(x - hi), rounded as cvt.rna rounds (nearest,
+//   ties away; two integer operations, where cvt's NaN handling costs
+//   more), and a product a b is taken as lo_a hi_b + hi_a lo_b + hi_a
+//   hi_b, the two small terms first, each an mma.sync.m16n8k8 TF32
+//   product with f32 sums; the dropped lo_a lo_b is about 2^-22 of the
+//   product, near f32's own rounding.  mma.sync and not wgmma: wgmma
+//   takes TF32 B operands K-major only, and dV = P^T dO, dK = dS^T Q and
+//   dQ = dS K read dO, Q and K MN-major from their row-major tiles.  Two
+//   passes, as bf16, S and dP recomputed in each (14 D a pair, 3 TF32
+//   terms each), 8 warps a block, 16 rows a warp:
+//   - attention_dkdv_tf32_kernel: one block a (b, kv head, 128-key
+//     tile), earliest keys first.  It holds K and V and streams the Q
+//     and dO tiles of kStep rows (with their lse and delta) of the q
+//     tiles that see the keys, in each the G q heads of the group; each
+//     warp takes 16 keys: S^T = K Q^T, dP^T = V dO^T, dV += P^T dO, dK
+//     += dS^T Q.
+//   - attention_dq_tf32_kernel: one block a (b, q head, 128-row q tile),
+//     latest rows first.  It holds Q and dO and streams the K and V
+//     tiles of kStep keys its rows see; each warp takes 16 rows: S = Q
+//     K^T, dP = dO V^T, dQ += dS K.
+//   The m16n8 accumulator holds columns 2t and 2t+1 of each 8-column
+//   block (t = lane % 4) and the k8 A fragment columns t and t+4, so the
+//   next product takes k slot t as column 2t and slot t+4 as 2t+1, and
+//   its B fragments read those rows: P and dS go from the accumulators
+//   into the A fragments without leaving registers.  Streamed tiles
+//   arrive by 16-byte cp.async in a ring of kTfStages stages, the next
+//   step's copy running under this step's products; once landed, the
+//   block splits them in one pass (hi in place, lo beside), so each of
+//   the 8 warps that reads them as B fragments loads hi and lo instead
+//   of splitting every element again (on an H100 that took case i of
+//   PERF.md from about 2.0 ms to 1.7).  The scores' fragments come by
+//   ldmatrix (a 16 x 8 A fragment or two n-blocks' B fragments an
+//   instruction, where plain loads take four); the held tiles' A
+//   fragments are split in registers (each feeds kStep / 8 products).
+//   dK, dV and dQ sum each step's part from zero on the tensor cores and
+//   add it to the gradient in f32: the tensor cores drop low bits at
+//   each product's sum, and over S 2048 rows in one accumulator that took
+//   dK and dV 2.5e-5 of their max |value| from the plain version,
+//   against 4e-6 so (PERF.md).  Rows are D + 4 floats
+//   apart (4 banks), so every fragment load of a warp (8 rows x 4
+//   columns, or 4 row pairs x 8 columns) touches 32 distinct banks.
+//   kStep is 32 rows at D 64 and 96 and 16 at D 128: a block holds two
+//   (128, D) tiles, two stages of two (kStep, D) tiles and their lo
+//   terms, 179,712 bytes of shared memory at D 96 and 186,112 at D 128
+//   (32 rows would take 237,056, past the 232,448 a block may have).  So
+//   one block an SM, 8 warps: a warp holds its 16 rows' dK and dV (or
+//   dQ) in registers, D/2 (D/4) floats a thread, beside S, dP, the
+//   step's parts and the fragments, up to 255 registers a thread at D 96
+//   and 128 with no spill, which is what bounds the rows a warp and the
+//   warps an SM (16 warps would leave 128 registers a thread).
 #include <math.h>
 
 #include "sm90.cuh"
 
 namespace {
 
-constexpr int kB = 64;          // q rows of a q tile, keys of a key tile
-constexpr int kThreads = 256;   // 16 x 16
-constexpr int kLdP = kB + 4;    // row stride of the (64, 64) P and dS tiles
+constexpr int kThreads = 256;   // attention_delta_kernel: a warp a row
 constexpr unsigned kFull = 0xffffffffu;
-
-template <int D>
-struct Cols {
-  static constexpr int kLd = D + 4;                 // row stride of a (64, D) tile
-  static constexpr int kNC = D / 16;                // 4, 6 or 8 columns a thread
-  static constexpr int kVW = kNC % 4 == 0 ? 4 : 2;  // as vectors of kVW
-  static constexpr int kNV = kNC / kVW;
-  static constexpr int kTile = kB * kLd;            // floats of a (64, D) tile
-};
-
-template <int VW> struct Vec;
-template <> struct Vec<4> { typedef float4 T; };
-template <> struct Vec<2> { typedef float2 T; };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-// 64 rows of D floats from g (row-major, contiguous) into s with row
-// stride Cols<D>::kLd, a float4 a copy.
-template <int D>
-__device__ __forceinline__ void load_tile(float* s, const float* __restrict__ g, int tid) {
-  constexpr int kChunks = D / 4;
-  for (int i = tid; i < kB * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = i - r * kChunks;
-    *reinterpret_cast<float4*>(s + r * Cols<D>::kLd + 4 * c) =
-        *reinterpret_cast<const float4*>(g + 4 * i);
-  }
-}
-
-// acc[i][j] = a[ty + 16 i] . b[tx + 16 j] over D: rows 16 apart, keys
-// 16 apart, float4 along d.
-template <int D>
-__device__ __forceinline__ void dot_tile(float (&acc)[4][4], const float* a,
-                                         const float* b, int tx, int ty) {
-  constexpr int kLd = Cols<D>::kLd;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-  for (int c = 0; c < D / 4; ++c) {
-    float4 x[4], y[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      x[i] = *reinterpret_cast<const float4*>(a + (ty + 16 * i) * kLd + 4 * c);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      y[j] = *reinterpret_cast<const float4*>(b + (tx + 16 * j) * kLd + 4 * c);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        acc[i][j] = fmaf(x[i].x, y[j].x, acc[i][j]);
-        acc[i][j] = fmaf(x[i].y, y[j].y, acc[i][j]);
-        acc[i][j] = fmaf(x[i].z, y[j].z, acc[i][j]);
-        acc[i][j] = fmaf(x[i].w, y[j].w, acc[i][j]);
-      }
-  }
-}
-
-// acc[e][col] += sum_r w[r][4 ty + e] * m[r][col] over the 64 rows r of
-// the (64, 64) tile w (row stride kLdP) and the (64, D) tile m: the
-// thread's 4 rows of the result (4 ty + e) and its D/16 columns
-// ((tx + 16 c) * kVW + 0 .. kVW-1).
-template <int D>
-__device__ __forceinline__ void tn_tile(float (&acc)[4][Cols<D>::kNC], const float* w,
-                                        const float* m, int tx, int ty) {
-  typedef Cols<D> C;
-  typedef typename Vec<C::kVW>::T V;
-#pragma unroll 4
-  for (int r = 0; r < kB; ++r) {
-    const float4 p = *reinterpret_cast<const float4*>(w + r * kLdP + 4 * ty);
-#pragma unroll
-    for (int c = 0; c < C::kNV; ++c) {
-      const V x = *reinterpret_cast<const V*>(m + r * C::kLd + (tx + 16 * c) * C::kVW);
-#pragma unroll
-      for (int e = 0; e < C::kVW; ++e) {
-        const float xe = (&x.x)[e];
-        acc[0][c * C::kVW + e] = fmaf(p.x, xe, acc[0][c * C::kVW + e]);
-        acc[1][c * C::kVW + e] = fmaf(p.y, xe, acc[1][c * C::kVW + e]);
-        acc[2][c * C::kVW + e] = fmaf(p.z, xe, acc[2][c * C::kVW + e]);
-        acc[3][c * C::kVW + e] = fmaf(p.w, xe, acc[3][c * C::kVW + e]);
-      }
-    }
-  }
-}
-
-// out rows 4 ty + e of a (rows, D) tensor <- acc * scale.
-template <int D>
-__device__ __forceinline__ void write_rows(float* __restrict__ out,
-                                           const float (&acc)[4][Cols<D>::kNC], float scale,
-                                           int tx, int ty) {
-  typedef Cols<D> C;
-#pragma unroll
-  for (int e = 0; e < 4; ++e)
-#pragma unroll
-    for (int c = 0; c < C::kNC; ++c)
-      out[static_cast<long long>(4 * ty + e) * D + (tx + 16 * (c / C::kVW)) * C::kVW +
-          c % C::kVW] = acc[e][c] * scale;
-}
-
-// P (or, with ds, dS) of a thread's 4 x 4 entries from the scores s and
-// dp = dO V^T: p = exp(s * scale - lse), 0 where masked.
-__device__ __forceinline__ void probabilities(float (&s)[4][4], const float* lse_s,
-                                              int q0, int k0, int q_offset, int causal,
-                                              float scale, int tx, int ty) {
-  const bool mask = causal && k0 + kB - 1 > q0 + q_offset;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    const float l = lse_s[r];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const bool hidden = mask && k0 + tx + 16 * j > q0 + r + q_offset;
-      s[i][j] = hidden ? 0.f : expf(fmaf(s[i][j], scale, -l));
-    }
-  }
-}
 
 // delta[row] = sum_d dO[row, d] * O[row, d] in f32: a warp a row.
 template <typename T>
@@ -217,154 +148,412 @@ __global__ void __launch_bounds__(kThreads) attention_delta_kernel(
   if (lane == 0) delta[row] = acc;
 }
 
-// f32: dK and dV of one (b, kv head, key tile); G q heads a kv head.
+// ---- f32 on the tensor cores: 3xTF32 mma.sync fed by cp.async rings --
+
+constexpr int kTfWarps = 8;
+constexpr int kTfThreads = 32 * kTfWarps;
+constexpr int kTfTile = 16 * kTfWarps;  // keys (dK/dV) or q rows (dQ) a block
+constexpr int kTfStages = 2;            // ring depth
+
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1) attention_dkdv_kernel(
+struct TfTiles {
+  // q rows (dK/dV) or keys (dQ) a step: 16 at D 128, where 32 would
+  // take the shared memory past the card's 227 KB a block
+  static constexpr int kStep = D > 96 ? 16 : 32;
+  static constexpr int kNB = kStep / 8;           // 8-column blocks of S a warp
+  static constexpr int kLd = D + 4;               // row stride, floats
+  static constexpr int kHeld = kTfTile * kLd;     // a held (128, D) tile
+  static constexpr int kStream = kStep * kLd;     // a streamed (kStep, D) tile
+  // a stage: two streamed tiles, then (dK/dV) their rows' lse and delta
+  static constexpr int kStage = 2 * kStream + 2 * kStep;
+  // two held tiles, the ring, the lo terms of the current step's tiles
+  static constexpr int kSmem =
+      static_cast<int>(sizeof(float)) * (2 * kHeld + kTfStages * kStage + 2 * kStream);
+};
+
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ROWS rows of D floats from g (row-major, contiguous) into s with row
+// stride D + 4, 16 bytes a cp.async.
+template <int D, int ROWS>
+__device__ __forceinline__ void copy_rows(float* s, const float* __restrict__ g, int tid) {
+  constexpr int kChunks = D / 4;
+  static_assert(ROWS * kChunks % kTfThreads == 0, "whole copies a thread");
+#pragma unroll
+  for (int i = tid; i < ROWS * kChunks; i += kTfThreads) {
+    const int r = i / kChunks, c = i - r * kChunks;
+    cp_async16(s + r * TfTiles<D>::kLd + 4 * c, g + 4 * i);
+  }
+}
+
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds a finite x (to nearest,
+// ties away from zero: add half of the 13 dropped bits' unit to the
+// magnitude, then drop them), in two integer operations where cvt's
+// NaN and infinity handling takes four or more
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x as hi = tf32(x) and lo = tf32(x - hi)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// ROWS rows of D floats at s (row stride D + 4): each x as hi in place
+// and lo at the same offset from lo, a float4 a thread at a time.
+template <int D, int ROWS>
+__device__ __forceinline__ void split_rows(float* s, float* lo, int tid) {
+  constexpr int kChunks = D / 4;
+  static_assert(ROWS * kChunks % kTfThreads == 0, "whole float4s a thread");
+#pragma unroll
+  for (int i = tid; i < ROWS * kChunks; i += kTfThreads) {
+    const int r = i / kChunks, c = i - r * kChunks;
+    const int o = r * TfTiles<D>::kLd + 4 * c;
+    const float4 x = *reinterpret_cast<const float4*>(s + o);
+    uint4 h, l;
+    split_tf32(x.x, h.x, l.x);
+    split_tf32(x.y, h.y, l.y);
+    split_tf32(x.z, h.z, l.z);
+    split_tf32(x.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(s + o) = h;
+    *reinterpret_cast<uint4*>(lo + o) = l;
+  }
+}
+
+// d += a b, one m16n8k8 TF32 product with f32 sums
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Fragments of lane (g = lane / 4, t = lane % 4) in m16n8k8: A (16 x 8)
+// a[0] row g col t, a[1] row g+8 col t, a[2] row g col t+4, a[3] row
+// g+8 col t+4; B (8 x 8) b[0] row t col g, b[1] row t+4 col g; the
+// accumulator c[0], c[1] row g cols 2t, 2t+1, c[2], c[3] row g+8.
+
+// Four 8 x 8 matrices of 16-bit values from shared memory, each as 8
+// rows of 4 floats: lane i gives the address of row i % 8 of matrix i /
+// 8, and gets float lane % 4 of row lane / 4 of matrix m in r[m], which
+// is where an m16n8k8 TF32 fragment wants it.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const float* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// s[j] = A B^T over D for the 16 rows of A at a (row-major, stride D +
+// 4, f32, split here) and the kStep rows of B (n-block j its rows 8j..
+// 8j+7), split already: hi at b, lo at blo.  S^T = K Q^T, dP^T = V dO^T,
+// S = Q K^T or dP = dO V^T; kNB independent sums between dependent
+// terms.  A fragment is one ldmatrix (rows 0-7 and 8-15 at columns t,
+// then t+4), a pair of n-blocks' B fragments one a term (rows 8j.. at
+// columns t and t+4, then rows 8j+8..).
+template <int D>
+__device__ __forceinline__ void scores_tf32(float (&s)[TfTiles<D>::kNB][4], const float* a,
+                                            const float* b, const float* blo, int lane) {
+  constexpr int kLd = TfTiles<D>::kLd, kNB = TfTiles<D>::kNB;
+  const float* ar = a + ((lane & 7) + 8 * ((lane >> 3) & 1)) * kLd + 4 * (lane >> 4);
+  const int bo = ((lane & 7) + 8 * (lane >> 4)) * kLd + 4 * ((lane >> 3) & 1);
+#pragma unroll
+  for (int j = 0; j < kNB; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s[j][c] = 0.f;
+  // k8 steps unrolled: all of them, but 4 at a time at D 128, where all
+  // 16 at once spill registers in the dK/dV kernel
+  constexpr int kUnroll = D > 96 ? 4 : D / 8;
+#pragma unroll 1
+  for (int k0 = 0; k0 < D / 8; k0 += kUnroll) {
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int kk = k0 + u;
+      uint32_t raw[4], ahi[4], alo[4], bhi[kNB / 2][4], bl[kNB / 2][4];
+      ldsm_x4(raw, ar + 8 * kk);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(raw[e]), ahi[e], alo[e]);
+#pragma unroll
+      for (int jj = 0; jj < kNB / 2; ++jj) {
+        ldsm_x4(bhi[jj], b + bo + 16 * jj * kLd + 8 * kk);
+        ldsm_x4(bl[jj], blo + bo + 16 * jj * kLd + 8 * kk);
+      }
+#pragma unroll
+      for (int j = 0; j < kNB; ++j)
+        mma_tf32(s[j], alo, bhi[j / 2][2 * (j % 2)], bhi[j / 2][2 * (j % 2) + 1]);
+#pragma unroll
+      for (int j = 0; j < kNB; ++j)
+        mma_tf32(s[j], ahi, bl[j / 2][2 * (j % 2)], bl[j / 2][2 * (j % 2) + 1]);
+#pragma unroll
+      for (int j = 0; j < kNB; ++j)
+        mma_tf32(s[j], ahi, bhi[j / 2][2 * (j % 2)], bhi[j / 2][2 * (j % 2) + 1]);
+    }
+  }
+}
+
+// acc (16 rows x D) += X B over the kStep rows of the step: X the 16 x
+// kStep accumulator x (P^T, dS^T or dS) as A fragments, k slot t of its
+// k8 step j its column 8j+2t and slot t+4 its column 8j+2t+1; B the
+// (kStep, D) tile read at those rows (dO, Q or K), split already (hi at
+// b, lo at blo), n-block n its columns 8n..8n+7.  Four n-blocks at a
+// time, four independent sums, each the step's part summed from zero by
+// the tensor cores and added to acc by an f32 add (the note at the top).
+// The A fragments are split again for each four n-blocks: kept across
+// them, they spilled registers in the dK/dV kernel at D 96.
+template <int D>
+__device__ __forceinline__ void product_tf32(float (&acc)[D / 8][4],
+                                             const float (&x)[TfTiles<D>::kNB][4],
+                                             const float* b, const float* blo, int g, int t) {
+  constexpr int kLd = TfTiles<D>::kLd;
+#pragma unroll
+  for (int n0 = 0; n0 < D / 8; n0 += 4) {
+    float part[4][4] = {};
+#pragma unroll
+    for (int j = 0; j < TfTiles<D>::kNB; ++j) {
+      uint32_t ahi[4], alo[4], bhi[4][2], bl[4][2];
+      split_tf32(x[j][0], ahi[0], alo[0]);  // row g, column 2t
+      split_tf32(x[j][2], ahi[1], alo[1]);  // row g+8, column 2t
+      split_tf32(x[j][1], ahi[2], alo[2]);  // row g, column 2t+1
+      split_tf32(x[j][3], ahi[3], alo[3]);  // row g+8, column 2t+1
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int o = (8 * j + 2 * t) * kLd + 8 * (n0 + i) + g;
+        bhi[i][0] = __float_as_uint(b[o]);
+        bhi[i][1] = __float_as_uint(b[o + kLd]);
+        bl[i][0] = __float_as_uint(blo[o]);
+        bl[i][1] = __float_as_uint(blo[o + kLd]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) mma_tf32(part[i], alo, bhi[i][0], bhi[i][1]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) mma_tf32(part[i], ahi, bl[i][0], bl[i][1]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) mma_tf32(part[i], ahi, bhi[i][0], bhi[i][1]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[n0 + i][c] += part[i][c];
+  }
+}
+
+// rows g and g+8 of a (rows, D) f32 tensor at out (row g) <- acc * scale
+template <int D>
+__device__ __forceinline__ void write_f32_rows(float* __restrict__ out,
+                                               const float (&acc)[D / 8][4], float scale,
+                                               int t) {
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<float2*>(out + (8 * r) * D + 8 * n + 2 * t) =
+          make_float2(acc[n][2 * r] * scale, acc[n][2 * r + 1] * scale);
+}
+
+// f32 pass 1: dK and dV of one (b, kv head, 128-key tile).  The block
+// walks the q tiles of kStep rows that see its keys, first to last, and
+// in each the G q heads of its group (step t: q tile first + t/G of
+// head kvh*G + t%G), so dK and dV sum the group in registers.
+template <int D>
+__global__ void __launch_bounds__(kTfThreads, 1) attention_dkdv_tf32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv,
     int n_bkv, int Hq, int group, int Sq, int Sk, float scale, int causal) {
-  typedef Cols<D> C;
+  using T = TfTiles<D>;
+  constexpr int kStep = T::kStep, kNB = T::kNB;
   extern __shared__ __align__(16) float smem[];
-  float* ks = smem;                 // (64, D) keys of the tile
-  float* vs = ks + C::kTile;        // (64, D) values
-  float* qs = vs + C::kTile;        // (64, D) q rows of the q tile
-  float* dos = qs + C::kTile;       // (64, D) their dO
-  float* ps = dos + C::kTile;       // (64, 64) P
-  float* dss = ps + kB * kLdP;      // (64, 64) dS
-  float* lse_s = dss + kB * kLdP;   // (64,)
-  float* delta_s = lse_s + kB;      // (64,)
+  float* ks = smem;                          // (128, D) keys of the tile
+  float* vs = ks + T::kHeld;                 // (128, D) values
+  float* ring = vs + T::kHeld;               // kTfStages x (Q, dO, lse, delta)
+  float* lo = ring + kTfStages * T::kStage;  // the step's Q and dO lo terms
 
   const int kt = static_cast<int>(blockIdx.x) / n_bkv;  // earliest keys (most q tiles) first
   const int bkv = static_cast<int>(blockIdx.x) % n_bkv;  // b * Hkv + kv head
   const int Hkv = Hq / group;
   const int b = bkv / Hkv, kvh = bkv - b * Hkv;
-  const int k0 = kt * kB;
+  const int k0 = kt * kTfTile;
   const int q_offset = Sk - Sq;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  // causal: the first q tile with a row that sees key k0
+  const int first = causal ? max(0, k0 - q_offset) / kStep : 0;
+  const int n_steps = (Sq / kStep - first) * group;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
   const long long kv_off = (static_cast<long long>(bkv) * Sk + k0) * D;
 
-  load_tile<D>(ks, k + kv_off, tid);
-  load_tile<D>(vs, v + kv_off, tid);
-
-  float acc_k[4][C::kNC], acc_v[4][C::kNC];
+  const auto stage = [&](int step) {
+    float* st = ring + (step % kTfStages) * T::kStage;
+    const long long row = (static_cast<long long>(b) * Hq + kvh * group + step % group) * Sq +
+                          (first + step / group) * kStep;
+    copy_rows<D, kStep>(st, q + row * D, tid);
+    copy_rows<D, kStep>(st + T::kStream, dout + row * D, tid);
+    if (tid < 2 * kStep / 4)  // lse, then delta, 4 rows a copy
+      cp_async16(st + 2 * T::kStream + 4 * tid, tid < kStep / 4
+                                                     ? lse + row + 4 * tid
+                                                     : delta + row + 4 * (tid - kStep / 4));
+  };
+  copy_rows<D, kTfTile>(ks, k + kv_off, tid);
+  copy_rows<D, kTfTile>(vs, v + kv_off, tid);
+  cp_async_commit();
 #pragma unroll
-  for (int e = 0; e < 4; ++e)
-#pragma unroll
-    for (int c = 0; c < C::kNC; ++c) acc_k[e][c] = acc_v[e][c] = 0.f;
-
-  // causal: the first q tile with a row that sees key k0
-  const int first = causal ? max(0, k0 - q_offset) / kB : 0;
-  for (int g = 0; g < group; ++g) {
-    const long long bh = static_cast<long long>(b) * Hq + kvh * group + g;
-    for (int qt = first; qt < Sq / kB; ++qt) {
-      const int q0 = qt * kB;
-      const long long q_off = (bh * Sq + q0) * D;
-      __syncthreads();  // the last iteration's reads of qs, dos, ps, dss done
-      load_tile<D>(qs, q + q_off, tid);
-      load_tile<D>(dos, dout + q_off, tid);
-      if (tid < kB) {
-        lse_s[tid] = lse[bh * Sq + q0 + tid];
-        delta_s[tid] = delta[bh * Sq + q0 + tid];
-      }
-      __syncthreads();
-
-      float s[4][4], dp[4][4];
-      dot_tile<D>(s, qs, ks, tx, ty);
-      probabilities(s, lse_s, q0, k0, q_offset, causal, scale, tx, ty);
-      dot_tile<D>(dp, dos, vs, tx, ty);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int r = ty + 16 * i, key = tx + 16 * j;
-          ps[r * kLdP + key] = s[i][j];
-          dss[r * kLdP + key] = s[i][j] * (dp[i][j] - delta_s[r]);
-        }
-      __syncthreads();
-      tn_tile<D>(acc_v, ps, dos, tx, ty);   // dV += P^T dO
-      tn_tile<D>(acc_k, dss, qs, tx, ty);   // dK += dS^T Q
-    }
+  for (int p = 0; p < kTfStages - 1; ++p) {
+    if (p < n_steps) stage(p);
+    cp_async_commit();
   }
-  write_rows<D>(dk + kv_off, acc_k, scale, tx, ty);
-  write_rows<D>(dv + kv_off, acc_v, 1.f, tx, ty);
+
+  const int key_lo = k0 + 16 * warp;  // the warp's first key
+  const float* kw = ks + 16 * warp * T::kLd;
+  const float* vw = vs + 16 * warp * T::kLd;
+  float acc_k[D / 8][4], acc_v[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc_k[n][c] = acc_v[n][c] = 0.f;
+
+  for (int step = 0; step < n_steps; ++step) {
+    cp_async_wait<kTfStages - 2>();
+    __syncthreads();  // this step's stage landed; the last step's stage and lo read
+    if (step + kTfStages - 1 < n_steps) stage(step + kTfStages - 1);
+    cp_async_commit();
+    float* qs = ring + (step % kTfStages) * T::kStage;
+    split_rows<D, 2 * kStep>(qs, lo, tid);  // Q and dO: hi in place, lo apart
+    __syncthreads();
+    const int q0 = (first + step / group) * kStep;
+    // every key of the warp past every row of the tile; some past
+    if (causal && key_lo > q0 + kStep - 1 + q_offset) continue;
+    const bool mask = causal && key_lo + 15 > q0 + q_offset;
+    const float* dos = qs + T::kStream;
+    const float* lse_s = dos + T::kStream;
+    const float* dl_s = lse_s + kStep;
+
+    float s[kNB][4], dp[kNB][4];  // S^T and dP^T: 16 keys x kStep q rows
+    scores_tf32<D>(s, kw, qs, lo, lane);
+    scores_tf32<D>(dp, vw, dos, lo + T::kStream, lane);
+    // P^T and dS^T, in place: key key_lo + g + 8 (c / 2), q row q0 + 8j
+    // + 2t + c % 2
+#pragma unroll
+    for (int j = 0; j < kNB; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = 8 * j + 2 * t + (c & 1);
+        float p = expf(fmaf(s[j][c], scale, -lse_s[col]));
+        if (mask && key_lo + g + 8 * (c >> 1) > q0 + col + q_offset) p = 0.f;
+        s[j][c] = p;
+        dp[j][c] = p * (dp[j][c] - dl_s[col]);
+      }
+    product_tf32<D>(acc_v, s, dos, lo + T::kStream, g, t);  // dV += P^T dO
+    product_tf32<D>(acc_k, dp, qs, lo, g, t);               // dK += dS^T Q
+  }
+  cp_async_wait<0>();
+  const long long out = kv_off + static_cast<long long>(16 * warp + g) * D;
+  write_f32_rows<D>(dk + out, acc_k, scale, t);
+  write_f32_rows<D>(dv + out, acc_v, 1.f, t);
 }
 
-// f32: dQ of one (b, q head, q tile).
+// f32 pass 2: dQ of one (b, q head, 128-row q tile), heaviest (latest
+// rows) first; the block walks the key tiles of kStep keys its rows see.
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1) attention_dq_kernel(
+__global__ void __launch_bounds__(kTfThreads, 1) attention_dq_tf32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, float* __restrict__ dq, int n_bh, int Hq,
     int group, int Sq, int Sk, float scale, int causal) {
-  typedef Cols<D> C;
+  using T = TfTiles<D>;
+  constexpr int kStep = T::kStep, kNB = T::kNB;
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                 // (64, D) q rows of the tile
-  float* dos = qs + C::kTile;       // (64, D) their dO
-  float* ks = dos + C::kTile;       // (64, D) keys of a key tile
-  float* vs = ks + C::kTile;        // (64, D) values
-  float* dst = vs + C::kTile;       // (64, 64) dS transposed: key-major
-  float* lse_s = dst + kB * kLdP;   // (64,)
-  float* delta_s = lse_s + kB;      // (64,)
+  float* qs = smem;                          // (128, D) q rows of the tile
+  float* dos = qs + T::kHeld;                // (128, D) their dO
+  float* ring = dos + T::kHeld;              // kTfStages x (K, V)
+  float* lo = ring + kTfStages * T::kStage;  // the step's K and V lo terms
 
-  const int nq = Sq / kB;
+  const int nq = Sq / kTfTile;
   const int qt = nq - 1 - static_cast<int>(blockIdx.x) / n_bh;  // heaviest first
   const int bh = static_cast<int>(blockIdx.x) % n_bh;            // b * Hq + h
   const int b = bh / Hq, h = bh - b * Hq;
-  const long long kv_row = static_cast<long long>(b) * (Hq / group) + h / group;
-  const int q0 = qt * kB;
+  const long long kv_row0 = (static_cast<long long>(b) * (Hq / group) + h / group) * Sk;
+  const int q0 = qt * kTfTile;
   const int q_offset = Sk - Sq;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const long long q_off = (static_cast<long long>(bh) * Sq + q0) * D;
+  int n_steps = Sk / kStep;
+  if (causal) n_steps = min(n_steps, (q0 + kTfTile - 1 + q_offset) / kStep + 1);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const long long q_row = static_cast<long long>(bh) * Sq + q0;
 
-  load_tile<D>(qs, q + q_off, tid);
-  load_tile<D>(dos, dout + q_off, tid);
-  if (tid < kB) {
-    lse_s[tid] = lse[static_cast<long long>(bh) * Sq + q0 + tid];
-    delta_s[tid] = delta[static_cast<long long>(bh) * Sq + q0 + tid];
+  const auto stage = [&](int step) {
+    float* st = ring + (step % kTfStages) * T::kStage;
+    const long long row = kv_row0 + step * kStep;
+    copy_rows<D, kStep>(st, k + row * D, tid);
+    copy_rows<D, kStep>(st + T::kStream, v + row * D, tid);
+  };
+  copy_rows<D, kTfTile>(qs, q + q_row * D, tid);
+  copy_rows<D, kTfTile>(dos, dout + q_row * D, tid);
+  cp_async_commit();
+#pragma unroll
+  for (int p = 0; p < kTfStages - 1; ++p) {
+    if (p < n_steps) stage(p);
+    cp_async_commit();
   }
-  float acc[4][C::kNC];
-#pragma unroll
-  for (int e = 0; e < 4; ++e)
-#pragma unroll
-    for (int c = 0; c < C::kNC; ++c) acc[e][c] = 0.f;
 
-  int n_tiles = Sk / kB;
-  if (causal) n_tiles = min(n_tiles, (q0 + kB - 1 + q_offset) / kB + 1);
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kB;
-    const long long kv_off = (kv_row * Sk + k0) * D;
-    __syncthreads();  // the last iteration's reads of ks, vs, dst done
-    load_tile<D>(ks, k + kv_off, tid);
-    load_tile<D>(vs, v + kv_off, tid);
+  const int row_lo = q0 + 16 * warp;  // the warp's first q row
+  const long long my_row = q_row + 16 * warp + g;
+  const float lse_r[2] = {lse[my_row], lse[my_row + 8]};
+  const float dl_r[2] = {delta[my_row], delta[my_row + 8]};
+  const float* qw = qs + 16 * warp * T::kLd;
+  const float* dow = dos + 16 * warp * T::kLd;
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
+
+  for (int step = 0; step < n_steps; ++step) {
+    cp_async_wait<kTfStages - 2>();
+    __syncthreads();  // this step's stage landed; the last step's stage and lo read
+    if (step + kTfStages - 1 < n_steps) stage(step + kTfStages - 1);
+    cp_async_commit();
+    float* kst = ring + (step % kTfStages) * T::kStage;
+    split_rows<D, 2 * kStep>(kst, lo, tid);  // K and V: hi in place, lo apart
     __syncthreads();
+    const int k0 = step * kStep;
+    // every key of the tile past every row of the warp; some past
+    if (causal && k0 > row_lo + 15 + q_offset) continue;
+    const bool mask = causal && k0 + kStep - 1 > row_lo + q_offset;
+    const float* vst = kst + T::kStream;
 
-    float s[4][4], dp[4][4];
-    dot_tile<D>(s, qs, ks, tx, ty);
-    probabilities(s, lse_s, q0, k0, q_offset, causal, scale, tx, ty);
-    dot_tile<D>(dp, dos, vs, tx, ty);
+    float s[kNB][4], dp[kNB][4];  // S and dP: 16 q rows x kStep keys
+    scores_tf32<D>(s, qw, kst, lo, lane);
+    scores_tf32<D>(dp, dow, vst, lo + T::kStream, lane);
+    // dS in place: q row row_lo + g + 8 (c / 2), key k0 + 8j + 2t + c % 2
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < kNB; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = ty + 16 * i, key = tx + 16 * j;
-        dst[key * kLdP + r] = s[i][j] * (dp[i][j] - delta_s[r]);
+      for (int c = 0; c < 4; ++c) {
+        float p = expf(fmaf(s[j][c], scale, -lse_r[c >> 1]));
+        if (mask && k0 + 8 * j + 2 * t + (c & 1) > row_lo + g + 8 * (c >> 1) + q_offset)
+          p = 0.f;
+        dp[j][c] = p * (dp[j][c] - dl_r[c >> 1]);
       }
-    __syncthreads();
-    tn_tile<D>(acc, dst, ks, tx, ty);  // dQ += dS K
+    product_tf32<D>(acc, dp, kst, lo, g, t);  // dQ += dS K
   }
-  write_rows<D>(dq + q_off, acc, scale, tx, ty);
+  cp_async_wait<0>();
+  write_f32_rows<D>(dq + my_row * D, acc, scale, t);
 }
-
-template <int D>
-constexpr int dkdv_smem() {
-  return static_cast<int>(sizeof(float)) * (4 * Cols<D>::kTile + 2 * kB * kLdP + 2 * kB);
-}
-template <int D>
-constexpr int dq_smem() {
-  return static_cast<int>(sizeof(float)) * (4 * Cols<D>::kTile + kB * kLdP + 2 * kB);
-}
-
 
 // ---- bf16 on Hopper: wgmma fed by TMA rings, two passes -------------
 
@@ -737,6 +926,7 @@ __global__ void __launch_bounds__(kSm90Threads, 1) attention_dq_sm90_kernel(
   }
 }
 
+
 template <typename T>
 int launch_delta(const void* o, const void* dout, float* delta, long long rows, int D,
                  cudaStream_t stream) {
@@ -751,23 +941,28 @@ int launch_f32(const float* q, const float* k, const float* v, const float* dout
                const float* lse, const float* delta, float* dq, float* dk, float* dv, int B,
                int Hq, int Hkv, int Sq, int Sk, int causal, float scale,
                cudaStream_t stream) {
-  auto dkdv = attention_dkdv_kernel<D>;
-  cudaError_t err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         dkdv_smem<D>());
+  if (reinterpret_cast<uintptr_t>(lse) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(delta) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  constexpr int smem = TfTiles<D>::kSmem;
+  auto dkdv = attention_dkdv_tf32_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_bkv = B * Hkv;
-  dkdv<<<static_cast<unsigned>(n_bkv) * (Sk / kB), kThreads, dkdv_smem<D>(), stream>>>(
+  dkdv<<<static_cast<unsigned>(n_bkv) * (Sk / kTfTile), kTfThreads, smem, stream>>>(
       q, k, v, dout, lse, delta, dk, dv, n_bkv, Hq, Hq / Hkv, Sq, Sk, scale, causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  auto dqk = attention_dq_kernel<D>;
-  err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem<D>());
+  auto dqk = attention_dq_tf32_kernel<D>;
+  err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_bh = B * Hq;
-  dqk<<<static_cast<unsigned>(n_bh) * (Sq / kB), kThreads, dq_smem<D>(), stream>>>(
+  dqk<<<static_cast<unsigned>(n_bh) * (Sq / kTfTile), kTfThreads, smem, stream>>>(
       q, k, v, dout, lse, delta, dq, n_bh, Hq, Hq / Hkv, Sq, Sk, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
+
 
 template <int D>
 int launch_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
@@ -837,8 +1032,8 @@ extern "C" int flash_attention_bwd_launch(
     int Hkv, int Sq, int Sk, int D, int is_bf16, int causal, float scale,
     cudaStream_t stream) {
   if (static_cast<long long>(B) * Hq * Sq == 0) return 0;
-  if (Sq % kB != 0 || Sk % kB != 0 || Hkv <= 0 || Hq % Hkv != 0 || scratch == nullptr ||
-      (D != 64 && D != 96 && D != 128)) {
+  if (Sq % kTfTile != 0 || Sk % kTfTile != 0 || Hkv <= 0 || Hq % Hkv != 0 ||
+      scratch == nullptr || (D != 64 && D != 96 && D != 128)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long rows = static_cast<long long>(B) * Hq * Sq;

@@ -19,7 +19,8 @@ Given ``lse``, either forward also writes each row's natural-log
 log-sum-exp, which :func:`flash_attention_bwd_cuda` reads: the gradient
 (``csrc/flash_attention_bwd.cu``: bf16 on Hopper's tensor cores,
 ``wgmma`` fed by TMA rings, a dK/dV pass and a dQ pass, P and dS as two
-bf16 terms each; f32 on the CUDA cores), which the JAX package leaves
+bf16 terms each; f32 as 3xTF32 ``mma.sync`` products fed by cp.async
+rings, the same two passes), which the JAX package leaves
 to XLA.  Neither launch is seen by
 autograd, so both refuse, with grad mode on, an input that needs a
 gradient: ``ops.FlashAttention`` is the way to train through them."""

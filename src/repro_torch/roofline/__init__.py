@@ -19,6 +19,7 @@ from repro_torch.roofline.model import (
     LINK_BW,
     MEM_BYTES_PER_S,
     PEAK_FLOPS,
+    TF32X3_OPS_PER_S,
     Roofline,
     bound,
     from_record,
@@ -39,7 +40,7 @@ from repro_torch.roofline.superstep import (
 
 __all__ = [
     "BF16_OPS_PER_S", "F32_OPS_PER_S", "HBM_BW", "LINK_BW", "MEM_BYTES_PER_S",
-    "PEAK_FLOPS", "Roofline", "bound", "from_record", "peak_for",
+    "PEAK_FLOPS", "Roofline", "TF32X3_OPS_PER_S", "bound", "from_record", "peak_for",
     "OpRecorder", "RecordingRanks", "collective_bytes", "flops_and_bytes",
     "op_traffic",
     "fused_kernel_bytes", "push_gather_bytes", "relax_region_bytes",

@@ -6,8 +6,8 @@
 
 The rates are the data sheet's for the H100 SXM5 at its 700 W limit
 (NVIDIA H100 Tensor Core GPU data sheet): 3.35 TB/s of HBM3, 989 TFLOP/s
-of dense bf16 on the tensor cores, 67 TFLOP/s of float32 outside them,
-and NVLink 4 at 900 GB/s in total, 450 GB/s each way.  A card set below
+of dense bf16 on the tensor cores, 67 TFLOP/s of float32 outside them
+(495 TFLOP/s of TF32 in them, so 165 of float32 as 3xTF32), and NVLink 4 at 900 GB/s in total, 450 GB/s each way.  A card set below
 700 W runs slower under load, so a measured time is read beside the
 card's name and power limit.
 
@@ -26,6 +26,10 @@ MEM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 #: bf16 on the tensor cores, dense, operations/s
 BF16_OPS_PER_S = 989e12
+#: float32 as 3xTF32 on the tensor cores (495 TFLOP/s dense TF32, three
+#: TF32 products a float32 product): the floor of an f32 kernel that
+#: runs there, operations/s
+TF32X3_OPS_PER_S = 495e12 / 3
 #: NVLink 4, one direction, bytes/s
 LINK_BYTES_PER_S = 450e9
 

@@ -16,7 +16,8 @@ too (its vjp rounds each q head's share of dk and dv to bf16 before the
 group's sum, as it repeats k and v to the q heads in bf16); the worst
 gaps over these cases are 0.0012 (out), 0.0052 (dq), 0.0067 (dk) and
 0.0093 (dv).  The kernels themselves are held against the plain
-backward in test_torch_cuda.py."""
+backward in test_torch_cuda.py; here the f32 kernels' arithmetic, their
+3xTF32 products emulated in numpy, is held against jax.vjp."""
 
 import functools
 
@@ -160,6 +161,88 @@ def test_backward_traffic_at_the_train_shape():
     assert by == "operations" and round(ms, 4) == 0.2606
 
 
+def test_backward_floor_at_the_fp32_twin_shape():
+    """The f32 backward's bounds at chip_smoke.py's case i (the fp32
+    twin's train step: B 1, H 32, S 2048, D 96, f32, causal): 64.5
+    GFLOP; its kernels run on the tensor cores as 3xTF32, so the floor is
+    3 x 64.5 GFLOP at 495 TFLOP/s, 0.3906 ms, against 0.9620 ms at the
+    67 TFLOP/s of the CUDA cores."""
+    from repro_torch.roofline import F32_OPS_PER_S, TF32X3_OPS_PER_S, bound
+    from repro_torch.roofline.kernels import flash_attention_bwd_traffic
+
+    nbytes, flops = flash_attention_bwd_traffic(1, 32, 32, 2048, 2048, 96, True, 4)
+    assert (nbytes, flops) == (201588736, 64455966720)
+    assert TF32X3_OPS_PER_S == 495e12 / 3
+    ms, by = bound(nbytes, flops, TF32X3_OPS_PER_S)
+    assert by == "operations" and round(ms, 4) == 0.3906
+    assert round(3 * flops / 495e12 * 1e3, 4) == round(ms, 4)
+    ms, by = bound(nbytes, flops, F32_OPS_PER_S)
+    assert by == "operations" and round(ms, 4) == 0.9620
+
+
+def tf32_rna(x):
+    """x (f32) rounded to TF32 as ``cvt.rna.tf32.f32`` rounds: to
+    nearest, ties away from zero, 10 of the 23 mantissa bits kept (the
+    low 13 bits of the result 0)."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def mm_tf32x3(a, b):
+    """a @ b as the f32 kernels take it: each operand split once, hi =
+    tf32(x) and lo = tf32(x - hi), and three TF32 products with f32 sums,
+    the two small terms first."""
+    ahi, bhi = tf32_rna(a), tf32_rna(b)
+    alo, blo = tf32_rna(a - ahi), tf32_rna(b - bhi)
+    return alo @ bhi + ahi @ blo + ahi @ bhi
+
+
+def mm_tf32(a, b):
+    """a @ b as one TF32 product with f32 sums."""
+    return tf32_rna(a) @ tf32_rna(b)
+
+
+def emulated_bwd(mm, q, k, v, out, lse, do):
+    """The causal backward's products as ``csrc/flash_attention_bwd.cu``'s
+    f32 passes take them, each through ``mm``, in numpy f32: S and dP,
+    then dV and dK summed over each kv head's G q heads, and dQ."""
+    B, Hq, S, D = q.shape
+    Hkv = k.shape[1]
+    G = Hq // Hkv
+    kf, vf = np.repeat(k, G, axis=1), np.repeat(v, G, axis=1)
+    scale = np.float32(1 / np.sqrt(D))
+    s = mm(q, kf.swapaxes(-1, -2))
+    p = np.where(np.tril(np.ones((S, S), bool)), np.exp(s * scale - lse[..., None]),
+                 np.float32(0)).astype(np.float32)
+    dp = mm(do, vf.swapaxes(-1, -2))
+    ds = p * (dp - (do * out).sum(-1, dtype=np.float32)[..., None])
+    dq = mm(ds, kf) * scale
+    dk = mm(ds.swapaxes(-1, -2), q).reshape(B, Hkv, G, S, D).sum(2) * scale
+    dv = mm(p.swapaxes(-1, -2), do).reshape(B, Hkv, G, S, D).sum(2)
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("G,Hkv,S", [(1, 2, 512), (4, 1, 512), (4, 2, 256)])
+def test_tf32x3_products_hold_the_kernel_tolerance(G, Hkv, S):
+    """The arithmetic of the f32 kernels before the card: the 3xTF32
+    products (each operand rounded by the cvt.rna rule) give dQ, dK and
+    dV within 1e-4 of max |grad| of jax.vjp of the reference attention,
+    the bound the kernels are held to on the card (D 96, causal); one
+    TF32 product a product misses it, which is why the kernels take
+    three."""
+    q, k, v, do = inputs(G + Hkv + S, 1, G * Hkv, Hkv, S, S, 96)
+    _, want = ref_vjp(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(do), True)
+    out, lse = attention_lse_ref(*(torch.from_numpy(a) for a in (q, k, v)), causal=True)
+    args = (q, k, v, out.numpy(), lse.numpy(), do)
+    gaps = {}
+    for name, mm in (("3x", mm_tf32x3), ("1x", mm_tf32)):
+        got = emulated_bwd(mm, *args)
+        gaps[name] = [float(np.abs(g - np.asarray(w)).max() / np.abs(np.asarray(w)).max())
+                      for g, w in zip(got, want)]
+    assert max(gaps["3x"]) < 1e-4, gaps
+    assert min(gaps["1x"]) > 1e-4, gaps
+
+
 def test_smoke_names_every_backward_kernel():
     """``chip_smoke.ATTN_BWD_KERNELS``, which phase 7 hands to
     ``kernel_alone_ms``, names every ``__global__`` of the backward's
@@ -178,5 +261,8 @@ def test_smoke_names_every_backward_kernel():
     assert len(names) == len(set(names)) >= 4
     assert sorted(names) == sorted(chip_smoke.ATTN_BWD_KERNELS)
     assert chip_smoke.ATTN_BWD_KERNELS[0] == "attention_delta_kernel"
-    assert "mma.sync" not in src
+    # the one mma.sync in the PTX is the f32 kernels' TF32 product (bf16
+    # runs wgmma)
+    assert re.findall(r'"(mma\.sync[\w.]*)', src) == [
+        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32"]
 

@@ -296,8 +296,8 @@ def test_flash_attention_lse_keeps_the_output_bits(dev):
 
 
 # the backward at every head dim and group the forward takes, odd and
-# even tile counts of 64 (the backward's) and 128 (the forward's), Sq <
-# Sk, and phi3-mini's and dbrx's heads
+# even counts of 128-row tiles (both dtypes' blocks) and of 32- and
+# 64-row steps, Sq < Sk, and phi3-mini's and dbrx's heads
 BWD_CASES = [
     # B, Hq, Hkv, Sq, Sk, D, dtype
     (1, 2, 2, 128, 128, 64, torch.float32),
@@ -311,6 +311,12 @@ BWD_CASES = [
     # D 96 with Sq < Sk (its causal diagonal 384 keys in), G 4 at D 64
     (1, 4, 2, 256, 640, 96, torch.bfloat16),
     (1, 8, 2, 256, 256, 64, torch.bfloat16),
+    # the f32 kernels' edges: D 96 at the fp32 twin's S 2048 with 4
+    # heads (16 key tiles of 128, 64 q steps of 32), G 4 at D 64, D 96
+    # with Sq < Sk
+    (1, 4, 4, 2048, 2048, 96, torch.float32),
+    (1, 8, 2, 256, 256, 64, torch.float32),
+    (1, 4, 2, 256, 640, 96, torch.float32),
 ]
 
 
@@ -350,11 +356,14 @@ def test_flash_attention_bwd_matches_plain(dev, case, causal):
     assert_grads_close(got, want, q.dtype)
 
 
-@pytest.mark.parametrize("case", [BWD_CASES[7], BWD_CASES[8], BWD_CASES[5]])
+@pytest.mark.parametrize("case", [BWD_CASES[7], BWD_CASES[8], BWD_CASES[5],
+                                  BWD_CASES[10], BWD_CASES[11], BWD_CASES[12]])
 def test_flash_attention_bwd_is_deterministic(dev, case):
-    """The bf16 kernel folds dQ in key-tile order, never by atomics in
-    arrival order: two launches on the same inputs give the same bits
-    (a G 4 causal case, D 96 with Sq < Sk, D 96 at G 1)."""
+    """Both dtypes' kernels take every sum in one block in a fixed
+    order, never by atomics in arrival order: two launches on the same
+    inputs give the same bits (bf16: a G 4 causal case, D 96 with Sq <
+    Sk, D 96 at G 1; f32: D 96 at S 2048, G 4 at D 64, D 96 with Sq <
+    Sk)."""
     q, k, v, dout = attention_grads_case(dev, case, 11)
     B, Hq, Sq = q.shape[:3]
     lse = torch.empty((B, Hq, Sq), device=dev)
