@@ -5,9 +5,10 @@ NVIDIA GPU, at the sizes its users run on one card: SSSP on rmat1
 serving of minitron-8b at full width (32 layers, 7.73 B parameters,
 random weights from the seed), of minicpm3-4b (MLA, 62 layers, 4.07 B)
 and of phi3.5-moe and dbrx at published widths and the depth one card
-holds (8 and 4 layers); MIND serving at full width (2^20 items,
-2^17 profile ids); GIN inference and training (gin-tu at full width)
-on rmat1 at scale 21, the size of ogb-products; EGNN, MACE and DimeNet
+holds (8 and 4 layers); MIND serving and training at full width (2^20
+items, 2^17 profile ids; training at its cell's B 65,536); GIN
+inference and training (gin-tu at full width) on rmat1 at scale 21, the
+size of ogb-products; EGNN, MACE and DimeNet
 training at full width on a fanout block of that graph; and LM
 training of phi3-mini-3.8b at full width (32 layers, 3.82 B parameters,
 B 1 x S 4096), its attention through the forward and backward kernels.
@@ -38,8 +39,10 @@ Phases (any failure exits non-zero):
      that sdpa ran (its backend), at the bf16 prefill shapes, the f32
      case c (the f32 kernel's key split), case d (the fp32 twin's
      prefill of phase 8) and case e (dbrx's prefill of phase 8b: Hq 48,
-     Hkv 8, 6 q heads a kv head); the bag also as a bare launch, alone
-     under torch.profiler and its index check apart; the attention
+     Hkv 8, 6 q heads a kv head) and the train steps' forwards of phase
+     8c (b': bf16, B 1, H 32, S 4096, D 96; d': f32, S 2048, D 96); the
+     bag also as a bare launch, alone under torch.profiler and its index
+     check apart; the attention
      backward (flash_attention_bwd) against its plain version at phi3-
      mini's train shape (bf16, B 1, H 32, S 4096, D 96), at G 4 and G 6
      with D 128 (bf16, B 2, S 2048) and at the fp32 twin's (f32, S 2048,
@@ -75,6 +78,16 @@ Phases (any failure exits non-zero):
      retrieval_scores over all 2^20 items, through the embedding-bag
      kernel, against the plain bag; each call's bag of profiles bit for
      bit against the in-order sum
+ 9b. MIND training at full width, the train_batch cell's step at B
+     65,536 from mind_batch: the loss and every gradient leaf through the
+     kernels (the bag kernel forward, the spmm_ell vertex sum over the bag
+     ELL backward) against the plain bag at the 0.02-scale init and at
+     scale-1 tables (1e-5 of the loss, 1e-4 of a leaf's max |grad|); the
+     bag's backward alone bit for bit against its plain version over the
+     same ELL and within 1e-5 of autograd of the plain bag, timed beside
+     index_add_, its ELL's build timed; the bag forward at this shape as
+     in phase 7; a cold and 3 warm steps (ms, users/s, peak memory,
+     losses, launches of both kernels every step), one more profiled
  10. GIN inference: spmm_ell's row entry against its plain version (in
      row chunks) at the layer shapes (d = 100 and 64) and at the Cora
      shape (d = 1433), timed beside torch.sparse.mm, and as a bare
@@ -288,6 +301,49 @@ MIND_SERVE = (("serve_p99", 512), ("serve_bulk", 262_144))
 # kernel-path vs plain-bag outputs, as a share of the plain one's max
 # |value|: the 0.02-scale tables make interests ~1e-5 and scores ~1e-6
 MIND_REQUESTS, MIND_TOPK, MIND_REL_TOL = 32, 5, 1e-5
+# MIND training (phase 9b): the train_batch cell's step at full width and
+# its B 65,536 from mind_batch, a cold step and MIND_TRAIN_WARM warm ones
+MIND_TRAIN_WARM = 3
+# the kernel route (BagSum: the bag kernel forward, the vertex sum over
+# the bag ELL backward) against the plain bag (bag_impl "ref") on one
+# batch and the same weights, at the 0.02-scale init and at tables drawn
+# at scale 1: the loss as a share of it, each gradient leaf's largest gap
+# as a share of its max |grad|.  The routes differ by f32 sums taken in
+# another order: a bag's 16 slots (the kernel in slot order, torch.sum by
+# its tree) and a profile row's segment of about 25 slots at most (slot
+# order against index_put's atomic adds), each within k 2^-24 (1.5e-6 at
+# k 25) of its sum of |terms|; the item table's gradients add by atomics
+# on both routes.  On the CPU the port and the reference differ by 3.8e-6
+# of a leaf's max |grad| at most (tests/test_torch_mind_train.py); 1e-4
+# leaves 25x for what the MLP, squash and attention carry from the bag
+MIND_TRAIN_LOSS_RTOL = 1e-5
+MIND_TRAIN_GRAD_TOL = 1e-4
+# routing_init's gradient is 0 in exact arithmetic (its softmax over the
+# history is shift-invariant in it), rounding noise on both routes: each
+# must stay below this share of the largest |grad| of any leaf
+MIND_ZERO_LEAF, MIND_ZERO_GRAD_TOL = "routing_init", 1e-6
+# one step's update (AdamW in place, inside the warmup) against a plain
+# AdamW written out here from a gradient recomputed on the same batch
+# and weights.  Only the item table's gradient can differ between the
+# two backward passes (index_put adds by atomics; the bag's backward and
+# the dense ops repeat their bits), by about 1e-6 of its max |grad|; at
+# the 0.02-scale tables its entries lie below Adam's eps (1e-8), where
+# the normalised step moves by at most that gap over eps.  Each element
+# within MIND_STEP_TOL of the step's lr, plus 2^-23 of its value for the
+# rounding of the last subtraction.  Every leaf but MIND_ZERO_LEAF must
+# also move by MIND_STEP_MOVE = 10 MIND_STEP_TOL of lr somewhere, so a
+# step that skips its update, or any part of it, fails the gap check
+# with a margin.  Adam's term is far below lr here: at B 65,536 the
+# tables' gradients lie below eps, and a leaf moves by 0.043-0.95 of lr
+# (the card, step 5; 0.54-0.96 on the CPU at the reduced config).
+# MIND_ZERO_LEAF is reported, not held: Adam normalises its gradient,
+# which is rounding noise, to steps of about lr in its own direction
+MIND_STEP_TOL = 1e-3
+MIND_STEP_MOVE = 10 * MIND_STEP_TOL
+# the bag's backward alone against autograd of the plain bag, whose
+# index_put adds the same terms in another order: a segment of k slots
+# within 2 k 2^-24 of its sum of |terms|; as a share of max |grad|
+BAG_BWD_TOL = 1e-5
 # GIN inference (phase 10): gin-tu at ogb_products widths on rmat1 at
 # scale 21 (n 2,097,152, m 63,538,872; ogb-products: 2,449,029 and
 # 61,859,140); the Cora-sized full_graph_sm graph for the d = 1433 shape
@@ -516,6 +572,10 @@ ATTN_CASES = (
     ("d fp32 twin prefill", 2, 32, 8, 2048, 2048, 128, "float32", True),
     # dbrx's prefill in phase 8b: 6 q heads a kv head
     ("e dbrx prefill", 4, 48, 8, 1920, 1920, 128, "bfloat16", True),
+    # the forwards of phase 8c's train steps: phi3-mini's (64 a step) and
+    # its fp32 twin's
+    ("b' phi3-mini train", 1, 32, 32, 4096, 4096, 96, "bfloat16", True),
+    ("d' fp32 twin train", 1, 32, 32, 2048, 2048, 96, "float32", True),
 )
 ATTN_BWD_CASES = (
     # label, B, Hq, Hkv, S, D, dtype name, causal
@@ -634,10 +694,7 @@ def serving_kernels(dev, flush) -> tuple[dict, dict, dict]:
     from repro_torch.configs import get_arch
     from repro_torch.data import mind_batch
     from repro_torch.roofline import BF16_OPS_PER_S, F32_OPS_PER_S, bound
-    from repro_torch.roofline.kernels import (
-        embedding_bag_traffic,
-        flash_attention_traffic,
-    )
+    from repro_torch.roofline.kernels import flash_attention_traffic
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
@@ -714,22 +771,39 @@ def serving_kernels(dev, flush) -> tuple[dict, dict, dict]:
     idx = torch.as_tensor(batch["profile_ids"], device=dev)
     u = torch.rand(idx.shape, generator=gen, device=dev)
     w = torch.where(u > 0.2, torch.rand(idx.shape, generator=gen, device=dev), 0.0)
-    L, d = idx.shape[1], table.shape[1]
+    bag_row = bag_check("serve_bulk", table, idx, w, flush)
+    return *(attn_rows[label] for label in ATTN_ROWS), bag_row
+
+
+def bag_check(label, table, idx, w, flush) -> dict:
+    """embedding_bag against its plain version and bit for bit against
+    the in-order sum (the TPU kernel's order), timed through the wrapper,
+    as a bare launch, alone under the profiler and beside F.embedding_bag
+    (phase 7 at serve_bulk, phase 9b at train_batch).  Returns its row of
+    the kernels line."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch import kernels as K
+    from repro_torch.roofline import bound
+    from repro_torch.roofline.kernels import embedding_bag_traffic
+
+    (B, L), d = idx.shape, table.shape[1]
     K.reset_launch_counts()
     out = K.embedding_bag_cuda(table, idx, w)
     torch.cuda.synchronize()
     if K.launch_counts()["embedding_bag"] != 1:
-        fail("embedding_bag: the wrapper did not launch its kernel")
+        fail(f"embedding_bag ({label}): the wrapper did not launch its kernel")
     plain = K.embedding_bag_ref(table, idx, w)
     err, rel = float((out - plain).abs().max()), rel_err(out, plain)
     if rel > 1e-6:
-        fail(f"embedding_bag: kernel differs from its plain version "
+        fail(f"embedding_bag ({label}): kernel differs from its plain version "
              f"(max abs err {err}, {rel:.3g} of max |out|)")
     in_order = torch.zeros_like(out)  # the TPU kernel's order of sums
     for l in range(L):
         in_order = in_order + table[idx[:, l].long()] * w[:, l, None]
     if not torch.equal(out, in_order):
-        fail("embedding_bag: kernel is not bit-identical to the in-order sum")
+        fail(f"embedding_bag ({label}): kernel is not bit-identical to the in-order sum")
 
     def library():
         return F.embedding_bag(idx, table, mode="sum", per_sample_weights=w)
@@ -743,10 +817,10 @@ def serving_kernels(dev, flush) -> tuple[dict, dict, dict]:
                  B, L, d, torch.cuda.current_stream().cuda_stream)
     launch = bag_launch()
     if launch(*bare_args) != 0:
-        fail("embedding_bag: the bare launch failed")
+        fail(f"embedding_bag ({label}): the bare launch failed")
     torch.cuda.synchronize()
     if not torch.equal(bare_out, out):
-        fail("embedding_bag: the bare launch differs from the wrapper's")
+        fail(f"embedding_bag ({label}): the bare launch differs from the wrapper's")
     ms = time_ms(lambda: K.embedding_bag_cuda(table, idx, w), flush)
     bare_ms = time_ms(lambda: launch(*bare_args), flush)
     check_ms = time_ms(lambda: torch.stack(torch.aminmax(idx)).tolist(), flush)
@@ -756,7 +830,7 @@ def serving_kernels(dev, flush) -> tuple[dict, dict, dict]:
     rows_touched = int(torch.unique(idx[w != 0]).numel())  # rows a 0 weight skips
     nbytes, ops = embedding_bag_traffic(rows_touched, B, L, d)
     bound_ms, bound_by = bound(nbytes, ops)
-    log(f"embedding_bag (table {tuple(table.shape)}, B={B} L={L}, f32 weights, "
+    log(f"embedding_bag ({label}: table {tuple(table.shape)}, B={B} L={L}, f32 weights, "
         f"{float((w == 0).float().mean()):.3f} of them 0): max abs err {err:.3g} "
         f"({rel:.3g} of max |out|, tol 1e-6); bit-identical to the in-order sum; kernel {ms:.4f} ms "
         f"(bare launch {bare_ms:.4f} ms, alone under the profiler {alone_ms:.4f} ms; the "
@@ -765,12 +839,11 @@ def serving_kernels(dev, flush) -> tuple[dict, dict, dict]:
         f"{float((library() - plain).abs().max()):.3g}); {rows_touched} rows "
         f"touched, {nbytes} bytes, bound {bound_ms:.4f} ms ({bound_by}; "
         f"{bound_ms / alone_ms:.3f} of it alone)")
-    bag_row = dict(name="embedding_bag", route="cuda",
-                   source="src/repro_torch/csrc/embedding_bag.cu",
-                   replaces="src/repro/kernels/embedding_bag/kernel.py:39",
-                   launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                   bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
-    return *(attn_rows[label] for label in ATTN_ROWS), bag_row
+    return dict(name="embedding_bag", route="cuda",
+                source="src/repro_torch/csrc/embedding_bag.cu",
+                replaces="src/repro/kernels/embedding_bag/kernel.py:39",
+                launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
 
 def attention_bwd_kernels(dev, flush) -> list[dict]:
@@ -1470,6 +1543,261 @@ def mind_serving(dev) -> int:
     if not err <= MIND_REL_TOL * scale or not torch.equal(top, top_ref):
         fail("MIND retrieval: scores or top items differ from the plain bag's")
     return launches
+
+
+def mind_route_gaps(params, batch, cfg) -> tuple[float, dict, float]:
+    """Phase 9b's check: sampled_softmax_loss and its gradient on
+    ``params`` through the kernels (cfg's bag_impl) and through the plain
+    bag (bag_impl "ref").  Fails unless the kernel route launched the bag
+    kernel once and the vertex sum once.  Returns the loss difference as
+    a share of the plain loss, each leaf's max gap as a share of its
+    plain max |grad| (MIND_ZERO_LEAF apart), and MIND_ZERO_LEAF's largest
+    |grad| on either route as a share of the largest |grad| of any leaf."""
+    from repro_torch import kernels as K
+    from repro_torch.models import mind
+    from repro_torch.train.train_step import value_and_grad
+    from torch.utils._pytree import keystr, tree_flatten_with_path, tree_leaves
+
+    def run(c):
+        return value_and_grad(lambda p, b: mind.sampled_softmax_loss(p, b, c))(params, batch)
+
+    K.reset_launch_counts()
+    loss_k, grads_k = run(cfg)
+    got = tuple(K.launch_counts()[n] for n in ("embedding_bag", "spmm_ell"))
+    if got != (1, 1):
+        fail(f"phase 9b: the kernel route launched (embedding_bag, spmm_ell) {got} times, "
+             f"want (1, 1)")
+    loss_p, grads_p = run(dataclasses.replace(cfg, bag_impl="ref"))
+    rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    names = [keystr(path).strip("[]'").replace("']['", ".")
+             for path, _ in tree_flatten_with_path(grads_p)[0]]
+    pairs = dict(zip(names, zip(tree_leaves(grads_k), tree_leaves(grads_p))))
+    top = max(float(c.abs().max()) for _, c in pairs.values())
+    zero = max(float(t.abs().max()) for t in pairs.pop(MIND_ZERO_LEAF)) / top
+    gaps = {k: float((a - c).abs().max() / c.abs().max().clamp_min(1e-30))
+            for k, (a, c) in pairs.items()}
+    return rel, gaps, zero
+
+
+def mind_update_gaps(step_fn, cfg, tree, opt, batch, step: int) -> tuple[dict, dict, dict]:
+    """Phase 9b's check of the update: one step of the train cell's
+    ``step_fn`` (in place) against plain AdamW (clip, bias correction,
+    decoupled weight decay, the warmup's lr) applied here to a gradient
+    of sampled_softmax_loss recomputed on the same batch and weights.
+    Returns each leaf's largest gap and its largest move, both as shares
+    of the step's lr, and the step's metrics."""
+    import torch
+    from torch.utils._pytree import keystr, tree_flatten_with_path
+
+    from repro_torch.models import mind
+    from repro_torch.train import TrainConfig
+    from repro_torch.train.train_step import value_and_grad
+
+    tc = TrainConfig()
+    a = tc.adamw
+    if step >= tc.warmup_steps:
+        fail(f"phase 9b: the update check's step {step} is past the warmup")
+    lr = a.lr * (step + 1) / tc.warmup_steps
+
+    def flat(t):
+        return {keystr(path).strip("[]'").replace("']['", "."): x
+                for path, x in tree_flatten_with_path(t)[0]}
+
+    _, grads = value_and_grad(lambda p, b: mind.sampled_softmax_loss(p, b, cfg))(tree, batch)
+    g_all, m_all, v_all, w_all = (flat(x) for x in (grads, opt["m"], opt["v"], opt["master"]))
+    norm = float(torch.sqrt(sum(torch.sum(g.double() ** 2) for g in g_all.values())))
+    clip = min(1.0, a.clip_norm / max(norm, 1e-9))
+    t = int(opt["step"]) + 1
+    start, want = {}, {}
+    for k, g in g_all.items():
+        g = g * clip
+        m = a.b1 * m_all[k] + (1 - a.b1) * g
+        v = a.b2 * v_all[k] + (1 - a.b2) * g * g
+        w = w_all[k]
+        start[k] = w.clone()
+        want[k] = w - lr * (m / (1 - a.b1 ** t) / (torch.sqrt(v / (1 - a.b2 ** t)) + a.eps)
+                            + a.weight_decay * w)
+    del grads, g_all, g, m, v
+    tree, opt, metrics = step_fn(tree, opt, batch, torch.tensor(step, dtype=torch.int32,
+                                                                device=batch["hist"].device))
+    got = flat(tree)
+    gaps, moved = {}, {}
+    for k, w in want.items():
+        over = (got[k] - w).abs() - 2.0 ** -23 * w.abs()
+        gaps[k] = float(over.max()) / lr
+        moved[k] = float((got[k] - start[k]).abs().max()) / lr
+    if abs(float(metrics["lr"]) - lr) > 1e-6 * lr:
+        fail(f"phase 9b: the step's lr {float(metrics['lr'])} is not the warmup's {lr}")
+    return gaps, moved, metrics
+
+
+def mind_training(dev, flush, card_line) -> tuple[dict, dict]:
+    """Phase 9b: MIND trains at full width on the card, the train_batch
+    cell's step (``sampled_softmax_loss``, AdamW in place) at its B 65,536
+    from mind_batch, random tables from the seed.  (a) On one batch: the
+    loss and every gradient leaf through the kernels against the plain
+    bag, at the 0.02-scale init and at tables drawn at scale 1
+    (mind_route_gaps).  (b) The bag's backward alone at this shape:
+    BagSum's gradient bit for bit against spmm_ell_vertex_ref over the
+    same bag ELL and within BAG_BWD_TOL of autograd of the plain bag; the
+    ELL's build timed; the vertex sum timed (vertex_check, beside
+    index_add_).  (c) The bag forward at this shape (bag_check).  (d) A
+    cold step and MIND_TRAIN_WARM warm ones (ms, users/s, peak memory,
+    losses, launches a step), one more under the profiler.  (e) One more
+    step's updated leaves against plain AdamW (mind_update_gaps).  Returns the
+    kernels line's rows of the bag forward and the bag backward at this
+    shape, their launches those of (d)'s timed steps."""
+    import torch
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.cells import RECSYS_SHAPES
+    from repro_torch.data import mind_batch
+    from repro_torch.models import mind
+    from repro_torch.models.common import normal_init
+    from repro_torch.models.gnn.ell import build_bag_ell
+    from repro_torch.train import TrainConfig, init_train_state
+
+    arch = get_arch("mind")
+    cfg, plan = arch.make_config(), arch.make_cell("train_batch")
+    B, V, d = RECSYS_SHAPES["train_batch"]["B"], cfg.n_profile, cfg.embed_dim
+    free_card()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    tree = mind.init_tree(gen, cfg)
+
+    def batch(step):
+        return {k: torch.as_tensor(v, device=dev)
+                for k, v in mind_batch(step, B, cfg, seed=SEED).items()}
+
+    batches = [batch(step) for step in range(2 + MIND_TRAIN_WARM)]
+    log(f"MIND training: {cfg.name}, {cfg.n_items} items, {V} profile rows, d {d}, "
+        f"K {cfg.n_interests}, L {cfg.hist_len}, F*M "
+        f"{cfg.n_profile_fields * cfg.profile_multi}, {cfg.n_negatives} negatives, B {B}, "
+        f"bag_impl {cfg.bag_impl}")
+
+    # (a) the kernel route against the plain bag, loss and gradients
+    scale1 = {**tree, "item_table": normal_init(gen, tuple(tree["item_table"].shape), 1.0),
+              "profile_table": normal_init(gen, (V, d), 1.0)}
+    for label, params in (("0.02-scale init", tree), ("scale-1 tables", scale1)):
+        rel, gaps, zero = mind_route_gaps(params, batches[0], cfg)
+        worst = max(gaps, key=gaps.get)
+        log(f"MIND train check ({label}), kernel route vs plain bag: loss {rel:.3g} of it "
+            f"(tol {MIND_TRAIN_LOSS_RTOL}); worst leaf {worst} {gaps[worst]:.3g} of its max "
+            f"|grad| (tol {MIND_TRAIN_GRAD_TOL}); {MIND_ZERO_LEAF} {zero:.3g} of the largest "
+            f"|grad| (tol {MIND_ZERO_GRAD_TOL}); "
+            f"{', '.join(f'{k} {g:.3g}' for k, g in gaps.items())}")
+        if not (rel <= MIND_TRAIN_LOSS_RTOL and gaps[worst] <= MIND_TRAIN_GRAD_TOL
+                and zero <= MIND_ZERO_GRAD_TOL):
+            fail(f"phase 9b ({label}): the kernel route differs from the plain bag (loss "
+                 f"{rel:.3g}, leaf {worst} {gaps[worst]:.3g}, {MIND_ZERO_LEAF} {zero:.3g})")
+    del scale1
+    free_card()
+
+    # (b) the bag's backward alone at the train shape
+    b0 = batches[0]
+    idx, mask = b0["profile_ids"], b0["profile_mask"]
+    w = mask.to(torch.float32)
+    table = tree["profile_table"]
+    g = torch.randn((B, d), generator=gen, device=dev)
+    builds = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        build_bag_ell(idx, w, V)
+        torch.cuda.synchronize()
+        builds.append((time.perf_counter() - t0) * 1e3)
+    # the layout BagSum's backward builds: the build is deterministic
+    ell = build_bag_ell(idx, w, V)
+    t = table.detach().requires_grad_(True)
+    K.reset_launch_counts()
+    (grad,) = torch.autograd.grad(K.BagSum.apply(t, idx, w), t, g)
+    torch.cuda.synchronize()
+    if tuple(K.launch_counts()[n] for n in ("embedding_bag", "spmm_ell")) != (1, 1):
+        fail("phase 9b: BagSum did not launch the bag kernel and the vertex sum once each")
+    if not bits_equal(grad, K.spmm_ell_vertex_ref(g, ell.col, ell.wgt, ell.row_ptr, ell.deg)):
+        fail("phase 9b: the bag's backward is not bit-identical to spmm_ell_vertex_ref "
+             "over the same bag ELL")
+    tp = table.detach().requires_grad_(True)
+    (want,) = torch.autograd.grad(K.embedding_bag_ref(tp, idx, w), tp, g)
+    bwd_gap = rel_err(grad, want)
+    if bwd_gap > BAG_BWD_TOL:
+        fail(f"phase 9b: the bag's backward differs from autograd of the plain bag by "
+             f"{bwd_gap:.3g} of max |grad| (tol {BAG_BWD_TOL})")
+    log(f"MIND bag backward (B {B}, L {idx.shape[1]}, V {V}, d {d}): bag ELL R "
+        f"{ell.col.shape[0]}, W {ell.col.shape[1]}, {int(ell.deg.sum())} live slots, longest "
+        f"segment {int(ell.deg.max())}, built in {sorted(builds)[2]:.3f} ms (median of 5, "
+        f"host and card); BagSum's gradient bit-identical to spmm_ell_vertex_ref over it, "
+        f"{bwd_gap:.3g} of max |grad| from autograd of the plain bag (tol {BAG_BWD_TOL})")
+    src = (g[:, None, :] * w[..., None]).reshape(-1, d)
+    flat = idx.reshape(-1).long()
+    library = (f"index_add_ of the ({B * idx.shape[1]}, {d}) weighted rows",
+               lambda: torch.zeros((V, d), device=dev).index_add_(0, flat, src))
+    bwd_row = vertex_check("the bag's backward, MIND train_batch", g, ell,
+                           ell_graph(ell, n_cols=B), flush, library)
+    bwd_row.update(name="embedding_bag_bwd")
+    del t, tp, grad, want, src, flat, g
+
+    # (c) the bag forward at the train shape: the batch's ids and mask
+    fwd_row = bag_check("MIND train_batch", table.detach(), idx, w, flush)
+    fwd_row.update(name="embedding_bag train")
+    free_card()
+
+    # (d) the steps
+    opt = init_train_state(tree, TrainConfig())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls, losses, per_step = [], [], []
+    for step in range(1 + MIND_TRAIN_WARM):
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree, opt, m = plan.fn(tree, opt, batches[step],
+                               torch.tensor(step, dtype=torch.int32, device=dev))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        counts = K.launch_counts()
+        per_step.append((counts["embedding_bag"], counts["spmm_ell"]))
+        losses.append(float(m["loss"]))
+        log(f"MIND train step {step} ({'cold' if step == 0 else 'warm'}): "
+            f"{walls[-1] * 1e3:.1f} ms, loss {losses[-1]:.6f}, grad norm "
+            f"{float(m['grad_norm']):.4g}; embedding_bag launches {per_step[-1][0]}, "
+            f"vertex-sum (spmm_ell) launches {per_step[-1][1]}")
+    peak = torch.cuda.max_memory_allocated()
+    with device_profile("one warm MIND train step", top=10, kernel="vertex_sum_kernel"):
+        tree, opt, m = plan.fn(tree, opt, batches[-1],
+                               torch.tensor(1 + MIND_TRAIN_WARM, dtype=torch.int32,
+                                            device=dev))
+        torch.cuda.synchronize()
+    losses.append(float(m["loss"]))
+    # (e) one more step's update against plain AdamW
+    gaps, moved, m = mind_update_gaps(plan.fn, cfg, tree, opt, batches[0], 2 + MIND_TRAIN_WARM)
+    held = [k for k in gaps if k != MIND_ZERO_LEAF]
+    worst, least = max(held, key=gaps.get), min(held, key=moved.get)
+    log(f"MIND train step {2 + MIND_TRAIN_WARM}, update against plain AdamW from a recomputed "
+        f"gradient: worst leaf {worst} {gaps[worst]:.3g} of lr past the rounding (tol "
+        f"{MIND_STEP_TOL}); least moved {least} {moved[least]:.3g} of lr (at least "
+        f"{MIND_STEP_MOVE}); {MIND_ZERO_LEAF} {gaps[MIND_ZERO_LEAF]:.3g} of lr off (not "
+        f"held); lr {float(m['lr']):.6g}, loss {float(m['loss']):.6f}; "
+        f"{', '.join(f'{k} {moved[k]:.3g}' for k in moved)} of lr moved")
+    if gaps[worst] > MIND_STEP_TOL or moved[least] < MIND_STEP_MOVE:
+        fail(f"phase 9b: the step's update differs from plain AdamW (leaf {worst} "
+             f"{gaps[worst]:.3g} of lr) or leaves {least} unmoved ({moved[least]:.3g} of lr)")
+    warm = walls[1:]
+    med = sorted(warm)[len(warm) // 2]
+    log(f"MIND training, train_batch at B {B}: cold step {walls[0] * 1e3:.1f} ms, warm "
+        f"steps {', '.join(f'{x * 1e3:.1f}' for x in warm)} ms (median {med * 1e3:.1f} ms, "
+        f"{B / med:.0f} users/s); peak {peak / 2**30:.2f} GiB; losses "
+        f"{[round(x, 6) for x in losses]}; (embedding_bag, vertex sum) launches a step "
+        f"{per_step}; on {card_line}")
+    if not all(x == x and abs(x) != float("inf") for x in losses):
+        fail(f"phase 9b: a loss is not finite: {losses}")
+    if any(a == 0 or b == 0 for a, b in per_step):
+        fail(f"phase 9b: a step launched no embedding_bag or no vertex sum: {per_step}")
+    fwd_row["launches"] = sum(a for a, _ in per_step)
+    bwd_row["launches"] = sum(b for _, b in per_step)
+    del tree, opt, m, batches
+    free_card()
+    return fwd_row, bwd_row
 
 
 def bits_equal(a, b) -> bool:
@@ -4594,6 +4922,13 @@ def main() -> None:
     t0 = time.perf_counter()
     bag_row["launches"] = mind_serving(dev)
     log(f"phase 9 took {time.perf_counter() - t0:.1f} s")
+
+    # ---- 9b. MIND training at full width, the train_batch cell ---------
+    t0 = time.perf_counter()
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    rows += mind_training(dev, flush, card_line)
+    del flush
+    log(f"phase 9b took {time.perf_counter() - t0:.1f} s")
 
     # ---- 10. GIN inference at full width, ogb-products scale -----------
     t0 = time.perf_counter()

@@ -5,10 +5,8 @@ Each ported module exposes ARCH_ID, FAMILY, SHAPES, make_config(reduced)
 which returns a :class:`~repro_torch.configs.cells.CellPlan`.
 
 The JAX package's registry holds ten assigned architectures and the
-paper's own SSSP workload: 47 (arch, cell) pairs.  :func:`all_cells`
-returns those the port can plan, in the same order: the 47 less
-:data:`EXCLUDED`, each excluded pair with the ``ROADMAP.md`` Queue 1
-item that brings it.
+paper's own SSSP workload: 47 (arch, cell) pairs.  The port plans
+every one of them: :func:`all_cells` returns them in the same order.
 """
 
 from repro_torch.configs import (
@@ -24,13 +22,7 @@ from repro_torch.configs import (
     phi35_moe,
     sssp_cfg,
 )
-from repro_torch.configs.cells import (
-    GNN_SHAPES,
-    LM_SHAPES,
-    RECSYS_SHAPES,
-    TRAIN_ITEMS,
-    TRAINED_FAMILIES,
-)
+from repro_torch.configs.cells import GNN_SHAPES, LM_SHAPES, RECSYS_SHAPES
 
 _MODULES = [phi35_moe, dbrx, phi3_mini, minitron, minicpm3, mace_cfg, gin_tu, egnn_cfg,
             dimenet_cfg, mind_cfg, sssp_cfg]
@@ -47,34 +39,14 @@ REFERENCE_ARCHS = (
 )
 ASSIGNED = [a for a, _ in REFERENCE_ARCHS if a != "sssp"]
 
-#: the architectures not ported yet, with the ROADMAP.md item that
-#: ports them (none since MLA and MoE serving)
-UNPORTED: dict = {}
-
 _SHAPES = {"lm": LM_SHAPES, "gnn": GNN_SHAPES, "recsys": RECSYS_SHAPES,
            "graph": sssp_cfg.SSSP_CELLS}
-
-
-def _is_train(family: str, cell: str) -> bool:
-    # every GNN cell of the JAX package trains (gnn_train_cell)
-    return family == "gnn" or _SHAPES[family][cell].get("kind") == "train"
-
-
-def _waits(arch: str, family: str, cell: str) -> bool:
-    return arch in UNPORTED or (_is_train(family, cell) and family not in TRAINED_FAMILIES)
 
 
 def reference_cells(include_sssp: bool = True) -> list:
     """The JAX package's ``all_cells()``: every (arch, cell) pair."""
     return [(a, c) for a, fam in REFERENCE_ARCHS
             if include_sssp or a != "sssp" for c in _SHAPES[fam]]
-
-
-#: (arch, cell) -> the ROADMAP.md Queue 1 item that brings it
-EXCLUDED = {
-    (a, c): (UNPORTED[a] if a in UNPORTED else TRAIN_ITEMS[fam])
-    for a, fam in REFERENCE_ARCHS for c in _SHAPES[fam] if _waits(a, fam, c)
-}
 
 
 def get_arch(arch_id: str):
@@ -91,6 +63,5 @@ def list_cells(arch_id: str) -> list:
 
 
 def all_cells(include_sssp: bool = True) -> list:
-    """The (arch, cell) pairs the port plans: the JAX package's less
-    :data:`EXCLUDED`."""
-    return [p for p in reference_cells(include_sssp) if p not in EXCLUDED]
+    """The (arch, cell) pairs the port plans: all of the JAX package's."""
+    return reference_cells(include_sssp)

@@ -23,7 +23,7 @@ whatever its rank count.  An SSSP plan's arguments are stacked over its
 ranks, one row of each a rank.  A GNN or LM train plan
 (:func:`gnn_train_cell`, :func:`lm_train_cell`) also carries its train
 step as ``fn``, which runs on real tensors of the arguments' shapes;
-MIND's train cell waits for its training (Queue 1 item 5.5) and raises.
+so does MIND's train cell (:func:`mind_cell`).
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ from torch.utils._pytree import tree_leaves, tree_map
 
 from repro_torch.api.config import SolverConfig
 from repro_torch.models import lm as lm_mod
-from repro_torch.models.mind import MINDConfig
+from repro_torch.models.mind import MINDConfig, sampled_softmax_loss
 from repro_torch.train import TrainConfig, build_train_step, init_state
 
 
@@ -67,19 +67,8 @@ def meta(shape, dtype) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device="meta")
 
 
-def train_unported(arch: str, cell: str, item: str):
-    raise NotImplementedError(
-        f"{arch} cell {cell!r} is a train cell: training is not ported yet "
-        f"(ROADMAP.md Queue 1 item {item})")
-
-
 # ------------------------------------------------------------------ #
 # LM cells
-
-#: the ROADMAP.md item that brings each untrained family's train cells
-TRAIN_ITEMS = {"recsys": "5.5 (MIND training)"}
-#: the families whose train cells the port plans
-TRAINED_FAMILIES = ("gnn", "lm")
 
 
 def lm_flops_train(cfg: lm_mod.LMConfig, B: int, S: int) -> float:
@@ -326,11 +315,23 @@ def mind_flops(cfg: MINDConfig, B: int, kind: str, n_candidates: int = 0) -> flo
 
 
 def mind_cell(arch: str, cell: str, cfg: MINDConfig, ranks: int = 1) -> CellPlan:
+    """A MIND cell.  ``train_batch``: the JAX package's (params, AdamW
+    state, batch with labels, step) as meta tensors, and its step,
+    ``build_train_step(sampled_softmax_loss)`` at ``TrainConfig()``,
+    which updates the params and state in place (the reference donates
+    them)."""
     sh = RECSYS_SHAPES[cell]
     B = sh["B"]
-    if sh["kind"] == "train":
-        train_unported(arch, cell, TRAIN_ITEMS["recsys"])
     params = mind_param_shapes(cfg)
+    if sh["kind"] == "train":
+        tc = TrainConfig()
+        return CellPlan(
+            arch=arch, cell=cell, kind="train",
+            args=(params, init_state(params, tc.adamw),
+                  mind_batch_shapes(cfg, B, with_labels=True), meta((), torch.int32)),
+            model_flops=float(mind_flops(cfg, B, "train")), notes=f"B={B}", ranks=ranks,
+            fn=build_train_step(lambda p, b: sampled_softmax_loss(p, b, cfg), tc, donate=True),
+        )
     batch = mind_batch_shapes(cfg, B, with_labels=False)
     if sh["kind"] == "retrieval":
         nc = sh["n_candidates"]

@@ -8,7 +8,8 @@ with a plain torch version that CPU tensors take.
   relax_ell         pull-mode min-plus ELL row minima (rule R1)
   flash_attention   streaming-softmax GQA attention (LM prefill), and
                     its gradient (LM training)
-  embedding_bag     gather + weighted sum per bag (MIND profile pooling)
+  embedding_bag     gather + weighted sum per bag (MIND profile pooling;
+                    its backward is spmm_ell's vertex sum)
   spmm_ell          ELL SpMM, sum or max over slots, or straight into
                     vertex sums (GNN neighbour sums, forward and, over
                     the transpose ELL, backward)
@@ -24,6 +25,7 @@ from repro_torch.kernels._lib import (
     reset_launch_counts,
 )
 from repro_torch.kernels.embedding_bag import (
+    BagSum,
     bag_pool,
     bag_sum,
     embedding_bag_cuda,
@@ -80,7 +82,7 @@ __all__ = [
     "fused_superstep_batch_ref",
     "attention_ref", "attention_lse_ref", "attention_bwd_ref", "flash_attention_cuda",
     "flash_attention_bwd_cuda", "FlashAttention", "mha",
-    "bag_pool", "bag_sum", "embedding_bag_cuda", "embedding_bag_ref",
+    "BagSum", "bag_pool", "bag_sum", "embedding_bag_cuda", "embedding_bag_ref",
     "aggregate_neighbors", "spmm_rows", "spmm_ell_cuda", "spmm_ell_ref",
     "vertex_sum", "VertexSum", "spmm_ell_vertex_cuda", "spmm_ell_vertex_ref",
 ]

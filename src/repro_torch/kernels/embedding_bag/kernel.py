@@ -34,9 +34,22 @@ def check_bag_args(table, idx, w) -> None:
                  "sizes exceed int32")
 
 
+def refuse_grad(table, w) -> None:
+    """Raise where grad mode is on and ``table`` or ``w`` needs a
+    gradient: the launch is not recorded by autograd, so its output
+    would drop that gradient."""
+    if torch.is_grad_enabled() and (table.requires_grad or w.requires_grad):
+        raise RuntimeError(f"{NAME}: an input needs a gradient, and the kernel's launch is "
+                           f"not recorded by autograd; train through "
+                           f"kernels.embedding_bag.ops.BagSum (bag_pool)")
+
+
 def embedding_bag_cuda(table, idx, w) -> torch.Tensor:
     """Launch the kernel; returns the (B, d) f32 weighted bag sums.
+    Refuses a ``table`` or ``w`` that needs a gradient while grad mode
+    is on (:func:`refuse_grad`), before anything else is checked.
     Every index must lie in [0, V): one host read checks that."""
+    refuse_grad(table, w)
     check_bag_args(table, idx, w)
     _lib.check_cuda_tensors(NAME, table=table, idx=idx, w=w)
     (V, d), (B, L) = table.shape, idx.shape

@@ -86,6 +86,18 @@ def mind_params_from_numpy(tree: dict, cfg: MINDConfig, device=None) -> MIND:
     )
 
 
+def mind_tree_from_numpy(tree: dict, cfg: MINDConfig, device=None) -> dict:
+    """``tree`` as the JAX package's ``models/mind.py::init_params`` lays
+    it out, as the port's training tree (``models/mind.py::params_tree``):
+    the same keys and shapes, f32 on ``device``; shapes are checked
+    against ``cfg``."""
+    d = cfg.embed_dim
+    want = {"item_table": (cfg.n_items, d), "profile_table": (cfg.n_profile, d),
+            "bilinear": (d, d), "routing_init": (cfg.n_interests,),
+            "interest_mlp": _mlp_shapes([2 * d, d, d])}
+    return _checked(tree, want, "", resolve_device(device))
+
+
 def _mlp_shapes(dims) -> dict:
     want = {f"w{i}": (dims[i], dims[i + 1]) for i in range(len(dims) - 1)}
     return want | {f"b{i}": (dims[i + 1],) for i in range(len(dims) - 1)}

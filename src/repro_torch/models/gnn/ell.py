@@ -40,6 +40,12 @@ own beside them (:func:`segment_count`).
 EGNN, MACE and DimeNet sum edge rows into nodes and triplet rows into
 edges this way (``layers.py::segment_sum``), and take the gradient of
 their gathers over the same ELL (``layers.py::gather_rows``).
+
+A bag ELL (:func:`build_bag_ell`) is the segment ELL of an embedding
+bag's ``B x L`` table ids, each slot's column its bag (``t // L``) in
+place of its row: the vertex sum of the bag's (B, d) incoming gradient
+over it is the table's gradient, and reads no (B L, d) copy of it
+(``kernels/embedding_bag/ops.py::BagSum``).
 """
 
 from __future__ import annotations
@@ -168,6 +174,18 @@ def build_segment_transpose(index, mask, n: int) -> NeighborELL:
     return NeighborELL(torch.arange(T + 1, device=dev), (mask != 0).to(torch.int32),
                        index.to(torch.int32).reshape(T, 1).contiguous(),
                        mask.to(torch.float32).reshape(T, 1).contiguous(), T)
+
+
+def build_bag_ell(idx, w, n: int) -> NeighborELL:
+    """The bag ELL of the (B, L) table ids ``idx`` (in [0, n)) and their
+    weights ``w``: :func:`build_segment_ell`'s layout of ``idx`` over the
+    slots t = (b, l) of nonzero weight, each slot's column its bag b = t //
+    L, so n rows of bag ids in [0, B), a row's slots in flat order, each
+    weighted by ``w[b, l]``."""
+    B, L = idx.shape
+    flat_w = w.reshape(-1)
+    live = torch.nonzero(flat_w).flatten()
+    return build_neighbor_ell(live // L, idx.reshape(-1)[live], flat_w[live], n, n_src=B)
 
 
 def _kept(index, mask, n: int, way: str, build):

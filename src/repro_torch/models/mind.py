@@ -1,12 +1,21 @@
 """MIND — Multi-Interest Network with Dynamic routing (arXiv:1904.08030):
-serving.
+serving and training.
 
 The port of the JAX package's ``models/mind.py`` for one card: item
 and profile embedding tables, B2I dynamic-routing capsules over the
 user's behaviour sequence, profile fields pooled through the
-embedding-bag kernel, and max-over-interests scoring of candidates as
-one batched product.  ``sampled_softmax_loss`` (training) is not ported
-yet: see ROADMAP.md, Queue 1.
+embedding-bag kernel, max-over-interests scoring of candidates as one
+batched product, and (training) label-aware attention and a sampled-
+softmax loss.
+
+Serving takes the :class:`MIND` module; training differentiates the
+JAX package's parameter tree (:func:`params_tree`), and
+:func:`interests` reads either.  On the kernel route (``bag_impl`` not
+``"ref"``) the profile bag is ``kernels.BagSum``: forward the bag
+kernel, backward the ``spmm_ell`` vertex sum over the bag's segment
+ELL, so the profile table's gradient repeats its bits.  The item
+table's gathers (history, target, negatives) are plain indexing, as in
+the JAX package: their backward adds by atomics on the card.
 """
 
 from __future__ import annotations
@@ -74,23 +83,44 @@ def init_params(gen: torch.Generator, cfg: MINDConfig) -> MIND:
     )
 
 
+def params_tree(params: MIND) -> dict:
+    """The model's weights as the JAX package's tree (``item_table``,
+    ``profile_table``, ``bilinear``, ``routing_init``,
+    ``interest_mlp.{w0,b0,w1,b1}``), for training.  New tensors: copies."""
+    names = ("item_table", "profile_table", "bilinear", "routing_init")
+    tree = {k: getattr(params, k).detach().clone() for k in names}
+    tree["interest_mlp"] = {k: v.detach().clone() for k, v in params.interest_mlp.items()}
+    return tree
+
+
+def init_tree(gen: torch.Generator, cfg: MINDConfig) -> dict:
+    """:func:`init_params`'s weights (the same draws) as a training tree."""
+    return params_tree(init_params(gen, cfg))
+
+
+def _weight(params, name: str):
+    """A weight of the :class:`MIND` module or of its tree."""
+    return params[name] if isinstance(params, dict) else getattr(params, name)
+
+
 def squash(x, dim=-1, eps=1e-9):
     n2 = torch.sum(x * x, dim=dim, keepdim=True)
     return (n2 / (1.0 + n2)) * x / torch.sqrt(n2 + eps)
 
 
-def interests(params: MIND, hist, hist_mask, profile_ids, profile_mask,
+def interests(params, hist, hist_mask, profile_ids, profile_mask,
               cfg: MINDConfig):
-    """B2I dynamic routing.  hist (B, L) item ids; profile_ids
-    (B, F*M) multi-hot profile ids.  Returns (B, K, d)."""
+    """B2I dynamic routing.  ``params`` is the :class:`MIND` module or
+    its tree; hist (B, L) item ids; profile_ids (B, F*M) multi-hot
+    profile ids.  Returns (B, K, d)."""
     B, L = hist.shape
     K, d = cfg.n_interests, cfg.embed_dim
-    e = params.item_table[hist.long()]                          # (B, L, d)
+    e = _weight(params, "item_table")[hist.long()]              # (B, L, d)
     e = e * hist_mask[..., None].to(e.dtype)
-    eh = e @ params.bilinear                                    # (B, L, d)
+    eh = e @ _weight(params, "bilinear")                        # (B, L, d)
 
     # routing logits: fixed (non-trainable in-iteration) init per paper
-    b = params.routing_init[None, None, :].expand(B, L, K)
+    b = _weight(params, "routing_init")[None, None, :].expand(B, L, K)
     mask3 = hist_mask[..., None]
     caps = None
     for _ in range(cfg.capsule_iters):
@@ -99,10 +129,10 @@ def interests(params: MIND, hist, hist_mask, profile_ids, profile_mask,
         b = b + torch.einsum("bkd,bld->blk", caps, eh)
 
     # profile features pool through the embedding-bag op
-    prof = bag_pool(params.profile_table, profile_ids, profile_mask,
+    prof = bag_pool(_weight(params, "profile_table"), profile_ids, profile_mask,
                     mode="mean", impl=cfg.bag_impl)             # (B, d)
     prof = prof[:, None, :].expand(B, K, d)
-    out = mlp_apply(params.interest_mlp, torch.cat([caps, prof], dim=-1))
+    out = mlp_apply(_weight(params, "interest_mlp"), torch.cat([caps, prof], dim=-1))
     return squash(out)
 
 
@@ -111,6 +141,25 @@ def label_aware_attention(caps, target_e, power: float):
     att = torch.einsum("bkd,bd->bk", caps, target_e)
     att = torch.softmax(torch.abs(att) ** power * torch.sign(att), dim=-1)
     return torch.einsum("bk,bkd->bd", att, caps)
+
+
+def sampled_softmax_loss(tree: dict, batch: dict, cfg: MINDConfig):
+    """The JAX package's loss, in its order of operations: interests,
+    label-aware attention on the target, the target's and the
+    ``n_negatives`` sampled items' logits cast to f32, then the mean of
+    ``logsumexp - logits[:, 0]``.  batch: hist (B, L), hist_mask,
+    profile_ids, profile_mask, target (B,), negatives (B, n_neg), as
+    tensors on the tree's device."""
+    caps = interests(tree, batch["hist"], batch["hist_mask"],
+                     batch["profile_ids"], batch["profile_mask"], cfg)
+    items = tree["item_table"]
+    tgt_e = items[batch["target"].long()]                       # (B, d)
+    user = label_aware_attention(caps, tgt_e, cfg.power)        # (B, d)
+    neg_e = items[batch["negatives"].long()]                    # (B, n, d)
+    pos = torch.einsum("bd,bd->b", user, tgt_e)[:, None]        # (B, 1)
+    negs = torch.einsum("bd,bnd->bn", user, neg_e)              # (B, n)
+    logits = torch.cat([pos, negs], dim=1).to(torch.float32)
+    return torch.mean(torch.logsumexp(logits, dim=1) - logits[:, 0])
 
 
 @torch.inference_mode()

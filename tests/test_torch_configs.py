@@ -1,6 +1,6 @@
 """The port's architecture registry and cell plans
 (``repro_torch.configs``) against the JAX package's ``repro.configs``:
-the shape tables, the 47 reference cells less the named exclusions, and
+the shape tables, the 47 reference cells (no exclusion is left), and
 for every planned cell the argument shapes and dtypes at one rank and
 ``model_flops`` (equal as floats)."""
 
@@ -48,45 +48,27 @@ def test_shape_tables_equal_the_reference():
 
 
 def test_all_cells_are_the_reference_less_the_named_15():
-    """31 before gin-tu's four train cells planned, 27 before the twelve
-    of egnn, mace and dimenet, 15 before the nine serving cells of
-    minicpm3, phi3.5-moe and dbrx, 6 before the five LMs' train cells;
-    1 since: MIND's train cell."""
+    """The port plans all 47 of the reference's pairs, in its order:
+    31 were left out before gin-tu's four train cells planned, 27 before
+    the twelve of egnn, mace and dimenet, 15 before the nine serving
+    cells of minicpm3, phi3.5-moe and dbrx, 6 before the five LMs' train
+    cells, 1 before MIND's train cell; none since."""
     ref = ref_configs.all_cells()
     assert configs.reference_cells() == ref and len(ref) == 47
-    assert len(configs.EXCLUDED) == 1
-    assert set(configs.EXCLUDED) <= set(ref)
-    assert configs.all_cells() == [p for p in ref if p not in configs.EXCLUDED]
-    assert len(configs.all_cells()) == 46
+    assert configs.all_cells() == ref and len(configs.all_cells()) == 47
     kinds = {}
     for arch, _ in configs.all_cells():
         kinds[arch] = kinds.get(arch, 0) + 1
     assert kinds == {"phi3.5-moe-42b-a6.6b": 4, "dbrx-132b": 4, "phi3-mini-3.8b": 4,
                      "minitron-8b": 4, "minicpm3-4b": 4, "mace": 4, "gin-tu": 4,
-                     "egnn": 4, "dimenet": 4, "mind": 3, "sssp": 7}
-    assert configs.all_cells(include_sssp=False) == [
-        p for p in ref_configs.all_cells(include_sssp=False)
-        if p not in configs.EXCLUDED]
-    # each exclusion names its ROADMAP.md item: an unported arch, or training
-    for (arch, cell), why in configs.EXCLUDED.items():
-        assert why.startswith("5."), (arch, cell, why)
-        assert arch in configs.UNPORTED or arch in configs.REGISTRY
-    assert not configs.UNPORTED
+                     "egnn": 4, "dimenet": 4, "mind": 4, "sssp": 7}
+    assert configs.all_cells(include_sssp=False) == ref_configs.all_cells(include_sssp=False)
     assert sorted(configs.REGISTRY) == sorted(a for a, _ in configs.REFERENCE_ARCHS)
-    assert sum(a in configs.UNPORTED for a, _ in configs.EXCLUDED) == 0
-    assert list(configs.EXCLUDED) == [("mind", "train_batch")]
+    assert ("mind", "train_batch") in configs.all_cells()
 
 
 @pytest.mark.parametrize("arch,cell", ref_configs.all_cells())
 def test_plan_matches_reference_cell(arch, cell, topo):
-    if (arch, cell) in configs.EXCLUDED:
-        if arch in configs.UNPORTED:
-            with pytest.raises(KeyError, match="not yet ported"):
-                configs.get_arch(arch)
-        else:  # a train cell of a ported arch
-            with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 5"):
-                configs.get_arch(arch).make_cell(cell)
-        return
     plan = configs.get_arch(arch).make_cell(cell, 1)
     ref = ref_configs.get_arch(arch).make_cell(cell, topo)
     assert (plan.arch, plan.cell, plan.kind) == (ref.arch, ref.cell, ref.kind)
@@ -121,13 +103,12 @@ def test_sssp_reduced_and_ranked_plans(cell, topo):
                                   "egnn", "dimenet", "mace", "minicpm3-4b",
                                   "phi3.5-moe-42b-a6.6b", "dbrx-132b"])
 def test_train_cells_raise(arch):
-    """MIND's train cell raises, naming its item; the four cells of each
-    GNN arch and each LM's train_4k cell plan as train cells that carry
-    their step."""
+    """Every train cell plans (none raises any more): MIND's
+    train_batch, the four cells of each GNN arch and each LM's train_4k
+    cell are train cells that carry their step, with the AdamW state and
+    the labelled batch."""
     mod = configs.get_arch(arch)
-    train = [c for c in mod.SHAPES if (arch, c) in configs.EXCLUDED]
     if arch in ("gin-tu", "egnn", "dimenet", "mace"):
-        assert not train
         for cell in mod.SHAPES:
             plan = mod.make_cell(cell)
             assert plan.kind == "train" and callable(plan.fn)
@@ -135,7 +116,6 @@ def test_train_cells_raise(arch):
             mod.make_cell("no_such_cell")
         return
     if mod.FAMILY == "lm":
-        assert not train
         plan = mod.make_cell("train_4k")
         assert plan.kind == "train" and callable(plan.fn)
         params, opt, batch, step = plan.args
@@ -143,16 +123,21 @@ def test_train_cells_raise(arch):
         assert {k: tuple(t.shape) for k, t in batch.items()} == {
             "tokens": (256, 4096), "labels": (256, 4096)}
         return
-    assert train, arch
-    for cell in train:
-        with pytest.raises(NotImplementedError, match="item 5"):
-            mod.make_cell(cell)
+    plan = mod.make_cell("train_batch")
+    assert plan.kind == "train" and callable(plan.fn)
+    params, opt, batch, step = plan.args
+    assert sorted(opt) == ["m", "master", "step", "v"]
+    assert {k: tuple(t.shape) for k, t in batch.items()} == {
+        "hist": (65536, 50), "hist_mask": (65536, 50), "profile_ids": (65536, 16),
+        "profile_mask": (65536, 16), "target": (65536,), "negatives": (65536, 127)}
+    for cell in ("serve_p99", "serve_bulk", "retrieval_cand"):
+        assert mod.make_cell(cell).kind == "serve" and mod.make_cell(cell).fn is None
 
 
 def test_flop_formulas_equal_the_reference():
     """The LM and MIND formulas equal the reference's (MLA's and MoE's
-    too) at the cells' sizes and at another; MIND's train formula, which
-    no planned cell reaches yet, too."""
+    too) at the cells' sizes and at another; MIND's train formula too,
+    which its train_batch cell also reaches."""
     for arch in ("phi3-mini-3.8b", "minitron-8b", "minicpm3-4b", "phi3.5-moe-42b-a6.6b",
                  "dbrx-132b"):
         cfg = configs.get_arch(arch).make_config()

@@ -616,6 +616,138 @@ def test_mind_serving_on_card_matches_cpu(dev):
     assert err <= 1e-5 * float(ref.abs().max()), err
 
 
+def test_embedding_bag_refuses_grad(dev):
+    """The kernel entry refuses a table or w that needs a gradient while
+    grad mode is on; under no_grad it launches."""
+    table = torch.ones((10, 8), device=dev, requires_grad=True)
+    idx = torch.zeros((3, 4), dtype=torch.int32, device=dev)
+    w = torch.ones((3, 4), device=dev)
+    for t, ww in ((table, w), (table.detach(), w.clone().requires_grad_(True))):
+        with pytest.raises(RuntimeError, match="BagSum"):
+            K.embedding_bag_cuda(t, idx, ww)
+        with pytest.raises(RuntimeError, match="BagSum"):
+            K.bag_sum(t, idx, ww)
+    K.reset_launch_counts()
+    with torch.no_grad():
+        K.embedding_bag_cuda(table, idx, w)
+    assert K.launch_counts()["embedding_bag"] == 1
+
+
+@pytest.mark.parametrize("V,d,B,L,hot", [(500, 64, 64, 16, 0), (3000, 64, 700, 16, 200),
+                                         (200, 30, 40, 11, 70), (50, 128, 9, 5, 0)])
+def test_bag_sum_backward_on_card_is_its_plain_version(dev, V, d, B, L, hot):
+    """BagSum on the card: one bag launch forward, one vertex sum
+    backward over the bag ELL; the gradient bit for bit the plain vertex
+    sum over the same ELL on the card and BagSum's on the CPU, and within
+    1e-5 of max |grad| of autograd of the plain bag.  A third of the
+    slots masked; ``hot`` slots name row 1 (a segment of more than W
+    slots, folded by the fat-vertex path); row 0 named by no slot."""
+    from repro_torch.models.gnn.ell import build_bag_ell
+
+    r = np.random.default_rng(V + B + hot)
+    idx = r.integers(2, V, (B, L)).astype(np.int32)
+    idx.reshape(-1)[r.choice(B * L, hot, replace=False)] = 1
+    w = (r.random((B, L)) > 0.33).astype(np.float32)
+    table, idx_t, w_t, g = on(dev, r.normal(size=(V, d)).astype(np.float32), idx, w,
+                              r.normal(size=(B, d)).astype(np.float32))
+    t = table.clone().requires_grad_(True)
+    K.reset_launch_counts()
+    (grad,) = torch.autograd.grad(K.BagSum.apply(t, idx_t, w_t), t, g)
+    torch.cuda.synchronize()
+    assert (K.launch_counts()["embedding_bag"], K.launch_counts()["spmm_ell"]) == (1, 1)
+    ell = build_bag_ell(idx_t, w_t, V)
+    assert bits_equal(grad, K.spmm_ell_vertex_ref(g, ell.col, ell.wgt, ell.row_ptr, ell.deg))
+    assert bool((grad[0] == 0).all())
+    tc = table.cpu().requires_grad_(True)
+    (grad_cpu,) = torch.autograd.grad(K.BagSum.apply(tc, idx_t.cpu(), w_t.cpu()), tc, g.cpu())
+    assert bits_equal(grad.cpu(), grad_cpu)
+    tp = table.clone().requires_grad_(True)
+    (want,) = torch.autograd.grad(K.embedding_bag_ref(tp, idx_t, w_t), tp, g)
+    assert float((grad - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_mind_train_step_on_card_matches_cpu(dev):
+    """The reduced config through the kernels (bag_impl "pallas"): the
+    loss and every gradient leaf at scale-1 tables on the card against
+    the CPU's (the item table's gathers add by atomics on the card):
+    loss within 1e-6 of it, each leaf within 2e-5 of its max |grad|,
+    routing_init's (0 in exact arithmetic) below 1e-6 of the largest
+    |grad|; then two steps of the train_batch cell's step on both devices
+    at the scale-1 tables, lr 1e-2 through a 2-step warmup (as
+    tests/test_torch_mind_train.py), each step launching the bag kernel
+    and the vertex sum: the loss within 1e-5, the params and the master
+    weights within 1e-3, below a fifth of one update (lr 5e-3, then
+    1e-2, an element), and every leaf but routing_init moved by more
+    than that, so a missing or wrong update shows.  routing_init's
+    gradient is rounding noise on each device; Adam moves it by up to lr
+    a step in its own direction, the bound each device is held to."""
+    from torch.utils._pytree import tree_map
+
+    from repro_torch.train import AdamWConfig, TrainConfig, build_train_step, init_train_state
+    from repro_torch.train.checkpoint import _flatten_with_paths as by_path
+    from repro_torch.train.train_step import value_and_grad
+
+    mod = get_arch("mind")
+    cfg = dataclasses.replace(mod.make_config(reduced=True), bag_impl="pallas")
+    cpu_tree = mind.init_tree(generator(0, "cpu"), cfg)
+    wide = {**cpu_tree, "item_table": cpu_tree["item_table"] * 50,
+            "profile_table": cpu_tree["profile_table"] * 50}
+    batch = {k: torch.as_tensor(v) for k, v in mind_batch(0, 64, cfg, seed=2).items()}
+    card_batch = {k: v.to(dev) for k, v in batch.items()}
+    fn = value_and_grad(lambda p, b: mind.sampled_softmax_loss(p, b, cfg))
+    K.reset_launch_counts()
+    loss, grads = fn(tree_map(lambda t: t.to(dev), wide), card_batch)
+    torch.cuda.synchronize()
+    assert (K.launch_counts()["embedding_bag"], K.launch_counts()["spmm_ell"]) == (1, 1)
+    c_loss, c_grads = fn(wide, batch)
+    assert float(loss) == pytest.approx(float(c_loss), rel=1e-6)
+    got, want = by_path(grads), by_path(c_grads)
+    top = max(float(v.abs().max()) for v in want.values())
+    for k, w in want.items():
+        gap = float((got[k].cpu() - w).abs().max())
+        if k == "routing_init":
+            assert max(float(got[k].abs().max()), float(w.abs().max())) <= 1e-6 * top
+        else:
+            assert gap <= 2e-5 * float(w.abs().max()), (k, gap)
+    # the train_batch cell's step at this config (the reduced config's own
+    # bag_impl is the plain "ref")
+    tc = TrainConfig(adamw=AdamWConfig(lr=1e-2), warmup_steps=2, total_steps=10)
+    step = build_train_step(lambda p, b: mind.sampled_softmax_loss(p, b, cfg), tc,
+                            donate=True)
+    start = by_path(wide)
+    trees = {"card": tree_map(lambda t: t.to(dev), wide),
+             "cpu": tree_map(lambda t: t.clone(), wide)}
+    opts = {k: init_train_state(t, tc) for k, t in trees.items()}
+    lrs = []
+    for i in range(2):
+        losses = {}
+        for where, b in (("card", card_batch), ("cpu", batch)):
+            K.reset_launch_counts()
+            trees[where], opts[where], m = step(
+                trees[where], opts[where], b,
+                torch.tensor(i, dtype=torch.int32, device=b["hist"].device))
+            losses[where] = float(m["loss"])
+            lrs.append(float(m["lr"]))
+            if where == "card":
+                assert (K.launch_counts()["embedding_bag"], K.launch_counts()["spmm_ell"]) == \
+                    (1, 1)
+        assert losses["card"] == pytest.approx(losses["cpu"], rel=1e-5)
+    assert lrs == pytest.approx([5e-3, 5e-3, 1e-2, 1e-2], rel=1e-6)
+    moved = sum(lrs[::2]) * (1 + tc.adamw.weight_decay * (float(start["routing_init"].abs().max())
+                                                           + 1))
+    for card, cpu in ((trees["card"], trees["cpu"]), (opts["card"]["master"],
+                                                      opts["cpu"]["master"])):
+        card, cpu = by_path(card), by_path(cpu)
+        assert sorted(card) == sorted(cpu) == sorted(start)
+        for k, w in cpu.items():
+            if k == "routing_init":
+                for side in (card[k].cpu(), w):
+                    assert float((side - start[k]).abs().max()) <= moved, k
+                continue
+            torch.testing.assert_close(card[k].cpu(), w, rtol=0, atol=1e-3, msg=k)
+            assert float((w - start[k]).abs().max()) > 1e-2, k
+
+
 def bits_equal(a, b):
     """Bit for bit, NaN where NaN."""
     nan = torch.isnan(b)

@@ -34,11 +34,11 @@ def test_cli_all_writes_ok_records_without_a_graph_or_an_engine(tmp_path, monkey
     monkeypatch.setattr(engine, "_run", refuse)
     dryrun.main(["--all", "--ranks", "1", "4", "--out", str(tmp_path)])
     recs = [json.loads(p.read_text()) for p in sorted(tmp_path.glob("*.json"))]
-    assert len(recs) == 92 and all(r["ok"] for r in recs)
+    assert len(recs) == 94 and all(r["ok"] for r in recs)
     assert {(r["arch"], r["cell"]) for r in recs} == set(all_cells())
-    assert sorted(r["ranks"] for r in recs) == [1] * 46 + [4] * 46
+    assert sorted(r["ranks"] for r in recs) == [1] * 47 + [4] * 47
     out = capsys.readouterr().out
-    assert out.count("[dryrun]") == 92 and "dry-run complete: 46 cells" in out
+    assert out.count("[dryrun]") == 94 and "dry-run complete: 47 cells" in out
     for r in recs:
         assert r["arg_bytes"] > 0 and r["model_flops"] > 0
         if r["arch"] == "sssp":
