@@ -39,7 +39,8 @@ Phases (any failure exits non-zero):
      that sdpa ran (its backend), at the bf16 prefill shapes, the f32
      case c (the f32 kernel's key split), case d (the fp32 twin's
      prefill of phase 8) and case e (dbrx's prefill of phase 8b: Hq 48,
-     Hkv 8, 6 q heads a kv head) and the train steps' forwards of phase
+     Hkv 8, 6 q heads a kv head), case e' (a tp 2 rank's heads of
+     phi3.5-moe's prefill in phase 8d: Hq 16, Hkv 4) and the train steps' forwards of phase
      8c (b': bf16, B 1, H 32, S 4096, D 96; d': f32, S 2048, D 96); the
      bag also as a bare launch, alone under torch.profiler and its index
      check apart; the attention
@@ -63,6 +64,23 @@ Phases (any failure exits non-zero):
      choice) pairs a layer; then fp32 twins of 2 layers: the kernel route
      against plain attention, and decode against a teacher-forced prefill
      (plain attention) at a capacity that drops nothing
+ 8d. LM serving across ranks: phi3.5-moe at full width and 8b's 8 layers
+     (the weights of 8b's seed, each rank drawing every tensor and keeping
+     its block), 8b's prompt, across gloo processes sharing the card: (a)
+     tp 2, 32 decode steps; (b) dp 2 x tp 2, 2 (its FSDP gathers pass
+     through the host).  Against one process on each dp rank's rows (at
+     dp 1 phase 8b's run, bit for bit), fed its tokens: bf16 within the
+     bf16 check (5% of max |logit|) for every row whose token routed as
+     there (the same experts and kept pairs in every layer), at the
+     published capacity and at one that drops nothing; a bf16 rounding
+     flips routes, so each other row must owe its flip to a near tie (at
+     its first flip one process's router margin within 32 bf16 ulps);
+     an fp32 twin of 2
+     layers at the published capacity everywhere (1e-4, equal tokens
+     and routes); each rank's attention launches and dropped pairs a
+     layer against the per-dp-rank capacity rule; prefill s, ms/token,
+     peak memory and collectives a rank (gloo on one card stages through
+     the host: not scaling figures)
  8c. LM training, phi3-mini-3.8b in bf16 at full width, all 32 layers
      (the step's peak must leave 8 GiB of the card free), B 1 x S 4096
      from lm_batch: (c) the first loss through the kernels at 2 layers of
@@ -255,6 +273,27 @@ LM_F32_RTOL, LM_F32_ATOL = 2e-3, 5e-4   # the JAX package's decode test
 MLA_ARCH = "minicpm3-4b"
 MOE_ARCHS = (("phi3.5-moe-42b-a6.6b", 8), ("dbrx-132b", 4))
 MOE_F32_LAYERS = 2
+# LM serving across ranks (phase 8d): phi3.5-moe at 8b's depth across gloo
+# processes sharing the card, (label, ranks, tp, decode steps of the bf16
+# runs at the published capacity, at one that drops nothing, and of the
+# fp32 twin) a grid; the twin at MOE_F32_LAYERS against one process on
+# each dp rank's rows within SHARD_F32_TOL of max |logit|.  Grid (b)
+# all-gathers every layer's expert blocks over dp (FSDP, 630 MB a rank a
+# layer in bf16) at every step, through the host (gloo): 18.0 s a bf16
+# prefill and 10.8 s a decode step on one card (PERF.md), so its
+# published-capacity run prefills only (its drops and wall) and the
+# others decode 2 steps of 8b's 32
+SHARD_ARCH, SHARD_LAYERS = "phi3.5-moe-42b-a6.6b", 8
+SHARD_GRIDS = (("a", 2, 2, LM_DECODE, LM_DECODE, 8), ("b", 4, 2, 0, 2, 2))
+SHARD_F32_TOL = 1e-4
+# a bf16 row is excused from LM_BF16_TOL only when its token took other
+# experts than in one process, and only for a near tie: at the first MoE
+# layer where it did, one process's router margin between its k-th and
+# (k+1)-th probability within SHARD_FLIP_ULPS bf16 ulps of the k-th (the
+# excused rows' margins were at most 18.6 on an H100; a fault that moves
+# the hidden state flips tokens whatever their margin)
+SHARD_FLIP_ULPS = 32.0
+SHARD_TIMEOUT = 600.0
 # decode steps profiled a model: minicpm3's 62 layers launch some 6,000
 # ops a step, and the profiler's post-processing grows with them
 MLA_MOE_PROFILED_STEPS = 2
@@ -576,6 +615,8 @@ ATTN_CASES = (
     # its fp32 twin's
     ("b' phi3-mini train", 1, 32, 32, 4096, 4096, 96, "bfloat16", True),
     ("d' fp32 twin train", 1, 32, 32, 2048, 2048, 96, "float32", True),
+    # a tp 2 rank's heads of phi3.5-moe's prefill in phase 8d
+    ("e' phi3.5-moe prefill, a tp 2 rank", 4, 16, 4, 1920, 1920, 128, "bfloat16", True),
 )
 ATTN_BWD_CASES = (
     # label, B, Hq, Hkv, S, D, dtype name, causal
@@ -603,6 +644,8 @@ ATTN_ROWS = {
     "a minitron prefill": ("flash_attention", "src/repro_torch/csrc/flash_attention_sm90.cu"),
     "d fp32 twin prefill": ("flash_attention f32", "src/repro_torch/csrc/flash_attention.cu"),
     "e dbrx prefill": ("flash_attention dbrx", "src/repro_torch/csrc/flash_attention_sm90.cu"),
+    "e' phi3.5-moe prefill, a tp 2 rank": ("flash_attention tp rank",
+                                            "src/repro_torch/csrc/flash_attention_sm90.cu"),
 }
 
 
@@ -681,28 +724,53 @@ def library_kernels(fn) -> str:
     return "; ".join(sorted(name[:100] for name in names)) or "none recorded"
 
 
-def serving_kernels(dev, flush) -> tuple[dict, dict, dict]:
+def serving_kernels(dev, flush) -> tuple:
     """Phase 7: flash_attention and embedding_bag against their plain
     versions at the serving paths' shapes.  Returns their rows of the
     kernels line, attention's bf16 kernel at case (a), its f32 kernel at
-    case (d) and its bf16 kernel at dbrx's case (e) (launches filled in
-    by phases 8, 8b and 9)."""
+    case (d), its bf16 kernel at dbrx's case (e) and at a tp rank's
+    heads (e'), and the bag (launches filled in by phases 8, 8b, 8d and
+    9)."""
     import torch
-    import torch.nn.functional as F
 
-    from repro_torch import kernels as K
     from repro_torch.configs import get_arch
     from repro_torch.data import mind_batch
-    from repro_torch.roofline import BF16_OPS_PER_S, F32_OPS_PER_S, bound
-    from repro_torch.roofline.kernels import flash_attention_traffic
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
     def randn(shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
+    attn_rows = attention_cases(ATTN_CASES, randn, dev, flush)
+
+    # embedding_bag at MIND serve_bulk widths: the profile table and the
+    # profile ids as mind_batch makes them; its mask is all ones, so the
+    # weights here are f32 in [0, 1) with about a fifth of the slots 0
+    mcfg = get_arch("mind").make_config()
+    B = dict(MIND_SERVE)["serve_bulk"]
+    batch = mind_batch(0, B, mcfg, seed=SEED)
+    table = randn((mcfg.n_profile, mcfg.embed_dim), torch.float32) * 0.02
+    idx = torch.as_tensor(batch["profile_ids"], device=dev)
+    u = torch.rand(idx.shape, generator=gen, device=dev)
+    w = torch.where(u > 0.2, torch.rand(idx.shape, generator=gen, device=dev), 0.0)
+    bag_row = bag_check("serve_bulk", table, idx, w, flush)
+    return *(attn_rows[label] for label in ATTN_ROWS), bag_row
+
+
+def attention_cases(cases, randn, dev, flush) -> dict:
+    """flash_attention against its plain version at each of ``cases``
+    (ATTN_CASES' layout; inputs from ``randn(shape, dtype)``), timed
+    beside sdpa; returns the rows of the kernels line of the cases in
+    ATTN_ROWS, by label."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch import kernels as K
+    from repro_torch.roofline import BF16_OPS_PER_S, F32_OPS_PER_S, bound
+    from repro_torch.roofline.kernels import flash_attention_traffic
+
     attn_rows = {}
-    for label, B, Hq, Hkv, Sq, Sk, D, dtype_name, causal in ATTN_CASES:
+    for label, B, Hq, Hkv, Sq, Sk, D, dtype_name, causal in cases:
         dtype = getattr(torch, dtype_name)
         q = randn((B, Hq, Sq, D), dtype)
         k, v = randn((B, Hkv, Sk, D), dtype), randn((B, Hkv, Sk, D), dtype)
@@ -760,19 +828,7 @@ def serving_kernels(dev, flush) -> tuple[dict, dict, dict]:
                 launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
         del q, k, v, out, ref
-
-    # embedding_bag at MIND serve_bulk widths: the profile table and the
-    # profile ids as mind_batch makes them; its mask is all ones, so the
-    # weights here are f32 in [0, 1) with about a fifth of the slots 0
-    mcfg = get_arch("mind").make_config()
-    B = dict(MIND_SERVE)["serve_bulk"]
-    batch = mind_batch(0, B, mcfg, seed=SEED)
-    table = randn((mcfg.n_profile, mcfg.embed_dim), torch.float32) * 0.02
-    idx = torch.as_tensor(batch["profile_ids"], device=dev)
-    u = torch.rand(idx.shape, generator=gen, device=dev)
-    w = torch.where(u > 0.2, torch.rand(idx.shape, generator=gen, device=dev), 0.0)
-    bag_row = bag_check("serve_bulk", table, idx, w, flush)
-    return *(attn_rows[label] for label in ATTN_ROWS), bag_row
+    return attn_rows
 
 
 def bag_check(label, table, idx, w, flush) -> dict:
@@ -1120,12 +1176,14 @@ def free_card() -> None:
     torch.cuda.empty_cache()
 
 
-def serve_bf16(cfg, toks, dev, label: str) -> int:
+def serve_bf16(cfg, toks, dev, label: str, keep: dict | None = None) -> int:
     """Phase 8b's bf16 run of one model: prefill of phase 8's prompt and
     LM_DECODE greedy steps, timed; a warm prefill (its MoE drops
     counted a layer), then a profiled prefill and MLA_MOE_PROFILED_STEPS
     profiled decode steps.  Returns the flash_attention launches of the
-    first prefill."""
+    first prefill.  ``keep`` gets the prompt, the first prefill's logits,
+    each decode step's logits and the tokens fed to it, on the host
+    (phase 8d's reference)."""
     import torch
 
     from repro_torch import kernels as K
@@ -1148,12 +1206,22 @@ def serve_bf16(cfg, toks, dev, label: str) -> int:
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     launches = K.launch_counts()["flash_attention"]
+    kept = [] if keep is None else [logits.clone()]
+    fed = []
     t0 = time.perf_counter()
     for step in range(LM_DECODE):
         nxt = logits.argmax(-1).to(torch.int32)
         logits, cache = lm.decode_step(model, cache, nxt, S + step, cfg)
+        if keep is not None:
+            fed.append(nxt)
+            kept.append(logits.clone())
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
+    if keep is not None:
+        keep.update(prompt=toks.cpu().numpy(), prefill=kept[0].cpu().numpy(),
+                    steps=[t.cpu().numpy() for t in kept[1:]],
+                    tokens=torch.stack(fed).cpu().numpy())
+    del kept, fed
     if not bool(torch.isfinite(logits).all()) or logits.shape != (B, cfg.vocab):
         fail(f"{label}: decode logits are not finite of shape {(B, cfg.vocab)}")
     peak = torch.cuda.max_memory_allocated()
@@ -1188,12 +1256,12 @@ def serve_bf16(cfg, toks, dev, label: str) -> int:
     return launches
 
 
-def mla_moe_serving(dev) -> tuple[int, int]:
+def mla_moe_serving(dev) -> tuple[int, int, dict]:
     """Phase 8b: minicpm3-4b whole, phi3.5-moe and dbrx at published
     widths and the depth one card holds, each in bf16 and then as an
     fp32 twin held against a teacher-forced prefill.  Returns the
     flash_attention launches of phi3.5-moe's bf16 prefill (phase 8's
-    shape) and of dbrx's."""
+    shape) and of dbrx's, and phi3.5-moe's run kept for phase 8d."""
     import dataclasses
 
     import torch
@@ -1227,6 +1295,7 @@ def mla_moe_serving(dev) -> tuple[int, int]:
     toks = torch.as_tensor(
         lm_batch(0, LM_BATCH, LM_PROMPT, get_arch(MLA_ARCH).make_config().vocab,
                  seed=SEED)["tokens"], device=dev)
+    shard_ref: dict = {}
 
     # (a) minicpm3-4b, 62 layers: its prefill attends by the plain
     # blockwise path (MLA's q/k and v head dims differ)
@@ -1253,7 +1322,8 @@ def mla_moe_serving(dev) -> tuple[int, int]:
         toks_a = torch.as_tensor(
             lm_batch(0, LM_BATCH, LM_PROMPT, full.vocab, seed=SEED)["tokens"], device=dev)
         cfg = dataclasses.replace(full, n_layers=layers)
-        n = serve_bf16(cfg, toks_a, dev, f"{arch} ({layers} layers)")
+        n = serve_bf16(cfg, toks_a, dev, f"{arch} ({layers} layers)",
+                       keep=shard_ref if arch == SHARD_ARCH else None)
         if n != layers:
             fail(f"{arch}: the prefill launched flash_attention {n} times, not "
                  f"once a layer ({layers})")
@@ -1304,7 +1374,306 @@ def mla_moe_serving(dev) -> tuple[int, int]:
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         del model, kernel_logits, plain_logits
         free_card()
-    return launches[0], launches[1]
+    return launches[0], launches[1], shard_ref
+
+
+def shard_drops(routes: list, tp: int, tp_rank: int, n_experts: int) -> list:
+    """Each MoE route's dropped pairs: (all, the rank's own experts'),
+    after checking them against the per-dp-rank rule, sum over experts
+    of max(0, pairs - C) from the rank's own tokens."""
+    import numpy as np
+
+    out = []
+    for r in routes:
+        counts = np.bincount(r["idx"].reshape(-1), minlength=n_experts)
+        over = np.maximum(counts - r["C"], 0)
+        dropped = int((~r["keep"]).sum())
+        if dropped != int(over.sum()):
+            fail(f"phase 8d: {dropped} dropped pairs where the capacity {r['C']} drops "
+                 f"{int(over.sum())}")
+        el = n_experts // tp
+        out.append((dropped, int(over[tp_rank * el:(tp_rank + 1) * el].sum())))
+    return out
+
+
+def one_process_runs(cfg, toks, row_sets, steps: int, dev) -> dict:
+    """Phase 8d's references: one process's prefill of each row set of
+    ``toks`` alone and ``steps`` greedy decode steps, on the host by
+    (first row, last row + 1): the prefill's and each step's logits and
+    MoE routes, and the greedy tokens (each fed to the next step)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.lm_shard import recorded_routes
+    from repro_torch.models import lm
+
+    model = lm.init_params(torch.Generator(device=dev).manual_seed(SEED), cfg)
+    out = {}
+    for lo, hi in row_sets:
+        with recorded_routes() as routes:
+            cache, logits = lm.prefill_step(model, torch.as_tensor(toks[lo:hi], device=dev),
+                                            cfg, LM_MAX_LEN)
+        got = dict(prefill=logits.cpu().numpy(), prefill_routes=routes, steps=[],
+                   step_routes=[], tokens=[])
+        for step in range(steps):
+            nxt = lm.greedy_tokens(logits)
+            got["tokens"].append(nxt.cpu().numpy())
+            with recorded_routes() as routes:
+                logits, cache = lm.decode_step(model, cache, nxt, toks.shape[1] + step, cfg)
+            got["steps"].append(logits.cpu().numpy())
+            got["step_routes"].append(routes)
+        got["tokens"] = np.stack(got["tokens"])
+        out[(lo, hi)] = got
+    del model, cache, logits
+    free_card()
+    return out
+
+
+def dp_row_sets(B: int, topo) -> list:
+    """The (first, last + 1) rows of each dp rank of ``topo``."""
+    from repro_torch.models import lm
+
+    if not lm.batch_rows(B, topo)[1]:
+        return [(0, B)]
+    n = B // topo.dp_size
+    return [(i * n, (i + 1) * n) for i in range(topo.dp_size)]
+
+
+def last_token_route(rec: dict, rows: int) -> tuple:
+    """One MoE route's experts and kept flags (rows, k) of each row's
+    last token, in ascending expert order: the order of the combine, so
+    two near-equal gates that trade places change nothing."""
+    import numpy as np
+
+    k = rec["idx"].shape[-1]
+    idx, keep = (rec[key].reshape(rows, -1, k)[:, -1] for key in ("idx", "keep"))
+    order = np.argsort(idx, axis=1)
+    return np.take_along_axis(idx, order, 1), np.take_along_axis(keep, order, 1)
+
+
+def routed_alike(a: list, b: list, rows: int):
+    """Per row of one call's batch, whether the token whose logits the
+    call returns (a row's last) took the same experts and kept the same
+    pairs in every MoE layer in two runs' routes."""
+    import numpy as np
+
+    same = np.ones(rows, dtype=bool)
+    for x, y in zip(a, b, strict=True):
+        (ix, kx), (iy, ky) = last_token_route(x, rows), last_token_route(y, rows)
+        same &= (ix == iy).all(axis=1) & (kx == ky).all(axis=1)
+    return same
+
+
+def first_flips(a: list, b: list, rows: int) -> list:
+    """For each row whose token (a row's last) routed otherwise in two
+    runs' routes of one call (a: the sharded rank's, b: one process's):
+    (row, the first MoE layer where it did, "experts" or "kept", and the
+    router's margin there between its k-th and (k+1)-th probability in
+    one process and in the sharded run, in bf16 ulps of the k-th: (p_k -
+    p_k+1) / (p_k 2^-8))."""
+    import numpy as np
+
+    out, seen = [], np.zeros(rows, dtype=bool)
+    for layer, (x, y) in enumerate(zip(a, b, strict=True)):
+        k = x["idx"].shape[-1]
+        (ix, kx), (iy, ky) = last_token_route(x, rows), last_token_route(y, rows)
+        experts = (ix != iy).any(axis=1)
+        kept = (kx != ky).any(axis=1)
+        tops = [t["top"].reshape(rows, -1, k + 1)[:, -1] for t in (y, x)]
+        for row in np.flatnonzero((experts | kept) & ~seen):
+            margins = [float((t[row, k - 1] - t[row, k]) / (t[row, k - 1] * 2.0 ** -8))
+                       for t in tops]
+            out.append((int(row), layer, "experts" if experts[row] else "kept", *margins))
+        seen |= experts | kept
+    return out
+
+
+def held_to(got_prefill, got_steps, ranks: list, refs: dict):
+    """A sharded run's logits (its whole batch) against the one-process
+    runs of its row sets: each row's gap in the prefill and in each step
+    as a share of its set's max |prefill logit|, (calls, B), whether
+    that row's token routed as in the one process (tp rank 0 of the
+    set's dp rank), and each row that did not: (call, row, its
+    :func:`first_flips` entry)."""
+    import numpy as np
+
+    calls = [got_prefill] + list(got_steps)
+    gaps = np.zeros((len(calls), got_prefill.shape[0]))
+    alike = np.zeros(gaps.shape, dtype=bool)
+    flips = []
+    for i, ((lo, hi), want) in enumerate(sorted(refs.items())):
+        r = next(r for r in ranks
+                 if r["coords"]["data"] == i and r["coords"].get("model", 0) == 0)
+        scale = float(np.abs(want["prefill"]).max())
+        for c, (got, w, rg, rw) in enumerate(zip(
+                calls, [want["prefill"]] + want["steps"],
+                [r["prefill_routes"]] + r["step_routes"],
+                [want["prefill_routes"]] + want["step_routes"], strict=True)):
+            gaps[c, lo:hi] = np.abs(got[lo:hi] - w).max(axis=-1) / scale
+            alike[c, lo:hi] = routed_alike(rg, rw, hi - lo)
+            flips += [(c, lo + row, *rest) for row, *rest in first_flips(rg, rw, hi - lo)]
+    return gaps, alike, flips
+
+
+def sharded_serving(dev, ref: dict, card_line: str) -> int:
+    """Phase 8d: phi3.5-moe at full width and SHARD_LAYERS layers across
+    gloo processes sharing the card, each grid of SHARD_GRIDS, a bf16
+    run, the same at a capacity that drops nothing, and the fp32 twin,
+    each against one process on each dp rank's rows (a MoE layer's
+    capacity is its dp rank's token count, so at dp 2 the rows run in
+    pairs; at dp 1 that process is phase 8b's run, ``ref``, bit for bit),
+    the bf16 runs fed the one process's tokens, the twin greedy.  A bf16
+    rounding can flip a token's top-2 experts (or, at the published
+    capacity, which pairs drop) and move its logits by far more than the
+    rounding: bf16 logits are held where the row's token routed as one
+    process's did, each other row only where its first flip was a near
+    tie (SHARD_FLIP_ULPS), the twin everywhere; one process on the whole batch must
+    repeat phase 8b's bits.  Returns rank 0's
+    flash_attention launches in grid (a)'s prefill."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import lm_shard
+    from repro_torch.launch.mesh import make_cpu_topology
+    from repro_torch.models import lm
+    from repro_torch.models.convert import unshard_tree
+
+    full = get_arch(SHARD_ARCH).make_config()
+    toks = ref["prompt"]
+    B = toks.shape[0]
+    over = {"n_layers": SHARD_LAYERS}
+    # a capacity that drops nothing (C = N): the routes' ties and drops
+    # then turn on no bf16 rounding
+    nodrop = {**over, "moe": {"capacity_factor": full.moe.n_experts / full.moe.top_k}}
+    over32 = {"n_layers": MOE_F32_LAYERS, "param_dtype": "float32"}
+    toks32 = toks[:LM_F32_BATCH]
+    grids = [(label, make_cpu_topology(world, tp), steps)
+             for label, world, tp, *steps in SHARD_GRIDS]
+
+    def cut(run: dict, n: int) -> dict:
+        """A reference run's first n decode steps."""
+        return {**run, "steps": run["steps"][:n], "step_routes": run["step_routes"][:n],
+                "tokens": run["tokens"][:n]}
+
+    # the one-process references of every grid's dp ranks
+    t0 = time.perf_counter()
+    sets = sorted({rs for _, topo, *_ in grids for rs in dp_row_sets(B, topo)} | {(0, B)})
+    refs = one_process_runs(lm_shard.job_config(dict(arch=SHARD_ARCH, over=over)), toks,
+                            sets, LM_DECODE, dev)
+    same = (np.array_equal(refs[(0, B)]["prefill"], ref["prefill"])
+            and all(np.array_equal(a, b) for a, b in zip(refs[(0, B)]["steps"], ref["steps"])))
+    log(f"phase 8d: one process on the whole batch repeats phase 8b's logits bit for bit: "
+        f"{same}")
+    if not same:
+        fail("phase 8d: one process on the whole batch does not repeat phase 8b's logits "
+             "bit for bit")
+    refs_nd = one_process_runs(lm_shard.job_config(dict(arch=SHARD_ARCH, over=nodrop)), toks,
+                               sets, LM_DECODE, dev)
+    sets32 = sorted({rs for _, topo, *_ in grids for rs in dp_row_sets(LM_F32_BATCH, topo)})
+    refs32 = one_process_runs(lm_shard.job_config(dict(arch=SHARD_ARCH, over=over32)), toks32,
+                              sets32, max(g[2][2] for g in grids), dev)
+    log(f"phase 8d: one process on each grid's dp rows, bf16 rows {sets} (at the published "
+        f"capacity and at one that drops nothing) and fp32 twin rows {sets32}: "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    launches0 = None
+    for label, topo, (steps, steps_nd, steps32) in grids:
+        world, tp = topo.n_devices, topo.tp_size
+        rows = dp_row_sets(B, topo)
+        mine = {rs: cut(refs[rs], steps) for rs in rows}
+        mine_nd = {rs: cut(refs_nd[rs], steps_nd) for rs in rows}
+        mine32 = {rs: cut(refs32[rs], steps32) for rs in dp_row_sets(LM_F32_BATCH, topo)}
+
+        def fed(refs_of):
+            return np.concatenate([refs_of[rs]["tokens"] for rs in rows], axis=1)
+
+        jobs = [dict(arch=SHARD_ARCH, over=over, tp=tp, tokens=toks, max_len=LM_MAX_LEN,
+                     steps=steps, forced=fed(mine), seed=SEED, routes=True),
+                dict(arch=SHARD_ARCH, over=nodrop, tp=tp, tokens=toks, max_len=LM_MAX_LEN,
+                     steps=steps_nd, forced=fed(mine_nd), seed=SEED, routes=True),
+                dict(arch=SHARD_ARCH, over=over32, tp=tp, tokens=toks32, max_len=LM_MAX_LEN,
+                     steps=steps32, seed=SEED, routes=True)]
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            res = lm_shard.run_world(world, jobs, tmp, backend="gloo", device="cuda",
+                                     timeout=SHARD_TIMEOUT)
+        name = f"({label}) {world} ranks, dp {topo.dp_size} x tp {tp}"
+        log(f"phase 8d {name}: the ranks ran in {time.perf_counter() - t0:.1f} s "
+            f"(processes started, models drawn, both jobs)")
+        for r, nd in ((r[0], r[1]) for r in res):
+            n_attn = r["prefill_launches"]["flash_attention"]
+            drops = shard_drops(r["prefill_routes"], tp, r["coords"].get("model", 0),
+                                full.moe.n_experts)
+            log(f"phase 8d {name} rank {r['rank']} {r['coords']}: bf16 prefill "
+                f"{r['prefill_s']:.3f} s; {steps_nd} decode steps (the no-drop run; a step "
+                f"drops nothing at either capacity) {nd['decode_s']:.3f} s = "
+                f"{nd['decode_s'] / steps_nd * 1e3:.2f} ms/token; peak memory "
+                f"{r.get('peak_bytes', 0) / 2**30:.2f} GiB; model drawn in {r['init_s']:.2f} s; "
+                f"flash_attention launches in the prefill {n_attn}; dropped pairs a layer "
+                f"(all, the rank's experts) {drops} at capacity {r['prefill_routes'][0]['C']}; "
+                f"collectives a prefill {r['prefill_counts']}, a decode step "
+                f"{nd['step_counts'][-1]} (gloo stages a card's tensors through the host: "
+                f"not scaling figures)")
+            if n_attn != SHARD_LAYERS:
+                fail(f"phase 8d {name}: rank {r['rank']} launched flash_attention {n_attn} "
+                     f"times in the prefill, not once a layer ({SHARD_LAYERS})")
+        faults = []
+        for job, (B_job, n_steps, want, tol, what) in enumerate((
+                (B, steps, mine, LM_BF16_TOL, "bf16 at the published capacity"),
+                (B, steps_nd, mine_nd, LM_BF16_TOL, "bf16 at a capacity that drops nothing"),
+                (LM_F32_BATCH, steps32, mine32, SHARD_F32_TOL, "fp32 twin"))):
+            runs = [r[job] for r in res]
+            lspec = topo.spec("dp" if lm.batch_rows(B_job, topo)[1] else None, "tp")
+            prefill = unshard_tree([r["prefill_logits"] for r in runs], lspec, topo)
+            steps_got = [unshard_tree([r["step_logits"][s] for r in runs], lspec, topo)
+                         for s in range(n_steps)]
+            if not all(np.isfinite(x).all() for x in [prefill] + steps_got):
+                fail(f"phase 8d {name}: {what} logits are not finite")
+            gaps, alike, flips = held_to(prefill, steps_got, runs, want)
+            agree = float(np.mean([np.array_equal(runs[0]["tokens"][:, lo:hi], w["tokens"])
+                                   for (lo, hi), w in want.items()]))
+            held = float(gaps[alike].max()) if alike.any() else 0.0
+            log(f"phase 8d {name}: {what} logits against one process on each dp rank's "
+                f"rows {sorted(want)}, a row's gap as a share of max |logit| (bound {tol} "
+                f"where the row's token routed alike in every layer): routed alike in "
+                f"{int(alike.sum())} of {alike.size} (row, call) pairs, the worst of them "
+                f"{held:.4g}, of all {float(gaps.max()):.4g}; prefill rows "
+                f"{[round(float(g), 5) for g in gaps[0]]}, each step's worst "
+                f"{[round(float(g), 5) for g in gaps[1:].max(axis=1)]}; greedy tokens equal "
+                f"on {agree:.3f} of the row sets"
+                + (" (the reference's fed)" if job < 2 else ""))
+            if flips:
+                by_experts = [f for f in flips if f[3] == "experts"]
+                ulps = np.array([f[4] for f in by_experts])
+                log(f"phase 8d {name}: {what}: the (row, call) pairs that did not route "
+                    f"alike, at the first MoE layer where each did not: {len(by_experts)} "
+                    f"took other experts, the one process's router margin there between "
+                    f"its k-th and (k+1)-th probability "
+                    + (f"{float(ulps.min()):.3g}-{float(ulps.max()):.3g} (median "
+                       f"{float(np.median(ulps)):.3g}) bf16 ulps of the k-th"
+                       if by_experts else "-")
+                    + f"; {len(flips) - len(by_experts)} kept other pairs (an earlier "
+                    f"token's other route took their capacity); each (call, row, layer, "
+                    f"what, margin in one process, margin across ranks): "
+                    f"{[(c, r, l, w, round(m0, 2), round(m1, 2)) for c, r, l, w, m0, m1 in flips]}")
+            if held > tol:
+                faults.append(f"{what} logits differ from one process by {held:.4g} of max "
+                              f"|logit| where the rows routed alike")
+            wide = [f for f in flips if f[3] == "experts" and f[4] > SHARD_FLIP_ULPS]
+            if wide:
+                faults.append(f"{what}: {len(wide)} rows took other experts than one "
+                              f"process's where its router margin exceeds "
+                              f"{SHARD_FLIP_ULPS} bf16 ulps: {wide}")
+            if job == 1 and alike.mean() < 0.5:
+                faults.append(f"{what}: fewer than half the (row, call) pairs routed alike")
+            if job == 2 and (agree < 1.0 or not alike.all() or float(gaps.max()) > tol):
+                faults.append("the fp32 twin's logits, greedy tokens or routes differ from "
+                              "one process's")
+        if faults:
+            fail(f"phase 8d {name}: " + "; ".join(faults))
+        if launches0 is None:
+            launches0 = res[0][0]["prefill_launches"]["flash_attention"]
+    return launches0
 
 
 def route_gaps(params, batch, cfg, check: str) -> tuple[float, dict]:
@@ -4896,10 +5265,10 @@ def main() -> None:
         "checks compute in full f32")
     t0 = time.perf_counter()
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    attn_row, attn32_row, attn_dbrx_row, bag_row = serving_kernels(dev, flush)
+    attn_row, attn32_row, attn_dbrx_row, attn_tp_row, bag_row = serving_kernels(dev, flush)
     bwd_row, bwd32_row = attention_bwd_kernels(dev, flush)
     del flush
-    rows += [attn_row, attn32_row, attn_dbrx_row, bwd_row, bwd32_row, bag_row]
+    rows += [attn_row, attn32_row, attn_dbrx_row, attn_tp_row, bwd_row, bwd32_row, bag_row]
     log(f"phase 7 took {time.perf_counter() - t0:.1f} s")
 
     # ---- 8. LM serving, minitron-8b at full width ---------------------
@@ -4909,9 +5278,15 @@ def main() -> None:
 
     # ---- 8b. MLA and MoE serving: minicpm3, phi3.5-moe, dbrx -----------
     t0 = time.perf_counter()
-    phi_launches, attn_dbrx_row["launches"] = mla_moe_serving(dev)
+    phi_launches, attn_dbrx_row["launches"], shard_ref = mla_moe_serving(dev)
     attn_row["launches"] += phi_launches
     log(f"phase 8b took {time.perf_counter() - t0:.1f} s")
+
+    # ---- 8d. LM serving across ranks: phi3.5-moe, tp 2 and dp 2 x tp 2 --
+    t0 = time.perf_counter()
+    attn_tp_row["launches"] = sharded_serving(dev, shard_ref, card_line)
+    del shard_ref
+    log(f"phase 8d took {time.perf_counter() - t0:.1f} s")
 
     # ---- 8c. LM training, phi3-mini-3.8b at full width ------------------
     t0 = time.perf_counter()

@@ -17,10 +17,17 @@ unrolled probes only to correct XLA's cost analysis, which counts a
 scanned layer once; the port neither scans nor compiles, so it has no
 counterpart.
 
-The port shards no model over cards (``ROADMAP.md`` Queue 1 item 5.6):
-an LM, MIND or GNN plan's arguments are the whole model and batch,
-whatever its rank count.  An SSSP plan's arguments are stacked over its
-ranks, one row of each a rank.  A GNN or LM train plan
+An LM plan at P ranks is laid out on a ``dp x tp`` grid
+(``launch/mesh.py::lm_grid``: tp = min(P, 16), dp = P / tp, the JAX
+package's 16 x 16 production mesh at 256) by the JAX package's specs:
+``lm.param_specs`` for the params (and for a train plan's AdamW
+moments and master copy, as the reference's ``optimizer.state_specs``),
+``lm.cache_specs`` for a decode plan's cache, the batch over ``dp``;
+its ``specs`` and ``grid`` give each argument's block a card.  A MIND
+or GNN plan's arguments are the whole model and batch on every card,
+whatever its rank count (their sharding is ``ROADMAP.md`` Queue 1
+5.6b).  An SSSP plan's arguments are stacked over its ranks, one row of
+each a rank.  A GNN or LM train plan
 (:func:`gnn_train_cell`, :func:`lm_train_cell`) also carries its train
 step as ``fn``, which runs on real tensors of the arguments' shapes;
 so does MIND's train cell (:func:`mind_cell`).
@@ -29,13 +36,16 @@ so does MIND's train cell (:func:`mind_cell`).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Optional
 
 import torch
 from torch.utils._pytree import tree_leaves, tree_map
 
 from repro_torch.api.config import SolverConfig
+from repro_torch.launch.mesh import lm_grid
 from repro_torch.models import lm as lm_mod
+from repro_torch.models.common import Topology, shard_shape
 from repro_torch.models.mind import MINDConfig, sampled_softmax_loss
 from repro_torch.train import TrainConfig, build_train_step, init_state
 
@@ -56,11 +66,38 @@ class CellPlan:
     # train only: the step (params, opt_state, batch, step) -> (params,
     # opt_state, metrics), for tensors of the arguments' shapes
     fn: Optional[Callable] = None
+    # LM only: the grid of ranks, and a spec an argument (the args' tree
+    # with a spec tuple at each tensor) laying it out on the grid
+    grid: Optional[Topology] = None
+    specs: Optional[tuple] = None
 
     @property
     def arg_bytes(self) -> int:
         """Bytes of every argument, exact from the shapes and dtypes."""
         return sum(t.numel() * t.element_size() for t in tree_leaves(self.args))
+
+    @property
+    def arg_bytes_per_card(self) -> int:
+        """Bytes of the arguments a card holds, one rank a card: each
+        argument's block by its spec (an uneven split as XLA pads it);
+        an SSSP plan's stacked rows split over its ranks; the whole of
+        the others'."""
+        if self.specs is not None:
+            return sum(math.prod(shard_shape(t.shape, spec, self.grid)) * t.element_size()
+                       for t, spec in spec_leaves(self.args, self.specs))
+        if self.kind == "sssp":
+            return self.arg_bytes // self.ranks
+        return self.arg_bytes
+
+
+def spec_leaves(args, specs) -> list:
+    """(tensor, spec) pairs of an argument tree and its spec tree, walked
+    by the arguments' structure (a spec is itself a tuple)."""
+    if isinstance(args, torch.Tensor):
+        return [(args, specs)]
+    if isinstance(args, dict):
+        return [pair for k in args for pair in spec_leaves(args[k], specs[k])]
+    return [pair for a, sp in zip(args, specs) for pair in spec_leaves(a, sp)]
 
 
 def meta(shape, dtype) -> torch.Tensor:
@@ -123,38 +160,53 @@ def lm_train_cell(arch: str, cell: str, cfg: lm_mod.LMConfig, ranks: int,
     """The JAX package's ``lm_train_cell``: (params, AdamW state, batch
     {'tokens', 'labels'}, step) as meta tensors, and its step,
     ``build_train_step(lm_loss)`` at ``TrainConfig()``, which updates the
-    params and state in place (the reference donates them)."""
+    params and state in place (the reference donates them).  The step
+    runs on one card (training across ranks is ROADMAP 5.6b); the plan's
+    specs lay the arguments out as the reference's cell does."""
     tc = TrainConfig()
     params = lm_param_shapes(cfg)
     batch = {"tokens": meta((B, S), torch.int32), "labels": meta((B, S), torch.int32)}
+    grid = lm_grid(ranks)
+    pspecs = lm_mod.param_specs(cfg, grid)
+    state = init_state(params, tc.adamw)
+    sspecs = {k: (() if k == "step" else pspecs) for k in state}
+    bspecs = {k: grid.spec("dp", None) for k in batch}
     return CellPlan(
         arch=arch, cell=cell, kind="train",
-        args=(params, init_state(params, tc.adamw), batch, meta((), torch.int32)),
+        args=(params, state, batch, meta((), torch.int32)),
         model_flops=lm_flops_train(cfg, B, S),
         notes=f"B={B} S={S} params={cfg.n_params() / 1e9:.1f}B", ranks=ranks,
         fn=build_train_step(lambda p, b: lm_mod.lm_loss(p, b, cfg), tc, donate=True),
+        grid=grid, specs=(pspecs, sspecs, bspecs, ()),
     )
 
 
 def lm_prefill_cell(arch: str, cell: str, cfg: lm_mod.LMConfig, ranks: int,
                     B: int, S: int) -> CellPlan:
+    grid = lm_grid(ranks)
     return CellPlan(
         arch=arch, cell=cell, kind="prefill",
         args=(lm_param_shapes(cfg), meta((B, S), torch.int32)),
         model_flops=lm_flops_prefill(cfg, B, S),
         notes=f"B={B} S={S}", ranks=ranks,
+        grid=grid, specs=(lm_mod.param_specs(cfg, grid), grid.spec("dp", None)),
     )
 
 
 def lm_decode_cell(arch: str, cell: str, cfg: lm_mod.LMConfig, ranks: int,
                    B: int, S_ctx: int, long: bool) -> CellPlan:
+    """The cache laid out by ``lm.cache_specs``; the tokens over dp, or
+    whole in the long layout (B 1)."""
+    grid = lm_grid(ranks)
     return CellPlan(
         arch=arch, cell=cell, kind="decode",
         args=(lm_param_shapes(cfg), lm_mod.cache_shapes(cfg, B, S_ctx),
               meta((B,), torch.int32), meta((), torch.int32)),
         model_flops=lm_flops_decode(cfg, B, S_ctx),
         notes=f"B={B} S_ctx={S_ctx}" + (" SP-decode" if long else ""),
-        ranks=ranks,
+        ranks=ranks, grid=grid,
+        specs=(lm_mod.param_specs(cfg, grid), lm_mod.cache_specs(cfg, grid, long=long),
+               () if long else grid.spec("dp"), ()),
     )
 
 

@@ -77,9 +77,16 @@
 //   product with f32 sums; the dropped lo_a lo_b is about 2^-22 of the
 //   product, near f32's own rounding.  mma.sync and not wgmma: wgmma
 //   takes TF32 B operands K-major only, and dV = P^T dO, dK = dS^T Q and
-//   dQ = dS K read dO, Q and K MN-major from their row-major tiles.  Two
-//   passes, as bf16, S and dP recomputed in each (14 D a pair, 3 TF32
-//   terms each), 8 warps a block, 16 rows a warp:
+//   dQ = dS K read dO, Q and K MN-major from their row-major tiles.  S =
+//   Q K^T alone runs on the CUDA cores, in f32 FMAs (scores_fma): the
+//   tensor cores round each product's sum toward zero, and P = exp(S
+//   scale - lse) against the forward's f32 lse carried that error into
+//   every gradient; a card test's one AdamW step, whose update g / (|g|
+//   + eps) turns on the sign of a gradient below Adam's eps, flipped a
+//   weight of wv by it.  dP in FMAs did not move that gradient, S in
+//   FMAs did (scripts/attn_probe.py --precision; PERF.md).  Two passes, as bf16,
+//   S and dP recomputed in each (14 D a pair, 3 TF32 terms each but S's
+//   FMAs), 8 warps a block, 16 rows a warp:
 //   - attention_dkdv_tf32_kernel: one block a (b, kv head, 128-key
 //     tile), earliest keys first.  It holds K and V and streams the Q
 //     and dO tiles of kStep rows (with their lse and delta) of the q
@@ -97,7 +104,8 @@
 //   into the A fragments without leaving registers.  Streamed tiles
 //   arrive by 16-byte cp.async in a ring of kTfStages stages, the next
 //   step's copy running under this step's products; once landed, the
-//   block splits them in one pass (hi in place, lo beside), so each of
+//   block splits them in one pass (hi and lo beside them, the tile kept
+//   for S's FMAs), so each of
 //   the 8 warps that reads them as B fragments loads hi and lo instead
 //   of splitting every element again (on an H100 that took case i of
 //   PERF.md from about 2.0 ms to 1.7).  The scores' fragments come by
@@ -112,9 +120,10 @@
 //   apart (4 banks), so every fragment load of a warp (8 rows x 4
 //   columns, or 4 row pairs x 8 columns) touches 32 distinct banks.
 //   kStep is 32 rows at D 64 and 96 and 16 at D 128: a block holds two
-//   (128, D) tiles, two stages of two (kStep, D) tiles and their lo
-//   terms, 179,712 bytes of shared memory at D 96 and 186,112 at D 128
-//   (32 rows would take 237,056, past the 232,448 a block may have).  So
+//   (128, D) tiles, two stages of two (kStep, D) tiles and their hi and
+//   lo terms, 205,312 bytes of shared memory at D 96 and 203,008 at D
+//   128 (32 rows would take 270,848, past the 232,448 a block may
+//   have).  So
 //   one block an SM, 8 warps: a warp holds its 16 rows' dK and dV (or
 //   dQ) in registers, D/2 (D/4) floats a thread, beside S, dP, the
 //   step's parts and the fragments, up to 255 registers a thread at D 96
@@ -166,9 +175,10 @@ struct TfTiles {
   static constexpr int kStream = kStep * kLd;     // a streamed (kStep, D) tile
   // a stage: two streamed tiles, then (dK/dV) their rows' lse and delta
   static constexpr int kStage = 2 * kStream + 2 * kStep;
-  // two held tiles, the ring, the lo terms of the current step's tiles
+  // two held tiles, the ring, the hi and lo terms of the current
+  // step's two streamed tiles
   static constexpr int kSmem =
-      static_cast<int>(sizeof(float)) * (2 * kHeld + kTfStages * kStage + 2 * kStream);
+      static_cast<int>(sizeof(float)) * (2 * kHeld + kTfStages * kStage + 4 * kStream);
 };
 
 __device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
@@ -213,10 +223,11 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) 
   lo = tf32_rna(x - __uint_as_float(hi));
 }
 
-// ROWS rows of D floats at s (row stride D + 4): each x as hi in place
-// and lo at the same offset from lo, a float4 a thread at a time.
+// ROWS rows of D floats at s (row stride D + 4), left as they are: each
+// x as hi and lo at the same offset from hi and lo, a float4 a thread
+// at a time.
 template <int D, int ROWS>
-__device__ __forceinline__ void split_rows(float* s, float* lo, int tid) {
+__device__ __forceinline__ void split_rows(const float* s, float* hi, float* lo, int tid) {
   constexpr int kChunks = D / 4;
   static_assert(ROWS * kChunks % kTfThreads == 0, "whole float4s a thread");
 #pragma unroll
@@ -229,7 +240,7 @@ __device__ __forceinline__ void split_rows(float* s, float* lo, int tid) {
     split_tf32(x.y, h.y, l.y);
     split_tf32(x.z, h.z, l.z);
     split_tf32(x.w, h.w, l.w);
-    *reinterpret_cast<uint4*>(s + o) = h;
+    *reinterpret_cast<uint4*>(hi + o) = h;
     *reinterpret_cast<uint4*>(lo + o) = l;
   }
 }
@@ -260,23 +271,65 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const float* p) {
                : "r"(a));
 }
 
-// s[j] = A B^T over D for the 16 rows of A at a (row-major, stride D +
-// 4, f32, split here) and the kStep rows of B (n-block j its rows 8j..
-// 8j+7), split already: hi at b, lo at blo.  S^T = K Q^T, dP^T = V dO^T,
-// S = Q K^T or dP = dO V^T; kNB independent sums between dependent
-// terms.  A fragment is one ldmatrix (rows 0-7 and 8-15 at columns t,
-// then t+4), a pair of n-blocks' B fragments one a term (rows 8j.. at
-// columns t and t+4, then rows 8j+8..).
+// s[j] = A B^T over D in f32 FMAs on the CUDA cores, for the 16 rows of
+// A at a and the kStep rows of B at b (both row-major, stride D + 4, as
+// they arrived; n-block j B's rows 8j..8j+7): S^T = K Q^T or S = Q K^T.
+// The lane takes rows g and g + 8 of A against B's rows 8j + 2t and 8j
+// + 2t + 1, in the accumulator's layout of scores_tf32; each sum in
+// column order, four columns a load.  A quarter warp's loads touch
+// distinct banks: A's rows g are 4 banks apart (a row is D + 4 floats),
+// B's rows 2t 8 apart.
 template <int D>
-__device__ __forceinline__ void scores_tf32(float (&s)[TfTiles<D>::kNB][4], const float* a,
-                                            const float* b, const float* blo, int lane) {
+__device__ __forceinline__ void scores_fma(float (&s)[TfTiles<D>::kNB][4], const float* a,
+                                           const float* b, int lane) {
   constexpr int kLd = TfTiles<D>::kLd, kNB = TfTiles<D>::kNB;
-  const float* ar = a + ((lane & 7) + 8 * ((lane >> 3) & 1)) * kLd + 4 * (lane >> 4);
-  const int bo = ((lane & 7) + 8 * (lane >> 4)) * kLd + 4 * ((lane >> 3) & 1);
 #pragma unroll
   for (int j = 0; j < kNB; ++j)
 #pragma unroll
     for (int c = 0; c < 4; ++c) s[j][c] = 0.f;
+  const int g = lane >> 2, t = lane & 3;
+  const float* a0 = a + g * kLd;
+  const float* a1 = a0 + 8 * kLd;
+  const float* b0 = b + 2 * t * kLd;
+#pragma unroll 2
+  for (int d = 0; d < D; d += 4) {
+    const float4 x0 = *reinterpret_cast<const float4*>(a0 + d);
+    const float4 x1 = *reinterpret_cast<const float4*>(a1 + d);
+#pragma unroll
+    for (int j = 0; j < kNB; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float4 y = *reinterpret_cast<const float4*>(b0 + (8 * j + e) * kLd + d);
+        float u = s[j][e], w = s[j][2 + e];
+        u = fmaf(x0.x, y.x, u);
+        w = fmaf(x1.x, y.x, w);
+        u = fmaf(x0.y, y.y, u);
+        w = fmaf(x1.y, y.y, w);
+        u = fmaf(x0.z, y.z, u);
+        w = fmaf(x1.z, y.z, w);
+        s[j][e] = fmaf(x0.w, y.w, u);
+        s[j][2 + e] = fmaf(x1.w, y.w, w);
+      }
+  }
+}
+
+// s[j] = A B^T over D in 3xTF32 for the 16 rows of A at a (row-major,
+// stride D + 4, f32, split here) and the kStep rows of B (n-block j its
+// rows 8j..8j+7), split already: hi at b, lo at blo.  dP^T = V dO^T or
+// dP = dO V^T; kNB independent sums between dependent terms.  An A
+// fragment is one ldmatrix (rows 0-7 and 8-15 at columns t, then t+4),
+// a pair of n-blocks' B fragments one a term (rows 8j.. at columns t
+// and t+4, then rows 8j+8..).
+template <int D>
+__device__ __forceinline__ void scores_tf32(float (&s)[TfTiles<D>::kNB][4], const float* a,
+                                            const float* b, const float* blo, int lane) {
+  constexpr int kLd = TfTiles<D>::kLd, kNB = TfTiles<D>::kNB;
+#pragma unroll
+  for (int j = 0; j < kNB; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s[j][c] = 0.f;
+  const float* ar = a + ((lane & 7) + 8 * ((lane >> 3) & 1)) * kLd + 4 * (lane >> 4);
+  const int bo = ((lane & 7) + 8 * (lane >> 4)) * kLd + 4 * ((lane >> 3) & 1);
   // k8 steps unrolled: all of them, but 4 at a time at D 128, where all
   // 16 at once spill registers in the dK/dV kernel
   constexpr int kUnroll = D > 96 ? 4 : D / 8;
@@ -288,12 +341,12 @@ __device__ __forceinline__ void scores_tf32(float (&s)[TfTiles<D>::kNB][4], cons
       uint32_t raw[4], ahi[4], alo[4], bhi[kNB / 2][4], bl[kNB / 2][4];
       ldsm_x4(raw, ar + 8 * kk);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(raw[e]), ahi[e], alo[e]);
-#pragma unroll
       for (int jj = 0; jj < kNB / 2; ++jj) {
         ldsm_x4(bhi[jj], b + bo + 16 * jj * kLd + 8 * kk);
         ldsm_x4(bl[jj], blo + bo + 16 * jj * kLd + 8 * kk);
       }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(raw[e]), ahi[e], alo[e]);
 #pragma unroll
       for (int j = 0; j < kNB; ++j)
         mma_tf32(s[j], alo, bhi[j / 2][2 * (j % 2)], bhi[j / 2][2 * (j % 2) + 1]);
@@ -382,7 +435,8 @@ __global__ void __launch_bounds__(kTfThreads, 1) attention_dkdv_tf32_kernel(
   float* ks = smem;                          // (128, D) keys of the tile
   float* vs = ks + T::kHeld;                 // (128, D) values
   float* ring = vs + T::kHeld;               // kTfStages x (Q, dO, lse, delta)
-  float* lo = ring + kTfStages * T::kStage;  // the step's Q and dO lo terms
+  float* hi = ring + kTfStages * T::kStage;  // the step's Q and dO hi terms
+  float* lo = hi + 2 * T::kStream;           // lo terms
 
   const int kt = static_cast<int>(blockIdx.x) / n_bkv;  // earliest keys (most q tiles) first
   const int bkv = static_cast<int>(blockIdx.x) % n_bkv;  // b * Hkv + kv head
@@ -432,7 +486,7 @@ __global__ void __launch_bounds__(kTfThreads, 1) attention_dkdv_tf32_kernel(
     if (step + kTfStages - 1 < n_steps) stage(step + kTfStages - 1);
     cp_async_commit();
     float* qs = ring + (step % kTfStages) * T::kStage;
-    split_rows<D, 2 * kStep>(qs, lo, tid);  // Q and dO: hi in place, lo apart
+    split_rows<D, 2 * kStep>(qs, hi, lo, tid);  // Q and dO's terms
     __syncthreads();
     const int q0 = (first + step / group) * kStep;
     // every key of the warp past every row of the tile; some past
@@ -443,8 +497,8 @@ __global__ void __launch_bounds__(kTfThreads, 1) attention_dkdv_tf32_kernel(
     const float* dl_s = lse_s + kStep;
 
     float s[kNB][4], dp[kNB][4];  // S^T and dP^T: 16 keys x kStep q rows
-    scores_tf32<D>(s, kw, qs, lo, lane);
-    scores_tf32<D>(dp, vw, dos, lo + T::kStream, lane);
+    scores_fma<D>(s, kw, qs, lane);
+    scores_tf32<D>(dp, vw, hi + T::kStream, lo + T::kStream, lane);
     // P^T and dS^T, in place: key key_lo + g + 8 (c / 2), q row q0 + 8j
     // + 2t + c % 2
 #pragma unroll
@@ -457,8 +511,8 @@ __global__ void __launch_bounds__(kTfThreads, 1) attention_dkdv_tf32_kernel(
         s[j][c] = p;
         dp[j][c] = p * (dp[j][c] - dl_s[col]);
       }
-    product_tf32<D>(acc_v, s, dos, lo + T::kStream, g, t);  // dV += P^T dO
-    product_tf32<D>(acc_k, dp, qs, lo, g, t);               // dK += dS^T Q
+    product_tf32<D>(acc_v, s, hi + T::kStream, lo + T::kStream, g, t);  // dV += P^T dO
+    product_tf32<D>(acc_k, dp, hi, lo, g, t);                           // dK += dS^T Q
   }
   cp_async_wait<0>();
   const long long out = kv_off + static_cast<long long>(16 * warp + g) * D;
@@ -480,7 +534,8 @@ __global__ void __launch_bounds__(kTfThreads, 1) attention_dq_tf32_kernel(
   float* qs = smem;                          // (128, D) q rows of the tile
   float* dos = qs + T::kHeld;                // (128, D) their dO
   float* ring = dos + T::kHeld;              // kTfStages x (K, V)
-  float* lo = ring + kTfStages * T::kStage;  // the step's K and V lo terms
+  float* hi = ring + kTfStages * T::kStage;  // the step's K and V hi terms
+  float* lo = hi + 2 * T::kStream;           // lo terms
 
   const int nq = Sq / kTfTile;
   const int qt = nq - 1 - static_cast<int>(blockIdx.x) / n_bh;  // heaviest first
@@ -528,7 +583,7 @@ __global__ void __launch_bounds__(kTfThreads, 1) attention_dq_tf32_kernel(
     if (step + kTfStages - 1 < n_steps) stage(step + kTfStages - 1);
     cp_async_commit();
     float* kst = ring + (step % kTfStages) * T::kStage;
-    split_rows<D, 2 * kStep>(kst, lo, tid);  // K and V: hi in place, lo apart
+    split_rows<D, 2 * kStep>(kst, hi, lo, tid);  // K and V's terms
     __syncthreads();
     const int k0 = step * kStep;
     // every key of the tile past every row of the warp; some past
@@ -537,8 +592,8 @@ __global__ void __launch_bounds__(kTfThreads, 1) attention_dq_tf32_kernel(
     const float* vst = kst + T::kStream;
 
     float s[kNB][4], dp[kNB][4];  // S and dP: 16 q rows x kStep keys
-    scores_tf32<D>(s, qw, kst, lo, lane);
-    scores_tf32<D>(dp, dow, vst, lo + T::kStream, lane);
+    scores_fma<D>(s, qw, kst, lane);
+    scores_tf32<D>(dp, dow, hi + T::kStream, lo + T::kStream, lane);
     // dS in place: q row row_lo + g + 8 (c / 2), key k0 + 8j + 2t + c % 2
 #pragma unroll
     for (int j = 0; j < kNB; ++j)
@@ -549,7 +604,7 @@ __global__ void __launch_bounds__(kTfThreads, 1) attention_dq_tf32_kernel(
           p = 0.f;
         dp[j][c] = p * (dp[j][c] - dl_r[c >> 1]);
       }
-    product_tf32<D>(acc, dp, kst, lo, g, t);  // dQ += dS K
+    product_tf32<D>(acc, dp, hi, lo, g, t);  // dQ += dS K
   }
   cp_async_wait<0>();
   write_f32_rows<D>(dq + my_row * D, acc, scale, t);

@@ -20,10 +20,12 @@ writes one record to ``<out>/<arch>__<cell>__P<ranks>.json``:
     model_flops, notes, ok | error
 
 A card runs one rank: an SSSP plan at P ranks holds 1/P of the stacked
-arguments a card, as the process backend (``core/ranks.py``) does.  The
-port shards no model (``ROADMAP.md`` Queue 1 item 5.6), so an LM, MIND
-or GNN train cell holds all its arguments (a train cell's: params,
-AdamW state, batch and step) on every card.  Nothing here builds a
+arguments a card, as the process backend (``core/ranks.py``) does; an
+LM plan at P ranks holds each argument's block on its ``dp x tp`` grid
+(tp = min(P, 16): the JAX package's specs, ``configs/cells.py``), as
+``models/lm.py`` serves across ranks; a MIND or GNN cell holds all its
+arguments (a train cell's: params, AdamW state, batch and step) on
+every card (``ROADMAP.md`` Queue 1 item 5.6b).  Nothing here builds a
 graph, runs an engine loop or a model forward, or reaches a kernel: a
 meta tensor has no values for the engine's host reads, and no kernel op
 takes one.
@@ -167,11 +169,14 @@ def plan_record(plan, family: str) -> dict:
             fits_one_card=peak["peak"] <= CARD_BYTES,
         )
     else:
-        rec.update(arg_bytes_per_card=plan.arg_bytes,
+        per_card = plan.arg_bytes_per_card
+        rec.update(arg_bytes_per_card=per_card,
                    peak_bytes_per_card=None,
-                   fits_one_card=plan.arg_bytes <= CARD_BYTES,
+                   fits_one_card=per_card <= CARD_BYTES,
                    fits_basis="planned from the arguments alone (no activation "
                               "plan), not measured")
+        if plan.grid is not None:
+            rec["grid"] = dict(zip(plan.grid.axis_names, plan.grid.grid.shape))
     return rec
 
 

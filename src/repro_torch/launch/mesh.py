@@ -1,4 +1,5 @@
-"""Rank meshes and process groups for the SSSP engine.
+"""Rank meshes and process groups: the SSSP engine's, and the model
+topologies of sharded LM serving.
 
 A :class:`RankMesh` names the axes of the engine's ranks, as the JAX
 package's ``jax.make_mesh`` does for its devices: ``RankMesh((2, 4),
@@ -16,6 +17,18 @@ starts one process a rank and waits for them, each with a deadline.
     mesh = make_rank_mesh(4, pods=2)
     ranks = init_ranks("gloo", rank, 4, mesh, f"file://{path}")
     Solver(spec, n_parts=4, device="cpu", ranks=ranks).solve(problem)
+
+A model's grid is a :class:`repro_torch.models.common.Topology`: the
+JAX package's production meshes (:func:`make_production_mesh`,
+:func:`make_topology`: 16 x 16 over ``("data", "model")``, or 2 x 16 x 16
+with pods) and its CPU meshes (:func:`make_cpu_topology`) as grids that
+need no devices and only plan, and :func:`init_topology`, which joins a
+process group as one rank of such a grid and makes its ``dp`` and ``tp``
+groups:
+
+    topo = init_topology("gloo", rank, 4, make_cpu_topology(4, tp=2),
+                         f"file://{path}", "cpu")
+    cache, logits = lm.prefill_step(model, tokens, cfg, max_len, topo=topo)
 """
 
 from __future__ import annotations
@@ -166,3 +179,106 @@ def spawn_ranks(fn: Callable, world: int, args: tuple = (),
             if p.is_alive():
                 p.kill()
                 p.join()
+
+
+# ------------------------------------------------------------------ #
+# model topologies (the JAX package's launch/mesh.py)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> RankMesh:
+    """The JAX package's production mesh as a grid of ranks: 16 x 16 over
+    ``("data", "model")``, or 2 x 16 x 16 over ``("pod", "data",
+    "model")``."""
+    if multi_pod:
+        return RankMesh((2, 16, 16), ("pod", "data", "model"))
+    return RankMesh((16, 16), ("data", "model"))
+
+
+def make_topology(*, multi_pod: bool = False):
+    """The production topology: dp over ``data`` (and ``pod``), tp over
+    ``model``.  It plans; no process runs it."""
+    from repro_torch.models.common import Topology
+
+    dp = ("pod", "data") if multi_pod else ("data",)
+    return Topology(grid=make_production_mesh(multi_pod=multi_pod), dp_axes=dp,
+                    tp_axis="model")
+
+
+def make_cpu_topology(n: int, tp: int = 1):
+    """The JAX package's small mesh of ``n`` ranks: ``(n // tp, tp)``
+    over ``("data", "model")``, or ``(n,)`` over ``("data",)`` without
+    tensor parallelism."""
+    from repro_torch.models.common import Topology
+
+    if n < 1 or tp < 1 or n % tp:
+        raise ValueError(f"{n} ranks do not split into tp groups of {tp}")
+    if tp > 1:
+        return Topology(grid=RankMesh((n // tp, tp), ("data", "model")),
+                        dp_axes=("data",), tp_axis="model")
+    return Topology(grid=RankMesh((n,), ("data",)), dp_axes=("data",), tp_axis=None)
+
+
+def lm_grid(ranks: int):
+    """The grid an LM cell is planned on at ``ranks`` ranks: tp =
+    min(ranks, 16), dp = ranks / tp (the production mesh at 256)."""
+    tp = min(ranks, 16)
+    if ranks % tp:
+        raise ValueError(f"{ranks} ranks do not split into tp groups of {tp}")
+    return make_cpu_topology(ranks, tp)
+
+
+def _members(topo, fixed: tuple) -> list:
+    """The flat ranks whose coordinates on the axes not in ``fixed``
+    equal this grid's rank ``r``'s, for each r: the group of ``r``."""
+    from repro_torch.models.common import Topology
+
+    groups = {}
+    for r in range(topo.n_devices):
+        c = Topology(grid=topo.grid, dp_axes=topo.dp_axes, tp_axis=topo.tp_axis,
+                     rank=r).coords
+        key = tuple(c[a] for a in topo.axis_names if a not in fixed)
+        groups.setdefault(key, []).append(r)
+    return list(groups.values())
+
+
+def init_topology(backend: str, rank: int, world: int, grid, init_method: str,
+                  device) -> "Topology":
+    """Join the process group as ``rank`` of ``world`` on the grid of
+    ``grid`` (a Topology that plans) and make the ``dp`` and ``tp``
+    groups (every rank makes every group, in one order, as ``new_group``
+    requires; a group of one rank is None).  ``device`` is where this
+    rank's tensors live: NCCL needs a card a rank (``check_backend``);
+    gloo passes a card's tensors through host memory."""
+    import torch.distributed as dist
+
+    if grid.n_devices != world:
+        raise ValueError(f"grid {grid.grid.shape} has {grid.n_devices} ranks, the "
+                         f"process group {world}")
+    check_backend(backend, world, device)
+    if backend == "nccl":
+        torch.cuda.set_device(torch.device(device))
+    dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=world)
+    return topology_groups(grid)
+
+
+def topology_groups(grid) -> "Topology":
+    """This process's rank of ``grid`` (a Topology that plans, of the
+    joined process group's size) with its ``dp`` and ``tp`` groups, made
+    now: one process group serves several grids, each rank making the
+    same grids in the same order."""
+    import torch.distributed as dist
+
+    from repro_torch.models.common import Groups, Topology
+
+    rank, backend = dist.get_rank(), dist.get_backend()
+    if grid.n_devices != dist.get_world_size():
+        raise ValueError(f"grid {grid.grid.shape} has {grid.n_devices} ranks, the "
+                         f"process group {dist.get_world_size()}")
+    mine = {}
+    for scope, fixed in (("dp", grid.dp_axes), ("tp", (grid.tp_axis,))):
+        for members in _members(grid, fixed):
+            group = dist.new_group(members) if len(members) > 1 else None
+            if rank in members:
+                mine[scope] = group
+    return Topology(grid=grid.grid, dp_axes=grid.dp_axes, tp_axis=grid.tp_axis, rank=rank,
+                    groups=Groups(dp=mine["dp"], tp=mine["tp"], backend=backend))

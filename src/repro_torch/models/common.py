@@ -1,13 +1,31 @@
-"""Shared model building blocks: norms, RoPE, activations, init.
+"""Shared model building blocks: the rank topology, norms, RoPE,
+activations, init.
 
-The JAX package's ``Topology``/``constrain`` (TP/DP sharding) are not
-ported: the port runs a model on one card.  Initialisers draw from an
-explicit ``torch.Generator``, whose device is where the tensor is made
-(so a full-size model is initialised on the card, never on the host).
+A :class:`Topology` is the JAX package's (``repro/models/common.py``):
+a grid of ranks whose axes have roles, data parallelism over ``dp_axes``
+(``("data",)``, or ``("pod", "data")``) and tensor/expert parallelism
+over ``tp_axis`` (``"model"``, or None).  Where the JAX package's grid
+is a device mesh and its models pin layouts with
+``with_sharding_constraint`` (``constrain``, which the port does not
+need: it places every tensor itself), the port's is one process a rank
+over ``torch.distributed``: the topology names this process's rank and
+holds the ``dp`` and ``tp`` process groups, and its collectives tally
+what they send (:attr:`Topology.counts`).  ``spec(*roles)`` resolves the
+roles ``"dp"``, ``"tp"`` and ``"all"`` to axis names as the reference's
+does (a ``PartitionSpec``'s entries: None, an axis name, or a tuple of
+names), and :func:`shard_shape`/:func:`shard_slices` read such a spec.
+A topology without process groups only plans (``launch/mesh.py``'s
+production and CPU grids); :func:`single_device_topology` has one rank.
+
+Initialisers draw from an explicit ``torch.Generator``, whose device is
+where the tensor is made (so a full-size model is initialised on the
+card, never on the host).
 """
 
 from __future__ import annotations
 
+import collections
+import dataclasses
 import math
 from typing import Optional
 
@@ -15,6 +33,216 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import RankMesh
+
+#: a spec's entries name the axes a dimension is split over
+Spec = tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class Groups:
+    """This rank's process groups: ``dp`` (the ranks that differ only in
+    their ``dp_axes`` coordinates) and ``tp`` (only in ``tp_axis``); the
+    default group holds every rank (scope ``"world"``).  A group of one
+    rank is None: its collectives are the identity."""
+    dp: object = None
+    tp: object = None
+    backend: str = "gloo"
+
+
+@dataclasses.dataclass(eq=False)
+class Topology:
+    """A grid of ranks and its axes' roles (the JAX package's
+    ``Topology``).  ``rank`` is this process's flat rank, row-major over
+    ``grid`` (so a ``pod`` axis leads); ``groups`` holds its process
+    groups, None for a grid that only plans."""
+
+    grid: RankMesh
+    dp_axes: tuple = ("data",)
+    tp_axis: Optional[str] = "model"
+    rank: int = 0
+    groups: Optional[Groups] = None
+    counts: collections.Counter = dataclasses.field(default_factory=collections.Counter)
+
+    def __post_init__(self):
+        names = self.grid.axis_names
+        for a in self.dp_axes:
+            if a not in names:
+                raise ValueError(f"dp axis {a!r} is not an axis of {names}")
+        if self.tp_axis is not None and self.tp_axis in self.dp_axes:
+            raise ValueError(f"axis {self.tp_axis!r} cannot be both dp and tp")
+        if not 0 <= self.rank < self.grid.size:
+            raise ValueError(f"rank {self.rank} outside the grid's {self.grid.size}")
+
+    @property
+    def axis_names(self) -> tuple:
+        return self.grid.axis_names
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.grid.axis_names, self.grid.shape))
+
+    @property
+    def dp(self):
+        return self.dp_axes if len(self.dp_axes) > 1 else self.dp_axes[0]
+
+    @property
+    def tp_size(self) -> int:
+        if self.tp_axis is None or self.tp_axis not in self.axis_names:
+            return 1
+        return self.shape[self.tp_axis]
+
+    @property
+    def dp_size(self) -> int:
+        return math.prod(self.shape[a] for a in self.dp_axes)
+
+    @property
+    def n_devices(self) -> int:
+        return self.grid.size
+
+    def spec(self, *roles) -> Spec:
+        """A spec's entries, dropping roles the grid lacks: ``"dp"`` the
+        dp axes, ``"tp"`` the tp axis (None at tp 1), ``"all"`` every
+        axis; None and axis names pass through."""
+        out = []
+        for r in roles:
+            if r == "dp":
+                out.append(self.dp)
+            elif r == "tp":
+                out.append(self.tp_axis if self.tp_size > 1 else None)
+            elif r == "all":
+                out.append(self.axis_names)
+            else:
+                out.append(r)
+        return tuple(out)
+
+    # -- this rank's place in the grid --
+
+    @property
+    def coords(self) -> dict:
+        """This rank's index on each axis."""
+        out, r = {}, self.rank
+        for name, size in reversed(list(self.shape.items())):
+            r, out[name] = divmod(r, size)
+        return {a: out[a] for a in self.axis_names}
+
+    def index(self, entry) -> int:
+        """This rank's block along a dimension split over ``entry`` (an
+        axis name or a tuple of them, row-major in the tuple's order)."""
+        axes = _axes(entry)
+        idx, c = 0, self.coords
+        for a in axes:
+            idx = idx * self.shape[a] + c[a]
+        return idx
+
+    def factor(self, entry) -> int:
+        """The blocks a dimension split over ``entry`` has."""
+        return math.prod(self.shape[a] for a in _axes(entry))
+
+    @property
+    def tp_rank(self) -> int:
+        return self.index(self.tp_axis) if self.tp_size > 1 else 0
+
+    @property
+    def dp_rank(self) -> int:
+        return self.index(self.dp_axes)
+
+    # -- collectives, tallied in ``counts`` as ProcessRanks tallies them --
+
+    def _group(self, scope: str):
+        if self.groups is None:
+            if self.n_devices > 1:
+                raise RuntimeError("this topology only plans: it has no process groups "
+                                   "(launch/mesh.py::init_topology makes them)")
+            return None, 1
+        if scope == "world":
+            return None, self.n_devices  # the default group
+        size = {"dp": self.dp_size, "tp": self.tp_size}[scope]
+        return getattr(self.groups, scope), size
+
+    def _tally(self, op: str, x: torch.Tensor) -> None:
+        self.counts[op] += 1
+        self.counts["bytes"] += x.numel() * x.element_size()
+
+    def all_reduce(self, x: torch.Tensor, scope: str) -> torch.Tensor:
+        """The sum of ``x`` over the ``scope`` group, a new tensor on
+        every rank of it."""
+        group, size = self._group(scope)
+        if size == 1:
+            return x
+        import torch.distributed as dist
+
+        x = x.clone(memory_format=torch.contiguous_format)
+        self._tally("all_reduce", x)
+        dist.all_reduce(x, group=group)
+        return x
+
+    def all_gather(self, x: torch.Tensor, dim: int, scope: str) -> torch.Tensor:
+        """The group's ``x`` concatenated along ``dim`` in rank order."""
+        group, size = self._group(scope)
+        if size == 1:
+            return x
+        import torch.distributed as dist
+
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(size)]
+        self._tally("all_gather", x)
+        dist.all_gather(parts, x, group=group)
+        return torch.cat(parts, dim=dim)
+
+    def all_to_all(self, chunks: list, scope: str) -> list:
+        """``chunks[j]`` (equal shapes) to the group's rank j; returns
+        what each rank of the group sent this one, in rank order.  Gloo
+        takes host tensors for this collective, so a card's chunks pass
+        through host memory there."""
+        group, size = self._group(scope)
+        if size == 1:
+            return list(chunks)
+        import torch.distributed as dist
+
+        send = torch.stack(chunks).contiguous()
+        dev = send.device
+        if self.groups.backend == "gloo" and dev.type != "cpu":
+            send = send.cpu()
+        recv = torch.empty_like(send)
+        self._tally("all_to_all", send)
+        dist.all_to_all_single(recv, send, group=group)
+        return list(recv.to(dev).unbind(0))
+
+
+def _axes(entry) -> tuple:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+def single_device_topology() -> Topology:
+    """One rank, no tensor parallelism, no process groups."""
+    return Topology(grid=RankMesh((1,), ("data",)), dp_axes=("data",), tp_axis=None)
+
+
+def shard_shape(shape, spec: Spec, topo: Topology) -> tuple:
+    """A rank's block of an array of ``shape`` laid out by ``spec``: each
+    split dimension ceil(dim / blocks), as XLA pads an uneven split."""
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    return tuple(-(-n // topo.factor(e)) for n, e in zip(shape, spec))
+
+
+def shard_slices(shape, spec: Spec, topo: Topology) -> tuple:
+    """This rank's block of an array of ``shape`` laid out by ``spec``,
+    as one slice a dimension; a split dimension must be a multiple of
+    its blocks."""
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    out = []
+    for dim, (n, e) in enumerate(zip(shape, spec)):
+        f = topo.factor(e)
+        if n % f:
+            raise ValueError(f"dimension {dim} ({n}) does not split into {f} blocks "
+                             f"over {e!r}")
+        size = n // f
+        lo = topo.index(e) * size
+        out.append(slice(lo, lo + size))
+    return tuple(out)
 
 
 def generator(seed: int, device=None) -> torch.Generator:

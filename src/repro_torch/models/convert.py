@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models.common import Topology, shard_slices
 from repro_torch.models.gnn.dimenet import DimeNetConfig
 from repro_torch.models.gnn.egnn import EGNNConfig
 from repro_torch.models.gnn.gin import GINConfig
@@ -24,12 +25,13 @@ def _tensor(a, dtype, device) -> torch.Tensor:
     return torch.tensor(np.asarray(a, dtype=np.float32)).to(device=device, dtype=dtype)
 
 
-def lm_params_from_numpy(tree: dict, cfg: LMConfig, device=None) -> LM:
+def lm_params_from_numpy(tree: dict, cfg: LMConfig, device=None, topo=None) -> LM:
     """``tree`` as the JAX package's ``models/lm.py::init_params``
     lays it out: ``embed``, ``layers`` (each array stacked over a
     leading layer axis; GQA's or MLA's attention weights, the dense
     MLP's or the MoE's), ``final_norm`` and ``lm_head``, which a tree
-    with tied embeddings lacks."""
+    with tied embeddings lacks.  With a ``topo`` of more than one rank,
+    ``tree`` holds this rank's blocks (:func:`shard_tree`)."""
     dev, dt = resolve_device(device), cfg.dtype
     stacked = tree["layers"]
     if set(stacked) != set(layer_shapes(cfg)):
@@ -42,7 +44,38 @@ def lm_params_from_numpy(tree: dict, cfg: LMConfig, device=None) -> LM:
                          f"{'has' if 'lm_head' in tree else 'lacks'} an lm_head")
     head = None if cfg.tie_embeddings else _tensor(tree["lm_head"], dt, dev)
     return LM(cfg, _tensor(tree["embed"], dt, dev), layers,
-              _tensor(tree["final_norm"], dt, dev), head)
+              _tensor(tree["final_norm"], dt, dev), head, topo=topo)
+
+
+def shard_tree(tree, specs, topo: Topology):
+    """This rank's blocks of a tree in the JAX package's layout (numpy
+    arrays or tensors), each cut by its spec in ``specs`` (a tree of the
+    same keys: ``lm.param_specs``, ``lm.cache_specs``): new arrays of
+    the leaves' type.  A split dimension must be a multiple of its
+    blocks."""
+    if isinstance(tree, dict):
+        return {k: shard_tree(v, specs[k], topo) for k, v in tree.items()}
+    block = tree[shard_slices(tree.shape, specs, topo)]
+    return block.copy() if isinstance(block, np.ndarray) else block.clone()
+
+
+def unshard_tree(blocks: list, specs, topo: Topology):
+    """The whole tree from every rank's blocks (``blocks[r]`` rank r's,
+    as :func:`shard_tree` cuts them or a sharded step returns them), a
+    numpy array a leaf; where ranks hold the same block (a dim not split
+    over their axes), rank order's last is kept, so callers compare
+    replicas themselves."""
+    first = blocks[0]
+    if isinstance(first, dict):
+        return {k: unshard_tree([b[k] for b in blocks], specs[k], topo) for k in first}
+    spec = tuple(specs) + (None,) * (np.ndim(first) - len(specs))
+    shape = tuple(n * topo.factor(e) for n, e in zip(np.shape(first), spec))
+    out = np.zeros(shape, dtype=np.float32)
+    for r, b in enumerate(blocks):
+        at = Topology(grid=topo.grid, dp_axes=topo.dp_axes, tp_axis=topo.tp_axis, rank=r)
+        b = b.detach().cpu().float().numpy() if isinstance(b, torch.Tensor) else b
+        out[shard_slices(shape, spec, at)] = b
+    return out
 
 
 def lm_tree_from_numpy(tree: dict, cfg: LMConfig, device=None) -> dict:

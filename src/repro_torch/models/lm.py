@@ -2,14 +2,16 @@
 (minicpm3) and GQA with MoE FFNs (phi3.5-moe, dbrx); prefill and greedy
 decode for serving, and the training loss.
 
-The port of the JAX package's ``models/lm.py`` for one card.  A model
-is an :class:`LM` module: the embedding, an ``nn.ModuleList`` of
+The port of the JAX package's ``models/lm.py``.  A model is an
+:class:`LM` module: the embedding, an ``nn.ModuleList`` of
 :class:`Block` (one per layer, each weight in the JAX package's
 ``(in, out)`` layout so ``x @ w`` reads the same) and the final norm
 and head (none when the embedding is tied).  The public functions keep
 the JAX package's names and its ``(B, S, H, dh)`` activation layout;
-they take the module where the JAX package takes its parameter tree,
-and drop the sharding topology.
+they take the module where the JAX package takes its parameter tree.
+The serving functions take the JAX package's ``topo`` last, as
+``topo=None``: one card, or a :class:`~repro_torch.models.common.Topology`
+of one rank, runs the one-card code.
 
   prefill_step  build the KV cache from a prompt, last-position logits
   decode_step   one token against the cache (updated in place)
@@ -28,6 +30,29 @@ unless tied, so that the generic train step, the checkpoints and
 MLA keeps a latent cache, ``c`` (kv_lora) and ``kr`` (qk_rope) a token;
 its prefill materialises K and V, its decode attends in latent space
 (absorbed).  MoE layers run :func:`repro_torch.models.moe.moe_ffn`.
+
+Serving across ranks (a topology of more than one rank, one process a
+rank over ``torch.distributed``; the layouts of the JAX package's
+:func:`param_specs` and :func:`cache_specs`): each rank holds its block
+of every weight (:func:`init_params` with ``topo``, or
+``convert.shard_tree``), laid out Megatron-style over ``tp`` (heads,
+FFN, experts and vocab) and FSDP over ``dp`` (each weight's other dim,
+all-gathered a layer at a time before use).  The embedding is a masked
+lookup in the rank's vocab rows, summed over ``tp``; ``wq``/``wk``/
+``wv``/``wg``/``wu`` are column-parallel, so a rank attends over its
+Hq/tp and Hkv/tp heads through the kernel, and ``wo``/``wd`` are
+row-parallel, summed over ``tp``; MoE layers hold E/tp experts a rank
+(``moe_ffn``'s EP-as-TP).  The batch splits over ``dp`` where it
+divides, else every ``dp`` rank runs all of it (the JAX package's
+rule, which sets each MoE layer's capacity).  The head is vocab-split:
+a rank's logits are its (rows, V/tp) block, and :func:`greedy_tokens`
+takes the argmax over the blocks (ties to the lower vocab index).  The
+KV cache splits its sequence over ``tp`` (``decode_*``) or over every
+rank (``long=True``, the ``long_*`` cells; the batch whole): prefill
+moves each rank's heads into the sequence chunks with one
+``all_to_all`` a layer; a decode step all-gathers q and the new k and
+v, the chunk's owner writes them, and each rank attends over its chunk
+for every head, the chunks' partial outputs merged by their log-sum-exp.
 """
 
 from __future__ import annotations
@@ -43,12 +68,15 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention import mha as mha_kernel
 from repro_torch.models.common import (
+    Topology,
     apply_rope,
     fan_in_init,
     normal_init,
     relu2,
     rms_norm,
     rope_angles,
+    shard_shape,
+    shard_slices,
     swiglu,
 )
 from repro_torch.models.moe import MoEConfig, moe_ffn
@@ -201,46 +229,172 @@ class Block(nn.Module):
 
 class LM(nn.Module):
     """Embedding, decoder layers, final norm and head; ``lm_head`` is
-    None where the config ties the head to the embedding."""
+    None where the config ties the head to the embedding.  With a
+    ``topo`` of more than one rank, each tensor is this rank's block of
+    it (:func:`param_specs`)."""
 
     def __init__(self, cfg: LMConfig, embed, layers: list, final_norm,
-                 lm_head=None):
+                 lm_head=None, topo: Optional[Topology] = None):
         super().__init__()
+        topo = _sharded(topo)
         if len(layers) != cfg.n_layers:
             raise ValueError(f"{cfg.name}: {len(layers)} layers, config says {cfg.n_layers}")
         if (lm_head is None) != cfg.tie_embeddings:
             raise ValueError(f"{cfg.name}: tie_embeddings={cfg.tie_embeddings} but "
                              f"lm_head is {'absent' if lm_head is None else 'given'}")
-        want = layer_shapes(cfg)
+        want = {k: s for k, (s, _) in layer_shapes(cfg).items()}
+        if topo is not None:
+            check_shardable(cfg, topo)
+            want = {k: shard_shape(s, layer_specs(cfg, topo)[k], topo)
+                    for k, s in want.items()}
         for li, tensors in enumerate(layers):
             got = {k: tuple(t.shape) for k, t in tensors.items()}
-            if got != {k: s for k, (s, _) in want.items()}:
+            if got != want:
                 raise ValueError(f"{cfg.name}: layer {li} weights {got} do not match {want}")
         self.cfg = cfg
+        self.topo = topo
         self.embed = _param(embed)
         self.layers = nn.ModuleList(Block(t) for t in layers)
         self.final_norm = _param(final_norm)
         self.lm_head = None if lm_head is None else _param(lm_head)
 
 
-def init_params(gen: torch.Generator, cfg: LMConfig) -> LM:
+def init_params(gen: torch.Generator, cfg: LMConfig,
+                topo: Optional[Topology] = None) -> LM:
     """Random weights drawn on ``gen``'s device (a full-size model is
-    made on the card, one tensor at a time, never on the host)."""
+    made on the card, one tensor at a time, never on the host).  With a
+    ``topo`` of more than one rank, every tensor is drawn whole, as one
+    card draws it, and only this rank's block kept: the ranks' blocks
+    are the one-card model's, and no rank holds more than one whole
+    tensor at a time."""
     dt = cfg.dtype
     dev = gen.device
+    topo = _sharded(topo)
+    specs = None
+    if topo is not None:
+        check_shardable(cfg, topo)
+        specs = param_specs(cfg, topo)
+
+    def keep(t, spec):
+        return t if specs is None else shard_block(t, spec, topo)
 
     def layer():
         return {
-            name: (torch.ones(shape, dtype=dt, device=dev) if fan is None
-                   else fan_in_init(gen, shape, fan, dt))
+            name: keep(torch.ones(shape, dtype=dt, device=dev) if fan is None
+                       else fan_in_init(gen, shape, fan, dt),
+                       None if specs is None else specs["layers"][name][1:])
             for name, (shape, fan) in layer_shapes(cfg).items()
         }
 
     d, V = cfg.d_model, cfg.vocab
-    embed = normal_init(gen, (V, d), 0.02, dt)
+    embed = keep(normal_init(gen, (V, d), 0.02, dt), specs and specs["embed"])
     layers = [layer() for _ in range(cfg.n_layers)]
-    head = None if cfg.tie_embeddings else fan_in_init(gen, (d, V), d, dt)
-    return LM(cfg, embed, layers, torch.ones((d,), dtype=dt, device=dev), head)
+    head = None if cfg.tie_embeddings else keep(fan_in_init(gen, (d, V), d, dt),
+                                                specs and specs["lm_head"])
+    return LM(cfg, embed, layers, torch.ones((d,), dtype=dt, device=dev), head, topo=topo)
+
+
+# ----------------------------------------------------------------- #
+# layouts across ranks (the JAX package's specs)
+
+
+def param_specs(cfg: LMConfig, topo: Topology) -> dict:
+    """The JAX package's ``param_specs``: a spec a leaf of the parameter
+    tree (:func:`params_tree`'s layout, layers stacked on a leading
+    axis): TP on heads, FFN and vocab (``"tp"``), FSDP on the other dim
+    (``"dp"``)."""
+    s = topo.spec
+    layers: dict = {"ln1": s(None, None), "ln2": s(None, None)}
+    if cfg.attn_type == "gqa":
+        layers.update(wq=s(None, "dp", "tp"), wk=s(None, "dp", "tp"),
+                      wv=s(None, "dp", "tp"), wo=s(None, "tp", "dp"))
+    else:
+        # the reference keeps MLA's small lora projections replicated or
+        # TP-only: FSDP on their contraction dims all-reduced activations
+        layers.update(
+            wq_a=s(None, None, None), q_norm=s(None, None), wq_b=s(None, None, "tp"),
+            wkv_a=s(None, None, None), kv_norm=s(None, None), wk_b=s(None, None, "tp"),
+            wv_b=s(None, None, "tp"), wo=s(None, "tp", "dp"),
+        )
+    if cfg.moe:
+        layers.update(router=s(None, None, None), wg_e=s(None, "tp", "dp", None),
+                      wu_e=s(None, "tp", "dp", None), wd_e=s(None, "tp", None, "dp"))
+    else:
+        layers.update(wg=s(None, "dp", "tp"), wd=s(None, "tp", "dp"))
+        if cfg.mlp_type == "swiglu":
+            layers.update(wu=s(None, "dp", "tp"))
+    specs = {"embed": s("tp", "dp"), "layers": layers, "final_norm": s(None)}
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = s("dp", "tp")
+    return specs
+
+
+def layer_specs(cfg: LMConfig, topo: Topology) -> dict:
+    """:func:`param_specs`' layer entries for one layer's weights (the
+    stacked axis dropped)."""
+    return {k: v[1:] for k, v in param_specs(cfg, topo)["layers"].items()}
+
+
+def cache_specs(cfg: LMConfig, topo: Topology, *, long: bool) -> dict:
+    """The JAX package's ``cache_specs``: the KV cache's sequence split
+    over ``tp`` and its batch over ``dp`` (``decode_*``), or its sequence
+    over every rank and its batch whole (``long_*``, B 1)."""
+    s = topo.spec
+    if long:
+        seq, seq5 = s(None, None, "all", None), s(None, None, "all", None, None)
+    else:
+        seq, seq5 = s(None, "dp", "tp", None), s(None, "dp", "tp", None, None)
+    if cfg.attn_type == "mla":
+        return {"c": seq, "kr": seq}
+    return {"k": seq5, "v": seq5}
+
+
+def _sharded(topo: Optional[Topology]) -> Optional[Topology]:
+    """None for one card or a topology of one rank (the one-card code)."""
+    return None if topo is None or topo.n_devices == 1 else topo
+
+
+def check_shardable(cfg: LMConfig, topo: Topology) -> None:
+    """Refuse, before any work, a model the grid cannot split: heads,
+    kv heads, experts, vocab or FFN width not a multiple of tp, or the
+    FSDP dims (d_model, the dense FFN width) not of dp.  The production
+    grid's tp 16 exceeds the GQA archs' 8 kv heads: such a layout only
+    plans here (``launch/dryrun.py``)."""
+    if cfg.attn_type == "mla":
+        raise NotImplementedError(
+            f"{cfg.name}: MLA across ranks is not ported yet (ROADMAP Queue 1, 5.6b); "
+            f"its param_specs and cache_specs plan only")
+    tp, dp = topo.tp_size, topo.dp_size
+    split = {"q heads": cfg.n_heads, "kv heads": cfg.n_kv_heads, "vocab": cfg.vocab}
+    split.update({"experts": cfg.moe.n_experts} if cfg.moe else {"d_ff": cfg.d_ff})
+    for what, n in split.items():
+        if n % tp:
+            raise ValueError(f"{cfg.name}: {n} {what} do not split over tp {tp}; a grid "
+                             f"of this tp only plans this model (launch/dryrun.py)")
+    fsdp = {"d_model": cfg.d_model}
+    if not cfg.moe:
+        fsdp["d_ff"] = cfg.d_ff
+    for what, n in fsdp.items():
+        if n % dp:
+            raise ValueError(f"{cfg.name}: {what} {n} does not split over dp {dp} (FSDP)")
+
+
+def shard_block(t: torch.Tensor, spec, topo: Topology) -> torch.Tensor:
+    """This rank's block of ``t`` laid out by ``spec``, a new contiguous
+    tensor."""
+    return t[shard_slices(t.shape, spec, topo)].clone(memory_format=torch.contiguous_format)
+
+
+def shard_params(model: LM, topo: Topology) -> LM:
+    """A one-card model's blocks for this rank of ``topo``."""
+    cfg = model.cfg
+    check_shardable(cfg, topo)
+    specs = param_specs(cfg, topo)
+    layers = [{name: shard_block(getattr(lp, name), specs["layers"][name][1:], topo)
+               for name in layer_shapes(cfg)} for lp in model.layers]
+    head = None if model.lm_head is None else shard_block(model.lm_head, specs["lm_head"], topo)
+    return LM(cfg, shard_block(model.embed, specs["embed"], topo), layers,
+              model.final_norm.detach().clone(), head, topo=topo)
 
 
 # ----------------------------------------------------------------- #
@@ -353,25 +507,38 @@ def decode_attention(q, k_cache, v_cache, pos: int, scale: float):
 # blocks
 
 
-def _mlp(lp: Block, x, cfg: LMConfig):
+def _tp_sum(x, topo: Optional[Topology]):
+    """A row-parallel product's partial sums summed over tp (across
+    ranks), or ``x`` itself."""
+    return x if topo is None else topo.all_reduce(x, "tp")
+
+
+def _mlp(lp: Block, x, cfg: LMConfig, topo: Optional[Topology] = None):
     if cfg.mlp_type == "swiglu":
         h = swiglu(x @ lp.wg, x @ lp.wu)
     else:
         h = relu2(x @ lp.wg)
-    return h @ lp.wd
+    return _tp_sum(h @ lp.wd, topo)
 
 
-def _ffn(lp: Block, x, cfg: LMConfig):
+def _ffn(lp: Block, x, cfg: LMConfig, topo: Optional[Topology] = None,
+         over_dp: bool = False):
     """The layer's FFN and its f32 aux loss: MoE's load-balance term
-    where the config has it, else the dense MLP and 0."""
+    where the config has it, else the dense MLP and 0.  Across ranks
+    (``topo``) the rank's experts or FFN columns, summed over tp;
+    ``over_dp``: the batch is split over dp."""
     if cfg.moe:
-        return moe_ffn(x, lp.router, lp.wg_e, lp.wu_e, lp.wd_e, cfg.moe)
-    return _mlp(lp, x, cfg), torch.zeros((), dtype=torch.float32, device=x.device)
+        return moe_ffn(x, lp.router, lp.wg_e, lp.wu_e, lp.wd_e, cfg.moe, topo,
+                       batch_over_dp=over_dp)
+    return _mlp(lp, x, cfg, topo), torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def _gqa_qkv(lp: Block, x, cfg: LMConfig, positions):
+    """q, k, v of the heads ``lp`` holds: all, or a rank's Hq/tp and
+    Hkv/tp."""
     B, S, d = x.shape
-    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dh = cfg.head_dim
+    H, KV = lp.wq.shape[-1] // dh, lp.wk.shape[-1] // dh
     q = (x @ lp.wq).reshape(B, S, H, dh)
     k = (x @ lp.wk).reshape(B, S, KV, dh)
     v = (x @ lp.wv).reshape(B, S, KV, dh)
@@ -432,20 +599,23 @@ def _mla_attention_decode(lp: Block, x, cfg: LMConfig, c_cache, kr_cache, pos: i
     return out.reshape(B, 1, H * vd) @ lp.wo
 
 
-def _layer(lp: Block, x, cfg: LMConfig, positions):
+def _layer(lp: Block, x, cfg: LMConfig, positions, topo: Optional[Topology] = None,
+           over_dp: bool = False):
     """One prefill/teacher-forced layer; returns (x, its cache entries:
-    {"k", "v"} or MLA's {"c", "kr"}, its f32 aux loss)."""
+    {"k", "v"} or MLA's {"c", "kr"}, its f32 aux loss).  Across ranks
+    (``topo``; GQA only) ``lp`` is the rank's weights (:class:`_Shard`)
+    and the cache entries are its heads'."""
     h = rms_norm(x, lp.ln1, NORM_EPS)
     if cfg.attn_type == "gqa":
         q, k, v = _gqa_qkv(lp, h, cfg, positions)
-        attn = run_attention(q, k, v, cfg, causal=True) @ lp.wo
+        attn = _tp_sum(run_attention(q, k, v, cfg, causal=True) @ lp.wo, topo)
         kv = {"k": k, "v": v}
     else:
         attn, (c, kr) = _mla_attention_train(lp, h, cfg, positions)
         kv = {"c": c, "kr": kr}
     x = x + attn
     h = rms_norm(x, lp.ln2, NORM_EPS)
-    out, aux = _ffn(lp, h, cfg)
+    out, aux = _ffn(lp, h, cfg, topo, over_dp)
     return x + out, kv, aux
 
 
@@ -461,8 +631,11 @@ def _embed(params: LM, tokens):
 
 
 @torch.inference_mode()
-def forward(params: LM, tokens, cfg: LMConfig):
-    """Token ids (B, S) -> final hidden states (B, S, d)."""
+def forward(params: LM, tokens, cfg: LMConfig, topo: Optional[Topology] = None):
+    """Token ids (B, S) -> final hidden states (B, S, d); across ranks,
+    the rank's rows of them (:func:`batch_rows`)."""
+    if _sharded(topo) is not None:
+        return _forward_sharded(params, tokens, cfg, topo)
     B, S = tokens.shape
     x = _embed(params, tokens)
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
@@ -577,9 +750,15 @@ def cache_shapes(cfg: LMConfig, batch: int, max_len: int) -> dict:
 
 
 @torch.inference_mode()
-def prefill_step(params: LM, tokens, cfg: LMConfig, max_len: int):
+def prefill_step(params: LM, tokens, cfg: LMConfig, max_len: int,
+                 topo: Optional[Topology] = None, *, long: bool = False):
     """Prompt (B, S) -> (cache dict, last-position logits (B, V) f32).
-    The cache holds ``max_len`` positions, zero past the prompt."""
+    The cache holds ``max_len`` positions, zero past the prompt.  Across
+    ranks every rank is given the whole prompt and returns its block of
+    the cache (:func:`cache_specs`, ``long`` picking the layout) and of
+    the logits (its rows, its V/tp columns)."""
+    if _sharded(topo) is not None:
+        return _prefill_sharded(params, tokens, cfg, max_len, topo, long)
     B, S = tokens.shape
     if S > max_len:
         raise ValueError(f"prompt length {S} exceeds max_len {max_len}")
@@ -597,11 +776,16 @@ def prefill_step(params: LM, tokens, cfg: LMConfig, max_len: int):
 
 
 @torch.inference_mode()
-def decode_step(params: LM, cache: dict, tokens, pos: int, cfg: LMConfig):
+def decode_step(params: LM, cache: dict, tokens, pos: int, cfg: LMConfig,
+                topo: Optional[Topology] = None, *, long: bool = False):
     """One decode step: tokens (B,) at position ``pos`` against the
     cache.  Returns (logits (B, V) f32, cache).  The cache is updated
     in place (the JAX package returns a new one); the returned dict is
-    the one given."""
+    the one given.  Across ranks every rank is given all B tokens, and
+    the cache and logits are the rank's blocks, as from
+    :func:`prefill_step` with the same ``long``."""
+    if _sharded(topo) is not None:
+        return _decode_sharded(params, cache, tokens, pos, cfg, topo, long)
     B = tokens.shape[0]
     T = next(iter(cache.values())).shape[2]
     if not 0 <= pos < T:
@@ -627,3 +811,225 @@ def decode_step(params: LM, cache: dict, tokens, pos: int, cfg: LMConfig):
     x = rms_norm(x, params.final_norm, NORM_EPS)
     logits = (x[:, 0] @ lm_head_weight(params, cfg)).float()
     return logits, cache
+
+
+def greedy_tokens(logits, topo: Optional[Topology] = None, batch: Optional[int] = None):
+    """The greedy next tokens (B,) int32 of ``logits``: the argmax over
+    the vocab, ties to the lower index.  Across ranks ``logits`` is this
+    rank's block from :func:`prefill_step` or :func:`decode_step` of a
+    batch of ``batch`` rows: the argmax of each vocab block, then the
+    largest over the ``tp`` blocks (ties to the lower rank, whose vocab
+    indices are lower), then the rows of every ``dp`` rank; every rank
+    returns all B tokens."""
+    topo = _sharded(topo)
+    if topo is None:
+        return logits.argmax(-1).to(torch.int32)
+    if batch is None:
+        raise ValueError("greedy_tokens across ranks needs the batch size")
+    idx = logits.argmax(-1)
+    val = logits.gather(-1, idx[:, None])[:, 0]
+    vals = topo.all_gather(val[None], 0, "tp")
+    idxs = topo.all_gather((idx + topo.tp_rank * logits.shape[-1])[None], 0, "tp")
+    tok = idxs.gather(0, vals.argmax(0)[None])[0]
+    if batch_rows(batch, topo)[1]:
+        tok = topo.all_gather(tok, 0, "dp")
+    return tok.to(torch.int32)
+
+
+# ----------------------------------------------------------------- #
+# serving across ranks
+
+
+def batch_rows(B: int, topo: Topology) -> tuple:
+    """(this rank's rows of a batch of B, whether the batch splits over
+    dp): B / dp rows where dp divides B, else all B on every dp rank."""
+    dp = topo.dp_size
+    if dp > 1 and B % dp == 0:
+        n = B // dp
+        return slice(topo.dp_rank * n, (topo.dp_rank + 1) * n), True
+    return slice(0, B), False
+
+
+def _gathered(w, spec, topo: Topology):
+    """``w`` all-gathered over dp along the dim its spec splits over dp
+    (FSDP), or ``w`` itself."""
+    if topo.dp_size > 1:
+        for dim, entry in enumerate(spec):
+            if entry is not None and entry == topo.dp:
+                return topo.all_gather(w, dim, "dp")
+    return w
+
+
+class _Shard:
+    """A sharded layer's weights as used: each read all-gathers its
+    block over dp (FSDP) and keeps the whole for the layer."""
+
+    def __init__(self, lp, specs: dict, topo: Topology):
+        self._lp, self._specs, self._topo, self._full = lp, specs, topo, {}
+
+    def __getattr__(self, name):
+        if name.startswith("_"):
+            raise AttributeError(name)
+        if name not in self._full:
+            self._full[name] = _gathered(getattr(self._lp, name), self._specs[name], self._topo)
+        return self._full[name]
+
+
+def _embed_sharded(params: LM, tokens, cfg: LMConfig, topo: Topology):
+    """The rank's vocab rows (FSDP-gathered) looked up where a token
+    falls among them, zero elsewhere, summed over tp."""
+    table = _gathered(params.embed, param_specs(cfg, topo)["embed"], topo)
+    t = tokens.long() - topo.tp_rank * table.shape[0]
+    inside = (t >= 0) & (t < table.shape[0])
+    x = torch.where(inside[..., None], table[t.clamp(0, table.shape[0] - 1)], 0)
+    return topo.all_reduce(x, "tp")
+
+
+def _head_sharded(params: LM, x, cfg: LMConfig, topo: Topology):
+    """f32 logits of the rank's V/tp vocab columns."""
+    specs = param_specs(cfg, topo)
+    if cfg.tie_embeddings:
+        head = _gathered(params.embed, specs["embed"], topo).T
+    else:
+        head = _gathered(params.lm_head, specs["lm_head"], topo)
+    return (x @ head).float()
+
+
+def _check_topo(params: LM, topo: Topology) -> None:
+    if params.topo is None or params.topo.grid != topo.grid or params.topo.rank != topo.rank:
+        raise ValueError("the model's blocks were not cut for this rank of this topology "
+                         "(init_params(topo=) or shard_params)")
+
+
+def _forward_sharded(params: LM, tokens, cfg: LMConfig, topo: Topology):
+    _check_topo(params, topo)
+    rows, over_dp = batch_rows(tokens.shape[0], topo)
+    tokens = tokens[rows]
+    B, S = tokens.shape
+    x = _embed_sharded(params, tokens, cfg, topo)
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    specs = layer_specs(cfg, topo)
+    for lp in params.layers:
+        x, _, _ = _layer(_Shard(lp, specs, topo), x, cfg, positions, topo, over_dp)
+    return rms_norm(x, params.final_norm, NORM_EPS)
+
+
+def _layout_rows(B: int, topo: Topology, long: bool) -> tuple:
+    """:func:`batch_rows`, refusing a batch the cache layout cannot hold:
+    the decode layout splits the batch over dp, the long one keeps it
+    whole."""
+    rows, over_dp = batch_rows(B, topo)
+    if long and over_dp:
+        raise ValueError(f"the long layout keeps the batch whole on every rank; a batch "
+                         f"of {B} splits over dp {topo.dp_size}")
+    if not long and topo.dp_size > 1 and not over_dp:
+        raise ValueError(f"the decode layout splits the batch over dp; a batch of {B} "
+                         f"does not split over dp {topo.dp_size} (long=True keeps it whole)")
+    return rows, over_dp
+
+
+def _chunks(topo: Topology, long: bool) -> tuple:
+    """(the sequence chunks of the cache, this rank's chunk, the group
+    that holds every chunk of its rows): over tp, or over every rank."""
+    if long:
+        return topo.n_devices, topo.rank, "world"
+    return topo.tp_size, topo.tp_rank, "tp"
+
+
+def _cache_chunk(t, max_len: int, topo: Topology, long: bool):
+    """The rank's heads' k or v (B, S, Hkv/tp, dh) at every prompt
+    position -> the rank's sequence chunk of every head (B, max_len /
+    chunks, Hkv, dh): one all_to_all over tp.  In the long layout the
+    batch is whole on every dp rank, so a tp group trades the chunks of
+    its dp index (the chunks of rank r are r's)."""
+    n, _, _ = _chunks(topo, long)
+    B, S, H, dh = t.shape
+    full = t.new_zeros((B, max_len, H, dh))
+    full[:, :S] = t
+    pieces = list(full.split(max_len // n, dim=1))
+    if long:
+        T = topo.tp_size
+        pieces = pieces[topo.dp_rank * T:(topo.dp_rank + 1) * T]
+    return torch.cat(topo.all_to_all(pieces, "tp"), dim=2)
+
+
+def _prefill_sharded(params: LM, tokens, cfg: LMConfig, max_len: int, topo: Topology,
+                     long: bool):
+    _check_topo(params, topo)
+    B, S = tokens.shape
+    if S > max_len:
+        raise ValueError(f"prompt length {S} exceeds max_len {max_len}")
+    n, _, _ = _chunks(topo, long)
+    if max_len % n:
+        raise ValueError(f"max_len {max_len} does not split into {n} sequence chunks")
+    rows, over_dp = _layout_rows(B, topo, long)
+    tokens = tokens[rows]
+    Bl = tokens.shape[0]
+    x = _embed_sharded(params, tokens, cfg, topo)
+    positions = torch.arange(S, device=x.device)[None].expand(Bl, S)
+    shape = (cfg.n_layers, Bl, max_len // n, cfg.n_kv_heads, cfg.head_dim)
+    cache = {name: torch.zeros(shape, dtype=cfg.dtype, device=x.device) for name in ("k", "v")}
+    specs = layer_specs(cfg, topo)
+    for li, lp in enumerate(params.layers):
+        x, kv, _ = _layer(_Shard(lp, specs, topo), x, cfg, positions, topo, over_dp)
+        for name, t in kv.items():
+            cache[name][li] = _cache_chunk(t, max_len, topo, long)
+    x = rms_norm(x, params.final_norm, NORM_EPS)
+    return cache, _head_sharded(params, x[:, -1], cfg, topo)
+
+
+def _chunk_attention(q, k_chunk, v_chunk, last: int, scale: float):
+    """One position's attention over a cache chunk's positions up to
+    ``last`` (a chunk past the position, last < 0, has none): the f32
+    partial output (B, 1, H, dh) and its log-sum-exp (B, 1, H)."""
+    s = _grouped_scores(q, k_chunk) * scale  # (B, KV, G, 1, Tc)
+    valid = torch.arange(k_chunk.shape[1], device=q.device) <= last
+    s = torch.where(valid, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    out = _grouped_out(p / l, v_chunk)  # (B, 1, H, dh)
+    B, KV, G = s.shape[:3]
+    lse = (m + torch.log(l)).reshape(B, KV * G, 1).transpose(1, 2)
+    return out, lse
+
+
+def _merge_chunks(out, lse, topo: Topology, scope: str):
+    """The group's partial outputs merged by their log-sum-exp, in rank
+    order on every rank: exact but for the order of the sums."""
+    outs = topo.all_gather(out[None], 0, scope)
+    lses = topo.all_gather(lse[None], 0, scope)
+    w = torch.exp(lses - lses.amax(dim=0, keepdim=True))
+    return (w[..., None] * outs).sum(dim=0) / w.sum(dim=0)[..., None]
+
+
+def _decode_sharded(params: LM, cache: dict, tokens, pos: int, cfg: LMConfig,
+                    topo: Topology, long: bool):
+    _check_topo(params, topo)
+    n, chunk, scope = _chunks(topo, long)
+    Tc = cache["k"].shape[2]
+    if not 0 <= pos < n * Tc:
+        raise ValueError(f"position {pos} outside the cache's {n * Tc} slots")
+    rows, over_dp = _layout_rows(tokens.shape[0], topo, long)
+    tokens = tokens[rows]
+    Bl = tokens.shape[0]
+    x = _embed_sharded(params, tokens[:, None], cfg, topo)  # (Bl, 1, d)
+    positions = torch.full((Bl, 1), pos, dtype=torch.int32, device=x.device)
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    Hl, lo, m = cfg.n_heads // topo.tp_size, chunk * Tc, topo.tp_rank
+    specs = layer_specs(cfg, topo)
+    for li, lp in enumerate(params.layers):
+        w = _Shard(lp, specs, topo)
+        h = rms_norm(x, lp.ln1, NORM_EPS)
+        q, k, v = (topo.all_gather(t, 2, "tp") for t in _gqa_qkv(w, h, cfg, positions))
+        if lo <= pos < lo + Tc:  # this rank's chunk holds the position
+            cache["k"][li, :, pos - lo] = k[:, 0]
+            cache["v"][li, :, pos - lo] = v[:, 0]
+        out, lse = _chunk_attention(q, cache["k"][li], cache["v"][li], pos - lo, scale)
+        out = _merge_chunks(out, lse, topo, scope).to(q.dtype)
+        mine = out[:, :, m * Hl:(m + 1) * Hl].reshape(Bl, 1, -1)
+        x = x + _tp_sum(mine @ w.wo, topo)
+        h = rms_norm(x, lp.ln2, NORM_EPS)
+        x = x + _ffn(w, h, cfg, topo, over_dp)[0]
+    x = rms_norm(x, params.final_norm, NORM_EPS)
+    return _head_sharded(params, x[:, 0], cfg, topo), cache

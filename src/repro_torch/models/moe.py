@@ -1,8 +1,9 @@
-"""Mixture-of-Experts FFN (token-choice top-k) on one card.
+"""Mixture-of-Experts FFN (token-choice top-k), on one card or with
+its experts over the tensor-parallel ranks (EP-as-TP).
 
-The port of the JAX package's ``models/moe.py`` with no tensor and no
-data parallelism: its ``_moe_local`` on one device, where every expert
-is local.  The steps, each with the reference's semantics:
+The port of the JAX package's ``models/moe.py``: on one card its
+``_moe_local`` on one device, where every expert is local.  The steps,
+each with the reference's semantics:
 
   route     f32 router logits, softmax, top-k (ties to the lower expert
             index, as ``jax.lax.top_k``), gates renormalised over the k;
@@ -24,6 +25,18 @@ is local.  The steps, each with the reference's semantics:
             which the reference's scatter-add applies them.  A gather
             through the sort and a fixed sum, no atomics: the bits repeat.
   aux       the Switch load-balance loss over the pairs before drops
+
+Across ranks (``topo`` of more than one rank) a rank holds experts
+[m E/tp, (m+1) E/tp) of tp rank m, each FSDP-split over dp and
+all-gathered by the layer before the call, so ``moe_ffn`` is given the
+rank's experts whole: one body serves one card (m 0, all E experts) and
+a rank.  The tokens come replicated over tp, so every tp
+rank routes them alike; the capacity is the rank's token count's (its
+B/dp rows, or all B where dp does not divide B: the JAX package's
+per-shard capacity, so which pairs drop depends on dp).  A rank keeps
+its own experts' pairs of rank below C and combines them as above; one
+all_reduce over tp sums the ranks' outputs, and the aux loss is the
+mean over dp of each dp rank's.
 """
 
 from __future__ import annotations
@@ -94,34 +107,44 @@ def route(x, router_w, cfg: MoEConfig, C: int) -> Route:
                  probs=probs, counts=counts)
 
 
-def moe_ffn(x, router_w, w_gate, w_up, w_down, cfg: MoEConfig):
+def moe_ffn(x, router_w, w_gate, w_up, w_down, cfg: MoEConfig, topo=None, *,
+            batch_over_dp: bool = False):
     """x (B, S, d), router_w (d, E), w_gate/w_up (E, d, f), w_down
-    (E, f, d) -> (out (B, S, d), aux f32 scalar)."""
+    (E, f, d) -> (out (B, S, d), aux f32 scalar).  Across ranks
+    (``topo``) x is the rank's tokens (its rows of the batch where
+    ``batch_over_dp``, else the whole batch) and the expert weights are
+    its E/tp experts, whole (their FSDP blocks gathered)."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
+    El = w_gate.shape[0]  # E, or this rank's E/tp experts
+    m = 0 if topo is None else topo.tp_rank
     xl = x.reshape(-1, d)
     N = xl.shape[0]
     C = capacity(cfg, N)
-    r = route(xl, router_w, cfg, C)
+    r = route(xl, router_w, cfg, C)  # alike on every tp rank
+    keep, le = r.keep, r.idx
+    if El < E:  # the pairs of this rank's experts, by their local index
+        le = r.idx - m * El
+        keep = keep & (le >= 0) & (le < El)
 
     # dispatch: kept rows into distinct slots, dropped ones (as zeros)
-    # into the overflow row E*C
-    slot = torch.where(r.keep, r.idx * C + r.rank, E * C).reshape(-1)
-    rows = torch.where(r.keep.reshape(-1, 1), xl.repeat_interleave(k, dim=0), 0)
-    buf = xl.new_zeros((E * C + 1, d))
+    # into the overflow row El*C
+    slot = torch.where(keep, le * C + r.rank, El * C).reshape(-1)
+    rows = torch.where(keep.reshape(-1, 1), xl.repeat_interleave(k, dim=0), 0)
+    buf = xl.new_zeros((El * C + 1, d))
     buf[slot] = rows
-    buf = buf[:E * C].view(E, C, d)
+    buf = buf[:El * C].view(El, C, d)
 
     # experts
     h = swiglu(torch.bmm(buf, w_gate).float(),
                torch.bmm(buf, w_up).float()).to(x.dtype)
-    y = torch.bmm(h, w_down).reshape(E * C, d)
+    y = torch.bmm(h, w_down).reshape(El * C, d)
 
     # combine: each token's k slots in ascending expert order, from +0
     order = torch.argsort(r.idx, dim=-1)
-    e_s = torch.gather(r.idx, 1, order)
-    keep_s = torch.gather(r.keep, 1, order)
-    slot_s = torch.where(keep_s, e_s * C + torch.gather(r.rank, 1, order), 0)
+    keep_s = torch.gather(keep, 1, order)
+    slot_s = torch.where(keep_s, torch.gather(le, 1, order) * C
+                         + torch.gather(r.rank, 1, order), 0)
     gate_s = torch.gather(r.gates, 1, order).to(x.dtype)
     vals = torch.where(keep_s[..., None], y[slot_s], 0)
     out = torch.zeros_like(xl)
@@ -131,4 +154,8 @@ def moe_ffn(x, router_w, w_gate, w_up, w_down, cfg: MoEConfig):
     # Switch load-balance loss over every pair, kept or not
     frac = r.counts.float() / float(N * k)
     aux = float(E) * torch.sum(frac * r.probs.mean(dim=0))
+    if topo is not None:
+        out = topo.all_reduce(out, "tp")  # the other ranks' experts' pairs
+        if batch_over_dp:
+            aux = topo.all_reduce(aux, "dp") / topo.dp_size
     return out.reshape(B, S, d), aux

@@ -356,6 +356,30 @@ def test_flash_attention_bwd_matches_plain(dev, case, causal):
     assert_grads_close(got, want, q.dtype)
 
 
+# The f32 backward's worst gradient against the plain backward in f64,
+# as a share of its max |value|, at the attention shape of
+# test_lm_train_step_on_card_matches_cpu[gqa] (B 2, Hq 4, Hkv 2, S 128,
+# D 64, causal), on these inputs.  With S = Q K^T on the tensor cores
+# (3xTF32) it was 1.99e-6 (dq; dk 1.84e-6, dv 9.4e-7), and that test's
+# AdamW step flipped a weight of wv; with S in f32 FMAs, 1.59e-6 (dq;
+# dk 9.3e-7, dv 4.3e-7), the same bits each run (scripts/attn_probe.py
+# --precision, on an H100)
+F32_BWD_WORST_LEAF = 1.7e-6
+
+
+def test_flash_attention_bwd_f32_worst_leaf(dev):
+    q, k, v, dout = attention_grads_case(dev, (2, 4, 2, 128, 128, 64, torch.float32), 5)
+    lse = torch.empty(q.shape[:3], device=dev)
+    out = K.flash_attention_cuda(q, k, v, causal=True, lse=lse)
+    got = K.flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal=True)
+    q64, k64, v64, do64 = (t.double().cpu() for t in (q, k, v, dout))
+    o64, lse64 = K.attention_lse_ref(q64, k64, v64, causal=True)
+    want = K.attention_bwd_ref(q64, k64, v64, o64, lse64, do64, causal=True)
+    gaps = [float((g.double().cpu() - w).abs().max() / w.abs().max())
+            for g, w in zip(got, want)]
+    assert max(gaps) <= F32_BWD_WORST_LEAF, f"dq, dk, dv: {gaps}"
+
+
 @pytest.mark.parametrize("case", [BWD_CASES[7], BWD_CASES[8], BWD_CASES[5],
                                   BWD_CASES[10], BWD_CASES[11], BWD_CASES[12]])
 def test_flash_attention_bwd_is_deterministic(dev, case):

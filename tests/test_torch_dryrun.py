@@ -46,6 +46,11 @@ def test_cli_all_writes_ok_records_without_a_graph_or_an_engine(tmp_path, monkey
             assert r["peak_bytes_per_card"] > r["resident_bytes_per_card"] > \
                 r["arg_bytes_per_card"]
             assert r["fits_one_card"] == (r["peak_bytes_per_card"] <= dryrun.CARD_BYTES)
+        elif "grid" in r:  # an LM plan: each argument's block on its dp x tp grid
+            assert r["peak_bytes_per_card"] is None
+            assert r["grid"] == ({"data": 1} if r["ranks"] == 1 else {"data": 1, "model": 4})
+            assert r["arg_bytes"] <= r["arg_bytes_per_card"] * r["ranks"]
+            assert (r["arg_bytes_per_card"] < r["arg_bytes"]) == (r["ranks"] > 1)
         else:
             assert r["peak_bytes_per_card"] is None
             assert r["arg_bytes_per_card"] == r["arg_bytes"]
