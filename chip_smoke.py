@@ -11,7 +11,9 @@ inference and training (gin-tu at full width) on rmat1 at scale 21, the
 size of ogb-products; EGNN, MACE and DimeNet
 training at full width on a fanout block of that graph; and LM
 training of phi3-mini-3.8b at full width (32 layers, 3.82 B parameters,
-B 1 x S 4096), its attention through the forward and backward kernels.
+B 1 x S 4096, and at 4 layers, B 2 x S 4096, across gloo processes
+sharing the card at tp 2 and dp 2 x tp 2), its attention through the
+forward and backward kernels.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --trace-spread 3   # phase 12(a)'s timing alone
@@ -41,13 +43,16 @@ Phases (any failure exits non-zero):
      prefill of phase 8) and case e (dbrx's prefill of phase 8b: Hq 48,
      Hkv 8, 6 q heads a kv head), case e' (a tp 2 rank's heads of
      phi3.5-moe's prefill in phase 8d: Hq 16, Hkv 4) and the train steps' forwards of phase
-     8c (b': bf16, B 1, H 32, S 4096, D 96; d': f32, S 2048, D 96); the
+     8c (b': bf16, B 1, H 32, S 4096, D 96; d': f32, S 2048, D 96) and
+     a tp 2 rank's of phase 8e (j, j': bf16, H 16, S 4096, D 96 at B 2
+     and B 1; k, k': f32, S 2048; these also alone under the profiler); the
      bag also as a bare launch, alone under torch.profiler and its index
      check apart; the attention
      backward (flash_attention_bwd) against its plain version at phi3-
      mini's train shape (bf16, B 1, H 32, S 4096, D 96), at G 4 and G 6
      with D 128 (bf16, B 2, S 2048) and at the fp32 twin's (f32, S 2048,
-     D 96), timed through the wrapper, alone under the profiler, beside
+     D 96) and at a tp 2 rank's of phase 8e (l, l', m, m': H 16, B 2 and
+     B 1), timed through the wrapper, alone under the profiler, beside
      the plain version and beside the backward of sdpa
   8. LM serving, minitron-8b in bf16: prefill of 4 x 1920 tokens
      through the attention kernel (32 launches), 32 greedy decode
@@ -67,7 +72,7 @@ Phases (any failure exits non-zero):
  8d. LM serving across ranks: phi3.5-moe at full width and 8b's 8 layers
      (the weights of 8b's seed, each rank drawing every tensor and keeping
      its block), 8b's prompt, across gloo processes sharing the card: (a)
-     tp 2, 32 decode steps; (b) dp 2 x tp 2, 2 (its FSDP gathers pass
+     tp 2, 32 decode steps; (b) dp 2 x tp 2, 1 (its FSDP gathers pass
      through the host).  Against one process on each dp rank's rows (at
      dp 1 phase 8b's run, bit for bit), fed its tokens: bf16 within the
      bf16 check (5% of max |logit|) for every row whose token routed as
@@ -92,6 +97,22 @@ Phases (any failure exits non-zero):
      (busy share); (b) the fp32 twin at 2 layers, S 2048: loss and every
      gradient leaf through the kernels against the plain route (1e-5,
      1e-4 of a leaf's max |grad|)
+  8e. LM training across ranks: phi3-mini-3.8b at full width and 4
+     layers in bf16, B 2 x S 4096 from lm_batch, across gloo processes
+     sharing the card (every rank drawing every tensor of the seed's
+     weights and keeping its blocks): (b) dp 2 x tp 2, then (a) tp 2,
+     with the sequence-parallel residual; a cold and 2 warm steps a grid
+     (ms, tokens/s, peak memory, collectives and bytes a step, the
+     attention kernels' launches a step a rank: 8 forward and 4
+     backward); then the fp32 twin at 2 layers, B 2 x S 2048, with the
+     sequence-parallel residual and without, grid (b)'s train state
+     checkpointed after step 1 and resumed on grid (a); against one
+     process on the card, run after the worlds: the first step's loss
+     (1e-3) and every gradient leaf, put back together by the specs
+     (5e-2 of a leaf's max |grad|), the twin's (1e-5, 1e-4), and the
+     twin's step 2 resumed on grid (a) and in one process against the
+     one process's uninterrupted step 2 (gloo stages a card's tensors
+     through the host: not scaling figures)
   9. MIND serving: serve_interests at B=512 and B=262,144 and
      retrieval_scores over all 2^20 items, through the embedding-bag
      kernel, against the plain bag; each call's bag of profiles bit for
@@ -185,8 +206,9 @@ Phases (any failure exits non-zero):
      adding a source, bit-identical to the stacked resolve at the same
      P (state, padded state, metrics) and to a cold solve's state, warm
      walls beside the stacked ones; (b) at P = 2 the query service at
-     the reference service CLI's defaults (phase 11's mix, landmarks,
-     cache and 4 improving updates), rank 0 serving and the other rank
+     the reference service CLI's defaults (landmarks, cache and phase
+     11's improving updates; 50 queries from phase 11's mix generator,
+     cut from 200 for phase 8e's time), rank 0 serving and the other rank
      following: every answer equal to the stacked service's on the same
      mix, the cache, router, landmark and feed counters equal on every
      rank, refreshed entries equal to cold solves; q/s, p50/p99, flush
@@ -282,9 +304,9 @@ MOE_F32_LAYERS = 2
 # layer in bf16) at every step, through the host (gloo): 18.0 s a bf16
 # prefill and 10.8 s a decode step on one card (PERF.md), so its
 # published-capacity run prefills only (its drops and wall) and the
-# others decode 2 steps of 8b's 32
-SHARD_ARCH, SHARD_LAYERS = "phi3.5-moe-42b-a6.6b", 8
-SHARD_GRIDS = (("a", 2, 2, LM_DECODE, LM_DECODE, 8), ("b", 4, 2, 0, 2, 2))
+# others decode 1 step of 8b's 32 (2 before phase 8e took their time)
+SHARD_ARCH, SHARD_LAYERS = "phi3.5-moe-42b-a6.6b", dict(MOE_ARCHS)["phi3.5-moe-42b-a6.6b"]
+SHARD_GRIDS = (("a", 2, 2, LM_DECODE, LM_DECODE, 8), ("b", 4, 2, 0, 1, 1))
 SHARD_F32_TOL = 1e-4
 # a bf16 row is excused from LM_BF16_TOL only when its token took other
 # experts than in one process, and only for a near tie: at the first MoE
@@ -335,6 +357,31 @@ TRAIN_F32_LOSS_RTOL, TRAIN_F32_GRAD_TOL = 1e-5, 1e-4
 # An lse off by 1e-2 (0.021) stays inside the sound spread: phase 7
 # holds lse within ATTN_LSE_TOL at this shape
 TRAIN_BF16_LOSS_RTOL, TRAIN_BF16_GRAD_TOL = 1e-4, 5e-2
+# LM training across ranks (phase 8e): phi3-mini at full width and
+# TRAIN_SHARD_LAYERS layers in bf16, B 2 x S TRAIN_SEQ from lm_batch,
+# across gloo processes sharing the card, on each grid of
+# TRAIN_SHARD_GRIDS (label, ranks, tp; (b) first: (a) resumes its
+# checkpoint) with seq_shard_resid; a cold and TRAIN_SHARD_WARM warm
+# steps a grid.  Held against one process on the same layers and batches,
+# run after the worlds, before any update: the loss within
+# TRAIN_SHARD_BF16_LOSS_RTOL (the tp ranks' partial sums are rounded to
+# bf16 before they are summed; 7.0e-5 on the CPU at d 768, 4 layers,
+# scripts/train_shard_gaps.py) and every gradient leaf within
+# TRAIN_BF16_GRAD_TOL of its max |grad| (0.026 there).  The fp32 twin at
+# TRAIN_F32_LAYERS layers, B 2 x S TRAIN_SHARD_F32_SEQ, seq_shard_resid
+# True and False, at TRAIN_F32_LOSS_RTOL and TRAIN_F32_GRAD_TOL; its
+# state checkpointed on grid (b) after step 1, restored on grid (a) and
+# in one process: step 2 against the one process's uninterrupted run.
+# The twin's steps run at lr TRAIN_SHARD_LR from the first (warmup 1): an
+# update moves a weight by about that, which the next loss sees, and a
+# gradient under Adam's eps moves one by at most about that between two
+# summation orders
+TRAIN_SHARD_LAYERS, TRAIN_SHARD_BATCH, TRAIN_SHARD_WARM = 4, 2, 2
+TRAIN_SHARD_GRIDS = (("b", 4, 2), ("a", 2, 2))
+TRAIN_SHARD_F32_SEQ = 2048
+TRAIN_SHARD_BF16_LOSS_RTOL = 1e-3
+TRAIN_SHARD_LR = 1e-4
+TRAIN_SHARD_TIMEOUT = 900.0
 # MIND serving (phase 9)
 MIND_SERVE = (("serve_p99", 512), ("serve_bulk", 262_144))
 # kernel-path vs plain-bag outputs, as a share of the plain one's max
@@ -478,6 +525,10 @@ NCCL_BACKEND = "nccl"
 RESOLVE_PROCESSES = (2, 4)
 SERVICE_PROCESSES = 2
 SERVICE_TIMEOUT_S = 900
+# the service's mix across processes, cut for phase 8e's time:
+# SERVICE_QUERIES from phase 11's generator (build_query_mix, its Zipf
+# exponent and seed; 200 before, at some 3 q/s through gloo)
+SERVICE_QUERIES = 50
 # the static-analysis gate and the superstep profile (phase 15)
 GATE_RANKS = 4
 GATE_ESCAPES = (("kla:2+buffer/sparse/fused", "sssp"), (SPEC, "bfs"))
@@ -617,6 +668,12 @@ ATTN_CASES = (
     ("d' fp32 twin train", 1, 32, 32, 2048, 2048, 96, "float32", True),
     # a tp 2 rank's heads of phi3.5-moe's prefill in phase 8d
     ("e' phi3.5-moe prefill, a tp 2 rank", 4, 16, 4, 1920, 1920, 128, "bfloat16", True),
+    # a tp 2 rank's heads of phase 8e's train steps: grid (a) (B 2) and
+    # grid (b) (dp 2: B 1), phi3-mini's and its fp32 twin's
+    ("j phi3-mini train, a tp 2 rank of grid (a)", 2, 16, 16, 4096, 4096, 96, "bfloat16", True),
+    ("j' phi3-mini train, a tp 2 rank of grid (b)", 1, 16, 16, 4096, 4096, 96, "bfloat16", True),
+    ("k fp32 twin train, a tp 2 rank of grid (a)", 2, 16, 16, 2048, 2048, 96, "float32", True),
+    ("k' fp32 twin train, a tp 2 rank of grid (b)", 1, 16, 16, 2048, 2048, 96, "float32", True),
 )
 ATTN_BWD_CASES = (
     # label, B, Hq, Hkv, S, D, dtype name, causal
@@ -624,6 +681,11 @@ ATTN_BWD_CASES = (
     ("g G 4 (minitron, phi3.5-moe)", 2, 32, 8, 2048, 128, "bfloat16", True),
     ("h G 6 (dbrx)", 2, 48, 8, 2048, 128, "bfloat16", True),
     ("i fp32 twin train", 1, 32, 32, 2048, 96, "float32", True),
+    # a tp 2 rank's heads of phase 8e's train steps, as ATTN_CASES' j-k'
+    ("l phi3-mini train, a tp 2 rank of grid (a)", 2, 16, 16, 4096, 96, "bfloat16", True),
+    ("l' phi3-mini train, a tp 2 rank of grid (b)", 1, 16, 16, 4096, 96, "bfloat16", True),
+    ("m fp32 twin train, a tp 2 rank of grid (a)", 2, 16, 16, 2048, 96, "float32", True),
+    ("m' fp32 twin train, a tp 2 rank of grid (b)", 1, 16, 16, 2048, 96, "float32", True),
 )
 # every __global__ of csrc/flash_attention_bwd.cu, the one launched once
 # a call (of either dtype) first: kernel_alone_ms counts calls by it and
@@ -636,6 +698,10 @@ ATTN_BWD_REPEAT = ("f phi3-mini train", "h G 6 (dbrx)", "i fp32 twin train")
 ATTN_BWD_ROWS = {
     "f phi3-mini train": "flash_attention_bwd",
     "i fp32 twin train": "flash_attention_bwd f32",
+    "l phi3-mini train, a tp 2 rank of grid (a)": "flash_attention_bwd train tp rank B 2",
+    "l' phi3-mini train, a tp 2 rank of grid (b)": "flash_attention_bwd train tp rank B 1",
+    "m fp32 twin train, a tp 2 rank of grid (a)": "flash_attention_bwd f32 train tp rank B 2",
+    "m' fp32 twin train, a tp 2 rank of grid (b)": "flash_attention_bwd f32 train tp rank B 1",
 }
 # the cases whose numbers stand in the kernels line, with the row's name
 # and source: the path's shapes, minitron's prefill at max_len (bf16)
@@ -646,7 +712,22 @@ ATTN_ROWS = {
     "e dbrx prefill": ("flash_attention dbrx", "src/repro_torch/csrc/flash_attention_sm90.cu"),
     "e' phi3.5-moe prefill, a tp 2 rank": ("flash_attention tp rank",
                                             "src/repro_torch/csrc/flash_attention_sm90.cu"),
+    "j phi3-mini train, a tp 2 rank of grid (a)": ("flash_attention train tp rank B 2",
+            "src/repro_torch/csrc/flash_attention_sm90.cu"),
+    "j' phi3-mini train, a tp 2 rank of grid (b)": ("flash_attention train tp rank B 1",
+             "src/repro_torch/csrc/flash_attention_sm90.cu"),
+    "k fp32 twin train, a tp 2 rank of grid (a)": ("flash_attention f32 train tp rank B 2", "src/repro_torch/csrc/flash_attention.cu"),
+    "k' fp32 twin train, a tp 2 rank of grid (b)": ("flash_attention f32 train tp rank B 1", "src/repro_torch/csrc/flash_attention.cu"),
 }
+# the forward cases also timed alone under the profiler (the kernels of
+# their dtype's source): phase 8e's
+ATTN_ALONE = {"bfloat16": ("flash_attention_sm90_kernel",),
+              "float32": ("flash_attention_kernel", "flash_merge_kernel")}
+ATTN_ALONE_CASES = ("j phi3-mini train, a tp 2 rank of grid (a)", "j' phi3-mini train, a tp 2 rank of grid (b)", "k fp32 twin train, a tp 2 rank of grid (a)", "k' fp32 twin train, a tp 2 rank of grid (b)")
+# phase 8e's rows of the kernels line by (dtype, grid): the forward's and
+# the backward's labels
+TRAIN_SHARD_ROWS = {("bfloat16", "a"): ("j phi3-mini train, a tp 2 rank of grid (a)", "l phi3-mini train, a tp 2 rank of grid (a)"), ("bfloat16", "b"): ("j' phi3-mini train, a tp 2 rank of grid (b)", "l' phi3-mini train, a tp 2 rank of grid (b)"),
+                    ("float32", "a"): ("k fp32 twin train, a tp 2 rank of grid (a)", "m fp32 twin train, a tp 2 rank of grid (a)"), ("float32", "b"): ("k' fp32 twin train, a tp 2 rank of grid (b)", "m' fp32 twin train, a tp 2 rank of grid (b)")}
 
 
 def tf32x3_share(nbytes: int, flops: int, ms: float, alone_ms: float | None = None) -> str:
@@ -727,10 +808,11 @@ def library_kernels(fn) -> str:
 def serving_kernels(dev, flush) -> tuple:
     """Phase 7: flash_attention and embedding_bag against their plain
     versions at the serving paths' shapes.  Returns their rows of the
-    kernels line, attention's bf16 kernel at case (a), its f32 kernel at
-    case (d), its bf16 kernel at dbrx's case (e) and at a tp rank's
-    heads (e'), and the bag (launches filled in by phases 8, 8b, 8d and
-    9)."""
+    kernels line: attention's by the label of its case in ATTN_ROWS (the
+    bf16 kernel at case (a), the f32 kernel at case (d), the bf16 kernel
+    at dbrx's case (e), at a tp rank's heads (e') and at phase 8e's train
+    shapes (j-k')), and the bag's (launches filled in by phases 8, 8b,
+    8d, 8e and 9)."""
     import torch
 
     from repro_torch.configs import get_arch
@@ -754,7 +836,7 @@ def serving_kernels(dev, flush) -> tuple:
     u = torch.rand(idx.shape, generator=gen, device=dev)
     w = torch.where(u > 0.2, torch.rand(idx.shape, generator=gen, device=dev), 0.0)
     bag_row = bag_check("serve_bulk", table, idx, w, flush)
-    return *(attn_rows[label] for label in ATTN_ROWS), bag_row
+    return attn_rows, bag_row
 
 
 def attention_cases(cases, randn, dev, flush) -> dict:
@@ -803,6 +885,10 @@ def attention_cases(cases, randn, dev, flush) -> dict:
         lib_err = float((library().float() - ref.float()).abs().max())
         backend = library_kernels(library)
         ms = time_ms(lambda: K.flash_attention_cuda(q, k, v, causal=causal), flush)
+        alone_ms = None
+        if label in ATTN_ALONE_CASES:
+            alone_ms = kernel_alone_ms(lambda: K.flash_attention_cuda(q, k, v, causal=causal),
+                                       flush, ATTN_ALONE[dtype_name])
         plain_ms = time_ms(lambda: K.attention_ref(q, k, v, causal=causal), flush)
         library_ms = time_ms(library, flush)
         nbytes, flops = flash_attention_traffic(B, Hq, Hkv, Sq, Sk, D, causal,
@@ -816,7 +902,9 @@ def attention_cases(cases, randn, dev, flush) -> dict:
             f"{flops} flop, {nbytes} bytes, bound {bound_ms:.4f} ms "
             f"({bound_by}, {peak / 1e12:g} TFLOP/s); kernel at "
             f"{flops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.3f} of its bound"
-            f"{tf32x3_share(nbytes, flops, ms) if dtype == torch.float32 else ''} "
+            + ("" if alone_ms is None else f"; alone under the profiler {alone_ms:.4f} ms "
+               f"({bound_ms / alone_ms:.3f} of its bound)")
+            + f"{tf32x3_share(nbytes, flops, ms, alone_ms) if dtype == torch.float32 else ''} "
             f"(sdpa {flops / library_ms / 1e9:.1f} TFLOP/s; the kernel "
             f"{'faster' if ms < library_ms else 'slower'} than sdpa; sdpa's "
             f"kernels: {backend})")
@@ -902,14 +990,15 @@ def bag_check(label, table, idx, w, flush) -> dict:
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
 
-def attention_bwd_kernels(dev, flush) -> list[dict]:
+def attention_bwd_kernels(dev, flush) -> dict:
     """Phase 7's backward cases: flash_attention_bwd against its plain
     version on the card (and, at ATTN_BWD_REPEAT, against itself: two
     launches, the same bits), timed through the wrapper and alone (every
     kernel of ATTN_BWD_KERNELS) beside the plain version and beside
     torch.autograd.grad of scaled_dot_product_attention (its backward
     alone, the forward's graph kept).  Returns the rows of the kernels
-    line (launches filled in by phase 8c)."""
+    line by the label of their case in ATTN_BWD_ROWS (launches filled in
+    by phases 8c and 8e)."""
     import torch
     import torch.nn.functional as F
 
@@ -918,7 +1007,7 @@ def attention_bwd_kernels(dev, flush) -> list[dict]:
     from repro_torch.roofline.kernels import flash_attention_bwd_traffic
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    rows = []
+    rows = {}
     for label, B, Hq, Hkv, S, D, dtype_name, causal in ATTN_BWD_CASES:
         dtype = getattr(torch, dtype_name)
         q, dout = (torch.randn((B, Hq, S, D), generator=gen, device=dev).to(dtype)
@@ -1005,12 +1094,12 @@ def attention_bwd_kernels(dev, flush) -> list[dict]:
         if dtype == torch.float32:  # the f32 kernels run on the tensor cores
             bound_ms, bound_by = bound(nbytes, flops, TF32X3_OPS_PER_S)
         if label in ATTN_BWD_ROWS:
-            rows.append(dict(
+            rows[label] = dict(
                 name=ATTN_BWD_ROWS[label], route="cuda",
                 source="src/repro_torch/csrc/flash_attention_bwd.cu",
                 replaces="src/repro/kernels/flash_attention/kernel.py:84",
                 launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms))
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
         del q, k, v, dout, out, lse, lse_ref, ins, lib_out
         free_card()
     return rows
@@ -1674,6 +1763,200 @@ def sharded_serving(dev, ref: dict, card_line: str) -> int:
         if launches0 is None:
             launches0 = res[0][0]["prefill_launches"]["flash_attention"]
     return launches0
+
+
+def spec_paths(specs, prefix: str = "") -> dict:
+    """A tree of specs (dicts of spec tuples) by leaf path, as
+    ``train.checkpoint._flatten_with_paths`` keys a tree of tensors."""
+    if isinstance(specs, dict):
+        return {k: v for key in sorted(specs)
+                for k, v in spec_paths(specs[key], f"{prefix}{key}/").items()}
+    return {prefix[:-1]: specs}
+
+
+def block_gaps(runs: list, step: int, specs: dict, topo, want: dict) -> dict:
+    """Each leaf's largest gap between a rank's gradient block (every
+    rank of ``runs``, saved by ``launch/train.py::run_job``) and that
+    block of ``want`` (one process's whole gradients by path, on the
+    card; a run's blocks are a tree or the file it saved), as a share of the leaf's max |grad| in ``want``: the whole
+    leaves put back together and compared, every replica of a block held
+    besides."""
+    import torch
+
+    from repro_torch.models.common import Topology, shard_slices
+    from repro_torch.train.checkpoint import _flatten_with_paths as by_path
+
+    gap = dict.fromkeys(want, 0.0)
+    for r in runs:
+        at = Topology(grid=topo.grid, dp_axes=topo.dp_axes, tp_axis=topo.tp_axis,
+                      rank=r["rank"])
+        blocks = r["grads"][step]
+        for k, b in by_path(torch.load(blocks) if isinstance(blocks, str) else blocks).items():
+            w = want[k][shard_slices(want[k].shape, specs[k], at)]
+            gap[k] = max(gap[k], float((b.to(w.device).float() - w.float()).abs().max()))
+    return {k: g / max(float(want[k].float().abs().max()), 1e-30) for k, g in gap.items()}
+
+
+def sharded_training(dev, card_line) -> dict:
+    """Phase 8e: phi3-mini trains at full width and TRAIN_SHARD_LAYERS
+    layers across gloo processes sharing the card, on each grid of
+    TRAIN_SHARD_GRIDS with seq_shard_resid (launch/train.py::run_job in
+    launch/lm_shard.py's worlds): a cold and TRAIN_SHARD_WARM warm steps,
+    every rank launching the forward kernel twice a layer (remat) and the
+    backward once, every step; then the fp32 twin with seq_shard_resid
+    True and False, grid (b)'s state checkpointed after step 1 and grid
+    (a) resuming it.  Then one process on the card: the bf16 run's first
+    step, the twin's two steps and its resume; the sharded losses and
+    every gradient leaf (put back together by the specs) against it.
+    Returns rank 0's (flash_attention, flash_attention_bwd) launches of
+    each run by (dtype, grid label)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import lm_batch
+    from repro_torch.launch import lm_shard
+    from repro_torch.launch import train as train_launch
+    from repro_torch.launch.mesh import make_cpu_topology
+    from repro_torch.models import lm
+    from repro_torch.train.checkpoint import _flatten_with_paths as by_path
+
+    full = get_arch(TRAIN_ARCH).make_config()
+    V, L = full.vocab, TRAIN_SHARD_LAYERS
+    over16 = {"n_layers": L, "seq_shard_resid": True}
+    over32 = {"n_layers": TRAIN_F32_LAYERS, "param_dtype": "float32"}
+    b16 = [lm_batch(s, TRAIN_SHARD_BATCH, TRAIN_SEQ, V, seed=SEED)
+           for s in range(1 + TRAIN_SHARD_WARM)]
+    b32 = [lm_batch(s, TRAIN_SHARD_BATCH, TRAIN_SHARD_F32_SEQ, V, seed=SEED) for s in range(2)]
+    twin = dict(train={"warmup_steps": 1}, adamw={"lr": TRAIN_SHARD_LR})
+
+    def job(over, batches, **kw):
+        return dict(kind="train", arch=TRAIN_ARCH, over=over, batches=batches, seed=SEED, **kw)
+
+    def launches_ok(run, what, layers):
+        want = (2 * layers, layers)  # remat runs each layer's forward again
+        got = [(c.get("flash_attention", 0), c.get("flash_attention_bwd", 0))
+               for c in run["launches"]]
+        if any(g != want for g in got):
+            fail(f"phase 8e {what}: rank {run['rank']} launched (flash_attention, "
+                 f"flash_attention_bwd) {got} a step, want {want}")
+        return tuple(map(sum, zip(*got)))
+
+    def on_card(tree):
+        return {k: v.to(dev) for k, v in by_path(tree).items()}
+
+    out, results = {}, {}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        ckpt = os.path.join(tmp, "ckpt")
+        for label, world, tp in TRAIN_SHARD_GRIDS:
+            files = os.path.join(tmp, f"{label}-{{rank}}-{{step}}")
+            jobs = [job(over16, b16, grads=(0,), grads_file=files + "-bf16.pt"),
+                    job({**over32, "seq_shard_resid": True}, b32[:1], grads=(0,),
+                        grads_file=files + "-sp.pt", **twin,
+                        **({"save": (ckpt, 1)} if label == "b" else {})),
+                    job({**over32, "seq_shard_resid": False}, b32[:1], grads=(0,),
+                        grads_file=files + "-ar.pt", **twin)]
+            if label == "a":
+                jobs.append(job({**over32, "seq_shard_resid": True}, b32[1:], grads=(0,),
+                                grads_file=files + "-resume.pt", restore=ckpt, **twin))
+            free_card()
+            t0 = time.perf_counter()
+            for j in jobs:
+                j["tp"] = tp
+            res = lm_shard.run_world(world, jobs, os.path.join(tmp, f"w{label}"),
+                                     backend="gloo", device="cuda",
+                                     timeout=TRAIN_SHARD_TIMEOUT)
+            topo = make_cpu_topology(world, tp)
+            name = f"({label}) {world} ranks, dp {topo.dp_size} x tp {tp}"
+            log(f"phase 8e {name}: the ranks ran in {time.perf_counter() - t0:.1f} s "
+                f"(processes started, models drawn, {len(jobs)} jobs)")
+            for r in res:
+                bf16 = r[0]
+                warm = bf16["walls"][1:]
+                med = sorted(warm)[len(warm) // 2]
+                n = launches_ok(bf16, f"{name} bf16", L)
+                for j, what in ((1, "twin, seq_shard_resid"), (2, "twin, all_reduce form")):
+                    launches_ok(r[j], f"{name} {what}", TRAIN_F32_LAYERS)
+                log(f"phase 8e {name} rank {bf16['rank']} {bf16['coords']}: bf16 cold step "
+                    f"{bf16['walls'][0] * 1e3:.1f} ms, warm "
+                    f"{', '.join(f'{w * 1e3:.1f}' for w in warm)} ms (median "
+                    f"{med * 1e3:.1f} ms, {TRAIN_SHARD_BATCH * TRAIN_SEQ / med:.0f} tokens/s "
+                    f"of the world); losses {[round(x, 5) for x in bf16['losses']]}; peak "
+                    f"{bf16.get('peak_bytes', 0) / 2**30:.2f} GiB; (flash_attention, "
+                    f"flash_attention_bwd) launches a step {bf16['launches'][-1].get('flash_attention')}"
+                    f", {bf16['launches'][-1].get('flash_attention_bwd')}; collectives a warm "
+                    f"step {bf16['counts'][-1]}; the twin's steps "
+                    f"{[round(w * 1e3, 1) for w in r[1]['walls']]} ms (seq_shard_resid), "
+                    f"{[round(w * 1e3, 1) for w in r[2]['walls']]} ms (all_reduce form), "
+                    f"collectives a step {r[1]['counts'][0]} and {r[2]['counts'][0]} (gloo "
+                    f"stages a card's tensors through the host: not scaling figures); set-up "
+                    f"(draw or restore) of the jobs {[round(j['setup_s'], 2) for j in r]} s, "
+                    f"gradient files {[round(j['files_s'], 2) for j in r]} s, checkpoint "
+                    f"{[round(j['save_s'], 2) for j in r]} s")
+                if not all(np.isfinite(x) for j in r for x in j["losses"]):
+                    fail(f"phase 8e {name}: rank {bf16['rank']}: a loss is not finite")
+                if bf16["losses"] != res[0][0]["losses"]:
+                    fail(f"phase 8e {name}: the ranks' bf16 losses differ")
+            out[("bfloat16", label)] = launches_ok(res[0][0], name, L)
+            out[("float32", label)] = tuple(
+                a + b for a, b in zip(launches_ok(res[0][1], name, TRAIN_F32_LAYERS),
+                                      launches_ok(res[0][2], name, TRAIN_F32_LAYERS)))
+            results[label] = (topo, res)
+
+        # one process on the card, after the worlds
+        free_card()
+        t0 = time.perf_counter()
+        cfg16 = lm_shard.job_config(job(over16, b16))
+        one16 = train_launch.run_job(job(over16, b16[:1], grads=(0,)), None, dev)
+        want16 = on_card(one16.pop("grads")[0])
+        cfg32 = lm_shard.job_config(job(over32, b32))
+        one32 = train_launch.run_job(job(over32, b32, grads=(0, 1), **twin), None, dev)
+        want32 = [on_card(g) for g in one32.pop("grads").values()]
+        resumed = train_launch.run_job(job(over32, b32[1:], grads=(0,), restore=ckpt, **twin),
+                                       None, dev)
+        log(f"phase 8e: one process: bf16 loss {one16['losses'][0]:.6f} (step "
+            f"{one16['walls'][0] * 1e3:.1f} ms, peak {one16.get('peak_bytes', 0) / 2**30:.2f} "
+            f"GiB), the twin's losses {one32['losses']}, resumed from grid (b)'s step 1 "
+            f"{resumed['losses']}: {time.perf_counter() - t0:.1f} s")
+        faults = []
+
+        def held(what, loss, want_loss, gaps, rtol, tol):
+            rel = abs(loss - want_loss) / abs(want_loss)
+            worst = max(gaps, key=gaps.get)
+            log(f"phase 8e {what}: loss {loss:.6f} against one process's {want_loss:.6f} "
+                f"({rel:.3g} of it, tol {rtol}); gradients, worst leaf {worst} "
+                f"{gaps[worst]:.3g} of its max |grad| (tol {tol}); "
+                f"{', '.join(f'{k} {v:.3g}' for k, v in gaps.items())}")
+            if not (rel <= rtol and gaps[worst] <= tol):
+                faults.append(f"{what}: loss {rel:.3g}, leaf {worst} {gaps[worst]:.3g}")
+
+        one_rank = make_cpu_topology(1, 1)
+        held("one process resumed from grid (b)'s step 1, step 2", resumed["losses"][0],
+             one32["losses"][1], block_gaps([resumed], 0, spec_paths(lm.param_specs(
+                 cfg32, one_rank)), one_rank, want32[1]),
+             TRAIN_F32_LOSS_RTOL, TRAIN_F32_GRAD_TOL)
+        for label, (topo, res) in results.items():
+            name = f"({label})"
+            s16 = spec_paths(lm.param_specs(cfg16, topo))
+            s32 = spec_paths(lm.param_specs(cfg32, topo))
+            held(f"{name} bf16, step 1", res[0][0]["losses"][0], one16["losses"][0],
+                 block_gaps([r[0] for r in res], 0, s16, topo, want16),
+                 TRAIN_SHARD_BF16_LOSS_RTOL, TRAIN_BF16_GRAD_TOL)
+            held(f"{name} fp32 twin, seq_shard_resid, step 1", res[0][1]["losses"][0],
+                 one32["losses"][0], block_gaps([r[1] for r in res], 0, s32, topo, want32[0]),
+                 TRAIN_F32_LOSS_RTOL, TRAIN_F32_GRAD_TOL)
+            held(f"{name} fp32 twin, the all_reduce form, step 1", res[0][2]["losses"][0],
+                 one32["losses"][0], block_gaps([r[2] for r in res], 0, s32, topo, want32[0]),
+                 TRAIN_F32_LOSS_RTOL, TRAIN_F32_GRAD_TOL)
+            if label == "a":
+                held(f"{name} fp32 twin resumed from grid (b)'s step 1, step 2",
+                     res[0][3]["losses"][0], one32["losses"][1],
+                     block_gaps([r[3] for r in res], 0, s32, topo, want32[1]),
+                     TRAIN_F32_LOSS_RTOL, TRAIN_F32_GRAD_TOL)
+        del want16, want32
+        if faults:
+            fail("phase 8e: " + "; ".join(faults))
+    return out
 
 
 def route_gaps(params, batch, cfg, check: str) -> tuple[float, dict]:
@@ -4409,7 +4692,7 @@ def service_rank(rank: int, world: int, url: str, data_dir: str, device: str,
         router = Router(solver, gs, cache=cache, landmarks=lm,
                         max_batch=SERVE_MAX_BATCH, max_wait_s=SERVE_MAX_WAIT_S)
         feed = UpdateFeed(gs, solver, cache=cache, landmarks=lm)
-        queries = build_query_mix(gs, SERVE_QUERIES, SERVE_ZIPF, SEED)
+        queries = build_query_mix(gs, SERVICE_QUERIES, SERVE_ZIPF, SEED)
         round_of(lambda: router.serve(queries[:SERVE_MAX_BATCH]))  # warm-up
         cache.clear()
         cache.stats.hits = cache.stats.misses = 0
@@ -4439,7 +4722,7 @@ def service_rank(rank: int, world: int, url: str, data_dir: str, device: str,
         flushes = [sp.duration_s for sp in tracer.find("router.flush")]
         lat = serve_latency_stats(answers)
 
-        # the 4 improving updates, each timed on rank 0
+        # the SERVE_UPDATES improving updates, each timed on rank 0
         def updates():
             walls = []
             for u in improving_updates(gs, SERVE_UPDATES, SEED + 1):
@@ -4604,7 +4887,7 @@ def process_service(g, dev, card_line) -> tuple[int, dict]:
             if sol.state.tobytes() != cold[kind].state.tobytes():
                 fail(f"stacked P={P} resolve ({kind}) differs from a cold solve")
             stacked[P, kind] = (sol, wall)
-    queries = build_query_mix(g, SERVE_QUERIES, SERVE_ZIPF, SEED)
+    queries = build_query_mix(g, SERVICE_QUERIES, SERVE_ZIPF, SEED)
     want_answers, stacked_wall, want_lm = stacked_service(
         solvers[SERVICE_PROCESSES], g, queries, sync)
     log(f"stacked P={SERVICE_PROCESSES} service: {len(queries)} queries in "
@@ -4680,9 +4963,9 @@ def process_service(g, dev, card_line) -> tuple[int, dict]:
              f"{[run['launches'] for run in svc]}")
     flushes = len(lead["flushes"])
     wall = lead["wall_s"]
-    log(f"gloo P={P} service: {SERVE_QUERIES} queries in {wall:.3f} s = "
-        f"{SERVE_QUERIES / wall:.1f} q/s (stacked P={P}: "
-        f"{SERVE_QUERIES / stacked_wall:.1f} q/s), p50 {lead['p50_s'] * 1e3:.1f} ms, "
+    log(f"gloo P={P} service: {SERVICE_QUERIES} queries in {wall:.3f} s = "
+        f"{SERVICE_QUERIES / wall:.1f} q/s (stacked P={P}: "
+        f"{SERVICE_QUERIES / stacked_wall:.1f} q/s), p50 {lead['p50_s'] * 1e3:.1f} ms, "
         f"p99 {lead['p99_s'] * 1e3:.1f} ms; every answer equals the stacked "
         f"service's; {flushes} flushes, flush wall mean "
         f"{np.mean(lead['flushes']):.3f} s; {lead['broadcasts']} broadcasts "
@@ -5265,10 +5548,14 @@ def main() -> None:
         "checks compute in full f32")
     t0 = time.perf_counter()
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    attn_row, attn32_row, attn_dbrx_row, attn_tp_row, bag_row = serving_kernels(dev, flush)
-    bwd_row, bwd32_row = attention_bwd_kernels(dev, flush)
+    attn_rows, bag_row = serving_kernels(dev, flush)
+    bwd_rows = attention_bwd_kernels(dev, flush)
     del flush
-    rows += [attn_row, attn32_row, attn_dbrx_row, attn_tp_row, bwd_row, bwd32_row, bag_row]
+    attn_row, attn32_row, attn_dbrx_row, attn_tp_row = (
+        attn_rows[label] for label in ("a minitron prefill", "d fp32 twin prefill",
+                                       "e dbrx prefill", "e' phi3.5-moe prefill, a tp 2 rank"))
+    bwd_row, bwd32_row = bwd_rows["f phi3-mini train"], bwd_rows["i fp32 twin train"]
+    rows += list(attn_rows.values()) + list(bwd_rows.values()) + [bag_row]
     log(f"phase 7 took {time.perf_counter() - t0:.1f} s")
 
     # ---- 8. LM serving, minitron-8b at full width ---------------------
@@ -5292,6 +5579,13 @@ def main() -> None:
     t0 = time.perf_counter()
     bwd_row["launches"], bwd32_row["launches"] = lm_training(dev, card_line)
     log(f"phase 8c took {time.perf_counter() - t0:.1f} s")
+
+    # ---- 8e. LM training across ranks: phi3-mini, dp 2 x tp 2 and tp 2 --
+    t0 = time.perf_counter()
+    for key, (fwd, bwd) in sharded_training(dev, card_line).items():
+        fwd_label, bwd_label = TRAIN_SHARD_ROWS[key]
+        attn_rows[fwd_label]["launches"], bwd_rows[bwd_label]["launches"] = fwd, bwd
+    log(f"phase 8e took {time.perf_counter() - t0:.1f} s")
 
     # ---- 9. MIND serving at full width --------------------------------
     t0 = time.perf_counter()

@@ -38,14 +38,16 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    attn, attn32, attn_dbrx, bag = cs.serving_kernels(dev, flush)
+    rows, bag = cs.serving_kernels(dev, flush)
+    attn, attn32, attn_dbrx = (rows[label] for label in (
+        "a minitron prefill", "d fp32 twin prefill", "e dbrx prefill"))
     del flush
     cs.log(f"phase 7 took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     attn["launches"], attn32["launches"] = cs.lm_serving(dev)
     cs.log(f"phase 8 took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    phi, attn_dbrx["launches"] = cs.mla_moe_serving(dev)
+    phi, attn_dbrx["launches"], _ = cs.mla_moe_serving(dev)
     attn["launches"] += phi
     cs.log(f"phase 8b took {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [attn, attn32, attn_dbrx, bag]}), flush=True)

@@ -39,7 +39,8 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-    bwd, bwd32 = cs.attention_bwd_kernels(dev, flush)
+    rows = cs.attention_bwd_kernels(dev, flush)
+    bwd, bwd32 = rows["f phi3-mini train"], rows["i fp32 twin train"]
     del flush
     cs.log(f"phase 7's backward cases took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()

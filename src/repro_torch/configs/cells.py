@@ -20,13 +20,13 @@ counterpart.
 An LM plan at P ranks is laid out on a ``dp x tp`` grid
 (``launch/mesh.py::lm_grid``: tp = min(P, 16), dp = P / tp, the JAX
 package's 16 x 16 production mesh at 256) by the JAX package's specs:
-``lm.param_specs`` for the params (and for a train plan's AdamW
-moments and master copy, as the reference's ``optimizer.state_specs``),
-``lm.cache_specs`` for a decode plan's cache, the batch over ``dp``;
-its ``specs`` and ``grid`` give each argument's block a card.  A MIND
-or GNN plan's arguments are the whole model and batch on every card,
-whatever its rank count (their sharding is ``ROADMAP.md`` Queue 1
-5.6b).  An SSSP plan's arguments are stacked over its ranks, one row of
+``lm.param_specs`` for the params (and ``optimizer.state_specs`` for a
+train plan's AdamW moments, master copy and step), ``lm.cache_specs``
+for a decode plan's cache, the batch over ``dp``; its ``specs`` and
+``grid`` give each argument's block a card.  A MIND or GNN plan's
+arguments are the whole model and batch on every card, whatever its
+rank count (MIND and the GNNs across ranks, and the GNN's sharded
+segment ops, are still to be ported: ``ROADMAP.md`` Queue 1).  An SSSP plan's arguments are stacked over its ranks, one row of
 each a rank.  A GNN or LM train plan
 (:func:`gnn_train_cell`, :func:`lm_train_cell`) also carries its train
 step as ``fn``, which runs on real tensors of the arguments' shapes;
@@ -47,7 +47,7 @@ from repro_torch.launch.mesh import lm_grid
 from repro_torch.models import lm as lm_mod
 from repro_torch.models.common import Topology, shard_shape
 from repro_torch.models.mind import MINDConfig, sampled_softmax_loss
-from repro_torch.train import TrainConfig, build_train_step, init_state
+from repro_torch.train import TrainConfig, build_train_step, init_state, state_specs
 
 
 @dataclasses.dataclass
@@ -161,15 +161,16 @@ def lm_train_cell(arch: str, cell: str, cfg: lm_mod.LMConfig, ranks: int,
     {'tokens', 'labels'}, step) as meta tensors, and its step,
     ``build_train_step(lm_loss)`` at ``TrainConfig()``, which updates the
     params and state in place (the reference donates them).  The step
-    runs on one card (training across ranks is ROADMAP 5.6b); the plan's
-    specs lay the arguments out as the reference's cell does."""
+    is the one-card step (``launch/train.py --ranks`` trains across
+    ranks); the plan's specs lay the arguments out as the reference's
+    cell does."""
     tc = TrainConfig()
     params = lm_param_shapes(cfg)
     batch = {"tokens": meta((B, S), torch.int32), "labels": meta((B, S), torch.int32)}
     grid = lm_grid(ranks)
     pspecs = lm_mod.param_specs(cfg, grid)
     state = init_state(params, tc.adamw)
-    sspecs = {k: (() if k == "step" else pspecs) for k in state}
+    sspecs = state_specs(pspecs, tc.adamw)
     bspecs = {k: grid.spec("dp", None) for k in batch}
     return CellPlan(
         arch=arch, cell=cell, kind="train",

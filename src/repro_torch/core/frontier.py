@@ -40,6 +40,8 @@ import math
 
 import torch
 
+from repro_torch.numeric import fma_f32
+
 INF = float("inf")
 
 #: sparse-exchange payload encodings: "exact" (f32 values, bit-identical
@@ -92,33 +94,13 @@ def _decode_bf16(q: torch.Tensor, lo_fin: torch.Tensor) -> torch.Tensor:
     return lo_fin[..., None] + _f32_of(q << 16)
 
 
-def _fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """``a·b + c`` of float32 tensors rounded once to float32 (a fused
-    multiply-add), the same on every device: the product is exact in
-    float64, TwoSum gives the float64 sum ``s`` and its error ``e``
-    exactly, and the one rounding of ``s`` to float32 that can differ
-    from the exact sum's, a tie at the midpoint of two float32 values,
-    is broken by the sign of ``e``."""
-    p = a.double() * b.double()
-    c = c.double()
-    s = c + p
-    bb = s - c
-    e = (c - (s - bb)) + (p - bb)
-    r = s.float()
-    d = s - r.double()
-    inf = torch.full((), INF, dtype=torch.float32, device=r.device)
-    other = torch.nextafter(r, torch.where(d > 0, inf, -inf))
-    tie = (d != 0) & (s == (r.double() + other.double()) * 0.5) & (e != 0)
-    return torch.where(tie & ((e > 0) == (d > 0)), other, r)
-
-
 def _decode_u16(q: torch.Tensor, lo_fin: torch.Tensor,
                 scale: torch.Tensor) -> torch.Tensor:
     """The receiver's u16 decode before its +inf test, ``lo + q·scale``,
     as one fused multiply-add: the JAX package writes a product and a
     sum, and XLA on the CPU contracts them into an FMA, which rounds
     once where the two ops round twice."""
-    return _fma_f32(q.to(torch.float32), scale[..., None], lo_fin[..., None])
+    return fma_f32(q.to(torch.float32), scale[..., None], lo_fin[..., None])
 
 
 def _quantize_bf16(val_buf: torch.Tensor, lo_fin: torch.Tensor) -> torch.Tensor:

@@ -54,15 +54,24 @@ class Graph:
         return Graph(self.n, src, dst, w, name=self.name + "+sym")
 
     def deduplicated(self) -> "Graph":
-        """Keep the minimum-weight edge per (src, dst) pair, drop self loops."""
+        """Keep the minimum-weight edge per (src, dst) pair, drop self loops.
+        The edges come out sorted by (src, dst), as the JAX package's
+        two-key sort leaves them; one sort of the pair keys and a
+        segment minimum of the weights (``fmin``: a NaN only where a
+        pair has nothing else, as it sorts last there) give the same
+        arrays in a fraction of that sort's time at Graph500 scales."""
         keep = self.src != self.dst
-        src, dst, w = self.src[keep], self.dst[keep], self.weight[keep]
-        key = src.astype(np.int64) * np.int64(self.n) + dst.astype(np.int64)
-        order = np.lexsort((w, key))
-        key, src, dst, w = key[order], src[order], dst[order], w[order]
+        key = (self.src[keep].astype(np.int64) * np.int64(self.n)
+               + self.dst[keep].astype(np.int64))
+        order = np.argsort(key)
+        key = key[order]
         first = np.ones(key.shape[0], dtype=bool)
         first[1:] = key[1:] != key[:-1]
-        return Graph(self.n, src[first], dst[first], w[first], name=self.name)
+        starts = np.flatnonzero(first)
+        w = self.weight[keep][order]
+        w = np.fmin.reduceat(w, starts) if starts.size else w
+        key = key[starts]
+        return Graph(self.n, key // self.n, key % self.n, w, name=self.name)
 
 
 @dataclasses.dataclass

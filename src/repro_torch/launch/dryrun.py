@@ -22,10 +22,12 @@ writes one record to ``<out>/<arch>__<cell>__P<ranks>.json``:
 A card runs one rank: an SSSP plan at P ranks holds 1/P of the stacked
 arguments a card, as the process backend (``core/ranks.py``) does; an
 LM plan at P ranks holds each argument's block on its ``dp x tp`` grid
-(tp = min(P, 16): the JAX package's specs, ``configs/cells.py``), as
-``models/lm.py`` serves across ranks; a MIND or GNN cell holds all its
-arguments (a train cell's: params, AdamW state, batch and step) on
-every card (``ROADMAP.md`` Queue 1 item 5.6b).  Nothing here builds a
+(tp = min(P, 16): the JAX package's specs, ``configs/cells.py``, a
+train cell's AdamW state by ``optimizer.state_specs``), as
+``models/lm.py`` serves and trains across ranks; a MIND or GNN cell
+holds all its arguments (a train cell's: params, AdamW state, batch and
+step) on every card (MIND and the GNNs across ranks, and MLA under TP,
+are still to be ported: ``ROADMAP.md`` Queue 1).  Nothing here builds a
 graph, runs an engine loop or a model forward, or reaches a kernel: a
 meta tensor has no values for the engine's host reads, and no kernel op
 takes one.

@@ -35,7 +35,8 @@ kernels' launches in the prefill, the collectives and bytes of the
 prefill and of each decode step, walls and, on a card, peak memory.
 :func:`run_world` spawns the ranks over gloo (host tensors, or a card's
 shared by every rank, staged through host memory) and returns each
-rank's results.  Its ``device`` is the card unless the caller asks for
+rank's results; a job whose ``kind`` is ``"train"`` runs
+``launch/train.py::run_job`` instead (training across ranks).  Its ``device`` is the card unless the caller asks for
 the CPU (``--device cpu``), as the tests do.
 """
 
@@ -206,7 +207,12 @@ def rank_main(rank: int, world: int, url: str, jobs: list, out_dir: str, backend
     results = []
     for job in jobs:
         topo = topology_groups(make_cpu_topology(world, job["tp"]))
-        results.append(run_job(job, topo, device))
+        if job.get("kind") == "train":
+            from repro_torch.launch.train import run_job as run_train_job
+
+            results.append(run_train_job(job, topo, device))
+        else:
+            results.append(run_job(job, topo, device))
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(results, f)
     torch.distributed.destroy_process_group()

@@ -17,6 +17,19 @@ names), and :func:`shard_shape`/:func:`shard_slices` read such a spec.
 A topology without process groups only plans (``launch/mesh.py``'s
 production and CPU grids); :func:`single_device_topology` has one rank.
 
+Training differentiates through the collectives (Megatron's regions):
+:func:`copy_to` (identity forward, a sum over the group backward) where a
+replicated tensor enters per-rank work whose gradients are partial,
+:func:`reduce_from` (a sum forward, identity backward) where partial sums
+leave it, :func:`gather_from` (all_gather forward; backward a
+reduce-scatter, or this rank's block where the consumers' gradients are
+already whole on every rank) for the FSDP gathers over ``dp`` and the
+sequence-parallel residual over ``tp``, and :func:`reduce_scatter_to`
+(reduce-scatter forward, all_gather backward).  The convention: a
+replicated activation carries its whole gradient on every rank of the
+group, a rank's share of the batch only its rows' part.  :func:`max_over`
+is the group's maximum, with no gradient (a log-sum-exp's shift).
+
 Initialisers draw from an explicit ``torch.Generator``, whose device is
 where the tensor is made (so a full-size model is initialised on the
 card, never on the host).
@@ -25,6 +38,7 @@ card, never on the host).
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import math
 from typing import Optional
@@ -63,6 +77,8 @@ class Topology:
     rank: int = 0
     groups: Optional[Groups] = None
     counts: collections.Counter = dataclasses.field(default_factory=collections.Counter)
+    #: prefixed to the keys the collectives tally (:meth:`tagged`)
+    tag: str = ""
 
     def __post_init__(self):
         names = self.grid.axis_names
@@ -161,12 +177,22 @@ class Topology:
         return getattr(self.groups, scope), size
 
     def _tally(self, op: str, x: torch.Tensor) -> None:
-        self.counts[op] += 1
-        self.counts["bytes"] += x.numel() * x.element_size()
+        self.counts[self.tag + op] += 1
+        self.counts[self.tag + "bytes"] += x.numel() * x.element_size()
 
-    def all_reduce(self, x: torch.Tensor, scope: str) -> torch.Tensor:
-        """The sum of ``x`` over the ``scope`` group, a new tensor on
-        every rank of it."""
+    @contextlib.contextmanager
+    def tagged(self, tag: str):
+        """Tally the block's collectives under keys prefixed by ``tag``
+        (a checkpointed layer's forward run again in the backward)."""
+        before, self.tag = self.tag, tag
+        try:
+            yield
+        finally:
+            self.tag = before
+
+    def all_reduce(self, x: torch.Tensor, scope: str, op: str = "sum") -> torch.Tensor:
+        """The sum (or, ``op="max"``, the maximum) of ``x`` over the
+        ``scope`` group, a new tensor on every rank of it."""
         group, size = self._group(scope)
         if size == 1:
             return x
@@ -174,8 +200,28 @@ class Topology:
 
         x = x.clone(memory_format=torch.contiguous_format)
         self._tally("all_reduce", x)
-        dist.all_reduce(x, group=group)
+        dist.all_reduce(x, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM,
+                        group=group)
         return x
+
+    def reduce_scatter(self, x: torch.Tensor, dim: int, scope: str) -> torch.Tensor:
+        """The sum of ``x`` over the ``scope`` group, cut along ``dim``
+        into a block a rank of it: this rank's block (the group's ranks in
+        order, as :meth:`all_gather` concatenates them).  Gloo takes a
+        card's tensors here (it stages them through host memory itself)."""
+        group, size = self._group(scope)
+        if size == 1:
+            return x
+        import torch.distributed as dist
+
+        if x.shape[dim] % size:
+            raise ValueError(f"dimension {dim} ({x.shape[dim]}) does not split over "
+                             f"{size} ranks")
+        blocks = [b.contiguous() for b in x.chunk(size, dim)]
+        out = torch.empty_like(blocks[0])
+        self._tally("reduce_scatter", x)
+        dist.reduce_scatter(out, blocks, group=group)
+        return out
 
     def all_gather(self, x: torch.Tensor, dim: int, scope: str) -> torch.Tensor:
         """The group's ``x`` concatenated along ``dim`` in rank order."""
@@ -210,15 +256,115 @@ class Topology:
         return list(recv.to(dev).unbind(0))
 
 
+# -- the collectives as autograd functions (training) --
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, topo, scope):
+        ctx.topo, ctx.scope = topo, scope
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.topo.all_reduce(g, ctx.scope), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, topo, scope):
+        return topo.all_reduce(x, scope)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, topo, dim, scope, grad_sum):
+        ctx.topo, ctx.dim, ctx.scope, ctx.grad_sum = topo, dim, scope, grad_sum
+        return topo.all_gather(x, dim, scope)
+
+    @staticmethod
+    def backward(ctx, g):
+        topo, dim, scope = ctx.topo, ctx.dim, ctx.scope
+        if ctx.grad_sum:
+            return topo.reduce_scatter(g, dim, scope), None, None, None, None
+        size = topo.dp_size if scope == "dp" else topo.tp_size
+        i = topo.dp_rank if scope == "dp" else topo.tp_rank
+        return g.chunk(size, dim)[i].contiguous(), None, None, None, None
+
+
+class _ReduceScatterTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, topo, dim, scope):
+        ctx.topo, ctx.dim, ctx.scope = topo, dim, scope
+        return topo.reduce_scatter(x, dim, scope)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.topo.all_gather(g, ctx.dim, ctx.scope), None, None, None
+
+
+def _one(topo: Optional[Topology], scope: str) -> bool:
+    return topo is None or (topo.dp_size if scope == "dp" else topo.tp_size) == 1
+
+
+def copy_to(x, topo: Optional[Topology], scope: str):
+    """``x`` as it is; its gradient summed over the ``scope`` group (a
+    replicated tensor entering per-rank work)."""
+    return x if _one(topo, scope) else _CopyTo.apply(x, topo, scope)
+
+
+def reduce_from(x, topo: Optional[Topology], scope: str):
+    """``x`` summed over the ``scope`` group; its gradient passed to
+    every rank as it is (the ranks' partial sums leaving their work)."""
+    return x if _one(topo, scope) else _ReduceFrom.apply(x, topo, scope)
+
+
+def gather_from(x, topo: Optional[Topology], dim: int, scope: str, grad_sum: bool = True):
+    """The group's blocks of ``x`` concatenated along ``dim``.  Backward:
+    the gradient's sum over the group, this rank's block (a
+    reduce-scatter: the consumers' gradients are partial), or, with
+    ``grad_sum=False`` (consumers whose gradients are already whole on
+    every rank), this rank's block of its own."""
+    if _one(topo, scope):
+        return x
+    return _GatherFrom.apply(x, topo, dim, scope, grad_sum)
+
+
+def reduce_scatter_to(x, topo: Optional[Topology], dim: int, scope: str):
+    """``x`` summed over the ``scope`` group, this rank's block along
+    ``dim``; its gradient all-gathered."""
+    return x if _one(topo, scope) else _ReduceScatterTo.apply(x, topo, dim, scope)
+
+
+def max_over(x, topo: Optional[Topology], scope: str):
+    """The group's elementwise maximum of ``x``, without a gradient."""
+    return x.detach() if _one(topo, scope) else topo.all_reduce(x.detach(), scope, op="max")
+
+
 def _axes(entry) -> tuple:
     if entry is None:
         return ()
     return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
 
 
+def spec_axes(spec: Spec) -> set:
+    """The axes a spec splits any dimension over."""
+    return {a for entry in spec for a in _axes(entry)}
+
+
 def single_device_topology() -> Topology:
     """One rank, no tensor parallelism, no process groups."""
     return Topology(grid=RankMesh((1,), ("data",)), dp_axes=("data",), tp_axis=None)
+
+
+def sharded(topo: Optional[Topology]) -> Optional[Topology]:
+    """``topo`` where it has more than one rank, else None: one card or a
+    topology of one rank runs the one-card code."""
+    return None if topo is None or topo.n_devices == 1 else topo
 
 
 def shard_shape(shape, spec: Spec, topo: Topology) -> tuple:

@@ -50,13 +50,29 @@ def lm_params_from_numpy(tree: dict, cfg: LMConfig, device=None, topo=None) -> L
 def shard_tree(tree, specs, topo: Topology):
     """This rank's blocks of a tree in the JAX package's layout (numpy
     arrays or tensors), each cut by its spec in ``specs`` (a tree of the
-    same keys: ``lm.param_specs``, ``lm.cache_specs``): new arrays of
+    same keys: ``lm.param_specs``, ``lm.cache_specs``, and for a train
+    state ``optimizer.state_specs``, whose step is whole): new arrays of
     the leaves' type.  A split dimension must be a multiple of its
     blocks."""
     if isinstance(tree, dict):
         return {k: shard_tree(v, specs[k], topo) for k, v in tree.items()}
-    block = tree[shard_slices(tree.shape, specs, topo)]
+    block = tree[(..., *shard_slices(tree.shape, specs, topo))]
     return block.copy() if isinstance(block, np.ndarray) else block.clone()
+
+
+def _placed(blocks: list, specs, topo: Topology, out):
+    """``out`` (the whole leaf's shape) with every rank's block written
+    at its place; where ranks hold the same block, rank order's last."""
+    spec = tuple(specs) + (None,) * (len(out.shape) - len(specs))
+    for r, b in enumerate(blocks):
+        at = Topology(grid=topo.grid, dp_axes=topo.dp_axes, tp_axis=topo.tp_axis, rank=r)
+        out[(..., *shard_slices(out.shape, spec, at))] = b
+    return out
+
+
+def _whole_shape(block_shape, specs, topo: Topology) -> tuple:
+    spec = tuple(specs) + (None,) * (len(block_shape) - len(specs))
+    return tuple(n * topo.factor(e) for n, e in zip(block_shape, spec))
 
 
 def unshard_tree(blocks: list, specs, topo: Topology):
@@ -68,14 +84,18 @@ def unshard_tree(blocks: list, specs, topo: Topology):
     first = blocks[0]
     if isinstance(first, dict):
         return {k: unshard_tree([b[k] for b in blocks], specs[k], topo) for k in first}
-    spec = tuple(specs) + (None,) * (np.ndim(first) - len(specs))
-    shape = tuple(n * topo.factor(e) for n, e in zip(np.shape(first), spec))
-    out = np.zeros(shape, dtype=np.float32)
-    for r, b in enumerate(blocks):
-        at = Topology(grid=topo.grid, dp_axes=topo.dp_axes, tp_axis=topo.tp_axis, rank=r)
-        b = b.detach().cpu().float().numpy() if isinstance(b, torch.Tensor) else b
-        out[shard_slices(shape, spec, at)] = b
-    return out
+    out = np.zeros(_whole_shape(np.shape(first), specs, topo), dtype=np.float32)
+    return _placed([b.detach().cpu().float().numpy() if isinstance(b, torch.Tensor) else b
+                    for b in blocks], specs, topo, out)
+
+
+def unshard_tensor(blocks: list, specs, topo: Topology) -> torch.Tensor:
+    """One leaf whole from every rank's blocks of it (tensors on one
+    device), a tensor of their dtype: :func:`unshard_tree`'s placement
+    for a checkpoint, which keeps bf16 and int leaves as they are."""
+    first = blocks[0]
+    out = first.new_empty(_whole_shape(first.shape, specs, topo))
+    return _placed(blocks, specs, topo, out)
 
 
 def lm_tree_from_numpy(tree: dict, cfg: LMConfig, device=None) -> dict:

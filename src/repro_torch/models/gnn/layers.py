@@ -9,9 +9,12 @@ GIN's forward runs through it, :func:`segment_sum` runs every segment
 sum of EGNN, MACE and DimeNet through it over a segment ELL, and
 :func:`gather_rows` their gathers' backward.
 
-Single device only: the JAX package's ``segment_output_sharding``,
-``aligned_scatter`` and ``scatter_sum_owner_aligned`` wait for the
-Topology/TP port (ROADMAP.md).  Segment ids must lie in [0, n).
+Single device only.  The port has the JAX package's ``Topology`` and
+trains and serves the LMs across ranks, but the GNNs' sharded segment
+ops (``segment_output_sharding``, ``aligned_scatter``,
+``scatter_sum_owner_aligned``, ``align_segments``) and the GNNs across
+ranks are still to be ported (ROADMAP.md Queue 1).  Segment ids must lie
+in [0, n).
 """
 
 from __future__ import annotations

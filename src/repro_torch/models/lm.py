@@ -53,6 +53,18 @@ moves each rank's heads into the sequence chunks with one
 ``all_to_all`` a layer; a decode step all-gathers q and the new k and
 v, the chunk's owner writes them, and each rank attends over its chunk
 for every head, the chunks' partial outputs merged by their log-sum-exp.
+
+Training across ranks (:func:`lm_loss` and :func:`forward_train` with a
+``topo``) takes the rank's blocks of the training tree and the whole
+batch, and keeps the same layouts: each rank trains on its dp rows;
+with ``seq_shard_resid`` (the JAX package's default) a tp rank holds its
+S/tp slice of the residual between products, the norm's output
+all-gathered over tp before them and the row-parallel sums
+reduce-scattered back, else the products' outputs are all-reduced; the
+FSDP gathers' backward reduce-scatters the gradients over dp; the loss
+is a vocab-parallel cross-entropy over the rank's V/tp columns, summed
+over dp into the global mean.  The collectives are the autograd
+functions of ``models/common.py``.
 """
 
 from __future__ import annotations
@@ -70,12 +82,18 @@ from repro_torch.kernels.flash_attention import mha as mha_kernel
 from repro_torch.models.common import (
     Topology,
     apply_rope,
+    copy_to,
     fan_in_init,
+    gather_from,
+    max_over,
     normal_init,
+    reduce_from,
+    reduce_scatter_to,
     relu2,
     rms_norm,
     rope_angles,
     shard_shape,
+    sharded,
     shard_slices,
     swiglu,
 )
@@ -117,6 +135,7 @@ class LMConfig:
     attn_impl: str = "xla"            # one of ATTN_IMPLS
     attn_chunk: int = 1024            # kv chunk for xla_flash
     loss_chunk: int = 512             # seq chunk for the vocab CE
+    seq_shard_resid: bool = True      # training across ranks: the residual split over tp along S
 
     def __post_init__(self):
         if self.attn_type not in ATTN_TYPES:
@@ -236,7 +255,7 @@ class LM(nn.Module):
     def __init__(self, cfg: LMConfig, embed, layers: list, final_norm,
                  lm_head=None, topo: Optional[Topology] = None):
         super().__init__()
-        topo = _sharded(topo)
+        topo = sharded(topo)
         if len(layers) != cfg.n_layers:
             raise ValueError(f"{cfg.name}: {len(layers)} layers, config says {cfg.n_layers}")
         if (lm_head is None) != cfg.tie_embeddings:
@@ -269,7 +288,7 @@ def init_params(gen: torch.Generator, cfg: LMConfig,
     tensor at a time."""
     dt = cfg.dtype
     dev = gen.device
-    topo = _sharded(topo)
+    topo = sharded(topo)
     specs = None
     if topo is not None:
         check_shardable(cfg, topo)
@@ -347,11 +366,6 @@ def cache_specs(cfg: LMConfig, topo: Topology, *, long: bool) -> dict:
     if cfg.attn_type == "mla":
         return {"c": seq, "kr": seq}
     return {"k": seq5, "v": seq5}
-
-
-def _sharded(topo: Optional[Topology]) -> Optional[Topology]:
-    """None for one card or a topology of one rank (the one-card code)."""
-    return None if topo is None or topo.n_devices == 1 else topo
 
 
 def check_shardable(cfg: LMConfig, topo: Topology) -> None:
@@ -507,30 +521,45 @@ def decode_attention(q, k_cache, v_cache, pos: int, scale: float):
 # blocks
 
 
-def _tp_sum(x, topo: Optional[Topology]):
-    """A row-parallel product's partial sums summed over tp (across
-    ranks), or ``x`` itself."""
-    return x if topo is None else topo.all_reduce(x, "tp")
+def _enter_tp(h, topo: Optional[Topology], sp: bool = False):
+    """A normed activation entering column-parallel products: as it is
+    (its gradient summed over tp), or under the sequence-parallel
+    residual (``sp``) its S/tp slices all-gathered over tp."""
+    return gather_from(h, topo, 1, "tp") if sp else copy_to(h, topo, "tp")
 
 
-def _mlp(lp: Block, x, cfg: LMConfig, topo: Optional[Topology] = None):
+def _leave_tp(y, topo: Optional[Topology], sp: bool = False):
+    """A row-parallel product's partial sums summed over tp, or under
+    ``sp`` reduce-scattered along S (each tp rank its slice)."""
+    return reduce_scatter_to(y, topo, 1, "tp") if sp else reduce_from(y, topo, "tp")
+
+
+def _norm_scale(w, topo: Optional[Topology], sp: bool = False):
+    """A norm's scale: under ``sp`` each tp rank norms its S slice, so
+    the scale's gradient is summed over tp."""
+    return copy_to(w, topo, "tp") if sp else w
+
+
+def _mlp(lp: Block, x, cfg: LMConfig, topo: Optional[Topology] = None, sp: bool = False):
+    x = _enter_tp(x, topo, sp)
     if cfg.mlp_type == "swiglu":
         h = swiglu(x @ lp.wg, x @ lp.wu)
     else:
         h = relu2(x @ lp.wg)
-    return _tp_sum(h @ lp.wd, topo)
+    return _leave_tp(h @ lp.wd, topo, sp)
 
 
 def _ffn(lp: Block, x, cfg: LMConfig, topo: Optional[Topology] = None,
-         over_dp: bool = False):
+         over_dp: bool = False, sp: bool = False):
     """The layer's FFN and its f32 aux loss: MoE's load-balance term
     where the config has it, else the dense MLP and 0.  Across ranks
     (``topo``) the rank's experts or FFN columns, summed over tp;
-    ``over_dp``: the batch is split over dp."""
+    ``over_dp``: the batch is split over dp; ``sp``: ``x`` is the rank's
+    S/tp slice and so is the output."""
     if cfg.moe:
         return moe_ffn(x, lp.router, lp.wg_e, lp.wu_e, lp.wd_e, cfg.moe, topo,
-                       batch_over_dp=over_dp)
-    return _mlp(lp, x, cfg, topo), torch.zeros((), dtype=torch.float32, device=x.device)
+                       batch_over_dp=over_dp, seq_shard=sp)
+    return _mlp(lp, x, cfg, topo, sp), torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def _gqa_qkv(lp: Block, x, cfg: LMConfig, positions):
@@ -600,22 +629,23 @@ def _mla_attention_decode(lp: Block, x, cfg: LMConfig, c_cache, kr_cache, pos: i
 
 
 def _layer(lp: Block, x, cfg: LMConfig, positions, topo: Optional[Topology] = None,
-           over_dp: bool = False):
+           over_dp: bool = False, sp: bool = False):
     """One prefill/teacher-forced layer; returns (x, its cache entries:
     {"k", "v"} or MLA's {"c", "kr"}, its f32 aux loss).  Across ranks
     (``topo``; GQA only) ``lp`` is the rank's weights (:class:`_Shard`)
-    and the cache entries are its heads'."""
-    h = rms_norm(x, lp.ln1, NORM_EPS)
+    and the cache entries are its heads'; under the sequence-parallel
+    residual (``sp``, training) ``x`` is the rank's S/tp slice."""
+    h = rms_norm(x, _norm_scale(lp.ln1, topo, sp), NORM_EPS)
     if cfg.attn_type == "gqa":
-        q, k, v = _gqa_qkv(lp, h, cfg, positions)
-        attn = _tp_sum(run_attention(q, k, v, cfg, causal=True) @ lp.wo, topo)
+        q, k, v = _gqa_qkv(lp, _enter_tp(h, topo, sp), cfg, positions)
+        attn = _leave_tp(run_attention(q, k, v, cfg, causal=True) @ lp.wo, topo, sp)
         kv = {"k": k, "v": v}
     else:
         attn, (c, kr) = _mla_attention_train(lp, h, cfg, positions)
         kv = {"c": c, "kr": kr}
     x = x + attn
-    h = rms_norm(x, lp.ln2, NORM_EPS)
-    out, aux = _ffn(lp, h, cfg, topo, over_dp)
+    h = rms_norm(x, _norm_scale(lp.ln2, topo, sp), NORM_EPS)
+    out, aux = _ffn(lp, h, cfg, topo, over_dp, sp)
     return x + out, kv, aux
 
 
@@ -634,7 +664,7 @@ def _embed(params: LM, tokens):
 def forward(params: LM, tokens, cfg: LMConfig, topo: Optional[Topology] = None):
     """Token ids (B, S) -> final hidden states (B, S, d); across ranks,
     the rank's rows of them (:func:`batch_rows`)."""
-    if _sharded(topo) is not None:
+    if sharded(topo) is not None:
         return _forward_sharded(params, tokens, cfg, topo)
     B, S = tokens.shape
     x = _embed(params, tokens)
@@ -670,61 +700,143 @@ def init_tree(gen: torch.Generator, cfg: LMConfig) -> dict:
     return params_tree(init_params(gen, cfg))
 
 
-def forward_train(tree: dict, tokens, cfg: LMConfig):
+def _seq_parallel(cfg: LMConfig, topo: Optional[Topology]) -> bool:
+    """Whether a training run across ranks splits the residual over tp
+    along S (``seq_shard_resid``; the one-card path ignores the field)."""
+    return topo is not None and cfg.seq_shard_resid and topo.tp_size > 1
+
+
+def check_trainable(cfg: LMConfig, topo: Topology, B: int, S: int) -> None:
+    """Refuse, before any work, a training batch the grid cannot split:
+    :func:`check_shardable`'s refusals, a batch that does not split over
+    dp (each dp rank trains on its rows), and under ``seq_shard_resid`` a
+    sequence that does not split over tp."""
+    check_shardable(cfg, topo)
+    if B % topo.dp_size:
+        raise ValueError(f"{cfg.name}: a training batch of {B} rows does not split over "
+                         f"dp {topo.dp_size}")
+    if _seq_parallel(cfg, topo) and S % topo.tp_size:
+        raise ValueError(f"{cfg.name}: sequence length {S} does not split over tp "
+                         f"{topo.tp_size} (seq_shard_resid)")
+
+
+def forward_train(tree: dict, tokens, cfg: LMConfig, topo: Optional[Topology] = None):
     """The JAX package's ``forward``: token ids (B, S) -> (final hidden
     states (B, S, d), the layers' summed f32 aux loss), differentiable in
     the tree.  Each layer reads its views of the stacked weights from one
     ``unbind`` a weight (whose backward is one ``stack``); under
     ``remat="full"`` a layer keeps only its input and runs again in the
-    backward (``torch.utils.checkpoint``)."""
+    backward (``torch.utils.checkpoint``, which stops the run once the
+    last tensor the backward needs is rebuilt).
+
+    Across ranks (``topo`` of more than one rank) the tree is this
+    rank's blocks by :func:`param_specs`, ``tokens`` the whole batch, and
+    the hidden states this rank's: its dp rows, and under
+    ``seq_shard_resid`` its S/tp slice of them.  Each layer all-gathers
+    its FSDP blocks over dp (their gradient reduce-scattered back); a
+    forward run again under remat tallies its collectives under
+    ``"recompute "`` keys of ``topo.counts``."""
+    topo = sharded(topo)
+    sp = _seq_parallel(cfg, topo)
+    if topo is None:
+        x = tree["embed"][tokens.long()]
+    else:
+        check_trainable(cfg, topo, *tokens.shape)
+        tokens = tokens[batch_rows(tokens.shape[0], topo)[0]]
+        x = _embed_sharded(tree["embed"], tokens, cfg, topo, sp)
     B, S = tokens.shape
-    x = tree["embed"][tokens.long()]
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     names = list(tree["layers"])
     views = [t.unbind(0) for t in tree["layers"].values()]
+    specs = None if topo is None else layer_specs(cfg, topo)
+    ran = set()
 
-    def layer(x, *weights):
-        x, _, aux = _layer(SimpleNamespace(**dict(zip(names, weights))), x, cfg, positions)
+    def layer(li, x, *weights):
+        lp = SimpleNamespace(**dict(zip(names, weights)))
+        if topo is None:
+            x, _, aux = _layer(lp, x, cfg, positions)
+            return x, aux
+        again = li in ran  # remat runs the layer again in the backward
+        ran.add(li)
+        with topo.tagged("recompute " if again else ""):
+            x, _, aux = _layer(_Shard(lp, specs, topo), x, cfg, positions, topo,
+                               topo.dp_size > 1, sp)
         return x, aux
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for li in range(cfg.n_layers):
         weights = [v[li] for v in views]
         if cfg.remat == "full":
-            x, a = checkpoint(layer, x, *weights, use_reentrant=False)
+            x, a = checkpoint(layer, li, x, *weights, use_reentrant=False)
         else:
-            x, a = layer(x, *weights)
+            x, a = layer(li, x, *weights)
         aux = aux + a
-    return rms_norm(x, tree["final_norm"], NORM_EPS), aux
+    return rms_norm(x, _norm_scale(tree["final_norm"], topo, sp), NORM_EPS), aux
 
 
-def lm_loss(tree: dict, batch: dict, cfg: LMConfig):
+def _vocab_parallel_ce(logits, labels, topo: Topology) -> tuple:
+    """(log-sum-exp, the label's logit) of a tp rank's f32 logits block
+    (rows, c, V/tp): the max and the sum of exps combined over tp, the
+    label's logit from the rank whose columns hold it."""
+    Vl = logits.shape[-1]
+    m = max_over(logits.amax(dim=-1), topo, "tp")
+    part = torch.exp(logits - m[..., None]).sum(dim=-1)
+    t = labels.clamp(min=0) - topo.tp_rank * Vl
+    mine = (t >= 0) & (t < Vl)
+    ll = torch.where(mine, torch.gather(logits, -1, t.clamp(0, Vl - 1)[..., None])[..., 0], 0.0)
+    total, ll = reduce_from(torch.stack([part, ll]), topo, "tp").unbind(0)
+    return m + torch.log(total), ll
+
+
+def lm_loss(tree: dict, batch: dict, cfg: LMConfig, topo: Optional[Topology] = None):
     """Next-token CE with the vocab projection taken ``loss_chunk``
     positions at a time, in f32 logits, plus ``aux_loss_weight * aux /
     n_layers`` for MoE (the JAX package's ``lm_loss``).  batch:
     {'tokens': (B, S), 'labels': (B, S)}, labels < 0 masked; the mean
     is over the unmasked labels (at least 1).  S must be a multiple of
     the chunk: the JAX package visits only ``S // chunk`` chunks and so
-    drops the labels past the last whole one; this one raises instead."""
+    drops the labels past the last whole one; this one raises instead.
+
+    Across ranks (``topo``) the tree is this rank's blocks, the batch the
+    whole batch: each rank computes its dp rows' CE against its V/tp
+    vocab columns (the vocab-parallel log-sum-exp), the sums and counts
+    are summed over dp, and every rank returns the global mean, as the
+    JAX package's GSPMD program does (a rank's gradients are then its
+    rows' share: :func:`~repro_torch.train.train_step.build_train_step`
+    sums the replicated leaves' over dp)."""
     tokens, labels = batch["tokens"], batch["labels"]
     S = tokens.shape[1]
-    x, aux = forward_train(tree, tokens, cfg)
-    head = tree["embed"].T if cfg.tie_embeddings else tree["lm_head"]
     chunk = min(cfg.loss_chunk or S, S)
     if S % chunk:
         raise ValueError(f"lm_loss: sequence length {S} is not a multiple of the loss "
                          f"chunk {chunk}; the labels past the last whole chunk would be "
                          f"dropped")
+    topo = sharded(topo)
+    if topo is not None:
+        check_trainable(cfg, topo, *tokens.shape)
+        labels = labels[batch_rows(tokens.shape[0], topo)[0]]
+    x, aux = forward_train(tree, tokens, cfg, topo)
+    if topo is None:
+        head = tree["embed"].T if cfg.tie_embeddings else tree["lm_head"]
+    else:
+        head = _head_block(tree["embed"] if cfg.tie_embeddings else tree["lm_head"], cfg, topo)
+        x = _enter_tp(x, topo, _seq_parallel(cfg, topo))
+    vocab_split = topo is not None and topo.tp_size > 1
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.float32, device=x.device)
     for ci in range(S // chunk):
         lc = labels[:, ci * chunk:(ci + 1) * chunk].long()
-        logits = (x[:, ci * chunk:(ci + 1) * chunk] @ head).float()  # (B, c, V)
-        logz = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(logits, -1, lc.clamp(min=0)[..., None])[..., 0]
+        logits = (x[:, ci * chunk:(ci + 1) * chunk] @ head).float()  # (B, c, V or V/tp)
+        if vocab_split:
+            logz, ll = _vocab_parallel_ce(logits, lc, topo)
+        else:
+            logz = torch.logsumexp(logits, dim=-1)
+            ll = torch.gather(logits, -1, lc.clamp(min=0)[..., None])[..., 0]
         mask = (lc >= 0).float()
         tot = tot + torch.sum((logz - ll) * mask)
         cnt = cnt + torch.sum(mask)
+    if topo is not None:
+        tot, cnt = reduce_from(torch.stack([tot, cnt]), topo, "dp").unbind(0)
     loss = tot / torch.clamp(cnt, min=1.0)
     if cfg.moe:
         loss = loss + cfg.moe.aux_loss_weight * aux / cfg.n_layers
@@ -757,7 +869,7 @@ def prefill_step(params: LM, tokens, cfg: LMConfig, max_len: int,
     ranks every rank is given the whole prompt and returns its block of
     the cache (:func:`cache_specs`, ``long`` picking the layout) and of
     the logits (its rows, its V/tp columns)."""
-    if _sharded(topo) is not None:
+    if sharded(topo) is not None:
         return _prefill_sharded(params, tokens, cfg, max_len, topo, long)
     B, S = tokens.shape
     if S > max_len:
@@ -784,7 +896,7 @@ def decode_step(params: LM, cache: dict, tokens, pos: int, cfg: LMConfig,
     the one given.  Across ranks every rank is given all B tokens, and
     the cache and logits are the rank's blocks, as from
     :func:`prefill_step` with the same ``long``."""
-    if _sharded(topo) is not None:
+    if sharded(topo) is not None:
         return _decode_sharded(params, cache, tokens, pos, cfg, topo, long)
     B = tokens.shape[0]
     T = next(iter(cache.values())).shape[2]
@@ -821,7 +933,7 @@ def greedy_tokens(logits, topo: Optional[Topology] = None, batch: Optional[int] 
     largest over the ``tp`` blocks (ties to the lower rank, whose vocab
     indices are lower), then the rows of every ``dp`` rank; every rank
     returns all B tokens."""
-    topo = _sharded(topo)
+    topo = sharded(topo)
     if topo is None:
         return logits.argmax(-1).to(torch.int32)
     if batch is None:
@@ -852,17 +964,18 @@ def batch_rows(B: int, topo: Topology) -> tuple:
 
 def _gathered(w, spec, topo: Topology):
     """``w`` all-gathered over dp along the dim its spec splits over dp
-    (FSDP), or ``w`` itself."""
+    (FSDP), its gradient reduce-scattered back; or ``w`` itself."""
     if topo.dp_size > 1:
         for dim, entry in enumerate(spec):
             if entry is not None and entry == topo.dp:
-                return topo.all_gather(w, dim, "dp")
+                return gather_from(w, topo, dim, "dp")
     return w
 
 
 class _Shard:
     """A sharded layer's weights as used: each read all-gathers its
-    block over dp (FSDP) and keeps the whole for the layer."""
+    block over dp (FSDP) and keeps the whole for the layer (the rank's
+    tp block)."""
 
     def __init__(self, lp, specs: dict, topo: Topology):
         self._lp, self._specs, self._topo, self._full = lp, specs, topo, {}
@@ -875,24 +988,30 @@ class _Shard:
         return self._full[name]
 
 
-def _embed_sharded(params: LM, tokens, cfg: LMConfig, topo: Topology):
-    """The rank's vocab rows (FSDP-gathered) looked up where a token
-    falls among them, zero elsewhere, summed over tp."""
-    table = _gathered(params.embed, param_specs(cfg, topo)["embed"], topo)
+def _embed_sharded(embed, tokens, cfg: LMConfig, topo: Topology, sp: bool = False):
+    """The rank's vocab rows of ``embed`` (its block, FSDP-gathered)
+    looked up where a token falls among them, zero elsewhere, summed over
+    tp (under ``sp`` reduce-scattered along S)."""
+    table = _gathered(embed, param_specs(cfg, topo)["embed"], topo)
     t = tokens.long() - topo.tp_rank * table.shape[0]
     inside = (t >= 0) & (t < table.shape[0])
     x = torch.where(inside[..., None], table[t.clamp(0, table.shape[0] - 1)], 0)
-    return topo.all_reduce(x, "tp")
+    return _leave_tp(x, topo, sp)
+
+
+def _head_block(w, cfg: LMConfig, topo: Topology):
+    """The (d, V/tp) head of this rank's vocab columns from its block of
+    ``lm_head`` (or of the tied embedding), FSDP-gathered."""
+    specs = param_specs(cfg, topo)
+    if cfg.tie_embeddings:
+        return _gathered(w, specs["embed"], topo).T
+    return _gathered(w, specs["lm_head"], topo)
 
 
 def _head_sharded(params: LM, x, cfg: LMConfig, topo: Topology):
     """f32 logits of the rank's V/tp vocab columns."""
-    specs = param_specs(cfg, topo)
-    if cfg.tie_embeddings:
-        head = _gathered(params.embed, specs["embed"], topo).T
-    else:
-        head = _gathered(params.lm_head, specs["lm_head"], topo)
-    return (x @ head).float()
+    w = params.embed if cfg.tie_embeddings else params.lm_head
+    return (x @ _head_block(w, cfg, topo)).float()
 
 
 def _check_topo(params: LM, topo: Topology) -> None:
@@ -906,7 +1025,7 @@ def _forward_sharded(params: LM, tokens, cfg: LMConfig, topo: Topology):
     rows, over_dp = batch_rows(tokens.shape[0], topo)
     tokens = tokens[rows]
     B, S = tokens.shape
-    x = _embed_sharded(params, tokens, cfg, topo)
+    x = _embed_sharded(params.embed, tokens, cfg, topo)
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     specs = layer_specs(cfg, topo)
     for lp in params.layers:
@@ -965,7 +1084,7 @@ def _prefill_sharded(params: LM, tokens, cfg: LMConfig, max_len: int, topo: Topo
     rows, over_dp = _layout_rows(B, topo, long)
     tokens = tokens[rows]
     Bl = tokens.shape[0]
-    x = _embed_sharded(params, tokens, cfg, topo)
+    x = _embed_sharded(params.embed, tokens, cfg, topo)
     positions = torch.arange(S, device=x.device)[None].expand(Bl, S)
     shape = (cfg.n_layers, Bl, max_len // n, cfg.n_kv_heads, cfg.head_dim)
     cache = {name: torch.zeros(shape, dtype=cfg.dtype, device=x.device) for name in ("k", "v")}
@@ -1013,7 +1132,7 @@ def _decode_sharded(params: LM, cache: dict, tokens, pos: int, cfg: LMConfig,
     rows, over_dp = _layout_rows(tokens.shape[0], topo, long)
     tokens = tokens[rows]
     Bl = tokens.shape[0]
-    x = _embed_sharded(params, tokens[:, None], cfg, topo)  # (Bl, 1, d)
+    x = _embed_sharded(params.embed, tokens[:, None], cfg, topo)  # (Bl, 1, d)
     positions = torch.full((Bl, 1), pos, dtype=torch.int32, device=x.device)
     scale = 1.0 / math.sqrt(cfg.head_dim)
     Hl, lo, m = cfg.n_heads // topo.tp_size, chunk * Tc, topo.tp_rank
@@ -1028,7 +1147,7 @@ def _decode_sharded(params: LM, cache: dict, tokens, pos: int, cfg: LMConfig,
         out, lse = _chunk_attention(q, cache["k"][li], cache["v"][li], pos - lo, scale)
         out = _merge_chunks(out, lse, topo, scope).to(q.dtype)
         mine = out[:, :, m * Hl:(m + 1) * Hl].reshape(Bl, 1, -1)
-        x = x + _tp_sum(mine @ w.wo, topo)
+        x = x + _leave_tp(mine @ w.wo, topo)
         h = rms_norm(x, lp.ln2, NORM_EPS)
         x = x + _ffn(w, h, cfg, topo, over_dp)[0]
     x = rms_norm(x, params.final_norm, NORM_EPS)

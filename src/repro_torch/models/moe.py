@@ -37,6 +37,14 @@ per-shard capacity, so which pairs drop depends on dp).  A rank keeps
 its own experts' pairs of rank below C and combines them as above; one
 all_reduce over tp sums the ranks' outputs, and the aux loss is the
 mean over dp of each dp rank's.
+
+Training differentiates through the ranks' collectives: the routing
+runs alike on every tp rank (its gradients whole there), the tokens and
+the gates enter the rank's experts through ``copy_to`` (their gradients,
+partial on each rank, summed over tp) and the pairs' sum leaves through
+``reduce_from``.  Under the sequence-parallel residual (``seq_shard``)
+the input is the rank's S/tp slice, all-gathered over tp first, and the
+output is reduce-scattered back to the slice.
 """
 
 from __future__ import annotations
@@ -45,7 +53,13 @@ import dataclasses
 
 import torch
 
-from repro_torch.models.common import swiglu
+from repro_torch.models.common import (
+    copy_to,
+    gather_from,
+    reduce_from,
+    reduce_scatter_to,
+    swiglu,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,12 +122,17 @@ def route(x, router_w, cfg: MoEConfig, C: int) -> Route:
 
 
 def moe_ffn(x, router_w, w_gate, w_up, w_down, cfg: MoEConfig, topo=None, *,
-            batch_over_dp: bool = False):
+            batch_over_dp: bool = False, seq_shard: bool = False):
     """x (B, S, d), router_w (d, E), w_gate/w_up (E, d, f), w_down
     (E, f, d) -> (out (B, S, d), aux f32 scalar).  Across ranks
     (``topo``) x is the rank's tokens (its rows of the batch where
-    ``batch_over_dp``, else the whole batch) and the expert weights are
-    its E/tp experts, whole (their FSDP blocks gathered)."""
+    ``batch_over_dp``, else the whole batch; with ``seq_shard`` its S/tp
+    slice of them, and so is out) and the expert weights are its E/tp
+    experts, whole (their FSDP blocks gathered)."""
+    if topo is not None and seq_shard:
+        # every token on every tp rank; the routing's gradients are whole
+        # on each, so the backward keeps the rank's slice of them
+        x = gather_from(x, topo, 1, "tp", grad_sum=False)
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     El = w_gate.shape[0]  # E, or this rank's E/tp experts
@@ -130,7 +149,8 @@ def moe_ffn(x, router_w, w_gate, w_up, w_down, cfg: MoEConfig, topo=None, *,
     # dispatch: kept rows into distinct slots, dropped ones (as zeros)
     # into the overflow row El*C
     slot = torch.where(keep, le * C + r.rank, El * C).reshape(-1)
-    rows = torch.where(keep.reshape(-1, 1), xl.repeat_interleave(k, dim=0), 0)
+    xd = copy_to(xl, topo, "tp")  # its gradient: this rank's experts' part
+    rows = torch.where(keep.reshape(-1, 1), xd.repeat_interleave(k, dim=0), 0)
     buf = xl.new_zeros((El * C + 1, d))
     buf[slot] = rows
     buf = buf[:El * C].view(El, C, d)
@@ -145,7 +165,7 @@ def moe_ffn(x, router_w, w_gate, w_up, w_down, cfg: MoEConfig, topo=None, *,
     keep_s = torch.gather(keep, 1, order)
     slot_s = torch.where(keep_s, torch.gather(le, 1, order) * C
                          + torch.gather(r.rank, 1, order), 0)
-    gate_s = torch.gather(r.gates, 1, order).to(x.dtype)
+    gate_s = torch.gather(copy_to(r.gates, topo, "tp"), 1, order).to(x.dtype)
     vals = torch.where(keep_s[..., None], y[slot_s], 0)
     out = torch.zeros_like(xl)
     for j in range(k):
@@ -154,8 +174,9 @@ def moe_ffn(x, router_w, w_gate, w_up, w_down, cfg: MoEConfig, topo=None, *,
     # Switch load-balance loss over every pair, kept or not
     frac = r.counts.float() / float(N * k)
     aux = float(E) * torch.sum(frac * r.probs.mean(dim=0))
-    if topo is not None:
-        out = topo.all_reduce(out, "tp")  # the other ranks' experts' pairs
+    out = out.reshape(B, S, d)
+    if topo is not None:  # the other ranks' experts' pairs
+        out = reduce_scatter_to(out, topo, 1, "tp") if seq_shard else reduce_from(out, topo, "tp")
         if batch_over_dp:
-            aux = topo.all_reduce(aux, "dp") / topo.dp_size
-    return out.reshape(B, S, d), aux
+            aux = reduce_from(aux, topo, "dp") / topo.dp_size
+    return out, aux

@@ -18,10 +18,17 @@ Async: ``save_async`` copies the leaves to host memory synchronously
 and writes files on a daemon thread, overlapping I/O with compute;
 ``wait()`` joins before the next save to bound dirty state.
 
-``restore(device=)`` places every leaf on one device.  The JAX
-package's ``restore(shardings=)`` re-places leaves on another mesh (the
-elastic path); that waits for the port's sharded training (ROADMAP.md
-Queue 1 item 5.6).
+``restore(device=)`` places every leaf on one device.
+
+A run across ranks (``topo`` of more than one rank, ``specs`` its trees'
+layout: the params' ``lm.param_specs`` and the state's
+``optimizer.state_specs``) saves whole leaves: every rank sends its
+blocks, rank 0 puts each leaf back together by its spec and writes it,
+so the JAX package and a one-card run read the checkpoint as any other.
+``restore(topo=, specs=)`` reads the whole leaves and keeps this rank's
+block of each, on the grid it is given: the counterpart of the JAX
+package's ``restore(shardings=)``, which makes a resume elastic across
+grids.
 """
 
 from __future__ import annotations
@@ -34,6 +41,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from repro_torch.models.common import sharded
 
 _SEP = "/"
 
@@ -106,13 +115,28 @@ class Checkpointer:
             dtypes[k] = "bfloat16" if bf16 else str(host[k].dtype)
         return host, dtypes
 
-    def save(self, step: int, tree) -> str:
+    def save(self, step: int, tree, *, topo=None, specs=None) -> Optional[str]:
+        """Write ``tree`` as step ``step``.  Across ranks (``topo``) every
+        rank calls this with its blocks and ``specs``; rank 0 writes the
+        whole leaves, and the call returns on every rank once the step is
+        in place (None but on rank 0)."""
         self.wait()
+        tree = _whole(tree, topo, specs)
+        if tree is None:
+            _barrier(topo)
+            return None
         host, dtypes = self._snapshot(tree)
-        return self._write(step, host, dtypes, _tree_structure(tree))
+        out = self._write(step, host, dtypes, _tree_structure(tree))
+        _barrier(topo)
+        return out
 
-    def save_async(self, step: int, tree) -> None:
+    def save_async(self, step: int, tree, *, topo=None, specs=None) -> None:
+        """:meth:`save` with the files written on a thread (across ranks
+        the blocks are gathered first, on every rank)."""
         self.wait()
+        tree = _whole(tree, topo, specs)
+        if tree is None:
+            return
         host, dtypes = self._snapshot(tree)
         self._thread = threading.Thread(
             target=self._write, args=(step, host, dtypes, _tree_structure(tree)),
@@ -159,9 +183,11 @@ class Checkpointer:
         with open(p) as f:
             return int(f.read().strip())
 
-    def restore(self, step: Optional[int] = None, device=None):
+    def restore(self, step: Optional[int] = None, device=None, *, topo=None, specs=None):
         """Load a checkpoint (the newest unless ``step`` is given) as a
-        tree of tensors on ``device`` (the CPU by default).  Returns
+        tree of tensors on ``device`` (the CPU by default): whole, or
+        across ranks (``topo`` of more than one rank, ``specs`` the tree's
+        layout on its grid) this rank's block of each leaf.  Returns
         (tree, manifest)."""
         if step is None:
             step = self.latest_step()
@@ -174,5 +200,55 @@ class Checkpointer:
         for k, meta in manifest["leaves"].items():
             v = _from_storable(np.load(os.path.join(d, k.replace(_SEP, "__") + ".npy")),
                                meta["dtype"])
-            flat[k] = v if device is None else v.to(device)
-        return _unflatten(manifest["structure"], flat), manifest
+            flat[k] = v
+        tree = _unflatten(manifest["structure"], flat)
+        if sharded(topo) is not None:
+            from repro_torch.models.convert import shard_tree
+
+            tree = shard_tree(tree, specs, topo)
+        if device is not None:
+            tree = _to(tree, device)
+        return tree, manifest
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def _barrier(topo) -> None:
+    if sharded(topo) is not None:
+        import torch.distributed as dist
+
+        dist.barrier()
+
+
+def _whole(tree, topo, specs):
+    """``tree`` itself, or across ranks (``topo`` of more than one rank)
+    the whole leaves put back together from every rank's blocks by their
+    ``specs`` on rank 0 (on the host; None on the other ranks).  One
+    gather to rank 0 a leaf (gloo's of host tensors)."""
+    if sharded(topo) is None:
+        return tree
+    from repro_torch.models.convert import unshard_tensor
+
+    if isinstance(tree, dict):
+        out = {k: _whole(v, topo, specs[k]) for k, v in tree.items()}
+        return out if topo.rank == 0 else None
+    if isinstance(tree, (list, tuple)):
+        out = [_whole(v, topo, s) for v, s in zip(tree, specs)]
+        return out if topo.rank == 0 else None
+    import torch.distributed as dist
+
+    block = tree.detach()
+    if topo.groups.backend == "gloo":
+        block = block.cpu()
+    block = block.contiguous()
+    blocks = [torch.empty_like(block) for _ in range(topo.n_devices)] if topo.rank == 0 else None
+    dist.gather(block, blocks, dst=0)
+    if topo.rank != 0:
+        return None
+    return unshard_tensor([b.cpu() for b in blocks], specs, topo)

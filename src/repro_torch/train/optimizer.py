@@ -13,10 +13,16 @@ and a functional update would hold the old and the new at once.  The
 functional update (the default) runs the same body on copies.  The
 global norm's f32 sum runs over the chunks of a leaf larger than
 ``CHUNK``, so there it may differ from :func:`global_norm` in the last
-ulps.  The reference's
-``state_specs`` (PartitionSpecs that shard the state as the params
-are) has no counterpart until the port shards models (ROADMAP.md
-Queue 1 item 5.6).
+ulps.
+
+Across ranks (a ``topo`` of more than one rank and the params' specs,
+``models/lm.py::param_specs``) every rank holds its blocks of the params
+and of the state, laid out by :func:`state_specs` (the JAX package's:
+the moments and the master copy as the params, the step whole).  The
+global norm is the sum of squares over each rank's blocks, summed over
+every rank, a block that several ranks hold (a norm's scale, the
+router, ``final_norm``) counted once; the clipped update then runs on
+each rank's blocks.
 """
 
 from __future__ import annotations
@@ -25,6 +31,8 @@ import dataclasses
 
 import torch
 from torch.utils._pytree import tree_flatten, tree_leaves, tree_map
+
+from repro_torch.models.common import sharded, spec_axes
 
 #: elements of a chunk of the in-place update: 256 MB of f32
 CHUNK = 1 << 26
@@ -59,24 +67,74 @@ def init_state(params, cfg: AdamWConfig) -> dict:
     return state
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                          for g in tree_leaves(tree)))
+def state_specs(param_specs, cfg: AdamWConfig) -> dict:
+    """The optimizer state's specs given the params' (the JAX package's
+    ``state_specs``): ``m``, ``v`` and ``master`` as the params, the step
+    whole."""
+    specs = {"m": param_specs, "v": param_specs, "step": ()}
+    if cfg.master_fp32:
+        specs["master"] = param_specs
+    return specs
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def leaf_specs(tree, specs) -> list:
+    """``specs`` (a tree of ``tree``'s keys, a spec tuple a leaf) as a
+    list in the order of ``tree_flatten(tree)``'s leaves."""
+    if isinstance(tree, dict):
+        return [sp for k, v in tree.items() for sp in leaf_specs(v, specs[k])]
+    if isinstance(tree, (list, tuple)):
+        return [sp for v, s in zip(tree, specs) for sp in leaf_specs(v, s)]
+    return [specs]
+
+
+def _owns(spec, topo) -> bool:
+    """Whether this rank counts its block of a leaf laid out by ``spec``
+    in a sum over every rank: the block's first holder, at coordinate 0
+    on every axis the spec does not split over."""
+    split = spec_axes(spec)
+    return all(c == 0 for a, c in topo.coords.items() if a not in split)
+
+
+def _sum_squares(leaves, specs=None, topo=None) -> torch.Tensor:
+    """The f32 sum of squares of ``leaves`` (``CHUNK`` elements at a
+    time); across ranks, of this rank's owned blocks, summed over every
+    rank."""
+    topo = sharded(topo)
+    dev = leaves[0].device if leaves else None
+    if topo is not None:
+        leaves = [g for g, sp in zip(leaves, specs) if _owns(sp, topo)]
+    total = sum(sum(torch.sum(torch.square(c.to(torch.float32)))
+                    for c in _chunks(g, written=False)) for g in leaves)
+    if topo is None:
+        return total
+    if not isinstance(total, torch.Tensor):  # no block of this rank counts
+        total = torch.zeros((), dtype=torch.float32, device=dev)
+    return topo.all_reduce(total, "world")
+
+
+def global_norm(tree, topo=None, specs=None) -> torch.Tensor:
+    """The tree's global norm; across ranks ``tree`` is this rank's
+    blocks and ``specs`` their layout."""
+    if sharded(topo) is None:
+        return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
+                              for g in tree_leaves(tree)))
+    return torch.sqrt(_sum_squares(tree_leaves(tree), leaf_specs(tree, specs), topo))
+
+
+def clip_by_global_norm(grads, max_norm: float, topo=None, specs=None):
     """(grads scaled to global norm <= max_norm, the norm before)."""
-    norm = global_norm(grads)
+    norm = global_norm(grads, topo, specs)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return tree_map(lambda g: (g.to(torch.float32) * scale).to(g.dtype), grads), norm
 
 
 def apply_updates(params, grads, state, cfg: AdamWConfig, lr_scale, *,
-                  inplace: bool = False):
+                  inplace: bool = False, topo=None, specs=None):
     """One AdamW step.  Returns (params, state, metrics); with
     ``inplace`` the params and the state's tensors are overwritten, and
     the trees returned are the ones given, else the update writes into
-    copies of them."""
+    copies of them.  Across ranks (``topo``, the params' ``specs``) each
+    tree is this rank's blocks and the clip reads the global norm."""
     if not inplace:
         params, state = tree_map(
             lambda t: t.clone(memory_format=torch.contiguous_format), (params, state))
@@ -84,8 +142,8 @@ def apply_updates(params, grads, state, cfg: AdamWConfig, lr_scale, *,
     flat_g, flat_m, flat_v = (_leaves_like(tree, spec) for tree in
                               (grads, state["m"], state["v"]))
     flat_w = _leaves_like(state["master"], spec) if cfg.master_fp32 else flat_p
-    gnorm = torch.sqrt(sum(sum(torch.sum(torch.square(c.to(torch.float32)))
-                               for c in _chunks(g, written=False)) for g in flat_g))
+    gnorm = torch.sqrt(_sum_squares(flat_g, None if sharded(topo) is None
+                                    else leaf_specs(params, specs), topo))
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     step = state["step"] + 1
     t = step.to(torch.float32)

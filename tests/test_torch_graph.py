@@ -39,6 +39,29 @@ def test_generators_byte_identical(kind, kw):
     assert tg.graph_fingerprint(port) == ref_graph.graph_fingerprint(ref)
 
 
+@pytest.mark.parametrize("weights", ["float", "nan"])
+def test_deduplicated_byte_identical(weights):
+    """The port's one-sort deduplication against the reference's two-key
+    sort, on weights the generators never draw: fractional ones with
+    ties, and NaNs (a pair's minimum skips them unless it has nothing
+    else), beside self loops and pairs repeated many times."""
+    rng = np.random.default_rng(7)
+    n, m = 50, 4000
+    src = rng.integers(0, n, m).astype(np.int32)
+    dst = rng.integers(0, n, m).astype(np.int32)
+    w = rng.choice(rng.normal(size=300).astype(np.float32), m)
+    if weights == "nan":
+        w[rng.random(m) < 0.3] = np.nan
+        w[(src == 3) & (dst == 4)] = np.nan
+        src, dst = np.append(src, 3).astype(np.int32), np.append(dst, 4).astype(np.int32)
+        w = np.append(w, np.float32(np.nan))
+    ref = ref_graph.Graph(n, src, dst, w, name="g").deduplicated()
+    port = tg.Graph(n, src, dst, w, name="g").deduplicated()
+    assert port.m == ref.m < m
+    for f in ("src", "dst", "weight"):
+        assert _same_arrays(getattr(ref, f), getattr(port, f)), f
+
+
 @pytest.mark.parametrize("partitioner", ["block", "shuffle:7", "ebal", "degree"])
 @pytest.mark.parametrize("n_parts", [1, 2, 4])
 @pytest.mark.parametrize("kind,kw", GRAPHS[:4])

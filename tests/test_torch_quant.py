@@ -34,6 +34,7 @@ import repro_torch.api as api
 import repro_torch.core.frontier as frontier
 import repro_torch.graph as tg
 from repro_torch.core import dijkstra_reference
+from repro_torch.numeric import fma_f32
 
 QUANT = ("bf16", "u16")
 
@@ -110,7 +111,7 @@ def test_u16_pairs_round_trip_and_equal_the_reference(seed):
 
 
 def test_fma_rounds_once():
-    """``_fma_f32`` (the u16 decode) equals the exactly rounded a·b + c
+    """``numeric.fma_f32`` (the u16 decode) equals the exactly rounded a·b + c
     near ties, where a product and a sum round differently."""
     from fractions import Fraction
 
@@ -119,7 +120,7 @@ def test_fma_rounds_once():
     a = rng.integers(1, 65535, 2000).astype(np.float32)
     b = (np.spacing(c) / 2 / a * (1 + rng.uniform(-1e-6, 1e-6, 2000))).astype(
         np.float32)
-    got = frontier._fma_f32(*(torch.as_tensor(x) for x in (a, b, c))).numpy()
+    got = fma_f32(*(torch.as_tensor(x) for x in (a, b, c))).numpy()
     differs = 0
     for ai, bi, ci, gi in zip(a, b, c, got):
         exact = Fraction(float(ai)) * Fraction(float(bi)) + Fraction(float(ci))
